@@ -1,0 +1,68 @@
+"""JAX numpy parameter trees <-> the port's tensors.
+
+The port keeps the JAX tree layout (same dict keys, same lists) and the
+JAX shapes everywhere except convolution kernels, which PyTorch wants
+OIHW where JAX stores HWIO.  Every 4-D leaf of a CNN tree is a conv
+kernel; nothing else is transposed.  Images keep NHWC at every public
+function (``repro_torch.models.cnn.apply_all_exits`` changes layout
+inside), so data arrays need no conversion.  QMIX trees (dense ``w``
+[d_in, d_out] used as ``x @ w``) convert leaf for leaf.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+#: conv kernel layouts: JAX ``HWIO`` -> PyTorch ``OIHW``, and back
+HWIO_TO_OIHW = (3, 2, 0, 1)
+OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+def _lead(perm, lead: int):
+    """``perm`` applied behind ``lead`` untouched leading axes."""
+    return tuple(range(lead)) + tuple(lead + p for p in perm)
+
+
+def cnn_params_from_jax(tree, device="cpu", *, stacked: bool = False):
+    """JAX CNN params (numpy or jax arrays, HWIO convs) -> float32 tensors
+    with OIHW convs.  ``stacked``: every leaf carries a leading
+    participant axis [P, ...] (bucket-stacked deltas)."""
+    lead = int(stacked)
+
+    def leaf(a):
+        a = np.asarray(a, np.float32)
+        if a.ndim == 4 + lead:
+            a = np.transpose(a, _lead(HWIO_TO_OIHW, lead))
+        return torch.tensor(np.ascontiguousarray(a), device=device)
+    return tree_map(leaf, _as_python_tree(tree))
+
+
+def cnn_params_to_jax_layout(tree, *, stacked: bool = False):
+    """The port's CNN params -> numpy with HWIO convs (for comparison with
+    the JAX package's arrays)."""
+    lead = int(stacked)
+
+    def leaf(t):
+        a = t.detach().cpu().numpy()
+        if a.ndim == 4 + lead:
+            a = np.transpose(a, _lead(OIHW_TO_HWIO, lead))
+        return a
+    return tree_map(leaf, tree)
+
+
+def params_from_jax(tree, device="cpu"):
+    """Any JAX tree with no conv kernels (QMIX ``params``/``target``)."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+                                           device=device),
+                    _as_python_tree(tree))
+
+
+def _as_python_tree(tree):
+    """Plain dicts/lists: JAX may hand back tuples or other mappings."""
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _as_python_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_as_python_tree(v) for v in tree]
+    return tree

@@ -1,0 +1,129 @@
+"""Struct-of-arrays device fleet on the card — port of ``repro.core.fleet``.
+
+Every field of :class:`FleetState` is an ``[n]`` tensor on one device:
+float32 for the energy and profile fields (the JAX package runs its fleet
+with 64-bit mode off, so float32 is the reference precision), int32 data
+sizes and a bool ``alive``.  The profiles are drawn by the numpy scalar
+reference (:func:`repro_torch.core.energy.make_fleet`), so a seed gives
+the same fleet as the JAX package.
+
+Eq. 3-7 as batched tensor ops: :func:`fleet_cost_matrix` (time and energy
+for every device x submodel), :func:`fleet_affordability` (strict ``<``,
+as ``fleet.py:304``) and :func:`fleet_charge` (strict ``>``, as
+``fleet.py:323``; a device that cannot pay dies).  All functions return new
+states; the input is never changed.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.energy import make_fleet
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class FleetState:
+    compute: torch.Tensor       # samples/s at full model, normal mode
+    p_train: torch.Tensor       # W
+    p_com: torch.Tensor         # W
+    bandwidth: torch.Tensor     # bytes/s uplink
+    battery: torch.Tensor       # J capacity
+    remaining: torch.Tensor     # J
+    data_size: torch.Tensor     # L_n local samples (int32)
+    mode_compute: torch.Tensor  # POWER_MODES compute multiplier
+    mode_power: torch.Tensor    # POWER_MODES power multiplier
+    alive: torch.Tensor         # bool
+
+    def __len__(self) -> int:
+        return int(self.compute.shape[0])
+
+    def replace(self, **kw) -> "FleetState":
+        return dataclasses.replace(self, **kw)
+
+
+def make_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
+                     data_sizes: Optional[List[int]] = None, *,
+                     device="cuda") -> FleetState:
+    """Same draws as the JAX ``make_fleet_state`` (numpy float64 profiles),
+    rounded to float32 tensors on ``device``."""
+    from repro_torch.core.energy import POWER_MODES
+    device = resolve_device(device)
+    devs = make_fleet(n, seed, tier_probs, data_sizes)
+
+    def f32(vals):
+        return torch.tensor(np.asarray(vals, np.float64), dtype=torch.float32,
+                            device=device)
+
+    mults = [POWER_MODES[d.mode] for d in devs]
+    return FleetState(
+        compute=f32([d.profile.compute for d in devs]),
+        p_train=f32([d.profile.p_train for d in devs]),
+        p_com=f32([d.profile.p_com for d in devs]),
+        bandwidth=f32([d.profile.bandwidth for d in devs]),
+        battery=f32([d.profile.battery for d in devs]),
+        remaining=f32([d.remaining for d in devs]),
+        data_size=torch.tensor([d.data_size for d in devs],
+                               dtype=torch.int32, device=device),
+        mode_compute=f32([m[0] for m in mults]),
+        mode_power=f32([m[1] for m in mults]),
+        alive=torch.tensor([d.alive for d in devs], dtype=torch.bool,
+                           device=device))
+
+
+def _f32(fleet: FleetState, vals) -> torch.Tensor:
+    return torch.as_tensor(vals, dtype=torch.float32,
+                           device=fleet.remaining.device)
+
+
+def fleet_cost_matrix(fleet: FleetState, model_sizes, model_fractions,
+                      local_epochs: int = 5, batch_size: int = 32
+                      ) -> Tuple[torch.Tensor, ...]:
+    """(t_tra, t_com, e_tra, e_com), each [n, M], in the JAX expression
+    order.  ``batch_size`` does not enter Eq. 5 (kept for signature
+    parity with the reference)."""
+    sizes = _f32(fleet, model_sizes)
+    fracs = torch.clamp_min(_f32(fleet, model_fractions), 1e-6)
+    eff = (fleet.compute * fleet.mode_compute)[:, None] / fracs[None, :]
+    t_tra = (fleet.data_size * local_epochs)[:, None] / eff
+    t_com = 2.0 * sizes[None, :] / fleet.bandwidth[:, None]
+    e_tra = (fleet.p_train * fleet.mode_power)[:, None] * t_tra
+    e_com = fleet.p_com[:, None] * t_com
+    return t_tra, t_com, e_tra, e_com
+
+
+def fleet_affordability(fleet: FleetState, model_sizes, model_fractions,
+                        local_epochs: int = 5, batch_size: int = 32
+                        ) -> torch.Tensor:
+    """[n, M+1] bool action mask: column m < M is "can pay for submodel m"
+    (strict ``<``), column M (abstain) is always legal; dead devices can
+    only abstain."""
+    _, _, e_tra, e_com = fleet_cost_matrix(
+        fleet, model_sizes, model_fractions, local_epochs, batch_size)
+    afford = ((e_tra + e_com) < fleet.remaining[:, None]) \
+        & fleet.alive[:, None]
+    abstain = torch.ones((len(fleet), 1), dtype=torch.bool,
+                         device=afford.device)
+    return torch.cat([afford, abstain], dim=1)
+
+
+def fleet_charge(fleet: FleetState, e_need: torch.Tensor,
+                 active: torch.Tensor) -> Tuple[FleetState, torch.Tensor]:
+    """Deduct ``e_need`` where ``active``; survival is strict ``>``.  An
+    active device that cannot pay wastes its energy and dies (remaining 0,
+    alive False).  Returns ``(new_fleet, ok[n])``."""
+    attempt = active.to(torch.bool) & fleet.alive
+    ok = attempt & (fleet.remaining > e_need)
+    died = attempt & ~ok
+    zeros = torch.zeros_like(fleet.remaining)
+    remaining = torch.where(ok, fleet.remaining - e_need,
+                            torch.where(died, zeros, fleet.remaining))
+    return fleet.replace(remaining=remaining, alive=fleet.alive & ~died), ok
+
+
+def fleet_total_remaining(fleet: FleetState) -> float:
+    """Eq. 6 fleet energy ledger as a host float (one sync)."""
+    return float(fleet.remaining.sum())

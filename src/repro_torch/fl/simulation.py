@@ -1,0 +1,131 @@
+"""DR-FL federated simulation — port of ``repro.fl.simulation``.
+
+:class:`FLConfig` keeps every field and default of the JAX config, so a
+config carries across packages.  This slice runs the sync engine with
+``method="drfl"``, ``selector="marl"``, the ``cnn`` family and the
+bucketed executor (64+ devices); every other setting raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict
+
+from repro_torch.core.marl.buffer import ReplayBuffer
+from repro_torch.core.selection import (OBS_DIM, MarlSelector,
+                                        marl_state_dim)
+from repro_torch.device import resolve_device
+from repro_torch.fl.engine import RoundEngine, check_supported, not_ported
+from repro_torch.models.family import get_family
+
+
+@dataclasses.dataclass
+class FLConfig:
+    n_devices: int = 40
+    n_rounds: int = 30
+    participation: float = 0.10         # paper: 10% per round
+    local_epochs: int = 5               # paper §5
+    batch_size: int = 32                # paper §5
+    lr: float = 0.05                    # paper §5
+    alpha: float = 0.5                  # Dirichlet non-IID
+    num_classes: int = 10
+    n_train: int = 4000
+    n_val_fraction: float = 0.04        # paper Table 2 optimum
+    noise: float = 1.0
+    hw: int = 16                        # image size
+    width_mult: float = 0.25            # CNN slimming
+    seed: int = 0
+    model_family: str = "cnn"
+    method: str = "drfl"                # drfl | heterofl | scalefl
+    selector: str = "marl"              # marl | greedy | random | static
+    reward_weights: tuple = (1000.0, 0.01, 1.0)
+    marl_train_every: int = 2
+    marl_updates_per_round: int = 2
+    marl_episodes: int = 1              # selector pre-training episodes (the
+                                        # reported run is the LAST episode)
+    hotplug_round: int = 0
+    hotplug_n: int = 0
+    energy_scale: float = 1.0
+    charge_profile: str = "constant"
+    charge_rate: float = 0.0
+    charge_period: float = 86400.0
+    availability_profile: str = "always"
+    availability_duty: float = 1.0
+    global_budget_j: float = 0.0
+    server_lr: float = 0.7              # damps layer-aligned update drift
+    engine_mode: str = "sync"           # sync | async
+    staleness_decay: float = 0.5
+    async_eval_every: int = 1
+    async_time_horizon: float = 0.0
+    async_task_budget: int = 0
+    client_executor: str = "auto"       # auto | perclient | batched
+    state_mode: str = "auto"            # auto | flat | factored
+    mixer_mode: str = "auto"            # auto | flat | set
+    marl_agent_budget: int = 4096
+    fleet_mesh: int = 0
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 3
+    resume: bool = False
+    fault_crashes: int = 0
+    fault_timeouts: int = 0
+    fault_disconnects: int = 0
+    fault_corrupts: int = 0
+    fault_horizon: float = 0.0
+    fault_seed: int = -1
+    task_deadline_factor: float = 4.0
+
+
+def _make_selector(cfg: FLConfig, n_models: int, *, device="cuda"):
+    if cfg.method != "drfl" or cfg.selector != "marl":
+        raise not_ported(f"method={cfg.method!r}, selector={cfg.selector!r}",
+                         "other selectors")
+    return MarlSelector(cfg.n_devices + cfg.hotplug_n, n_models,
+                        cfg.n_rounds, cfg.seed, state_mode=cfg.state_mode,
+                        mixer_mode=cfg.mixer_mode, device=device)
+
+
+# replay-buffer obs storage budget (float32 elements), as the reference
+_BUFFER_OBS_ELEMS = 2 ** 24
+
+
+def _make_buffer(cfg: FLConfig) -> ReplayBuffer:
+    """The sync engine's replay buffer (flat state: one row of
+    n * OBS_DIM per step); capacity degrades below 64 episodes when the
+    obs budget would be exceeded."""
+    n_agents = cfg.n_devices + cfg.hotplug_n
+    episode_len = cfg.n_rounds
+    state_dim = marl_state_dim(cfg.state_mode, n_agents,
+                               get_family(cfg.model_family).num_submodels())
+    capacity = max(4, min(64, _BUFFER_OBS_ELEMS
+                          // ((episode_len + 1) * n_agents * OBS_DIM)))
+    if capacity < 64:
+        logging.getLogger(__name__).warning(
+            "QMIX replay capacity degraded to %d episodes (episode_len=%d, "
+            "agents=%d, obs budget=%d elems)", capacity, episode_len,
+            n_agents, _BUFFER_OBS_ELEMS)
+    return ReplayBuffer(capacity, episode_len, n_agents, OBS_DIM, state_dim,
+                        cfg.seed)
+
+
+def run_simulation(cfg: FLConfig, verbose: bool = False, *,
+                   device="cuda") -> Dict:
+    """Run the FL simulation on ``device`` (the card unless the caller
+    asks for ``"cpu"``; no silent fallback).  With ``marl_episodes > 1``
+    the earlier episodes pre-train the QMIX policy (fresh fleet and model
+    each episode, persistent learner and replay) and the LAST episode is
+    returned."""
+    dev = resolve_device(device)
+    check_supported(cfg)
+    selector = _make_selector(
+        cfg, get_family(cfg.model_family).num_submodels(), device=dev)
+    buffer = _make_buffer(cfg)
+    hist = None
+    for ep in range(cfg.marl_episodes):
+        selector.reset_episode()
+        engine = RoundEngine(cfg, selector, buffer,
+                             verbose=verbose and ep == cfg.marl_episodes - 1,
+                             device=dev)
+        hist = engine.run()
+    return hist

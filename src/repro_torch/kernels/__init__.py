@@ -1,0 +1,17 @@
+"""Kernels written by hand for Hopper, one package each, and their launch
+counts.
+
+Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
+and nowhere else (its plain version on CPU tensors does not count), so a
+run can show that the main path went through the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"layer_agg": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -1,0 +1,57 @@
+"""Build a kernel's CUDA sources into a shared library and load it.
+
+``nvcc`` compiles each kernel's ``csrc/*.cu`` (a plain C entry point, no
+PyTorch headers: a few seconds) into ``kernels/build/`` at first use; the
+file name carries a hash of the sources and flags, so an edited source is
+never served from a stale build.  Only the machine with the card builds:
+this module is imported everywhere, but nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Sequence, Tuple
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+
+def find_nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+             shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels build only where the toolkit is")
+
+
+def build_library(name: str, sources: Sequence[Path]
+                  ) -> Tuple[ctypes.CDLL, float, str]:
+    """Compile ``sources`` into ``lib<name>-<hash>.so`` (reused when it
+    exists) and load it.  Returns ``(library, build seconds, nvcc log)``;
+    the seconds are 0 for a reused build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(Path(s).read_bytes())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sources]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out)), seconds, log

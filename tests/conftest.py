@@ -26,3 +26,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (large-fleet smokes); deselect with "
         "-m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (kernel against its plain version); "
+        "skips where torch.cuda.is_available() is False")

@@ -1,0 +1,79 @@
+"""The port's stacked DR-FL aggregation against the JAX package's on the
+same numpy deltas: ``stacked_masked_mean`` (plain and with staleness
+alphas) and ``aggregate_drfl_stacked`` end to end, including a poisoned
+(NaN) client row that both sides must quarantine.
+
+Tolerance: rtol=1e-5, atol=1e-6 — one float32 masked mean and one add
+per element, in a different reduction order.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import aggregation as jagg
+from repro.fl import server as jserver
+from repro.models.family import get_family as jax_get_family
+from repro_torch.convert import cnn_params_from_jax, cnn_params_to_jax_layout
+from repro_torch.core import aggregation as tagg
+from repro_torch.fl import server as tserver
+from repro_torch.tree import tree_leaves
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_alpha", [False, True])
+def test_stacked_masked_mean_matches(with_alpha):
+    rng = np.random.default_rng(int(with_alpha))
+    N, R, D = 7, 9, 64
+    U = rng.normal(size=(N, R, D)).astype(np.float32)
+    m = (rng.random((N, R)) > 0.4).astype(np.float32)
+    m[:, 3] = 0.0
+    w = rng.uniform(1, 50, N).astype(np.float32)
+    a = rng.uniform(0.3, 1.0, N).astype(np.float32) if with_alpha else None
+    ref = jagg.stacked_masked_mean(U, m, w, a)
+    got = tagg.stacked_masked_mean(
+        torch.tensor(U), torch.tensor(m), torch.tensor(w),
+        None if a is None else torch.tensor(a))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def _jax_params(rng):
+    shapes = jax.eval_shape(
+        lambda k: jax_get_family("cnn").init(k, 10, width_mult=0.125, hw=8),
+        jax.random.PRNGKey(0))
+    return jax.tree.map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+
+
+@pytest.mark.parametrize("staleness", [None, (0, 3)])
+def test_aggregate_drfl_stacked_matches_with_quarantine(staleness):
+    rng = np.random.default_rng(7)
+    jfam = jax_get_family("cnn")
+    gp = _jax_params(rng)
+    buckets_j, buckets_t = [], []
+    for b, (m, p, n_real) in enumerate([(0, 2, 2), (2, 4, 3)]):
+        sub = jfam.submodel_tree(gp, m)
+        delta = jax.tree.map(
+            lambda a: (rng.normal(size=(p,) + a.shape) * 0.01
+                       ).astype(np.float32), sub)
+        if b == 1:                       # poison one real client row
+            delta["stages"][1][0]["conv1"][1, 0, 0, 0, 0] = np.nan
+        weights = [float(rng.integers(10, 90)) for _ in range(n_real)]
+        weights += [0.0] * (p - n_real)
+        stal = None if staleness is None else [staleness[b]] * p
+        buckets_j.append((m, delta, weights, stal))
+        buckets_t.append((m, cnn_params_from_jax(delta, stacked=True),
+                          weights, stal))
+    jout, jvalid = jserver.aggregate_drfl_stacked(
+        gp, buckets_j, server_lr=0.7, family=jfam, with_stats=True)
+    tout, tvalid = tserver.aggregate_drfl_stacked(
+        cnn_params_from_jax(gp), buckets_t, server_lr=0.7)
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+    assert not bool(tvalid[3])
+    for g, r in zip(tree_leaves(cnn_params_to_jax_layout(tout)),
+                    jax.tree.leaves(jout)):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(r), **TOL)
+

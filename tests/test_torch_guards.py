@@ -1,0 +1,86 @@
+"""Guards of the port's boundaries: it imports with jax absent and imports
+nothing of the JAX package; its entry points run on the card unless the
+caller asks for the CPU, with no fallback; every setting outside the
+ported slice raises ``NotImplementedError`` naming its ROADMAP item."""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.fl import FLConfig, run_simulation
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s]|$)",
+                       re.M)
+
+
+def test_port_imports_with_jax_absent():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'repro' or "
+        "m.startswith(('repro.', 'jax.'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_repro_import_in_port_sources(path):
+    assert path.exists(), path
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path}: {hits}"
+
+
+def test_run_simulation_defaults_to_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    cfg = FLConfig(n_devices=64, n_rounds=1, width_mult=0.125, hw=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_simulation(cfg)
+
+
+BASE = dict(n_devices=64, n_rounds=1, width_mult=0.125, hw=8, n_train=640)
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(engine_mode="async"), "async engine"),
+    (dict(n_devices=40), "per-client executor"),
+    (dict(client_executor="perclient"), "per-client executor"),
+    (dict(method="heterofl"), "baseline arms"),
+    (dict(selector="greedy"), "other selectors"),
+    (dict(model_family="mlp"), "other families"),
+    (dict(hotplug_n=4), "hot-plug"),
+    (dict(charge_profile="solar", charge_rate=0.1), "energy scenarios"),
+    (dict(global_budget_j=1e5), "energy scenarios"),
+    (dict(checkpoint_dir="ckpt", checkpoint_every=1),
+     "checkpoints and faults"),
+    (dict(engine_mode="sync", fault_crashes=1), "checkpoints and faults"),
+    (dict(n_devices=300), "MARL at fleet scale"),
+])
+def test_unported_settings_raise(change, item):
+    cfg = dataclasses.replace(FLConfig(**BASE), **change)
+    with pytest.raises(NotImplementedError, match=item):
+        run_simulation(cfg, device="cpu")
+
+
+def test_flconfig_fields_and_defaults_equal_the_jax_config():
+    from repro.fl.simulation import FLConfig as JaxFLConfig
+    ours = {f.name: f.default for f in dataclasses.fields(FLConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JaxFLConfig)}
+    assert ours == theirs
