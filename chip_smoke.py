@@ -8,11 +8,14 @@ Needs one NVIDIA card, ``nvcc`` and this repository's ``src/`` beside the
 script; imports neither jax nor the JAX package.  Phases, each printing
 its own lines; any failure raises and exits non-zero:
 
-1. build the main path's kernel (``layer_agg``) from
-   ``src/repro_torch/kernels/layer_agg/csrc`` with ``nvcc``;
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes and edge shapes, and time kernel, plain version,
-   one-call PyTorch yardstick (``library_ms``) and the roofline bound;
+1. build every kernel (``layer_agg``, ``rmsnorm``, ``flash_attention``)
+   from ``src/repro_torch/kernels/<name>/csrc`` with ``nvcc``, one
+   process per source, all started together;
+2. hold each kernel, forward and backward, against its plain PyTorch
+   version on the card (the backward against autograd through the plain
+   version) at its path's shapes and edge shapes, and time kernel, plain
+   version, one-call PyTorch yardstick (``library_ms``) and the roofline
+   bound;
 3. drive the main path through ``repro_torch.fl.run_simulation``: 64
    devices, the full-width multi-exit ResNet-18 on 32x32 images, sync
    DR-FL + QMIX, bucketed executor; launch counts are reset just before
@@ -23,10 +26,15 @@ its own lines; any failure raises and exits non-zero:
    round, the deepest submodel included, into one ``layer_agg`` launch;
 4. profile one warm round of that every-submodel configuration: kernel
    time by kernel and the card's busy share;
-5. check a small run on the card against the same run on the CPU (plain
-   versions): identical picks, accuracy within one validation sample,
-   weights allclose at rtol 1e-4, atol 1e-5;
-6. print the card's name and power limit, the kernels' JSON line and,
+5. drive the transformer path the same way: the early-exit transformer
+   family at full width (d 128, 4 heads, 4 blocks, sequences of 32),
+   64 devices at 50% participation, whose blocks run the ``rmsnorm`` and
+   ``flash_attention`` kernels forward and backward; then profile one
+   warm round of it;
+6. check a small run of each family on the card against the same run on
+   the CPU (plain versions): identical picks, accuracy within one
+   validation sample, weights allclose at rtol 1e-4, atol 1e-5;
+7. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -42,7 +50,15 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, float32 outside tensor cores
 REL_TOL = 1e-5
+#: rmsnorm and flash_attention, relative to the largest magnitude: the JAX
+#: sweep's tolerances (tests/test_kernels.py)
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MAIN_CFG = dict(n_devices=64, width_mult=1.0, hw=32, n_train=6400, seed=0)
+TRANSFORMER_CFG = dict(MAIN_CFG, n_rounds=3, participation=0.5,
+                       model_family="transformer")
+KERNELS = ("layer_agg", "rmsnorm", "flash_attention")
+#: our kernels' names in a profiler trace
+OWN_KERNELS = ("layer_agg", "rmsnorm", "fa_")
 
 
 def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -72,10 +88,237 @@ def _agg_inputs(N, R, D, seed):
 
 
 def phase_build():
-    from repro_torch.kernels.layer_agg import load_library
-    _, seconds, log = load_library()
-    regs = [l.strip() for l in log.splitlines() if "registers" in l]
-    print(f"[build] layer_agg: nvcc {seconds:.2f} s; {' | '.join(regs)}")
+    """One nvcc per kernel source, all started together (each build is a
+    subprocess, so the threads only wait)."""
+    import importlib
+    from concurrent.futures import ThreadPoolExecutor
+    mods = [importlib.import_module(f"repro_torch.kernels.{k}")
+            for k in KERNELS]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        built = list(pool.map(lambda m: m.load_library(), mods))
+    for name, (_, seconds, log) in zip(KERNELS, built):
+        regs = [l.split(":", 1)[-1].strip() for l in log.splitlines()
+                if "registers" in l or "spill stores" in l]
+        print(f"[build] {name}: nvcc {seconds:.2f} s; ptxas: "
+              f"{' | '.join(regs)}")
+    print(f"[build] all kernels built in {time.perf_counter() - t0:.2f} s")
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over the largest magnitude of ref (at least 1)."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
+
+
+def _fwd_bwd_errors(fn, plain, inputs, dout):
+    """Errors of fn's output and gradients (for the cotangent dout)
+    against plain's, on the same inputs: [fwd, grad of each input]."""
+    import torch
+    out = fn(*inputs)
+    got = torch.autograd.grad(out, inputs, dout)
+    ref_in = [t.detach().clone().requires_grad_() for t in inputs]
+    ref_out = plain(*ref_in)
+    ref = torch.autograd.grad(ref_out, ref_in, dout)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(t.float()).all() for t in (out, *got)):
+        raise AssertionError("non-finite kernel output or gradient")
+    return [_rel_err(out, ref_out)] + [_rel_err(g, r)
+                                      for g, r in zip(got, ref)]
+
+
+def _grad_ms(fn, inputs, dout) -> float:
+    """CUDA-event time of the backward alone: gradients of one retained
+    graph of fn, taken again and again."""
+    import torch
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    return _cuda_ms(lambda: torch.autograd.grad(out, ins, dout,
+                                                retain_graph=True))
+
+
+def _fwd_bwd_ms(fn, inputs, dout) -> float:
+    """CUDA-event time of one forward and its backward."""
+    import torch
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    return _cuda_ms(lambda: torch.autograd.grad(fn(*ins), ins, dout))
+
+
+def _print_fwd_bwd(name, fn, plain, library, inputs, dout):
+    print(f"[kernel] {name} forward+backward at the path's shape: kernel "
+          f"{_fwd_bwd_ms(fn, inputs, dout):.4f} ms, plain "
+          f"{_fwd_bwd_ms(plain, inputs, dout):.4f} ms, library "
+          f"{_fwd_bwd_ms(library, inputs, dout):.4f} ms")
+
+
+def _record(name, source, replaces, err, ms, plain_ms, library_ms,
+            n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def _print_record(r, extra=""):
+    print(f"[kernel] {r['name']} at the path's shape: {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
+          f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
+
+
+def phase_rmsnorm():
+    """rmsnorm forward and backward against the plain version; returns
+    the records of both kernels, timed at the transformer path's block
+    norms (16 participants x 32 sequences x 32 positions, d 128)."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    mod = importlib.import_module("repro_torch.kernels.rmsnorm.rmsnorm")
+    shapes = [("block norms", 16, 1024, 128, "float32"),
+              ("exit norms", 16, 32, 128, "float32"),
+              ("odd R", 3, 11, 128, "float32"),
+              ("odd R, one group", 1, 7, 64, "float32"),
+              ("d not a power of two", 4, 33, 100, "float32"),
+              ("d 8192", 2, 5, 8192, "float32"),
+              ("block norms bf16", 16, 1024, 128, "bfloat16")]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    records = None
+    for label, G, R, d, dt in shapes:
+        dtype = getattr(torch, dt)
+        x = (torch.randn((G, R, d), generator=g, device="cuda") * 3
+             ).to(dtype).requires_grad_()
+        s = torch.randn((G, d), generator=g,
+                        device="cuda").to(dtype).requires_grad_()
+        dy = torch.randn((G, R, d), generator=g, device="cuda").to(dtype)
+        errs = _fwd_bwd_errors(mod.rmsnorm, mod.rmsnorm_plain, [x, s], dy)
+        print(f"[kernel] rmsnorm {label} G={G} R={R} d={d} {dt}: rel err "
+              f"y {errs[0]:.2e}, dx {errs[1]:.2e}, dscale {errs[2]:.2e} "
+              f"(limit {KERNEL_TOL[dt]:.0e})")
+        if max(errs) > KERNEL_TOL[dt]:
+            raise AssertionError(f"rmsnorm disagrees with its plain "
+                                 f"version at {label}")
+        if records is not None or dt != "float32":
+            continue
+        xd, sd = x.detach(), s.detach()
+        ms = _cuda_ms(lambda: mod._forward(xd, sd, mod.EPS))
+        _, rstd = mod._forward(xd, sd, mod.EPS)
+        bwd_ms = _cuda_ms(lambda: mod._backward(xd, sd, dy, rstd))
+        plain_ms = _cuda_ms(lambda: mod.rmsnorm_plain(xd, sd))
+        plain_bwd = _grad_ms(mod.rmsnorm_plain, [xd, sd], dy)
+        # the one-call yardstick has one [d] scale row for every group:
+        # the same bytes and flops, no per-group scale
+        s1 = sd[0].contiguous()
+        lib_ms = _cuda_ms(lambda: F.rms_norm(xd, (d,), s1, mod.EPS))
+        lib_bwd = _grad_ms(lambda a, b: F.rms_norm(a, (d,), b, mod.EPS),
+                           [xd, s1], dy)
+        n, src = G * R * d, "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+        rep = "src/repro/kernels/rmsnorm/rmsnorm.py:20"
+        records = [
+            # x in, y out, scale in, rstd out; ~4 flops an element
+            _record("rmsnorm", src, rep, errs[0], ms, plain_ms, lib_ms,
+                    4 * (2 * n + G * d + G * R), 4 * n),
+            # x, dy in, dx out, scale in, dscale out, rstd in; ~9 flops
+            _record("rmsnorm_bwd", src, rep, max(errs[1:]), bwd_ms,
+                    plain_bwd, lib_bwd, 4 * (3 * n + 2 * G * d + G * R),
+                    9 * n)]
+        for r in records:
+            _print_record(r, " (F.rms_norm with one [d] scale)")
+        _print_fwd_bwd("rmsnorm", mod.rmsnorm, mod.rmsnorm_plain,
+                       lambda a, b: F.rms_norm(a, (d,), b[0], mod.EPS),
+                       [xd, sd], dy)
+    return records
+
+
+def _attention_pairs(BH, Sq, Sk, causal, window) -> int:
+    """(query, key) pairs the masks keep: the work this input needs."""
+    total = 0
+    for q in range(Sq):
+        lo = max(0, q - window + 1) if window else 0
+        hi = min(q, Sk - 1) if causal else Sk - 1
+        total += max(0, hi - lo + 1)
+    return BH * total
+
+
+def phase_attention():
+    """flash_attention forward and backward against the plain version;
+    returns the records of both, timed at the transformer path's shape
+    (BH = 16 participants x 32 sequences x 4 heads, S 32, D 32, causal)."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    # (label, BH, BHkv, Sq, Sk, D, causal, window, dtype)
+    shapes = [("path", 2048, 2048, 32, 32, 32, True, 0, "float32"),
+              ("GQA 4:2 D64", 8, 4, 128, 128, 64, True, 0, "float32"),
+              ("GQA 8:1", 8, 1, 256, 256, 32, True, 0, "float32"),
+              ("window 32 D128", 4, 4, 128, 128, 128, True, 32, "float32"),
+              ("non-causal", 4, 4, 64, 64, 64, False, 0, "float32"),
+              ("GQA 6:2", 6, 2, 128, 128, 64, True, 0, "float32"),
+              ("set mixer", 2, 2, 4, 4096, 32, False, 0, "float32"),
+              ("rows with no key", 2, 1, 40, 24, 16, True, 5, "float32"),
+              ("odd sizes", 3, 3, 33, 17, 20, False, 3, "float32"),
+              ("path bf16", 2048, 2048, 32, 32, 32, True, 0, "bfloat16")]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    records = None
+    for label, BH, BHkv, Sq, Sk, D, causal, window, dt in shapes:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                   .requires_grad_()
+                   for shape in ((BH, Sq, D), (BHkv, Sk, D), (BHkv, Sk, D)))
+        do = torch.randn((BH, Sq, D), generator=g, device="cuda").to(dtype)
+
+        def fn(a, b, c):
+            return mod.flash_attention_bhsd(a, b, c, causal=causal,
+                                            window=window)
+
+        def plain(a, b, c):
+            return mod.attention_plain(a, b, c, causal=causal,
+                                       window=window)
+        errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
+        print(f"[kernel] flash_attention {label} BH={BH} BHkv={BHkv} "
+              f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}:"
+              f" rel err o {errs[0]:.2e}, dq {errs[1]:.2e}, dk "
+              f"{errs[2]:.2e}, dv {errs[3]:.2e} (limit "
+              f"{KERNEL_TOL[dt]:.0e})")
+        if max(errs) > KERNEL_TOL[dt]:
+            raise AssertionError(f"flash_attention disagrees with its plain"
+                                 f" version at {label}")
+        if label != "path":
+            continue
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        ms = _cuda_ms(lambda: mod._forward(qd, kd, vd, True, 0))
+        o, lse = mod._forward(qd, kd, vd, True, 0)
+        bwd_ms = _cuda_ms(lambda: mod._backward(qd, kd, vd, o, do, lse,
+                                                True, 0))
+        plain_ms = _cuda_ms(lambda: plain(qd, kd, vd))
+        plain_bwd = _grad_ms(plain, [qd, kd, vd], do)
+
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=True)
+        lib_ms = _cuda_ms(lambda: sdpa(qd, kd, vd))
+        lib_bwd = _grad_ms(sdpa, [qd, kd, vd], do)
+        pairs = _attention_pairs(BH, Sq, Sk, causal, window)
+        n = BH * Sq * D
+        src = ("src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu")
+        rep = "src/repro/kernels/flash_attention/flash_attention.py:67"
+        records = [
+            # q, k, v in, o and lse out; q.k and p.v per kept pair
+            _record("flash_attention", src, rep, errs[0], ms, plain_ms,
+                    lib_ms, 4 * (4 * n + BH * Sq), 4 * D * pairs),
+            # q, k, v, o, dO, lse in; dq, dk, dv out; five products per
+            # kept pair (s, dp, dv, dq, dk)
+            _record("flash_attention_bwd", src, rep, max(errs[1:]), bwd_ms,
+                    plain_bwd, lib_bwd, 4 * (8 * n + BH * Sq),
+                    10 * D * pairs)]
+        for r in records:
+            _print_record(r, " (F.scaled_dot_product_attention, "
+                             "is_causal=True)")
+        _print_fwd_bwd("flash_attention", fn, plain, sdpa, [qd, kd, vd], do)
+    return records
 
 
 def phase_kernels():
@@ -211,7 +454,7 @@ def phase_all_submodels():
     return cfg
 
 
-def phase_profile(cfg):
+def phase_profile(cfg, tag="profile"):
     """Device busy share of one warm round of ``cfg`` (``torch.profiler``,
     device activity only: recording every host op of the vmapped programs
     makes the trace too large to read back in time).  Busy time is the
@@ -230,7 +473,7 @@ def phase_profile(cfg):
                     for e in prof.events()
                     if getattr(e, "device_type", None) == DeviceType.CUDA})
     if not spans:
-        print("[profile] device busy time: not measured (no device events "
+        print(f"[{tag}] device busy time: not measured (no device events "
               "in the trace)")
         return
     # the round ends in its tail pull, right after its last kernel: the
@@ -250,7 +493,8 @@ def phase_profile(cfg):
             cur_e = max(cur_e, e_)
     busy_us += 0.0 if cur_e is None else cur_e - cur_s
     in_round = [(s_, e_, n) for s_, e_, n in spans if s_ >= lo]
-    print(f"[profile] one warm round, participation {cfg.participation}, "
+    print(f"[{tag}] one warm round of {cfg.model_family}, participation "
+          f"{cfg.participation}, "
           f"submodels {sorted(set(hist['model_choices'][0]))}: wall "
           f"{round_us / 1e6:.3f} s, "
           f"{len(in_round)} kernels summing "
@@ -262,14 +506,41 @@ def phase_profile(cfg):
         n, t = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, t + e_ - s_)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
-        print(f"[profile] kernel {name[:60]}: {n} launches, {t / 1e3:.2f} ms")
-    for name, (n, t) in by_name.items():
-        if "layer_agg" in name:
-            print(f"[profile] kernel layer_agg in the round: {n} launches, "
-                  f"{t / 1e3:.4f} ms")
+        print(f"[{tag}] kernel {name[:60]}: {n} launches, {t / 1e3:.2f} ms")
+    for name, (n, t) in sorted(by_name.items()):
+        if any(k in name for k in OWN_KERNELS):
+            print(f"[{tag}] own kernel {name[:60]} in the round: {n} "
+                  f"launches, {t / 1e3:.4f} ms")
 
 
-def phase_reference():
+def phase_transformer():
+    """The transformer path through the user's entry point: 64 devices,
+    the full-width early-exit transformer, 50% participation, so several
+    buckets train per round, the deepest submodel included.  Every
+    kernel of the path must have launched.  Returns (cfg, launches)."""
+    from collections import Counter
+    from repro_torch.fl import FLConfig
+    cfg = FLConfig(**TRANSFORMER_CFG)
+    hist, launches = _drive("transformer", cfg)
+    per_round = [sorted(set(m)) for m in hist["model_choices"]]
+    for t, models in enumerate(hist["model_choices"]):
+        print(f"[transformer] round {t}: submodels trained {per_round[t]}, "
+              f"buckets (submodel: participants) "
+              f"{dict(sorted(Counter(models).items()))}")
+    missing = [k for k in ("layer_agg", "rmsnorm", "rmsnorm_bwd",
+                           "flash_attention", "flash_attention_bwd")
+               if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"the transformer path never launched {missing}")
+    if max(len(m) for m in per_round) < 2:
+        raise AssertionError("no round trained more than one bucket")
+    deepest = len(hist["acc"][0]) - 1
+    if not any(deepest in m for m in per_round):
+        raise AssertionError("the deepest submodel never trained")
+    return cfg, launches
+
+
+def phase_reference(tag, cfg):
     """A small run on the card against the same run on the CPU, both
     greedy (ε = 0: the two devices' generators draw different numbers).
     Weights are held at rtol=1e-4, atol=1e-5, the tolerance of the parity
@@ -277,13 +548,9 @@ def phase_reference():
     order on each device)."""
     import numpy as np
     import torch
-    from repro_torch.fl import FLConfig
     from repro_torch.fl.engine import RoundEngine
     from repro_torch.fl.simulation import _make_buffer, _make_selector
     from repro_torch.tree import tree_leaves
-    cfg = FLConfig(n_devices=64, n_rounds=3, participation=0.1,
-                   width_mult=0.125, hw=8, n_train=1280, local_epochs=1,
-                   seed=1)
     hists = {}
     for dev in ("cuda", "cpu"):
         sel = _make_selector(cfg, 4, device=dev)
@@ -300,7 +567,10 @@ def phase_reference():
     p_diff = max(float((a - b).abs().max()) for a, b in pairs)
     p_close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
                   for a, b in pairs)
-    print(f"[reference] card vs CPU, n=64 width 0.125 8x8, 3 rounds: picks "
+    print(f"[{tag}] card vs CPU, {cfg.model_family} n={cfg.n_devices} width "
+          f"{cfg.width_mult} hw {cfg.hw}, participation {cfg.participation},"
+          f" {cfg.n_rounds} rounds: submodels per round "
+          f"{[sorted(set(m)) for m in g['model_choices']]}, picks "
           f"equal={g['participants'] == c['participants']}, max per-exit "
           f"accuracy diff={acc_diff:.4f} (limit {1 / n_val:.4f}), max weight "
           f"diff={p_diff:.3e} (allclose at rtol 1e-4, atol 1e-5: {p_close})")
@@ -325,17 +595,31 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the float32 precision flags)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
+    from repro_torch.fl import FLConfig
     phase_build()
-    record = phase_kernels()
-    record["launches"] = phase_main_path()["layer_agg"]
+    records = [phase_kernels()] + phase_rmsnorm() + phase_attention()
+    records[0]["launches"] = phase_main_path()["layer_agg"]
     phase_profile(phase_all_submodels())
-    phase_reference()
+    cfg, launches = phase_transformer()
+    for r in records[1:]:
+        r["launches"] = launches[r["name"]]
+    phase_profile(cfg, "transformer profile")
+    small = dict(n_devices=64, n_rounds=3, hw=8, n_train=1280,
+                 local_epochs=1)
+    phase_reference("reference", FLConfig(participation=0.1,
+                                          width_mult=0.125, seed=1, **small))
+    # seed 10: the greedy fresh policy trains the deepest submodel every
+    # round and two buckets in rounds 1 and 2 (seed 1 trains submodel 0
+    # only, after an empty first round)
+    phase_reference("transformer reference", FLConfig(
+        participation=0.5, width_mult=0.25, model_family="transformer",
+        seed=10, **small))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

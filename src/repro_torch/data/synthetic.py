@@ -7,8 +7,12 @@ at the default a small CNN separates classes well above chance but far from
 perfectly, which is what the FL accuracy dynamics need (DESIGN.md §1:
 directional validation of the paper's claims).
 
-Copied from ``repro.data.synthetic`` (image set only): the port makes the
-same arrays from the same seed without importing the JAX package.
+``synthetic_lm_dataset`` emits an order-2 Markov token stream, and
+``synthetic_token_dataset`` frames it as next-token classification for the
+transformer family.
+
+Copied from ``repro.data.synthetic``: the port makes the same arrays from
+the same seed without importing the JAX package.
 """
 from __future__ import annotations
 
@@ -39,3 +43,44 @@ def synthetic_image_dataset(n: int, num_classes: int = 10, hw: int = 32,
     y = rng.integers(0, num_classes, size=n).astype(np.int32)
     x = protos[y] + noise * rng.normal(size=(n, hw, hw, ch)).astype(np.float32)
     return x.astype(np.float32), y
+
+
+def synthetic_lm_dataset(n_tokens: int, vocab: int, seed: int = 0,
+                         branching: int = 4) -> np.ndarray:
+    """Order-2 Markov chain over ``vocab`` tokens; each (a,b) context has
+    ``branching`` likely successors.  Returns [n_tokens] int32."""
+    rng = np.random.default_rng(seed)
+    # hash-based sparse transition: successors of (a,b) are derived
+    # deterministically; probabilities are a fixed random simplex.
+    probs = rng.dirichlet(np.ones(branching) * 0.5)
+    out = np.empty(n_tokens, np.uint64)
+    out[0], out[1] = rng.integers(0, vocab, 2)
+    mult1 = np.uint64(6364136223846793005)
+    mult2 = np.uint64(1442695040888963407)
+    inc = np.uint64(1013904223)
+    ctx_choice = rng.choice(branching, size=n_tokens, p=probs).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        for t in range(2, n_tokens):
+            h = (out[t - 2] * mult1 + out[t - 1] * mult2
+                 + inc * ctx_choice[t]) >> np.uint64(33)
+            out[t] = h % np.uint64(vocab)
+    return out.astype(np.int32)
+
+
+def synthetic_token_dataset(n: int, vocab: int = 10, seq_len: int = 16,
+                            noise: float = 1.0, seed: int = 0
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Next-token prediction framed as classification over ``vocab``:
+    returns (x [n, seq_len] int32 context windows, y [n] int32 next-token
+    labels), stride-1 windows over the order-2 Markov stream.  ``noise``
+    resamples a fraction (``0.05 * noise``, capped at 0.5) of context
+    tokens uniformly."""
+    toks = synthetic_lm_dataset(n + seq_len + 1, vocab, seed=seed)
+    idx = np.arange(n)[:, None] + np.arange(seq_len)[None, :]
+    x = toks[idx].astype(np.int32)
+    y = toks[np.arange(n) + seq_len].astype(np.int32)
+    if noise > 0:
+        rng = np.random.default_rng(seed + 1)
+        flip = rng.random(x.shape) < min(0.5, 0.05 * float(noise))
+        x = np.where(flip, rng.integers(0, vocab, x.shape), x)
+    return x.astype(np.int32), y

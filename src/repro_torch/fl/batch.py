@@ -6,10 +6,15 @@
    ``client_update_seed``, P and T padded to powers of two, pad steps
    replaying the client's first batch and pad rows replaying client 0,
    both masked out of the update and the loss;
-3. run each bucket as one program: ``torch.func.vmap`` over participants
-   of ``grad`` of the DR-FL loss, inside a Python loop over the T steps.
-   Mini-batches are gathered on the device from the resident training
-   set, and the losses come back to the host once per bucket.
+3. run each bucket as one program, a Python loop over the T steps whose
+   step gives every participant the gradient of its own DR-FL loss:
+   ``torch.func.vmap`` over participants of ``grad`` (the CNN), or, for a
+   family with ``stacked_forward`` (the transformer, whose CUDA kernels
+   ``torch.func`` cannot see inside), one forward over the participant
+   axis written out and ``torch.autograd.grad`` of the summed losses,
+   which is each participant's own gradient exactly.  Mini-batches are
+   gathered on the device from the resident training set, and the losses
+   come back to the host once per bucket.
 
 The deltas stay stacked ``[P_pad, ...]`` per bucket, in the submodel's
 tree, which is what :func:`repro_torch.fl.server.aggregate_drfl_stacked`
@@ -26,7 +31,7 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.device import to_host
 from repro_torch.models.family import resolve_family
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 # "compiles" counts new (method, model, shape) signatures, "executions"
 # counts bucket program runs — the dispatch accounting of the reference
@@ -106,10 +111,27 @@ def bucket_cohort(participants: Sequence[int], model_idxs: Sequence[int],
     return buckets
 
 
+def _stacked_step(family):
+    """``vmap(grad_and_value(loss))``'s contract for a ``stacked_forward``
+    family: (stacked params, [P, B, ...], [P, B]) -> (grads, losses [P]).
+    Participant p's parameters reach only loss p, so the gradient of the
+    sum is every participant's own gradient."""
+    loss_fn = family.loss_fn("drfl", stacked=True)
+
+    def step(params, xb, yb):
+        leaves = [l.detach().requires_grad_() for l in tree_leaves(params)]
+        with torch.enable_grad():
+            losses = loss_fn(tree_unflatten_like(params, leaves), xb, yb)
+            grads = torch.autograd.grad(losses.sum(), leaves)
+        return tree_unflatten_like(params, list(grads)), losses.detach()
+    return step
+
+
 def _bucket_program(sub_params, x_all, y_all, gather, valid, *, lr: float,
                     family):
-    """One bucket: vmap over P participants of grad of the DR-FL loss, in
-    a loop over the T schedule steps.
+    """One bucket: every participant's gradient of its DR-FL loss per
+    step (see the module note for the two routes), in a loop over the T
+    schedule steps.
 
     sub_params: the bucket's submodel tree (shared initial point)
     gather:     [P, T, B] int64 rows into x_all/y_all (on the device)
@@ -117,7 +139,8 @@ def _bucket_program(sub_params, x_all, y_all, gather, valid, *, lr: float,
 
     Returns (stacked delta tree [P, ...], mean losses [P])."""
     P, T = valid.shape
-    step = vmap(grad_and_value(family.loss_fn("drfl")))
+    step = (_stacked_step(family) if family.stacked_forward
+            else vmap(grad_and_value(family.loss_fn("drfl"))))
     params = tree_map(lambda a: a.expand((P,) + a.shape).clone(), sub_params)
     loss_sum = torch.zeros(P, device=valid.device)
     for t in range(T):

@@ -59,17 +59,17 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 def check_supported(cfg) -> None:
     """Refuse, up front, every configuration outside this port's slice:
-    the sync engine, DR-FL with the MARL selector, the ``cnn`` family, the
-    bucketed executor, the flat QMIX state/mixer and the trivial energy
-    scenario."""
+    the sync engine, DR-FL with the MARL selector, the ``cnn`` and
+    ``transformer`` families, the bucketed executor, the flat QMIX
+    state/mixer and the trivial energy scenario."""
     checks = [
         (cfg.engine_mode != "sync", f"engine_mode={cfg.engine_mode!r}",
          "async engine"),
         (cfg.method != "drfl", f"method={cfg.method!r}", "baseline arms"),
         (cfg.selector != "marl", f"selector={cfg.selector!r}",
          "other selectors"),
-        (cfg.model_family != "cnn", f"model_family={cfg.model_family!r}",
-         "other families"),
+        (cfg.model_family not in ("cnn", "transformer"),
+         f"model_family={cfg.model_family!r}", "other families"),
         (cfg.hotplug_n > 0, "hotplug_n > 0", "hot-plug"),
         (cfg.charge_profile != "constant" or cfg.charge_rate != 0.0
          or cfg.availability_profile != "always"
@@ -131,15 +131,16 @@ def _validate_energy_feasibility(cfg, fleet, sizes, fractions) -> None:
 
 
 def build_world(cfg, *, device="cuda", global_params=None) -> World:
-    """Data, Dirichlet split, fleet, CNN init and cost model — the JAX
-    ``build_world`` with the same numpy draws.  The CNN init draws from a
-    CPU ``torch.Generator(seed)`` (so it is the same on every device);
-    tests inject converted JAX weights through ``global_params``."""
-    from repro_torch.data.synthetic import synthetic_image_dataset
+    """Data, Dirichlet split, fleet, model init and cost model — the JAX
+    ``build_world`` with the same numpy draws.  The corpus is the
+    family's (``make_dataset``: images, or token windows for the
+    transformer).  The model init draws from a CPU
+    ``torch.Generator(seed)`` (so it is the same on every device); tests
+    inject converted JAX weights through ``global_params``."""
     dev = resolve_device(device)
     family = get_family(cfg.model_family)
-    x, y = synthetic_image_dataset(cfg.n_train, cfg.num_classes, hw=cfg.hw,
-                                   noise=cfg.noise, seed=cfg.seed)
+    x, y = family.make_dataset(cfg.n_train, cfg.num_classes, hw=cfg.hw,
+                               noise=cfg.noise, seed=cfg.seed)
     n_val = max(64, int(cfg.n_val_fraction * cfg.n_train))
     n_total = cfg.n_devices + cfg.hotplug_n
     parts = dirichlet_partition(y[n_val:], n_total, cfg.alpha, cfg.seed)
@@ -160,6 +161,11 @@ def build_world(cfg, *, device="cuda", global_params=None) -> World:
                  n_models=family.num_submodels(), sizes=sizes,
                  fractions=fractions, n_total=n_total, family=family,
                  device=dev)
+
+
+def _data_to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    t = torch.as_tensor(a, device=dev)
+    return t if t.is_floating_point() else t.long()
 
 
 def resolve_client_executor(cfg) -> str:
@@ -243,10 +249,9 @@ class RoundEngine:
         selector, buffer = self.selector, self.buffer
         marl = selector if isinstance(selector, MarlSelector) else None
         # the training and validation sets stay on the device: the
-        # executor gathers its mini-batches there
-        x_dev = torch.as_tensor(w.x_tr, device=dev)
+        # executor gathers its mini-batches there (tokens as int64)
+        x_dev, x_val = (_data_to_device(a, dev) for a in (w.x_tr, w.x_val))
         y_dev = torch.as_tensor(w.y_tr, dtype=torch.int64, device=dev)
-        x_val = torch.as_tensor(w.x_val, device=dev)
         y_val = torch.as_tensor(w.y_val, dtype=torch.int64, device=dev)
 
         w1, w2, w3 = cfg.reward_weights

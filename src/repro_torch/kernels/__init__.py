@@ -3,13 +3,15 @@ counts.
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
 and nowhere else (its plain version on CPU tensors does not count), so a
-run can show that the main path went through the kernel.
+run can show that the main path went through the kernel.  A backward
+kernel counts under its own ``<name>_bwd`` key, once per backward call.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"layer_agg": 0}
+LAUNCHES: Dict[str, int] = {"layer_agg": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
+                            "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:

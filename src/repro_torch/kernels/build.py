@@ -1,8 +1,9 @@
-"""Build a kernel's CUDA sources into a shared library and load it.
+"""Build a kernel's CUDA sources into a shared library, load it, and
+launch its C entry points.
 
 ``nvcc`` compiles each kernel's ``csrc/*.cu`` (a plain C entry point, no
-PyTorch headers: a few seconds) into ``kernels/build/`` at first use; the
-file name carries a hash of the sources and flags, so an edited source is
+PyTorch headers: seconds) into ``kernels/build/`` at first use; the file
+name carries a hash of the sources and flags, so an edited source is
 never served from a stale build.  Only the machine with the card builds:
 this module is imported everywhere, but nothing here runs at import.
 """
@@ -15,7 +16,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,3 +58,25 @@ def build_library(name: str, sources: Sequence[Path]
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         os.replace(tmp, out)
     return ctypes.CDLL(str(out)), seconds, log
+
+
+def bind_library(name: str, sources: Sequence[Path],
+                 signatures: Dict[str, list]) -> Tuple[ctypes.CDLL, float,
+                                                        str]:
+    """:func:`build_library`, then declare each C entry point's argument
+    types (its result is a ``cudaError_t``, an int)."""
+    lib, seconds, log = build_library(name, sources)
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib, seconds, log
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call C entry point ``fn(*args, stream)`` on ``device`` and PyTorch's
+    current stream there (made the current device for the call only);
+    raise on a non-zero ``cudaError_t``."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")

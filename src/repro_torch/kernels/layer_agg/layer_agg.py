@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, build
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "layer_agg.cu",)
 _LIB = None
@@ -32,13 +32,9 @@ def load_library():
     ``(library, build seconds, nvcc log)``."""
     global _LIB
     if _LIB is None:
-        from repro_torch.kernels.build import build_library
-        lib, seconds, log = build_library("layer_agg", SOURCES)
-        fn = lib.layer_agg_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = (lib, seconds, log)
+        _LIB = build.bind_library("layer_agg", SOURCES, {
+            "layer_agg_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p])})
     return _LIB
 
 
@@ -86,13 +82,7 @@ def layer_agg(U: torch.Tensor, M: torch.Tensor,
     lib = load_library()[0]
     N, R, D = U.shape
     out = torch.empty((R, D), dtype=torch.float32, device=U.device)
-    # the kernel launches on the current device: make it U's for the call
-    # only, and leave the caller's current device as it was
-    with torch.cuda.device(U.device):
-        stream = torch.cuda.current_stream(U.device).cuda_stream
-        rc = lib.layer_agg_launch(U.data_ptr(), M.data_ptr(), w.data_ptr(),
-                                  out.data_ptr(), N, R, D, stream)
-    if rc != 0:
-        raise RuntimeError(f"layer_agg launch failed: cudaError_t {rc}")
+    build.launch(lib.layer_agg_launch, U.device, U.data_ptr(),
+                 M.data_ptr(), w.data_ptr(), out.data_ptr(), N, R, D)
     LAUNCHES["layer_agg"] += 1
     return out

@@ -1,0 +1,2 @@
+from repro_torch.kernels.rmsnorm.rmsnorm import (  # noqa: F401
+    load_library, rmsnorm, rmsnorm_op, rmsnorm_plain)

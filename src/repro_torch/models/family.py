@@ -7,7 +7,8 @@ stem + stages[:m+1] + exits[:m+1].  Aggregation groups are stem + each
 stage + each exit, flattened for the stacked ``layer_agg`` path in
 ``tree_leaves`` order (sorted dict keys, as ``jax.tree.leaves``).
 
-Only the ``cnn`` family (:mod:`repro_torch.models.cnn`) is ported.
+Ported: the ``cnn`` family (:mod:`repro_torch.models.cnn`) and the
+``transformer`` family (:mod:`repro_torch.models.transformer_family`).
 """
 from __future__ import annotations
 
@@ -20,24 +21,44 @@ from repro_torch.tree import tree_leaves, tree_shapes
 
 
 def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Mean CE over a batch (log-sum-exp form, integer labels)."""
+    """Mean CE over the batch axis, logits [..., B, C] and integer labels
+    [..., B] (log-sum-exp form): a scalar for one batch, [P] for P
+    stacked batches."""
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, y[:, None].long())[:, 0]
-    return torch.mean(lse - tgt)
+    tgt = logits.gather(-1, y[..., None].long())[..., 0]
+    return torch.mean(lse - tgt, dim=-1)
 
 
 class LayerwiseFamily:
     """Generic machinery over the canonical layer-wise tree; subclasses
     supply ``init``, ``apply_all_exits``, ``num_submodels``,
-    ``param_shapes`` and ``flops_per_sample``."""
+    ``param_shapes`` and ``flops_per_sample`` (and, with
+    ``stacked_forward``, ``apply_all_exits_stacked``)."""
 
     name = "abstract"
     #: image size the paper-scale energy model is calibrated at
     ref_hw = 32
+    #: the bucket program's route.  False: ``vmap`` over participants of
+    #: ``grad`` of the one-participant loss.  True: the family's forward
+    #: takes the participant axis written out (``apply_all_exits_stacked``
+    #: on trees with leaves [P, ...] and batches [P, B, ...]) and plain
+    #: autograd differentiates it, as kernels bound through ctypes need:
+    #: ``torch.func`` transforms cannot see inside them.
+    stacked_forward = False
 
     def __init__(self):
         self._template_cache: dict = {}
         self._cost_cache: dict = {}
+
+    # -- data -------------------------------------------------------------
+    def make_dataset(self, n: int, num_classes: int = 10, hw: int = 32,
+                     noise: float = 1.0, seed: int = 0):
+        """The training corpus ``(x, y)`` (numpy; rows are samples, ``y``
+        the class).  Default: the synthetic image set, ``x [n, hw, hw, 3]``
+        float32 (``family.py:128-138``); token families override it."""
+        from repro_torch.data.synthetic import synthetic_image_dataset
+        return synthetic_image_dataset(n, num_classes, hw=hw, noise=noise,
+                                       seed=seed)
 
     # -- submodel structure ----------------------------------------------
     def submodel_tree(self, tree, model_idx: int):
@@ -81,21 +102,29 @@ class LayerwiseFamily:
         return self._template_cache[key]
 
     # -- losses and evaluation -------------------------------------------
-    def _drfl_loss(self, sub, x, y):
+    @staticmethod
+    def _joint_ce(outs, y):
         """Joint CE over every held exit: weight 1.0 on the deepest, 0.3 on
         the others, normalised (``family.py:327-335``)."""
-        outs = self.apply_all_exits(sub, x)
         loss = cross_entropy(outs[-1], y)
         for o in outs[:-1]:
             loss = loss + 0.3 * cross_entropy(o, y)
         return loss / (1.0 + 0.3 * (len(outs) - 1))
 
-    def loss_fn(self, method: str):
+    def _drfl_loss(self, sub, x, y):
+        return self._joint_ce(self.apply_all_exits(sub, x), y)
+
+    def _drfl_losses_stacked(self, sub, x, y):
+        """Every participant's DR-FL loss, [P], from stacked trees and
+        batches (``stacked_forward`` families)."""
+        return self._joint_ce(self.apply_all_exits_stacked(sub, x), y)
+
+    def loss_fn(self, method: str, *, stacked: bool = False):
         if method != "drfl":
             raise NotImplementedError(
                 f"method {method!r} is not ported (ROADMAP Queue 1, "
                 "'baseline arms')")
-        return self._drfl_loss
+        return self._drfl_losses_stacked if stacked else self._drfl_loss
 
     @torch.no_grad()
     def eval_fn(self, params, x, y) -> torch.Tensor:
@@ -132,7 +161,8 @@ def register_family(family: LayerwiseFamily) -> LayerwiseFamily:
 
 
 def get_family(name: Optional[str] = None) -> LayerwiseFamily:
-    from repro_torch.models import cnn  # noqa: F401  (registers "cnn")
+    # importing a family's module registers it
+    from repro_torch.models import cnn, transformer_family  # noqa: F401
     key = name or _DEFAULT
     if key not in _REGISTRY:
         raise NotImplementedError(

@@ -1,5 +1,6 @@
-"""Dense, MLP and GRU primitives — port of the parts of
-``repro.models.layers`` the MARL agents use.
+"""Dense, MLP, GRU, embedding, RMSNorm-init, RoPE and GELU-MLP primitives
+— port of the parts of ``repro.models.layers`` that the MARL agents and the
+transformer family use.
 
 Parameters are plain dicts of tensors with the JAX names and shapes
 (``w`` is ``[d_in, d_out]`` and applies as ``x @ w``), so converted JAX
@@ -10,13 +11,23 @@ seed, the distributions do not.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               scale: Optional[float] = None):
+    """``w ~ N(0, scale^2)``, ``scale`` 1/sqrt(d_in) unless given
+    (``layers.py:26``)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return {"w": torch.randn((d_in, d_out), generator=gen) * scale}
 
 
 def dense_bias_init(gen: torch.Generator, d_in: int, d_out: int,
-                    bias: bool = True):
-    p = {"w": torch.randn((d_in, d_out), generator=gen) / math.sqrt(d_in)}
+                    bias: bool = True, scale: Optional[float] = None):
+    p = dense_init(gen, d_in, d_out, scale)
     if bias:
         p["b"] = torch.zeros((d_out,))
     return p
@@ -27,6 +38,59 @@ def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def stacked_dense_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """``dense_apply`` with the participant axis written out: x [P, ...,
+    d_in], w [P, d_in, d_out], b [P, d_out]; one batched product per
+    call."""
+    P, d_in = x.shape[0], x.shape[-1]
+    w = p["w"]
+    y = torch.bmm(x.reshape(P, -1, d_in), w).reshape(
+        x.shape[:-1] + (w.shape[-1],))
+    if "b" in p:
+        y = y + p["b"].reshape((P,) + (1,) * (x.dim() - 2) + (w.shape[-1],))
+    return y
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int):
+    return {"emb": torch.randn((vocab, d), generator=gen)}
+
+
+def rmsnorm_init(d: int):
+    return {"scale": torch.ones((d,))}
+
+
+def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x [..., S, H, D]; positions broadcastable to [..., S] (int).  The
+    reference rotates the two HALVES of the head dimension, not
+    interleaved pairs, with angles in float32 (``layers.py:121-129``)."""
+    freqs = rope_freqs(x.shape[-1], theta).to(x.device)      # [D/2]
+    angles = positions[..., None].float() * freqs            # [..., S, D/2]
+    cos = torch.cos(angles)[..., None, :]                    # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, f: int):
+    """With biases, the reference's default (``layers.py:368``)."""
+    return {"w_in": dense_bias_init(gen, d, f),
+            "w_out": dense_bias_init(gen, f, d, scale=1.0 / math.sqrt(f))}
+
+
+def gelu_mlp_apply(p, x: torch.Tensor, dense=dense_apply) -> torch.Tensor:
+    """``jax.nn.gelu`` is the tanh approximation by default
+    (``layers.py:375``).  ``dense`` is :func:`stacked_dense_apply` where
+    the participant axis is written out."""
+    return dense(p["w_out"], F.gelu(dense(p["w_in"], x), approximate="tanh"))
 
 
 def mlp_init(gen: torch.Generator, net_dims):
