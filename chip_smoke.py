@@ -13,9 +13,10 @@ its own lines; any failure raises and exits non-zero:
    process per source, all started together;
 2. hold each kernel, forward and backward, against its plain PyTorch
    version on the card (the backward against autograd through the plain
-   version) at its path's shapes and edge shapes, and time kernel, plain
-   version, one-call PyTorch yardstick (``library_ms``) and the roofline
-   bound;
+   version) at its path's shapes and edge shapes; at the path's shape,
+   time the kernel, the plain version and the one-call PyTorch yardstick
+   (``library_ms``) by device time (``torch.profiler``) and by call time
+   (CUDA events, the host's cost included), beside the roofline bound;
 3. drive the main path through ``repro_torch.fl.run_simulation``: 64
    devices, the full-width multi-exit ResNet-18 on 32x32 images, sync
    DR-FL + QMIX, bucketed executor; launch counts are reset just before
@@ -48,7 +49,7 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, float32 outside tensor cores
+FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 off tensor cores
 REL_TOL = 1e-5
 #: rmsnorm and flash_attention, relative to the largest magnitude: the JAX
 #: sweep's tolerances (tests/test_kernels.py)
@@ -61,10 +62,28 @@ KERNELS = ("layer_agg", "rmsnorm", "flash_attention")
 OWN_KERNELS = ("layer_agg", "rmsnorm", "fa_")
 
 
-def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def _device_spans(prof):
+    """(start, end, name) of every device activity of a torch.profiler
+    trace, in µs, each once (an activity reported twice counts once)."""
+    from torch.autograd import DeviceType
+    return sorted({(e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA})
+
+
+def _times(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, call ms) of one call of fn, over iters calls made back
+    to back.  Device ms: the summed durations of the kernels, copies and
+    sets that fn runs on the card (torch.profiler, device activity only),
+    the card's own time whatever the host does between launches.  Call
+    ms: CUDA events around the calls, the same work with the host's cost
+    of each call (Python, ctypes, allocation, autograd) where that cost
+    is the larger."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -72,7 +91,16 @@ def _cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    call_ms = start.elapsed_time(stop) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = _device_spans(prof)
+    if not spans:
+        raise AssertionError("torch.profiler saw no device activity: no "
+                             "device time can be measured")
+    return sum(e - s for s, e, _ in spans) / iters / 1e3, call_ms
 
 
 def _agg_inputs(N, R, D, seed):
@@ -105,15 +133,18 @@ def phase_build():
     print(f"[build] all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
-def _rel_err(got, ref) -> float:
-    """max |got - ref| over the largest magnitude of ref (at least 1)."""
+def _errors(got, ref):
+    """(max |got - ref|, that over the largest magnitude of ref, at least
+    1): the absolute error and the relative one the tolerance holds."""
     got, ref = got.float(), ref.float()
-    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
+    err = (got - ref).abs().max()
+    return err.item(), (err / ref.abs().max().clamp_min(1.0)).item()
 
 
 def _fwd_bwd_errors(fn, plain, inputs, dout):
-    """Errors of fn's output and gradients (for the cotangent dout)
-    against plain's, on the same inputs: [fwd, grad of each input]."""
+    """(absolute, relative) errors of fn's output and gradients (for the
+    cotangent dout) against plain's, on the same inputs, each a list:
+    [fwd, grad of each input]."""
     import torch
     out = fn(*inputs)
     got = torch.autograd.grad(out, inputs, dout)
@@ -123,49 +154,71 @@ def _fwd_bwd_errors(fn, plain, inputs, dout):
     torch.cuda.synchronize()
     if not all(torch.isfinite(t.float()).all() for t in (out, *got)):
         raise AssertionError("non-finite kernel output or gradient")
-    return [_rel_err(out, ref_out)] + [_rel_err(g, r)
-                                      for g, r in zip(got, ref)]
+    errs = [_errors(out, ref_out)] + [_errors(a, b) for a, b in zip(got, ref)]
+    return [e[0] for e in errs], [e[1] for e in errs]
 
 
-def _grad_ms(fn, inputs, dout) -> float:
-    """CUDA-event time of the backward alone: gradients of one retained
-    graph of fn, taken again and again."""
+def _grad_times(fn, inputs, dout):
+    """:func:`_times` of the backward alone, taken the same way for the
+    kernel, the plain version and the library call: gradients of one
+    retained graph of fn, through autograd again and again."""
     import torch
     ins = [t.detach().clone().requires_grad_() for t in inputs]
     out = fn(*ins)
-    return _cuda_ms(lambda: torch.autograd.grad(out, ins, dout,
-                                                retain_graph=True))
+    return _times(lambda: torch.autograd.grad(out, ins, dout,
+                                              retain_graph=True))
 
 
-def _fwd_bwd_ms(fn, inputs, dout) -> float:
-    """CUDA-event time of one forward and its backward."""
+def _fwd_bwd_times(fn, inputs, dout):
+    """:func:`_times` of one forward and its backward."""
     import torch
     ins = [t.detach().clone().requires_grad_() for t in inputs]
-    return _cuda_ms(lambda: torch.autograd.grad(fn(*ins), ins, dout))
+    return _times(lambda: torch.autograd.grad(fn(*ins), ins, dout))
 
 
-def _print_fwd_bwd(name, fn, plain, library, inputs, dout):
-    print(f"[kernel] {name} forward+backward at the path's shape: kernel "
-          f"{_fwd_bwd_ms(fn, inputs, dout):.4f} ms, plain "
-          f"{_fwd_bwd_ms(plain, inputs, dout):.4f} ms, library "
-          f"{_fwd_bwd_ms(library, inputs, dout):.4f} ms")
-
-
-def _record(name, source, replaces, err, ms, plain_ms, library_ms,
-            n_bytes, n_ops):
+def _record(name, source, replaces, abs_err, rel_err, times, n_bytes,
+            n_ops):
+    """A kernel's entry of the kernels line; times: (device ms, call ms)
+    of the kernel, the plain version and the library call."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
+    (ms, call), (plain, plain_call), (lib, lib_call) = times
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "replaces": replaces, "launches": None, "max_abs_err": abs_err,
+            "max_rel_err": rel_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": lib, "call_ms": call, "plain_call_ms": plain_call,
+            "library_call_ms": lib_call}
 
 
-def _print_record(r, extra=""):
-    print(f"[kernel] {r['name']} at the path's shape: {r['ms']:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
-          f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
+def _print_record(r, library):
+    print(f"[kernel] {r['name']} at the path's shape, device ms (call ms):"
+          f" kernel {r['ms']:.4f} ({r['call_ms']:.4f}), plain "
+          f"{r['plain_ms']:.4f} ({r['plain_call_ms']:.4f}), {library} "
+          f"{r['library_ms']:.4f} ({r['library_call_ms']:.4f}), bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+def _timed_records(names, source, replaces, errs, fns, dout, costs,
+                   library):
+    """The records of a kernel's forward and backward at the path's
+    shape.  fns: (function, inputs) of the kernel's wrapper, the plain
+    version and the library call; errs: (absolute, relative) errors of
+    the forward and of the backward; costs: (bytes, flops) of each."""
+    fwd = [_times(lambda f=f, i=i: f(*[t.detach() for t in i]))
+           for f, i in fns]
+    bwd = [_grad_times(f, i, dout) for f, i in fns]
+    records = [_record(n, source, replaces, *e, t, *c)
+               for n, e, t, c in zip(names, errs, (fwd, bwd), costs)]
+    for r in records:
+        _print_record(r, library)
+    both = [_fwd_bwd_times(f, i, dout) for f, i in fns]
+    print(f"[kernel] {names[0]} forward+backward at the path's shape, "
+          "device ms (call ms): " + ", ".join(
+              f"{who} {dev:.4f} ({call:.4f})" for who, (dev, call)
+              in zip(("kernel", "plain", library), both)))
+    return records
 
 
 def phase_rmsnorm():
@@ -192,42 +245,34 @@ def phase_rmsnorm():
         s = torch.randn((G, d), generator=g,
                         device="cuda").to(dtype).requires_grad_()
         dy = torch.randn((G, R, d), generator=g, device="cuda").to(dtype)
-        errs = _fwd_bwd_errors(mod.rmsnorm, mod.rmsnorm_plain, [x, s], dy)
+        abs_errs, errs = _fwd_bwd_errors(mod.rmsnorm, mod.rmsnorm_plain,
+                                         [x, s], dy)
         print(f"[kernel] rmsnorm {label} G={G} R={R} d={d} {dt}: rel err "
               f"y {errs[0]:.2e}, dx {errs[1]:.2e}, dscale {errs[2]:.2e} "
-              f"(limit {KERNEL_TOL[dt]:.0e})")
+              f"(limit {KERNEL_TOL[dt]:.0e}); abs err y {abs_errs[0]:.2e}, "
+              f"grads {max(abs_errs[1:]):.2e}")
         if max(errs) > KERNEL_TOL[dt]:
             raise AssertionError(f"rmsnorm disagrees with its plain "
                                  f"version at {label}")
         if records is not None or dt != "float32":
             continue
-        xd, sd = x.detach(), s.detach()
-        ms = _cuda_ms(lambda: mod._forward(xd, sd, mod.EPS))
-        _, rstd = mod._forward(xd, sd, mod.EPS)
-        bwd_ms = _cuda_ms(lambda: mod._backward(xd, sd, dy, rstd))
-        plain_ms = _cuda_ms(lambda: mod.rmsnorm_plain(xd, sd))
-        plain_bwd = _grad_ms(mod.rmsnorm_plain, [xd, sd], dy)
         # the one-call yardstick has one [d] scale row for every group:
         # the same bytes and flops, no per-group scale
-        s1 = sd[0].contiguous()
-        lib_ms = _cuda_ms(lambda: F.rms_norm(xd, (d,), s1, mod.EPS))
-        lib_bwd = _grad_ms(lambda a, b: F.rms_norm(a, (d,), b, mod.EPS),
-                           [xd, s1], dy)
-        n, src = G * R * d, "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
-        rep = "src/repro/kernels/rmsnorm/rmsnorm.py:20"
-        records = [
-            # x in, y out, scale in, rstd out; ~4 flops an element
-            _record("rmsnorm", src, rep, errs[0], ms, plain_ms, lib_ms,
-                    4 * (2 * n + G * d + G * R), 4 * n),
-            # x, dy in, dx out, scale in, dscale out, rstd in; ~9 flops
-            _record("rmsnorm_bwd", src, rep, max(errs[1:]), bwd_ms,
-                    plain_bwd, lib_bwd, 4 * (3 * n + 2 * G * d + G * R),
-                    9 * n)]
-        for r in records:
-            _print_record(r, " (F.rms_norm with one [d] scale)")
-        _print_fwd_bwd("rmsnorm", mod.rmsnorm, mod.rmsnorm_plain,
-                       lambda a, b: F.rms_norm(a, (d,), b[0], mod.EPS),
-                       [xd, sd], dy)
+        s1 = s.detach()[0].contiguous()
+        n = G * R * d
+        records = _timed_records(
+            ("rmsnorm", "rmsnorm_bwd"),
+            "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm/rmsnorm.py:20",
+            [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
+            [(mod.rmsnorm, [x, s]), (mod.rmsnorm_plain, [x, s]),
+             (lambda a, b: F.rms_norm(a, (d,), b, mod.EPS), [x, s1])], dy,
+            # forward: x in, y out, scale in, rstd out; ~4 flops an
+            # element.  Backward: x, dy in, dx out, scale in, dscale out,
+            # rstd in; ~9 flops an element
+            [(4 * (2 * n + G * d + G * R), 4 * n),
+             (4 * (3 * n + 2 * G * d + G * R), 9 * n)],
+            "F.rms_norm with one [d] scale")
     return records
 
 
@@ -277,47 +322,35 @@ def phase_attention():
         def plain(a, b, c):
             return mod.attention_plain(a, b, c, causal=causal,
                                        window=window)
-        errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
+        abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
         print(f"[kernel] flash_attention {label} BH={BH} BHkv={BHkv} "
               f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}:"
               f" rel err o {errs[0]:.2e}, dq {errs[1]:.2e}, dk "
               f"{errs[2]:.2e}, dv {errs[3]:.2e} (limit "
-              f"{KERNEL_TOL[dt]:.0e})")
+              f"{KERNEL_TOL[dt]:.0e}); abs err o {abs_errs[0]:.2e}, grads "
+              f"{max(abs_errs[1:]):.2e}")
         if max(errs) > KERNEL_TOL[dt]:
             raise AssertionError(f"flash_attention disagrees with its plain"
                                  f" version at {label}")
         if label != "path":
             continue
-        qd, kd, vd = q.detach(), k.detach(), v.detach()
-        ms = _cuda_ms(lambda: mod._forward(qd, kd, vd, True, 0))
-        o, lse = mod._forward(qd, kd, vd, True, 0)
-        bwd_ms = _cuda_ms(lambda: mod._backward(qd, kd, vd, o, do, lse,
-                                                True, 0))
-        plain_ms = _cuda_ms(lambda: plain(qd, kd, vd))
-        plain_bwd = _grad_ms(plain, [qd, kd, vd], do)
 
         def sdpa(a, b, c):
             return F.scaled_dot_product_attention(a, b, c, is_causal=True)
-        lib_ms = _cuda_ms(lambda: sdpa(qd, kd, vd))
-        lib_bwd = _grad_ms(sdpa, [qd, kd, vd], do)
         pairs = _attention_pairs(BH, Sq, Sk, causal, window)
         n = BH * Sq * D
-        src = ("src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu")
-        rep = "src/repro/kernels/flash_attention/flash_attention.py:67"
-        records = [
-            # q, k, v in, o and lse out; q.k and p.v per kept pair
-            _record("flash_attention", src, rep, errs[0], ms, plain_ms,
-                    lib_ms, 4 * (4 * n + BH * Sq), 4 * D * pairs),
-            # q, k, v, o, dO, lse in; dq, dk, dv out; five products per
-            # kept pair (s, dp, dv, dq, dk)
-            _record("flash_attention_bwd", src, rep, max(errs[1:]), bwd_ms,
-                    plain_bwd, lib_bwd, 4 * (8 * n + BH * Sq),
-                    10 * D * pairs)]
-        for r in records:
-            _print_record(r, " (F.scaled_dot_product_attention, "
-                             "is_causal=True)")
-        _print_fwd_bwd("flash_attention", fn, plain, sdpa, [qd, kd, vd], do)
+        records = _timed_records(
+            ("flash_attention", "flash_attention_bwd"),
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:67",
+            [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
+            [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
+            # forward: q, k, v in, o and lse out; q.k and p.v per kept
+            # pair.  Backward: q, k, v, o, dO, lse in; dq, dk, dv out;
+            # five products per kept pair (s, dp, dv, dq, dk)
+            [(4 * (4 * n + BH * Sq), 4 * D * pairs),
+             (4 * (8 * n + BH * Sq), 10 * D * pairs)],
+            "SDPA is_causal")
     return records
 
 
@@ -345,32 +378,23 @@ def phase_kernels():
             raise AssertionError(f"layer_agg disagrees with its plain "
                                  f"version at {label}")
         if label == "main path":
-            ms = _cuda_ms(lambda: layer_agg(U, M, w))
-            plain_ms = _cuda_ms(lambda: layer_agg_plain(U, M, w))
-
             def library():
                 wm = w[:, None] * M
                 return (torch.einsum("nl,nld->ld", wm, U)
                         / wm.sum(dim=0).clamp_min(1e-12)[:, None])
-            library_ms = _cuda_ms(library)
+            times = [_times(f) for f in (lambda: layer_agg(U, M, w),
+                                         lambda: layer_agg_plain(U, M, w),
+                                         library)]
             n_bytes = 4 * (N * R * D + N * R + N + R * D)
-            n_ops = 2 * N * R * D + R * D
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
-            record = {"name": "layer_agg", "route": "cuda",
-                      "source": "src/repro_torch/kernels/layer_agg/csrc/"
-                                "layer_agg.cu",
-                      "replaces": "src/repro/kernels/layer_agg/"
-                                  "layer_agg.py:37",
-                      "launches": None, "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations",
-                      "library_ms": library_ms}
-            print(f"[kernel] layer_agg main path: {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, einsum+divide {library_ms:.4f} ms, "
-                  f"bound {record['bound_ms']:.4f} ms ({n_bytes / 1e6:.1f} "
-                  f"MB at 3.35 TB/s), {n_bytes / ms / 1e6:.1f} GB/s")
+            record = _record(
+                "layer_agg",
+                "src/repro_torch/kernels/layer_agg/csrc/layer_agg.cu",
+                "src/repro/kernels/layer_agg/layer_agg.py:37", err,
+                err / scale, times, n_bytes, 2 * N * R * D + R * D)
+            _print_record(record, "einsum+divide")
+            print(f"[kernel] layer_agg main path: {n_bytes / 1e6:.1f} MB "
+                  f"at 3.35 TB/s; {n_bytes / record['ms'] / 1e6:.1f} GB/s "
+                  "of device time")
         del U, M, w, got, ref
     # staleness alphas: kernel path on the card vs the plain path on the CPU
     U, M, w = _agg_inputs(9, 2048, 1024, seed=5)
@@ -461,7 +485,6 @@ def phase_profile(cfg, tag="profile"):
     union of the kernels' intervals inside the round, so overlapping or
     doubly reported kernels are not counted twice."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.fl import run_simulation
     cfg = dataclasses.replace(cfg, n_rounds=1)
@@ -469,9 +492,7 @@ def phase_profile(cfg, tag="profile"):
         hist = run_simulation(cfg)
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    spans = sorted({(e.time_range.start, e.time_range.end, e.name)
-                    for e in prof.events()
-                    if getattr(e, "device_type", None) == DeviceType.CUDA})
+    spans = _device_spans(prof)
     if not spans:
         print(f"[{tag}] device busy time: not measured (no device events "
               "in the trace)")

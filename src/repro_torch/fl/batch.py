@@ -116,7 +116,7 @@ def _stacked_step(family):
     family: (stacked params, [P, B, ...], [P, B]) -> (grads, losses [P]).
     Participant p's parameters reach only loss p, so the gradient of the
     sum is every participant's own gradient."""
-    loss_fn = family.loss_fn("drfl", stacked=True)
+    loss_fn = family.stacked_loss_fn
 
     def step(params, xb, yb):
         leaves = [l.detach().requires_grad_() for l in tree_leaves(params)]

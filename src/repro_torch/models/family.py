@@ -33,7 +33,8 @@ class LayerwiseFamily:
     """Generic machinery over the canonical layer-wise tree; subclasses
     supply ``init``, ``apply_all_exits``, ``num_submodels``,
     ``param_shapes`` and ``flops_per_sample`` (and, with
-    ``stacked_forward``, ``apply_all_exits_stacked``)."""
+    ``stacked_forward``, ``apply_all_exits_stacked``, which
+    ``stacked_loss_fn`` differentiates)."""
 
     name = "abstract"
     #: image size the paper-scale energy model is calibrated at
@@ -114,17 +115,17 @@ class LayerwiseFamily:
     def _drfl_loss(self, sub, x, y):
         return self._joint_ce(self.apply_all_exits(sub, x), y)
 
-    def _drfl_losses_stacked(self, sub, x, y):
+    def stacked_loss_fn(self, sub, x, y):
         """Every participant's DR-FL loss, [P], from stacked trees and
-        batches (``stacked_forward`` families)."""
+        batches: the bucket step of ``stacked_forward`` families."""
         return self._joint_ce(self.apply_all_exits_stacked(sub, x), y)
 
-    def loss_fn(self, method: str, *, stacked: bool = False):
+    def loss_fn(self, method: str):
         if method != "drfl":
             raise NotImplementedError(
                 f"method {method!r} is not ported (ROADMAP Queue 1, "
                 "'baseline arms')")
-        return self._drfl_losses_stacked if stacked else self._drfl_loss
+        return self._drfl_loss
 
     @torch.no_grad()
     def eval_fn(self, params, x, y) -> torch.Tensor:

@@ -86,11 +86,13 @@ def gelu_mlp_init(gen: torch.Generator, d: int, f: int):
             "w_out": dense_bias_init(gen, f, d, scale=1.0 / math.sqrt(f))}
 
 
-def gelu_mlp_apply(p, x: torch.Tensor, dense=dense_apply) -> torch.Tensor:
-    """``jax.nn.gelu`` is the tanh approximation by default
-    (``layers.py:375``).  ``dense`` is :func:`stacked_dense_apply` where
-    the participant axis is written out."""
-    return dense(p["w_out"], F.gelu(dense(p["w_in"], x), approximate="tanh"))
+def stacked_gelu_mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """The GELU MLP with the participant axis written out (x [P, ...,
+    d]); ``jax.nn.gelu`` is the tanh approximation by default
+    (``layers.py:375``)."""
+    return stacked_dense_apply(
+        p["w_out"], F.gelu(stacked_dense_apply(p["w_in"], x),
+                           approximate="tanh"))
 
 
 def mlp_init(gen: torch.Generator, net_dims):

@@ -36,8 +36,9 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.family import LayerwiseFamily, register_family
 from repro_torch.models.layers import (apply_rope, dense_bias_init,
                                        dense_init, embed_init,
-                                       gelu_mlp_apply, gelu_mlp_init,
-                                       rmsnorm_init, stacked_dense_apply)
+                                       gelu_mlp_init, rmsnorm_init,
+                                       stacked_dense_apply,
+                                       stacked_gelu_mlp_apply)
 from repro_torch.tree import tree_map
 
 N_BLOCKS = 4              # one exit head per block = 4 submodels (paper M)
@@ -113,8 +114,7 @@ def _attention(bp, h):
 
 def _block(bp, h):
     h = h + _attention(bp["attn"], _rmsnorm(bp["attn_norm"], h))
-    return h + gelu_mlp_apply(bp["mlp"], _rmsnorm(bp["mlp_norm"], h),
-                              dense=stacked_dense_apply)
+    return h + stacked_gelu_mlp_apply(bp["mlp"], _rmsnorm(bp["mlp_norm"], h))
 
 
 def _exit_head(ep, h):

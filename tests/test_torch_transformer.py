@@ -150,8 +150,7 @@ def test_stacked_forward_and_conversion_match_per_participant_jax():
         np.testing.assert_array_equal(t.numpy(), j)
     tfam, jfam = get_family("transformer"), jax_get_family("transformer")
     touts = tfam.apply_all_exits_stacked(tp, torch.tensor(x))
-    tloss = tfam.loss_fn("drfl", stacked=True)(tp, torch.tensor(x),
-                                               torch.tensor(y))
+    tloss = tfam.stacked_loss_fn(tp, torch.tensor(x), torch.tensor(y))
     for p in range(P):
         jpp = jax.tree.map(lambda a: a[p], jp)
         jouts = jfam.apply_all_exits(jpp, jnp.asarray(x[p]))
