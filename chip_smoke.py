@@ -17,6 +17,10 @@ its own lines; any failure raises and exits non-zero:
    time the kernel, the plain version and the one-call PyTorch yardstick
    (``library_ms``) by device time (``torch.profiler``) and by call time
    (CUDA events, the host's cost included), beside the roofline bound;
+   attention's backward route (fused or three passes) is printed for
+   every shape, and the model-layout call, the one the transformer path
+   makes, is checked and timed at the path's shape beside SDPA on the same
+   layout;
 3. drive the main path through ``repro_torch.fl.run_simulation``: 64
    devices, the full-width multi-exit ResNet-18 on 32x32 images, sync
    DR-FL + QMIX, bucketed executor; launch counts are reset just before
@@ -92,14 +96,19 @@ def _times(fn, iters: int = 20, warmup: int = 3):
     stop.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(stop) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = _device_spans(prof)
-    if not spans:
-        raise AssertionError("torch.profiler saw no device activity: no "
-                             "device time can be measured")
+    # the profiler now and then reads back no device activity at all (one
+    # read in ~20 on the H100 machine); such a read is taken again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = _device_spans(prof)
+        if spans:
+            break
+    else:
+        raise AssertionError("torch.profiler saw no device activity in 3 "
+                             "reads: no device time can be measured")
     return sum(e - s for s, e, _ in spans) / iters / 1e3, call_ms
 
 
@@ -305,7 +314,20 @@ def phase_attention():
               ("set mixer", 2, 2, 4, 4096, 32, False, 0, "float32"),
               ("rows with no key", 2, 1, 40, 24, 16, True, 5, "float32"),
               ("odd sizes", 3, 3, 33, 17, 20, False, 3, "float32"),
-              ("path bf16", 2048, 2048, 32, 32, 32, True, 0, "bfloat16")]
+              ("path bf16", 2048, 2048, 32, 32, 32, True, 0, "bfloat16"),
+              # the fused backward's length limit and one past it (three
+              # passes) at D 32, 64 and 128; a GQA group with a window in
+              # the fused range
+              ("fused limit D32", 64, 64, 64, 64, 32, True, 0, "float32"),
+              ("past it D32", 64, 64, 65, 65, 32, True, 0, "float32"),
+              ("fused limit D64", 64, 64, 64, 64, 64, True, 0, "float32"),
+              ("past it D64", 64, 64, 65, 65, 64, True, 0, "float32"),
+              ("fused limit D128", 64, 64, 32, 32, 128, True, 0, "float32"),
+              ("past it D128", 64, 64, 33, 33, 128, True, 0, "float32"),
+              ("fused GQA 4:1 window", 64, 16, 48, 48, 64, True, 16,
+               "float32"),
+              ("fused limit D64 bf16", 64, 64, 64, 64, 64, True, 0,
+               "bfloat16")]
     g = torch.Generator(device="cuda").manual_seed(1)
     records = None
     for label, BH, BHkv, Sq, Sk, D, causal, window, dt in shapes:
@@ -323,8 +345,10 @@ def phase_attention():
             return mod.attention_plain(a, b, c, causal=causal,
                                        window=window)
         abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
+        route = "fused" if mod.fused_backward(Sq, Sk, D) else "three_pass"
         print(f"[kernel] flash_attention {label} BH={BH} BHkv={BHkv} "
-              f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}:"
+              f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}"
+              f" (backward {route}):"
               f" rel err o {errs[0]:.2e}, dq {errs[1]:.2e}, dk "
               f"{errs[2]:.2e}, dv {errs[3]:.2e} (limit "
               f"{KERNEL_TOL[dt]:.0e}); abs err o {abs_errs[0]:.2e}, grads "
@@ -341,7 +365,7 @@ def phase_attention():
         n = BH * Sq * D
         records = _timed_records(
             ("flash_attention", "flash_attention_bwd"),
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/flash_attention/csrc/fwd.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:67",
             [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
             [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
@@ -351,7 +375,53 @@ def phase_attention():
             [(4 * (4 * n + BH * Sq), 4 * D * pairs),
              (4 * (8 * n + BH * Sq), 10 * D * pairs)],
             "SDPA is_causal")
+        records[1]["source"] = (
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            + ("bwd_fused.cu" if route == "fused" else "bwd_three_pass.cu"))
+        records[1]["bwd_route"] = route
+    _model_layout_times(mod)
     return records
+
+
+def _model_layout_times(mod):
+    """The model-layout call at the transformer path's shape (q, k, v
+    [512, 32, 4, 32] contiguous, as the model hands them over, causal,
+    f32): its output and gradients held against the plain version, then
+    forward and forward plus backward timed beside SDPA on the same
+    layout (through transposed views)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn((512, 32, 4, 32), generator=g, device="cuda")
+                   .requires_grad_() for _ in range(4))
+    do = do.detach()
+
+    def plain(a, b, c):                 # heads-first and back
+        o = mod.attention_plain(*(t.transpose(1, 2).reshape(-1, 32, 32)
+                                  for t in (a, b, c)))
+        return o.reshape(512, 4, 32, 32).transpose(1, 2)
+    abs_errs, errs = _fwd_bwd_errors(mod.flash_attention, plain, [q, k, v],
+                                     do)
+    print(f"[kernel] model layout [512, 32, 4, 32] causal f32: rel err o "
+          f"{errs[0]:.2e}, dq {errs[1]:.2e}, dk {errs[2]:.2e}, dv "
+          f"{errs[3]:.2e} (limit {KERNEL_TOL['float32']:.0e}); abs err o "
+          f"{abs_errs[0]:.2e}, grads {max(abs_errs[1:]):.2e}")
+    if max(errs) > KERNEL_TOL["float32"]:
+        raise AssertionError("the model-layout flash_attention disagrees "
+                             "with its plain version")
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+    fns = (("flash_attention", mod.flash_attention), ("SDPA", sdpa))
+    fwd = [_times(lambda f=f: f(q.detach(), k.detach(), v.detach()))
+           for _, f in fns]
+    both = [_fwd_bwd_times(f, [q, k, v], do) for _, f in fns]
+    for (who, _), (dev, call), (dev2, call2) in zip(fns, fwd, both):
+        print(f"[kernel] model layout [512, 32, 4, 32] causal f32, {who}: "
+              f"forward device ms {dev:.4f} (call ms {call:.4f}); forward+"
+              f"backward device ms {dev2:.4f} (call ms {call2:.4f})")
 
 
 def phase_kernels():
@@ -528,6 +598,11 @@ def phase_profile(cfg, tag="profile"):
         by_name[name] = (n + 1, t + e_ - s_)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
         print(f"[{tag}] kernel {name[:60]}: {n} launches, {t / 1e3:.2f} ms")
+    elem = [(n, t) for name, (n, t) in by_name.items()
+            if "elementwise" in name]
+    print(f"[{tag}] ATen elementwise kernels in the round: "
+          f"{sum(n for n, _ in elem)} launches, "
+          f"{sum(t for _, t in elem) / 1e3:.2f} ms")
     for name, (n, t) in sorted(by_name.items()):
         if any(k in name for k in OWN_KERNELS):
             print(f"[{tag}] own kernel {name[:60]} in the round: {n} "
@@ -553,6 +628,11 @@ def phase_transformer():
                if launches[k] < 1]
     if missing:
         raise AssertionError(f"the transformer path never launched {missing}")
+    if launches["flash_attention_bwd_fused"] != \
+            launches["flash_attention_bwd"]:
+        raise AssertionError("the transformer path's attention backward "
+                             f"did not always take the fused kernel: "
+                             f"{launches}")
     if max(len(m) for m in per_round) < 2:
         raise AssertionError("no round trained more than one bucket")
     deepest = len(hist["acc"][0]) - 1
@@ -624,6 +704,10 @@ def main() -> int:
     cfg, launches = phase_transformer()
     for r in records[1:]:
         r["launches"] = launches[r["name"]]
+        if "bwd_route" in r:
+            r["route_launches"] = {
+                k: launches[f"flash_attention_bwd_{k}"]
+                for k in ("fused", "three_pass")}
     phase_profile(cfg, "transformer profile")
     small = dict(n_devices=64, n_rounds=3, hw=8, n_train=1280,
                  local_epochs=1)

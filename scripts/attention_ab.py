@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""Before and after of the attention kernels on one card, two checkouts
+of this repository taking turns.
+
+    python3 scripts/attention_ab.py OLD NEW NEW OLD
+
+Each argument is the root of a checkout (its ``src/``).  Each runs in a
+fresh process, in the order given, so two versions alternate on the same
+card, and each is measured by this repository's own ``chip_smoke.py``
+phases: the kernel build, the model-layout ``flash_attention`` call at
+the transformer path's shape (checked, then timed beside SDPA), and one
+warm round of the transformer path under ``torch.profiler`` (our kernels'
+and ATen's elementwise launches).  Every output line carries the
+checkout's label (its position and root).  Needs one NVIDIA card and
+``nvcc``; imports neither jax nor the JAX package.
+"""
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+def one(root: Path) -> None:
+    sys.path.insert(0, str(root / "src"))
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import repro_torch  # noqa: F401  (sets the float32 precision flags)
+    from repro_torch.fl import FLConfig, run_simulation
+    cs.phase_build()
+    cs._model_layout_times(importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention"))
+    cfg = FLConfig(**dict(cs.TRANSFORMER_CFG, n_rounds=1))
+    run_simulation(cfg)                        # warm
+    cs.phase_profile(cfg, "round")
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        one(Path(argv[2]).resolve())
+        return 0
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    rc = 0
+    for i, root in enumerate(argv[1:]):
+        proc = subprocess.Popen([sys.executable, __file__, "--one", root],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        for line in proc.stdout:
+            print(f"[{i}:{root}] {line}", end="", flush=True)
+        rc = rc or proc.wait()
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -4,14 +4,18 @@ counts.
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
 and nowhere else (its plain version on CPU tensors does not count), so a
 run can show that the main path went through the kernel.  A backward
-kernel counts under its own ``<name>_bwd`` key, once per backward call.
+kernel counts under its own ``<name>_bwd`` key, once per backward call;
+``flash_attention``'s backward also counts under the route it took,
+``flash_attention_bwd_fused`` or ``flash_attention_bwd_three_pass``.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"layer_agg": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
-                            "flash_attention": 0, "flash_attention_bwd": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "flash_attention_bwd_fused": 0,
+                            "flash_attention_bwd_three_pass": 0}
 
 
 def reset_launches() -> None:

@@ -1,10 +1,12 @@
 """Build a kernel's CUDA sources into a shared library, load it, and
 launch its C entry points.
 
-``nvcc`` compiles each kernel's ``csrc/*.cu`` (a plain C entry point, no
-PyTorch headers: seconds) into ``kernels/build/`` at first use; the file
-name carries a hash of the sources and flags, so an edited source is
-never served from a stale build.  Only the machine with the card builds:
+``nvcc`` compiles each kernel's ``csrc/*.cu`` (plain C entry points, no
+PyTorch headers: seconds) into ``kernels/build/`` at first use, one
+process per source, all started together, then links them into one
+shared library; the file name carries a hash of the sources, the headers
+beside them and the flags, so an edited source is never served from a
+stale build.  Only the machine with the card builds:
 this module is imported everywhere, but nothing here runs at import.
 """
 from __future__ import annotations
@@ -20,8 +22,9 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 
@@ -40,23 +43,40 @@ def build_library(name: str, sources: Sequence[Path]
     """Compile ``sources`` into ``lib<name>-<hash>.so`` (reused when it
     exists) and load it.  Returns ``(library, build seconds, nvcc log)``;
     the seconds are 0 for a reused build."""
+    sources = [Path(s) for s in sources]
+    headers = sorted({h for s in sources for h in s.parent.glob("*.cuh")})
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        h.update(Path(s).read_bytes())
+    for s in [*sources, *headers]:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
+        nvcc = find_nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sources]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                       str(s)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for s, o in zip(sources, objs)]
+            log = "".join(p.communicate()[0] for p in procs)
+            if any(p.returncode != 0 for p in procs):
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            os.replace(tmp, out)
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        os.replace(tmp, out)
     return ctypes.CDLL(str(out)), seconds, log
 
 

@@ -22,7 +22,10 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.flash_attention import (attention_plain,
-                                                 flash_attention_bhsd)
+                                                 attention_plain_model,
+                                                 flash_attention,
+                                                 flash_attention_bhsd,
+                                                 fused_backward)
 from repro_torch.kernels.layer_agg import layer_agg, layer_agg_plain
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
@@ -107,11 +110,17 @@ def test_rmsnorm_forward_backward_match_plain(cuda, G, R, d, dtype):
 
 # (BH, BHkv, Sq, Sk, D, causal, window): the transformer path's shape,
 # GQA, a window, D = 128, non-causal, the set mixer's rectangle, rows that
-# see no key, odd sizes
+# see no key, odd sizes; then the fused backward's length limit and one
+# past it (three passes) at D 32, 64 and 128, and a GQA group with a
+# window and a GQA rectangle inside the fused range
 ATTN = [(256, 256, 32, 32, 32, True, 0), (8, 4, 128, 128, 64, True, 0),
         (8, 1, 256, 256, 32, True, 0), (4, 4, 128, 128, 128, True, 32),
         (4, 4, 64, 64, 64, False, 0), (2, 2, 4, 4096, 32, False, 0),
-        (2, 1, 40, 24, 16, True, 5), (3, 3, 33, 17, 20, False, 3)]
+        (2, 1, 40, 24, 16, True, 5), (3, 3, 33, 17, 20, False, 3),
+        (4, 4, 64, 64, 32, True, 0), (4, 4, 65, 65, 32, True, 0),
+        (4, 4, 64, 64, 64, True, 0), (4, 4, 65, 65, 64, True, 0),
+        (4, 4, 32, 32, 128, True, 0), (4, 4, 33, 33, 128, True, 0),
+        (8, 2, 48, 48, 64, True, 16), (6, 2, 24, 40, 32, False, 0)]
 
 
 @pytest.mark.cuda
@@ -133,6 +142,103 @@ def test_flash_attention_forward_backward_match_plain(cuda, case, dtype):
     for got, ref in pairs:
         assert torch.isfinite(got.float()).all()
         assert _rel_err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(256, 256, 32, 32, 32, True, 0),
+                                  (8, 2, 48, 48, 64, True, 16),
+                                  (4, 4, 65, 65, 32, True, 0)],
+                         ids=["path", "gqa-window", "three-pass"])
+def test_flash_attention_backward_is_deterministic(cuda, case):
+    """No atomics: two backward runs give the same bits."""
+    BH, BHkv, Sq, Sk, D, causal, window = case
+    q, k, v = _leaves([(BH, Sq, D), (BHkv, Sk, D), (BHkv, Sk, D)],
+                      torch.float32, cuda, seed=D)
+    do = torch.randn((BH, Sq, D), generator=torch.Generator().manual_seed(1)
+                     ).to(cuda)
+    out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    runs = [torch.autograd.grad(out, [q, k, v], do, retain_graph=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _model_view(shape, how, dev, seed):
+    """A [B, S, H, D] tensor on the card: contiguous (what the model hands
+    over), a transpose of heads-first storage, a slice of a wider tensor,
+    or one that starts one element in (off the 16-byte grid: the kernels'
+    element-wise path)."""
+    B, S, H, D = shape
+    g = torch.Generator().manual_seed(seed)
+    if how == "contiguous":
+        return torch.randn(shape, generator=g).to(dev)
+    if how == "transpose":
+        return torch.randn((B, H, S, D), generator=g).to(dev).transpose(1, 2)
+    lo = 0 if how == "wide-slice" else 1
+    wide = torch.randn((B, S, H, 2 * D + 1), generator=g).to(dev)
+    return wide[..., lo:lo + D]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["contiguous", "transpose", "wide-slice",
+                                 "offset-slice"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (16, 32, 32, 4, 4, 32, True, 0), (2, 80, 80, 4, 2, 64, True, 0),
+    (2, 24, 40, 6, 2, 32, False, 0)], ids=["path", "three-pass", "gqa-rect"])
+def test_flash_attention_model_layout_views_without_copies(
+        cuda, how, B, Sq, Sk, Hq, Hkv, D, causal, window, monkeypatch):
+    """The kernels receive the caller's tensors (their data pointers),
+    and o and the gradients come back like their inputs."""
+    seen = {}
+
+    def recording(fn, device, *args):
+        seen[fn.__name__] = args
+        return launch(fn, device, *args)
+    launch = kbuild.launch
+    monkeypatch.setattr(kbuild, "launch", recording)
+    q, k, v = (_model_view(s, how, cuda, seed=i).requires_grad_()
+               for i, s in enumerate(((B, Sq, Hq, D), (B, Sk, Hkv, D),
+                                      (B, Sk, Hkv, D))))
+    assert q.is_contiguous() == (how == "contiguous")
+    before = dict(LAUNCHES)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.shape == (B, Sq, Hq, D) and out.stride(-1) == 1
+    assert out.stride() == (q.stride() if how in ("contiguous", "transpose")
+                            else out.contiguous().stride())
+    assert list(seen["flash_attention_fwd_launch"][:4]) == [
+        t.data_ptr() for t in (q, k, v, out)]
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
+                    ).to(cuda)
+    got = torch.autograd.grad(out, [q, k, v], w)
+    torch.cuda.synchronize()
+    route = "fused" if fused_backward(Sq, Sk, D) else "three_pass"
+    args = seen["flash_attention_bwd_fused_launch" if route == "fused"
+                else "flash_attention_bwd_launch"]
+    skip = 6 if route == "fused" else 7         # lse, and delta's workspace
+    assert list(args[:4]) + list(args[skip:skip + 3]) == [
+        t.data_ptr() for t in (q, k, v, out, *got)]
+    assert LAUNCHES[f"flash_attention_bwd_{route}"] == \
+        before[f"flash_attention_bwd_{route}"] + 1
+    for t, g_ in zip((q, k, v), got):
+        assert g_.stride(-1) == 1 and g_.shape == t.shape
+
+    ref_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_plain_model(*ref_in, causal=causal, window=window)
+    ref = torch.autograd.grad(ref_out, ref_in, w)
+    assert _rel_err(out, ref_out) <= TOL[torch.float32]
+    for g_, r in zip(got, ref):
+        assert torch.isfinite(g_).all()
+        assert _rel_err(g_, r) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,fused", [
+    (32, 32, 32, True), (64, 64, 32, True), (65, 65, 32, False),
+    (64, 64, 64, True), (65, 64, 64, False), (32, 32, 128, True),
+    (33, 33, 128, False), (4, 4096, 32, False), (1, 1, 8, True)])
+def test_backward_route_depends_on_shape_alone(cuda, Sq, Sk, D, fused):
+    assert fused_backward(Sq, Sk, D) is fused
 
 
 def _rmsnorm_call(dev):
