@@ -36,10 +36,23 @@ its own lines; any failure raises and exits non-zero:
    64 devices at 50% participation, whose blocks run the ``rmsnorm`` and
    ``flash_attention`` kernels forward and backward; then profile one
    warm round of it;
-6. check a small run of each family on the card against the same run on
-   the CPU (plain versions): identical picks, accuracy within one
-   validation sample, weights allclose at rtol 1e-4, atol 1e-5;
-7. print the card's name and power limit, the kernels' JSON line and,
+6. the paper's own fleet (``benchmarks/common.py``'s harness: 40
+   devices, 10%, 5 local epochs, full-width ResNet-18 on 32x32), which
+   ``"auto"`` runs on the per-client executor: DR-FL + MARL for 3 rounds
+   (``[paper fleet]``), ``FLConfig()`` as it stands (``[defaults]``), then
+   every other arm of Table 1 / Fig. 5 for 2 rounds (``[table1]``); HeteroFL and ScaleFL on the bucketed executor at
+   64 devices (``[baselines bucketed]``); the transformer on the
+   per-client executor, its kernel launches counted exactly from the
+   clients' schedules (``[transformer perclient]``); one per-client
+   round's deltas aggregated by the list path and by its stacked route
+   through ``layer_agg`` (``[from list]``); the two executors on the same
+   run (``[executors]``);
+7. check small runs on the card against the same runs on the CPU (plain
+   versions): each family on the bucketed executor, and the CNN's DR-FL
+   greedy, HeteroFL and ScaleFL arms on the per-client executor;
+   identical picks, accuracy within one validation sample, weights
+   allclose at rtol 1e-4, atol 1e-5;
+8. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -61,6 +74,23 @@ KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MAIN_CFG = dict(n_devices=64, width_mult=1.0, hw=32, n_train=6400, seed=0)
 TRANSFORMER_CFG = dict(MAIN_CFG, n_rounds=3, participation=0.5,
                        model_family="transformer")
+#: the per-client reference runs (card against CPU): the CNN test size
+PERCLIENT_REFERENCE = dict(n_devices=8, n_rounds=3, participation=0.5,
+                           local_epochs=1, batch_size=16, n_train=400, hw=8,
+                           width_mult=0.125, seed=1)
+#: HeteroFL at seed 3 and full batteries (the full width): with mixed
+#: widths its trajectory is ill-conditioned at this size (the JAX
+#: package's own two executors end 1e-2 apart), at seed 3 they agree to
+#: 2e-6; ScaleFL's agree to 1.2e-7 with mixed widths
+PERCLIENT_REFERENCE_ARMS = (
+    dict(method="drfl", selector="greedy"),
+    dict(method="heterofl", selector="greedy", seed=3),
+    dict(method="scalefl", selector="greedy", energy_scale=0.01))
+#: the paper's harness (benchmarks/common.py:29-30, the non-FAST branch):
+#: 40 devices, below 64, so "auto" takes the per-client executor
+PAPER_CFG = dict(n_devices=40, participation=0.1, local_epochs=5,
+                 n_train=6000, energy_scale=0.6, width_mult=1.0, hw=32,
+                 seed=0)
 KERNELS = ("layer_agg", "rmsnorm", "flash_attention")
 #: our kernels' names in a profiler trace
 OWN_KERNELS = ("layer_agg", "rmsnorm", "fa_")
@@ -201,8 +231,8 @@ def _record(name, source, replaces, abs_err, rel_err, times, n_bytes,
             "library_call_ms": lib_call}
 
 
-def _print_record(r, library):
-    print(f"[kernel] {r['name']} at the path's shape, device ms (call ms):"
+def _print_record(r, library, where="the path's shape"):
+    print(f"[kernel] {r['name']} at {where}, device ms (call ms):"
           f" kernel {r['ms']:.4f} ({r['call_ms']:.4f}), plain "
           f"{r['plain_ms']:.4f} ({r['plain_call_ms']:.4f}), {library} "
           f"{r['library_ms']:.4f} ({r['library_call_ms']:.4f}), bound "
@@ -210,43 +240,58 @@ def _print_record(r, library):
 
 
 def _timed_records(names, source, replaces, errs, fns, dout, costs,
-                   library):
-    """The records of a kernel's forward and backward at the path's
-    shape.  fns: (function, inputs) of the kernel's wrapper, the plain
-    version and the library call; errs: (absolute, relative) errors of
-    the forward and of the backward; costs: (bytes, flops) of each."""
+                   library, where="the path's shape"):
+    """The records of a kernel's forward and backward at a path's shape
+    (``where``).  fns: (function, inputs) of the kernel's wrapper, the
+    plain version and the library call; errs: (absolute, relative) errors
+    of the forward and of the backward; costs: (bytes, flops) of each."""
     fwd = [_times(lambda f=f, i=i: f(*[t.detach() for t in i]))
            for f, i in fns]
     bwd = [_grad_times(f, i, dout) for f, i in fns]
     records = [_record(n, source, replaces, *e, t, *c)
                for n, e, t, c in zip(names, errs, (fwd, bwd), costs)]
     for r in records:
-        _print_record(r, library)
+        _print_record(r, library, where)
     both = [_fwd_bwd_times(f, i, dout) for f, i in fns]
-    print(f"[kernel] {names[0]} forward+backward at the path's shape, "
+    print(f"[kernel] {names[0]} forward+backward at {where}, "
           "device ms (call ms): " + ", ".join(
               f"{who} {dev:.4f} ({call:.4f})" for who, (dev, call)
               in zip(("kernel", "plain", library), both)))
     return records
 
 
+def _attach_per_client(records, per_client):
+    """The per-client shape's records go into the path's records, under
+    ``per_client``, each with its shape."""
+    for r, pc in zip(records, per_client):
+        r["per_client"] = {k: pc[k] for k in (
+            "shape", "max_abs_err", "max_rel_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "call_ms",
+            "plain_call_ms", "library_call_ms")}
+    return records
+
+
 def phase_rmsnorm():
     """rmsnorm forward and backward against the plain version; returns
     the records of both kernels, timed at the transformer path's block
-    norms (16 participants x 32 sequences x 32 positions, d 128)."""
+    norms (16 participants x 32 sequences x 32 positions, d 128) and, under
+    ``per_client``, at the per-client executor's (one client: G 1)."""
     import importlib
     import torch
     import torch.nn.functional as F
     mod = importlib.import_module("repro_torch.kernels.rmsnorm.rmsnorm")
     shapes = [("block norms", 16, 1024, 128, "float32"),
+              ("per-client block norms", 1, 1024, 128, "float32"),
               ("exit norms", 16, 32, 128, "float32"),
               ("odd R", 3, 11, 128, "float32"),
               ("odd R, one group", 1, 7, 64, "float32"),
               ("d not a power of two", 4, 33, 100, "float32"),
               ("d 8192", 2, 5, 8192, "float32"),
               ("block norms bf16", 16, 1024, 128, "bfloat16")]
+    timed = {"block norms": "the bucketed path's shape",
+             "per-client block norms": "the per-client shape"}
     g = torch.Generator(device="cuda").manual_seed(0)
-    records = None
+    records = {}
     for label, G, R, d, dt in shapes:
         dtype = getattr(torch, dt)
         x = (torch.randn((G, R, d), generator=g, device="cuda") * 3
@@ -263,13 +308,13 @@ def phase_rmsnorm():
         if max(errs) > KERNEL_TOL[dt]:
             raise AssertionError(f"rmsnorm disagrees with its plain "
                                  f"version at {label}")
-        if records is not None or dt != "float32":
+        if label not in timed:
             continue
         # the one-call yardstick has one [d] scale row for every group:
         # the same bytes and flops, no per-group scale
         s1 = s.detach()[0].contiguous()
         n = G * R * d
-        records = _timed_records(
+        records[label] = _timed_records(
             ("rmsnorm", "rmsnorm_bwd"),
             "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm/rmsnorm.py:20",
@@ -281,8 +326,11 @@ def phase_rmsnorm():
             # rstd in; ~9 flops an element
             [(4 * (2 * n + G * d + G * R), 4 * n),
              (4 * (3 * n + 2 * G * d + G * R), 9 * n)],
-            "F.rms_norm with one [d] scale")
-    return records
+            "F.rms_norm with one [d] scale", timed[label])
+        for r in records[label]:
+            r["shape"] = f"G={G} R={R} d={d} {dt}"
+    return _attach_per_client(records["block norms"],
+                              records["per-client block norms"])
 
 
 def _attention_pairs(BH, Sq, Sk, causal, window) -> int:
@@ -298,7 +346,9 @@ def _attention_pairs(BH, Sq, Sk, causal, window) -> int:
 def phase_attention():
     """flash_attention forward and backward against the plain version;
     returns the records of both, timed at the transformer path's shape
-    (BH = 16 participants x 32 sequences x 4 heads, S 32, D 32, causal)."""
+    (BH = 16 participants x 32 sequences x 4 heads, S 32, D 32, causal)
+    and, under ``per_client``, at the per-client executor's (one client:
+    BH = 32 sequences x 4 heads)."""
     import importlib
     import torch
     import torch.nn.functional as F
@@ -306,6 +356,7 @@ def phase_attention():
         "repro_torch.kernels.flash_attention.flash_attention")
     # (label, BH, BHkv, Sq, Sk, D, causal, window, dtype)
     shapes = [("path", 2048, 2048, 32, 32, 32, True, 0, "float32"),
+              ("per-client path", 128, 128, 32, 32, 32, True, 0, "float32"),
               ("GQA 4:2 D64", 8, 4, 128, 128, 64, True, 0, "float32"),
               ("GQA 8:1", 8, 1, 256, 256, 32, True, 0, "float32"),
               ("window 32 D128", 4, 4, 128, 128, 128, True, 32, "float32"),
@@ -328,8 +379,10 @@ def phase_attention():
                "float32"),
               ("fused limit D64 bf16", 64, 64, 64, 64, 64, True, 0,
                "bfloat16")]
+    timed = {"path": "the bucketed path's shape",
+             "per-client path": "the per-client shape"}
     g = torch.Generator(device="cuda").manual_seed(1)
-    records = None
+    records = {}
     for label, BH, BHkv, Sq, Sk, D, causal, window, dt in shapes:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -356,14 +409,14 @@ def phase_attention():
         if max(errs) > KERNEL_TOL[dt]:
             raise AssertionError(f"flash_attention disagrees with its plain"
                                  f" version at {label}")
-        if label != "path":
+        if label not in timed:
             continue
 
         def sdpa(a, b, c):
             return F.scaled_dot_product_attention(a, b, c, is_causal=True)
         pairs = _attention_pairs(BH, Sq, Sk, causal, window)
         n = BH * Sq * D
-        records = _timed_records(
+        rec = records[label] = _timed_records(
             ("flash_attention", "flash_attention_bwd"),
             "src/repro_torch/kernels/flash_attention/csrc/fwd.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:67",
@@ -374,13 +427,15 @@ def phase_attention():
             # five products per kept pair (s, dp, dv, dq, dk)
             [(4 * (4 * n + BH * Sq), 4 * D * pairs),
              (4 * (8 * n + BH * Sq), 10 * D * pairs)],
-            "SDPA is_causal")
-        records[1]["source"] = (
+            "SDPA is_causal", timed[label])
+        rec[1]["source"] = (
             "src/repro_torch/kernels/flash_attention/csrc/"
             + ("bwd_fused.cu" if route == "fused" else "bwd_three_pass.cu"))
-        records[1]["bwd_route"] = route
+        rec[1]["bwd_route"] = route
+        for r in rec:
+            r["shape"] = f"BH={BH} S={Sq} D={D} causal {dt}"
     _model_layout_times(mod)
-    return records
+    return _attach_per_client(records["path"], records["per-client path"])
 
 
 def _model_layout_times(mod):
@@ -478,10 +533,13 @@ def phase_kernels():
     return record
 
 
-def _drive(tag, cfg):
+def _drive(tag, cfg, executor, expect):
     """One ``run_simulation`` on the card with the launch counts reset
     just before and read just after; prints per-round lines and checks
-    what every run of the main path must show.  Returns (hist, launches)."""
+    what every run must show: the ``executor`` it should take, finite
+    accuracy, energy and reward, and the exact launch counts that
+    ``expect(hist)`` gives (a dict of ``LAUNCHES`` keys).  Returns
+    (hist, launches)."""
     import numpy as np
     import torch
     from repro_torch.fl import run_simulation
@@ -503,29 +561,49 @@ def _drive(tag, cfg):
               f"wall={hist['wall_clock'][t]:.3f} s")
         print(f"[{tag}] round {t} host seconds by phase: " + ", ".join(
             f"{k}={v:.4f}" for k, v in hist["phase_s"][t].items()))
-    print(f"[{tag}] executor={hist['executor']} aggregations="
-          f"{hist['n_aggregations']} bucket programs="
+    print(f"[{tag}] {cfg.method}/{cfg.selector} executor={hist['executor']}"
+          f" aggregations={hist['n_aggregations']} bucket programs="
           f"{fl_batch.COUNTERS['executions']} qmix updates="
-          f"{hist['qmix']['updates']} launches={launches} run wall="
-          f"{wall:.2f} s peak device memory="
+          f"{hist.get('qmix', {}).get('updates', 0)} launches={launches} "
+          f"run wall={wall:.2f} s peak device memory="
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if hist["executor"] != "batched":
-        raise AssertionError("the main path did not take the bucketed "
-                             "executor")
-    if hist["n_aggregations"] < 1 or \
-            launches["layer_agg"] != hist["n_aggregations"]:
-        raise AssertionError("layer_agg launches != rounds with a cohort")
+    if hist["executor"] != executor:
+        raise AssertionError(f"[{tag}] took the {hist['executor']} "
+                             f"executor, not the {executor} one")
+    if hist["n_aggregations"] < 1:
+        raise AssertionError(f"[{tag}] no round aggregated")
+    want = expect(hist)
+    wrong = {k: (launches[k], v) for k, v in want.items()
+             if launches[k] != v}
+    if wrong:
+        raise AssertionError(f"[{tag}] launches (counted, expected): "
+                             f"{wrong}")
     vals = np.concatenate([np.ravel(hist["acc"]), hist["energy"],
                            hist["reward"]])
     if not np.all(np.isfinite(vals)):
-        raise AssertionError("non-finite accuracy, energy or reward")
+        raise AssertionError(f"[{tag}] non-finite accuracy, energy or "
+                             "reward")
     return hist, launches
+
+
+def _one_per_round(hist):
+    """``layer_agg`` once per round with a cohort (the stacked DR-FL
+    aggregation of the bucketed executor)."""
+    return {"layer_agg": hist["n_aggregations"]}
+
+
+def _no_layer_agg(hist):
+    """The per-client executor aggregates with ``layerwise_aggregate`` and
+    the baselines with the sliced scatter, as the reference: no
+    ``layer_agg`` launch."""
+    return {"layer_agg": 0}
 
 
 def phase_main_path():
     from repro_torch.fl import FLConfig
     hist, launches = _drive("main", FLConfig(n_rounds=3, participation=0.1,
-                                             **MAIN_CFG))
+                                             **MAIN_CFG), "batched",
+                            _one_per_round)
     if hist["qmix"]["updates"] < 1:
         raise AssertionError("no QMIX update ran")
     return launches
@@ -537,7 +615,7 @@ def phase_all_submodels():
     submodel trains.  Returns its config for the profile."""
     from repro_torch.fl import FLConfig
     cfg = FLConfig(n_rounds=2, participation=0.5, **MAIN_CFG)
-    hist, _ = _drive("submodels", cfg)
+    hist, _ = _drive("submodels", cfg, "batched", _one_per_round)
     per_round = [sorted(set(m)) for m in hist["model_choices"]]
     print(f"[submodels] submodels trained per round: {per_round}")
     if max(len(m) for m in per_round) < 2:
@@ -566,7 +644,7 @@ def phase_profile(cfg, tag="profile"):
     if not spans:
         print(f"[{tag}] device busy time: not measured (no device events "
               "in the trace)")
-        return
+        return hist["wall_clock"][0], None
     # the round ends in its tail pull, right after its last kernel: the
     # window is the round's host wall time ending there
     round_us = hist["wall_clock"][0] * 1e6
@@ -607,6 +685,7 @@ def phase_profile(cfg, tag="profile"):
         if any(k in name for k in OWN_KERNELS):
             print(f"[{tag}] own kernel {name[:60]} in the round: {n} "
                   f"launches, {t / 1e3:.4f} ms")
+    return round_us / 1e6, busy_us / round_us
 
 
 def phase_transformer():
@@ -617,7 +696,7 @@ def phase_transformer():
     from collections import Counter
     from repro_torch.fl import FLConfig
     cfg = FLConfig(**TRANSFORMER_CFG)
-    hist, launches = _drive("transformer", cfg)
+    hist, launches = _drive("transformer", cfg, "batched", _one_per_round)
     per_round = [sorted(set(m)) for m in hist["model_choices"]]
     for t, models in enumerate(hist["model_choices"]):
         print(f"[transformer] round {t}: submodels trained {per_round[t]}, "
@@ -641,25 +720,253 @@ def phase_transformer():
     return cfg, launches
 
 
+def phase_paper_fleet():
+    """The slice's path: the paper's harness (40 devices, so "auto" takes
+    the per-client executor), DR-FL + MARL for 3 rounds; its aggregation
+    is ``layerwise_aggregate``, so ``layer_agg`` never launches."""
+    from repro_torch.fl import FLConfig
+    hist, _ = _drive("paper fleet", FLConfig(n_rounds=3, **PAPER_CFG),
+                     "perclient", _no_layer_agg)
+    if hist["qmix"]["updates"] < 1:
+        raise AssertionError("no QMIX update ran on the paper fleet")
+
+
+def phase_defaults():
+    """``FLConfig()`` as it stands (40 devices, 30 rounds, the CNN at width
+    0.25 on 16x16, DR-FL + MARL): the per-client executor, no
+    ``layer_agg``."""
+    from repro_torch.fl import FLConfig
+    hist, _ = _drive("defaults", FLConfig(), "perclient", _no_layer_agg)
+    print(f"[defaults] {len(hist['acc'])} rounds, final accuracy per exit "
+          f"{[round(float(a), 4) for a in hist['final_acc']]}, warm round "
+          f"wall {hist['wall_clock'][-1]:.3f} s")
+
+
+def phase_table1():
+    """Every other arm of Table 1 / Fig. 5 on the paper's fleet, 2 rounds
+    each: best accuracy per exit and the warm round's wall.  HeteroFL and
+    ScaleFL run at energy_scale 0.01: at the harness's 0.6 every fresh
+    battery affords the full model (a round costs under 2% of one), so
+    greedy would give every client the full width whatever the seed; at
+    0.01 some afford only the 0.75 slice, and a round trains two widths."""
+    from repro_torch.fl import FLConfig
+    for method, selector in (("drfl", "greedy"), ("heterofl", "greedy"),
+                             ("scalefl", "greedy"), ("drfl", "random"),
+                             ("drfl", "static")):
+        kw = dict(PAPER_CFG, n_rounds=2, method=method, selector=selector)
+        if method != "drfl":
+            kw["energy_scale"] = 0.01
+        tag = f"table1 {method}/{selector}"
+        hist, _ = _drive(tag, FLConfig(**kw), "perclient", _no_layer_agg)
+        widths = [sorted(set(m)) for m in hist["model_choices"]]
+        print(f"[{tag}] best accuracy per exit "
+              f"{[round(float(a), 4) for a in hist['best_acc']]}, warm "
+              f"round wall {hist['wall_clock'][-1]:.3f} s, submodels per "
+              f"round {widths}")
+        if method != "drfl" and max(len(w) for w in widths) < 2:
+            raise AssertionError(f"[{tag}] no round trained two widths")
+
+
+def phase_baselines_bucketed():
+    """HeteroFL and ScaleFL at 64 devices take the bucketed executor; the
+    baselines aggregate with the sliced scatter, not ``layer_agg``."""
+    from repro_torch.fl import FLConfig
+    for method in ("heterofl", "scalefl"):
+        _drive(f"baselines bucketed {method}",
+               FLConfig(n_rounds=1, participation=0.5, method=method,
+                        selector="greedy", **MAIN_CFG), "batched",
+               _no_layer_agg)
+
+
+def _client_steps(cfg, hist):
+    """SGD steps the run's clients took: the lengths of their
+    ``client_schedule``s (every participant survived and holds data), and
+    the validation batches the run evaluated (before the first round and
+    after each)."""
+    from repro_torch.data.loader import client_schedule
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.fl.client import client_update_seed
+    from repro_torch.models.family import get_family
+    _, y = get_family(cfg.model_family).make_dataset(
+        cfg.n_train, cfg.num_classes, hw=cfg.hw, noise=cfg.noise,
+        seed=cfg.seed)
+    n_val = max(64, int(cfg.n_val_fraction * cfg.n_train))
+    parts = dirichlet_partition(y[n_val:], cfg.n_devices, cfg.alpha,
+                                cfg.seed)
+    steps = sum(len(client_schedule(parts[i],
+                                    client_update_seed(cfg.seed, t, i),
+                                    cfg.local_epochs, cfg.batch_size))
+                for t, picks in enumerate(hist["participants"])
+                for i in picks if len(parts[i]))
+    evals = (len(hist["acc"]) + 1) * -(-n_val // 256)
+    return steps, evals
+
+
+def phase_transformer_perclient():
+    """The transformer on the per-client executor: 40 devices, 50%, 2
+    rounds, full width.  Every step runs the full depth forward and
+    backward (the masked DR-FL loss), so each launch count is exact:
+    12 ``rmsnorm`` and 4 ``flash_attention`` forwards and backwards a
+    step, every backward fused, and the evaluation's forwards on top.
+    Returns the launches."""
+    from repro_torch.fl import FLConfig
+    cfg = FLConfig(**dict(PAPER_CFG, n_rounds=2, participation=0.5,
+                          model_family="transformer"))
+    counted = {}
+
+    def expect(hist):
+        if hist["dropouts"]:
+            raise AssertionError("a participant dropped out: the steps "
+                                 "cannot be counted from the picks")
+        steps, evals = counted["steps"], counted["evals"] = \
+            _client_steps(cfg, hist)
+        return {"layer_agg": 0, "rmsnorm": 12 * (steps + evals),
+                "rmsnorm_bwd": 12 * steps,
+                "flash_attention": 4 * (steps + evals),
+                "flash_attention_bwd": 4 * steps,
+                "flash_attention_bwd_fused": 4 * steps,
+                "flash_attention_bwd_three_pass": 0}
+    hist, launches = _drive("transformer perclient", cfg, "perclient",
+                            expect)
+    print(f"[transformer perclient] {counted['steps']} client SGD steps "
+          f"and {counted['evals']} validation batches: launches exact, "
+          f"submodels per round "
+          f"{[sorted(set(m)) for m in hist['model_choices']]}")
+    return launches
+
+
+def phase_from_list():
+    """One per-client DR-FL round's deltas at full width (four clients of
+    the paper fleet, one per submodel, each its full local schedule),
+    aggregated by ``aggregate_drfl`` (the list path, as the per-client
+    engine) and by ``aggregate_drfl_from_list`` (P = 1 buckets into one
+    ``layer_agg`` launch): the same new weights within 1e-5 of the largest
+    magnitude; both device times."""
+    import torch
+    from repro_torch.data.loader import client_schedule
+    from repro_torch.fl import FLConfig
+    from repro_torch.fl import server as fl_server
+    from repro_torch.fl.client import client_update_seed
+    from repro_torch.fl.engine import _data_to_device, build_world
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+    cfg = FLConfig(n_rounds=1, **PAPER_CFG)
+    w = build_world(cfg, device="cuda")
+    x_dev = _data_to_device(w.x_tr, w.device)
+    y_dev = torch.as_tensor(w.y_tr, dtype=torch.int64, device=w.device)
+    clients = [i for i in range(cfg.n_devices) if len(w.parts[i])][:4]
+    models = [0, 1, 2, 3]
+    deltas, weights = [], []
+    for i, m in zip(clients, models):
+        steps = torch.as_tensor(client_schedule(
+            w.parts[i], client_update_seed(cfg.seed, 0, i), cfg.local_epochs,
+            cfg.batch_size), dtype=torch.int64, device=w.device)
+        d, _ = w.family.train_steps("drfl", w.global_params, m,
+                                    x_dev[steps], y_dev[steps], lr=cfg.lr)
+        deltas.append(d)
+        weights.append(float(len(w.parts[i])))
+    args = (w.global_params, deltas, models, weights)
+    kw = dict(server_lr=cfg.server_lr, family=w.family)
+    ref, _ = fl_server.aggregate_drfl(*args, **kw)
+    reset_launches()
+    got, valid = fl_server.aggregate_drfl_from_list(*args, **kw)
+    torch.cuda.synchronize()
+    if LAUNCHES["layer_agg"] != 1:
+        raise AssertionError(f"aggregate_drfl_from_list launched layer_agg "
+                             f"{LAUNCHES['layer_agg']} times, not once")
+    err = max((a - b).abs().max().item()
+              for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+    scale = max(max(b.abs().max().item() for b in tree_leaves(ref)), 1.0)
+    lst = _times(lambda: fl_server.aggregate_drfl(*args, **kw), iters=5)
+    stk = _times(lambda: fl_server.aggregate_drfl_from_list(*args, **kw),
+                 iters=5)
+    print(f"[from list] clients {clients} submodels {models}: max_abs_err "
+          f"{err:.3e}, max_rel_err {err / scale:.3e} (limit {REL_TOL:.0e});"
+          f" valid {valid.tolist()}; device ms (call ms): aggregate_drfl "
+          f"{lst[0]:.4f} ({lst[1]:.4f}), aggregate_drfl_from_list "
+          f"{stk[0]:.4f} ({stk[1]:.4f})")
+    if err / scale > REL_TOL or not bool(valid.all()):
+        raise AssertionError("aggregate_drfl_from_list disagrees with "
+                             "aggregate_drfl")
+
+
+def _weights_diff(a, b):
+    """(max |a - b| over the weights, allclose at rtol 1e-4, atol 1e-5)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    return (max((x - y).abs().max().item() for x, y in pairs),
+            all(torch.allclose(x, y, rtol=1e-4, atol=1e-5) for x, y in pairs))
+
+
+def phase_executors():
+    """The slice's path with the greedy selector, 2 rounds, on each
+    executor: identical picks and models, and the reference's own
+    tolerances for its two executors: mean accuracy atol 0.06
+    (``tests/test_batch.py:246``) and, after multi-epoch runs, weights
+    atol 6e-3 (``tests/test_batch.py:111``: the bucket program's
+    convolutions sum in another order, and SGD amplifies that).  rtol
+    1e-4, atol 1e-5 cannot hold on the card: cuDNN's float32 convolutions
+    are not deterministic, and the per-client executor run twice ends
+    further apart than that; its run-to-run distance is printed beside the
+    executors' distance, with the largest per-exit accuracy difference.
+    Then each executor's warm round wall and busy share (one profiled warm
+    round)."""
+    import numpy as np
+    from repro_torch.fl import FLConfig, run_simulation
+    expect = {"perclient": _no_layer_agg, "batched": _one_per_round}
+    hists, cfgs = {}, {}
+    for ex in expect:
+        cfgs[ex] = FLConfig(n_rounds=2, selector="greedy",
+                            client_executor=ex, **PAPER_CFG)
+        hists[ex], _ = _drive(f"executors {ex}", cfgs[ex], ex, expect[ex])
+    p, b = hists["perclient"], hists["batched"]
+    again = run_simulation(cfgs["perclient"])
+    diff, close = _weights_diff(p["params"], b["params"])
+    rerun, _ = _weights_diff(p["params"], again["params"])
+    n_val = max(64, int(cfgs["batched"].n_val_fraction
+                        * cfgs["batched"].n_train))
+    acc = float(np.max(np.abs(np.stack(p["acc"]) - np.stack(b["acc"]))))
+    mean = float(np.max(np.abs(np.subtract(p["acc_mean"], b["acc_mean"]))))
+    print(f"[executors] picks equal={p['participants'] == b['participants']}"
+          f", models equal={p['model_choices'] == b['model_choices']}, max "
+          f"mean accuracy diff {mean:.4f} (limit 0.06), max per-exit "
+          f"accuracy diff {acc:.4f} ({acc * n_val:.0f} of {n_val} samples),"
+          f" max weight diff {diff:.3e} (limit 6e-3; allclose at rtol 1e-4,"
+          f" atol 1e-5: {close}); the per-client executor run again: max "
+          f"weight diff {rerun:.3e}")
+    if p["participants"] != b["participants"] or \
+            p["model_choices"] != b["model_choices"] or mean > 0.06 or \
+            diff > 6e-3:
+        raise AssertionError("the two executors disagree on the card")
+    for ex in expect:
+        wall, busy = phase_profile(cfgs[ex], f"executors {ex} profile")
+        print(f"[executors] {ex}: warm round wall "
+              f"{hists[ex]['wall_clock'][-1]:.3f} s (profiled round "
+              f"{wall:.3f} s, busy share "
+              f"{'not measured' if busy is None else f'{busy:.3f}'})")
+
+
 def phase_reference(tag, cfg):
-    """A small run on the card against the same run on the CPU, both
-    greedy (ε = 0: the two devices' generators draw different numbers).
-    Weights are held at rtol=1e-4, atol=1e-5, the tolerance of the parity
-    tests after SGD steps and QMIX updates (float32 sums in another
-    order on each device)."""
+    """A small run on the card against the same run on the CPU; a MARL
+    run acts greedily (ε = 0: the two devices' generators draw different
+    numbers).  Weights are held at rtol=1e-4, atol=1e-5, the tolerance of
+    the parity tests after SGD steps and QMIX updates (float32 sums in
+    another order on each device)."""
     import numpy as np
     import torch
-    from repro_torch.fl.engine import RoundEngine
+    from repro_torch.fl.engine import RoundEngine, uses_marl
     from repro_torch.fl.simulation import _make_buffer, _make_selector
     from repro_torch.tree import tree_leaves
     hists = {}
     for dev in ("cuda", "cpu"):
-        sel = _make_selector(cfg, 4, device=dev)
-        sel.learner.cfg = dataclasses.replace(sel.learner.cfg,
-                                              eps_start=0.0, eps_end=0.0)
-        sel.reset_episode()
-        hists[dev] = RoundEngine(cfg, sel, _make_buffer(cfg),
-                                 device=dev).run()
+        sel, buf = _make_selector(cfg, 4, device=dev), None
+        if uses_marl(cfg):
+            sel.learner.cfg = dataclasses.replace(
+                sel.learner.cfg, eps_start=0.0, eps_end=0.0)
+            sel.reset_episode()
+            buf = _make_buffer(cfg)
+        hists[dev] = RoundEngine(cfg, sel, buf, device=dev).run()
     g, c = hists["cuda"], hists["cpu"]
     n_val = max(64, int(cfg.n_val_fraction * cfg.n_train))
     acc_diff = float(np.max(np.abs(np.stack(g["acc"]) - np.stack(c["acc"]))))
@@ -668,7 +975,8 @@ def phase_reference(tag, cfg):
     p_diff = max(float((a - b).abs().max()) for a, b in pairs)
     p_close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
                   for a, b in pairs)
-    print(f"[{tag}] card vs CPU, {cfg.model_family} n={cfg.n_devices} width "
+    print(f"[{tag}] card vs CPU, {cfg.model_family} {cfg.method}/"
+          f"{cfg.selector} {g['executor']} n={cfg.n_devices} width "
           f"{cfg.width_mult} hw {cfg.hw}, participation {cfg.participation},"
           f" {cfg.n_rounds} rounds: submodels per round "
           f"{[sorted(set(m)) for m in g['model_choices']]}, picks "
@@ -709,6 +1017,15 @@ def main() -> int:
                 k: launches[f"flash_attention_bwd_{k}"]
                 for k in ("fused", "three_pass")}
     phase_profile(cfg, "transformer profile")
+    phase_paper_fleet()
+    phase_defaults()
+    phase_table1()
+    phase_baselines_bucketed()
+    launches = phase_transformer_perclient()
+    for r in records[1:]:
+        r["per_client"]["launches"] = launches[r["name"]]
+    phase_from_list()
+    phase_executors()
     small = dict(n_devices=64, n_rounds=3, hw=8, n_train=1280,
                  local_epochs=1)
     phase_reference("reference", FLConfig(participation=0.1,
@@ -719,6 +1036,9 @@ def main() -> int:
     phase_reference("transformer reference", FLConfig(
         participation=0.5, width_mult=0.25, model_family="transformer",
         seed=10, **small))
+    for arm in PERCLIENT_REFERENCE_ARMS:
+        phase_reference(f"reference perclient {arm['method']}", FLConfig(
+            **dict(PERCLIENT_REFERENCE, **arm)))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,25 +1,116 @@
-"""Layer-aligned DR-FL aggregation (paper Step 2), stacked form — port of
-the stacked part of ``repro.core.aggregation`` (``aggregation.py:157-300``).
+"""Aggregation operators — port of ``repro.core.aggregation``: FedAvg
+(Eq. 2), DR-FL layer-aligned averaging (paper Step 2) over a list of
+client updates, the quarantine gate, and the stacked form.
 
-Each aggregation group (stem, each stage, each exit) is flattened in
-``tree_leaves`` order, padded to a multiple of ``seg`` and laid out as
-consecutive rows of one ``[N, R, seg]`` tensor; the per-client hold masks
-become an ``[N, R]`` matrix, so the whole masked mean is one
-``layer_agg`` kernel launch.  The row layout (``group_sizes``,
-``group_rows``) equals the JAX template's: sizes are element counts,
-which the OIHW conv layout does not change.
+:func:`layerwise_aggregate` is the list form the per-client executor
+aggregates with, as the reference's does: one masked weighted mean per
+leaf.  The stacked form (``aggregation.py:157-300``) lays each aggregation
+group (stem, each stage, each exit), flattened in ``tree_leaves`` order
+and padded to a multiple of ``seg``, out as consecutive rows of one
+``[N, R, seg]`` tensor; the per-client hold masks become an ``[N, R]``
+matrix, so the whole masked mean is one ``layer_agg`` kernel launch.  The
+row layout (``group_sizes``, ``group_rows``) equals the JAX template's:
+sizes are element counts, which the OIHW conv layout does not change.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_unflatten_like
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 #: per-element magnitude ceiling for client deltas: only corrupted or
 #: diverged payloads trip it
 DELTA_MAG_CAP = 1e8
+
+
+def tree_path_items(tree, _path=()):
+    """``(path, leaf)`` for every leaf of a dict/list/tuple tree; paths are
+    tuples of dict keys and sequence indices (positional identity, so a
+    tensor reachable at two paths keeps two entries)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_path_items(v, _path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_path_items(v, _path + (i,))
+    else:
+        yield _path, tree
+
+
+def tree_path_align(ref, other, _path=()):
+    """``(path, other_leaf_or_None)`` for every leaf position of ``ref``:
+    ``None`` where ``other`` (a depth-truncated tree, e.g. a ScaleFL
+    client delta) has no entry."""
+    if isinstance(ref, dict):
+        for k, v in ref.items():
+            o = other[k] if (other is not None and k in other) else None
+            yield from tree_path_align(v, o, _path + (k,))
+    elif isinstance(ref, (list, tuple)):
+        for i, v in enumerate(ref):
+            o = (other[i] if (other is not None and i < len(other))
+                 else None)
+            yield from tree_path_align(v, o, _path + (i,))
+    else:
+        yield _path, other
+
+
+def delta_valid(delta) -> torch.Tensor:
+    """0-d bool on the delta's device, never pulled: every element finite
+    and within ``DELTA_MAG_CAP`` — the per-client quarantine gate (the
+    leaves checked as one flat vector: four launches a delta)."""
+    flat = torch.cat([l.reshape(-1) for l in tree_leaves(delta)])
+    fin = torch.isfinite(flat)
+    safe = torch.where(fin, flat, torch.zeros_like(flat))
+    return fin.all() & (safe.abs().max() <= DELTA_MAG_CAP)
+
+
+def sanitize_delta(delta):
+    """Zero every non-finite element (quarantine zeroes a bad client's
+    mask, but 0 * nan = nan); an exact copy of finite elements."""
+    return tree_map(
+        lambda u: torch.where(torch.isfinite(u), u, torch.zeros_like(u)),
+        delta)
+
+
+def fedavg(updates: Sequence, weights: Optional[Sequence[float]] = None):
+    """Plain FedAvg over trees (Eq. 2); ``weights`` ~ client data sizes."""
+    n = len(updates)
+    if weights is None:
+        w = [1.0 / n] * n
+    else:
+        tot = float(sum(weights))
+        w = [float(x) / tot for x in weights]
+    return tree_map(
+        lambda *xs: sum(wi * x.float() for wi, x in zip(w, xs)
+                        ).to(xs[0].dtype), *updates)
+
+
+def layerwise_aggregate(global_params, client_updates: List,
+                        client_masks: List,
+                        weights: Optional[Sequence[float]] = None,
+                        server_lr: float = 1.0):
+    """DR-FL layer-aligned aggregation over a list of client updates.
+
+    client_updates: full-structure trees (zero outside a client's
+                    submodel); client_masks: trees of 0-d float32 masks
+                    (``family.update_mask``); weights: data sizes L_n.
+    Returns ``W + server_lr * masked weighted mean`` leaf by leaf, with the
+    reference's float32 expression order."""
+    n = len(client_updates)
+    w = [float(x) for x in (weights if weights is not None else [1.0] * n)]
+
+    def agg(gp, *leaves):
+        ups, msks = leaves[:n], leaves[n:]
+        num = sum(wi * m.float() * u.float()
+                  for wi, u, m in zip(w, ups, msks))
+        den = sum(wi * m.float() for wi, m in zip(w, msks))
+        avg = torch.where(den > 0, num / torch.clamp_min(den, 1e-12),
+                          torch.zeros_like(num))
+        return (gp.float() + server_lr * avg).to(gp.dtype)
+
+    return tree_map(agg, global_params, *client_updates, *client_masks)
 
 
 class StackTemplate(NamedTuple):

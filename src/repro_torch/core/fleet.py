@@ -1,9 +1,10 @@
 """Struct-of-arrays device fleet on the card — port of ``repro.core.fleet``.
 
-Every field of :class:`FleetState` is an ``[n]`` tensor on one device:
-float32 for the energy and profile fields (the JAX package runs its fleet
-with 64-bit mode off, so float32 is the reference precision), int32 data
-sizes and a bool ``alive``.  The profiles are drawn by the numpy scalar
+Every array field of :class:`FleetState` is an ``[n]`` tensor on one
+device: float32 for the energy and profile fields (the JAX package runs its
+fleet with 64-bit mode off, so float32 is the reference precision), int32
+data sizes and a bool ``alive``; the tier and power-mode labels are static
+tuples of strings.  The profiles are drawn by the numpy scalar
 reference (:func:`repro_torch.core.energy.make_fleet`), so a seed gives
 the same fleet as the JAX package.
 
@@ -37,6 +38,10 @@ class FleetState:
     mode_compute: torch.Tensor  # POWER_MODES compute multiplier
     mode_power: torch.Tensor    # POWER_MODES power multiplier
     alive: torch.Tensor         # bool
+    #: human-readable labels, static (not tensors): each device's tier and
+    #: power mode, as the JAX ``FleetState`` keeps them
+    tiers: Tuple[str, ...] = ()
+    modes: Tuple[str, ...] = ()
 
     def __len__(self) -> int:
         return int(self.compute.shape[0])
@@ -71,7 +76,9 @@ def make_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
         mode_compute=f32([m[0] for m in mults]),
         mode_power=f32([m[1] for m in mults]),
         alive=torch.tensor([d.alive for d in devs], dtype=torch.bool,
-                           device=device))
+                           device=device),
+        tiers=tuple(d.profile.tier for d in devs),
+        modes=tuple(d.mode for d in devs))
 
 
 def _f32(fleet: FleetState, vals) -> torch.Tensor:

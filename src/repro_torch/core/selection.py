@@ -1,21 +1,25 @@
-"""MARL dual selection (paper §4.3) — port of ``repro.core.selection``
-(the flat-state, flat-mixer ``MarlSelector``).
+"""Dual selection (paper §4.3) and its baselines — port of
+``repro.core.selection``: the flat-state, flat-mixer ``MarlSelector`` and
+the ``greedy``, ``random`` and ``static`` selectors.
 
-Per round: Eq. 9 observations on the device, the affordability action
-mask, the agent Q-net with ε-greedy, ONE batched pull of actions, Q values,
-liveness and observations, dead devices forced to abstain, then Top-K over
-the chosen Q values with a stable argsort (ties go to the lower device
-index), as ``selection.py:304-349``.
+MARL, per round: Eq. 9 observations on the device, the affordability
+action mask, the agent Q-net with ε-greedy, ONE batched pull of actions,
+Q values, liveness and observations, dead devices forced to abstain, then
+Top-K over the chosen Q values with a stable argsort (ties go to the lower
+device index), as ``selection.py:304-349``.  The baselines decide on the
+host after one batched pull each, with the reference's stable sorts and
+numpy draw order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.fleet import FleetState, fleet_affordability
+from repro_torch.core.fleet import (FleetState, fleet_affordability,
+                                    fleet_cost_matrix)
 from repro_torch.core.marl.qmix import QmixConfig, QmixLearner, epsilon
 from repro_torch.device import to_host
 
@@ -73,6 +77,113 @@ class Selection:
                 f"model_choice of length {n}")
 
 
+class SelectorBase:
+    name = "base"
+
+    def select(self, fleet: FleetState, round_idx: int, k: int,
+               model_sizes: Sequence[float],
+               model_fractions: Sequence[float], local_epochs: int = 5,
+               batch_size: int = 32,
+               budget_left: Optional[float] = None) -> Selection:
+        """``budget_left`` (J): the remaining fleet-wide budget; no pick may
+        cost more than it.  ``None``: no budget."""
+        raise NotImplementedError
+
+    def observe_reward(self, reward: float,
+                       sim_time: Optional[float] = None):
+        """Credit the reward of the latest ``select`` (baselines: no-op)."""
+
+
+class GreedySelector(SelectorBase):
+    """Energy-aware greedy (the paper's baseline): every device picks the
+    LARGEST submodel it can afford this round; Top-K by remaining energy."""
+
+    name = "greedy"
+
+    def select(self, fleet, round_idx, k, model_sizes, model_fractions,
+               local_epochs=5, batch_size=32, budget_left=None):
+        M = len(model_sizes)
+        _, _, e_tra, e_com = fleet_cost_matrix(
+            fleet, model_sizes, model_fractions, local_epochs, batch_size)
+        # one batched pull: costs, energy and liveness for the host sort
+        e_need, remaining, alive = to_host(e_tra + e_com, fleet.remaining,
+                                           fleet.alive)
+        afford = (e_need < remaining[:, None]) & alive[:, None]   # [n, M]
+        if budget_left is not None:
+            afford &= e_need <= float(budget_left)
+        best = np.where(afford.any(axis=1),
+                        M - 1 - np.argmax(afford[:, ::-1], axis=1), -1)
+        cand = np.flatnonzero(best >= 0)
+        order = cand[np.argsort(-remaining[cand], kind="stable")]
+        chosen = [int(i) for i in order[:k]]
+        model_choice = [-1] * len(fleet)
+        for i in chosen:
+            model_choice[i] = int(best[i])
+        return Selection(participants=chosen, model_choice=model_choice)
+
+
+def _budget_filter(fleet, chosen, model_choice, model_sizes,
+                   model_fractions, local_epochs, batch_size, budget_left):
+    """Drop picks whose cost alone exceeds the remaining fleet-wide budget
+    (for the selectors that pick models without pricing them); the RNG
+    draws are untouched, so runs without a budget are unaffected."""
+    _, _, e_tra, e_com = fleet_cost_matrix(
+        fleet, model_sizes, model_fractions, local_epochs, batch_size)
+    (e_need,) = to_host(e_tra + e_com)
+    kept = [i for i in chosen
+            if e_need[i, model_choice[i]] <= float(budget_left)]
+    out_choice = [-1] * len(model_choice)
+    for i in kept:
+        out_choice[i] = model_choice[i]
+    return kept, out_choice
+
+
+class _RandomCohort(SelectorBase):
+    """K alive devices in a uniformly shuffled order, each given the model
+    of :meth:`_model` (numpy draws in the reference's order)."""
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+
+    def _model(self, fleet, i: int, n_models: int) -> int:
+        raise NotImplementedError
+
+    def select(self, fleet, round_idx, k, model_sizes, model_fractions,
+               local_epochs=5, batch_size=32, budget_left=None):
+        (alive_h,) = to_host(fleet.alive)
+        alive = [int(i) for i in np.flatnonzero(alive_h)]
+        self.rng.shuffle(alive)
+        chosen = alive[:k]
+        model_choice = [-1] * len(fleet)
+        for i in chosen:
+            model_choice[i] = self._model(fleet, i, len(model_sizes))
+        if budget_left is not None:
+            chosen, model_choice = _budget_filter(
+                fleet, chosen, model_choice, model_sizes, model_fractions,
+                local_epochs, batch_size, budget_left)
+        return Selection(participants=chosen, model_choice=model_choice)
+
+
+class RandomSelector(_RandomCohort):
+    """Vanilla-FL style: K random alive clients, each a random model."""
+
+    name = "random"
+
+    def _model(self, fleet, i, n_models):
+        return int(self.rng.integers(0, n_models))
+
+
+class StaticTierSelector(_RandomCohort):
+    """HeteroFL-style static assignment: the submodel is fixed by the
+    device's tier."""
+
+    name = "static"
+    TIER_MODEL = {"small": 0, "medium": 1, "large": 3}
+
+    def _model(self, fleet, i, n_models):
+        return min(self.TIER_MODEL[fleet.tiers[i]], n_models - 1)
+
+
 def fleet_obs(fleet: FleetState, round_idx: int,
               n_rounds: int) -> torch.Tensor:
     """[n, OBS_DIM] float32 on the fleet's device: Eq. 9's [L_n, C_n, E_n,
@@ -89,7 +200,7 @@ def fleet_obs(fleet: FleetState, round_idx: int,
     ], dim=1)
 
 
-class MarlSelector:
+class MarlSelector(SelectorBase):
     """The paper's MARL dual selection (QMIX, Fig. 3), flat state and
     mixer: per-agent ε-greedy Q picks the model action (action M = do not
     participate), Top-K over the chosen Q values picks participants."""

@@ -7,7 +7,9 @@
    replaying the client's first batch and pad rows replaying client 0,
    both masked out of the update and the loss;
 3. run each bucket as one program, a Python loop over the T steps whose
-   step gives every participant the gradient of its own DR-FL loss:
+   step gives every participant the gradient of its own loss (the
+   method's: DR-FL, or the HeteroFL/ScaleFL loss on the family's sliced
+   submodel):
    ``torch.func.vmap`` over participants of ``grad`` (the CNN), or, for a
    family with ``stacked_forward`` (the transformer, whose CUDA kernels
    ``torch.func`` cannot see inside), one forward over the participant
@@ -18,7 +20,8 @@
 
 The deltas stay stacked ``[P_pad, ...]`` per bucket, in the submodel's
 tree, which is what :func:`repro_torch.fl.server.aggregate_drfl_stacked`
-consumes.
+consumes; the baselines take them apart (:meth:`CohortResult.unstacked`)
+for :func:`repro_torch.fl.server.aggregate_sliced`.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.data.loader import client_schedule
 from repro_torch.device import to_host
 from repro_torch.models.family import resolve_family
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
@@ -47,24 +51,6 @@ def reset_counters() -> None:
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
-
-
-def client_schedule(part: np.ndarray, seed: int, epochs: int,
-                    batch: int) -> np.ndarray:
-    """Global-dataset gather indices ``[T_i, B]`` for one client: shuffled
-    epochs of full batches, one wrap-around batch for clients with fewer
-    than ``batch`` samples (the per-client loader's exact sequence)."""
-    rng = np.random.default_rng(seed)
-    part = np.asarray(part)
-    n = len(part)
-    steps = []
-    for _ in range(epochs):
-        idx = rng.permutation(n)
-        for i in range(0, n - batch + 1, batch):
-            steps.append(part[idx[i:i + batch]])
-        if n < batch:
-            steps.append(part[np.resize(idx, batch)])
-    return np.asarray(steps, np.int32).reshape(len(steps), batch)
 
 
 @dataclasses.dataclass
@@ -128,8 +114,8 @@ def _stacked_step(family):
 
 
 def _bucket_program(sub_params, x_all, y_all, gather, valid, *, lr: float,
-                    family):
-    """One bucket: every participant's gradient of its DR-FL loss per
+                    family, method: str):
+    """One bucket: every participant's gradient of its ``method`` loss per
     step (see the module note for the two routes), in a loop over the T
     schedule steps.
 
@@ -140,7 +126,7 @@ def _bucket_program(sub_params, x_all, y_all, gather, valid, *, lr: float,
     Returns (stacked delta tree [P, ...], mean losses [P])."""
     P, T = valid.shape
     step = (_stacked_step(family) if family.stacked_forward
-            else vmap(grad_and_value(family.loss_fn("drfl"))))
+            else vmap(grad_and_value(family.loss_fn(method))))
     params = tree_map(lambda a: a.expand((P,) + a.shape).clone(), sub_params)
     loss_sum = torch.zeros(P, device=valid.device)
     for t in range(T):
@@ -183,7 +169,8 @@ def run_bucket(method: str, global_params, x_all, y_all, bucket: Bucket, *,
     stacked, losses = _bucket_program(
         sub, x_all, y_all,
         torch.as_tensor(bucket.gather, dtype=torch.int64, device=dev),
-        torch.as_tensor(bucket.valid, device=dev), lr=float(lr), family=fam)
+        torch.as_tensor(bucket.valid, device=dev), lr=float(lr), family=fam,
+        method=method)
     p = bucket.n_real
     p_pad = bucket.gather.shape[0]
     (losses_h,) = to_host(losses[:p])     # one pull per bucket
@@ -196,6 +183,15 @@ def run_bucket(method: str, global_params, x_all, y_all, bucket: Bucket, *,
 @dataclasses.dataclass
 class CohortResult:
     buckets: List[BucketResult]
+
+    def unstacked(self):
+        """Per participant ``(device_id, model_idx, delta, weight, loss)``
+        in bucket order, each delta a view of its bucket's row: the input
+        of the list aggregations (``aggregate_sliced``)."""
+        return [(i, b.model_idx, tree_map(lambda a, r=r: a[r],
+                                          b.stacked_delta),
+                 b.weights[r], float(b.losses[r]))
+                for b in self.buckets for r, i in enumerate(b.participants)]
 
 
 def run_cohort(method: str, global_params, x_all: torch.Tensor,

@@ -3,18 +3,30 @@
 ``engine.py:492-798``, without the scenario, budget, hot-plug and
 checkpoint hooks, which are not ported).
 
-Per round: MARL selection, Eq. 5/7 costs and the energy charge on the
-device, ONE batched host pull at the round head (charge outcome and round
-times), the bucketed client executor, stacked DR-FL aggregation through the
-``layer_agg`` kernel, evaluation, and ONE batched pull at the round tail
-(per-exit accuracy, fleet energy, liveness).
+Per round: selection, Eq. 5/7 costs and the energy charge on the device,
+ONE batched host pull at the round head (charge outcome and round times),
+the clients' local training, aggregation, evaluation, and ONE batched pull
+at the round tail (per-exit accuracy, fleet energy, liveness).  The client
+executor is the reference's choice (:func:`resolve_client_executor`):
+
+* ``"batched"``: one program per submodel bucket (:mod:`fl.batch`); DR-FL
+  aggregates the stacked deltas through the ``layer_agg`` kernel, the
+  baselines take them apart for the sliced scatter average;
+* ``"perclient"``: each client's SGD loop in turn, its batches gathered
+  on the device from the resident training set through its
+  ``client_schedule`` (one index copy per client, no host sync per
+  step); DR-FL aggregates with ``aggregate_drfl`` (``layerwise_aggregate``
+  per leaf, as the reference), the baselines with ``aggregate_sliced``.
 
 Each phase of a round (select, charge, clients, aggregate, evaluate,
 marl_train) is a ``torch.profiler.record_function`` span named
 ``round.<phase>`` and has its host seconds recorded in
-``hist["phase_s"]`` (one dict per round).  Every phase but ``aggregate``
-ends in a host pull, so its host time covers its device work; the
-aggregation's device work is waited for inside ``evaluate``.
+``hist["phase_s"]`` (one dict per round).  ``select``, ``charge``,
+``evaluate`` and ``marl_train`` end in a host pull, and so do the
+batched executor's ``clients`` (one losses pull per bucket), so their
+host time covers their device work.  ``aggregate`` and the per-client
+executor's ``clients`` pull nothing: their host seconds are enqueue time,
+and their device work is waited for inside ``evaluate``.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ from repro_torch.core.fleet import (FleetState, fleet_charge,
                                     make_fleet_state)
 from repro_torch.core.selection import (MarlSelector, resolve_mixer_mode,
                                         resolve_state_mode)
+from repro_torch.data.loader import client_schedule
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.device import resolve_device, to_host
 from repro_torch.fl import batch as fl_batch
@@ -57,17 +70,26 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"'{item}')")
 
 
+#: the selectors ``FLConfig.selector`` names (``simulation._make_selector``)
+SELECTORS = ("marl", "greedy", "random", "static")
+
+
+def uses_marl(cfg) -> bool:
+    """The MARL selector runs only for DR-FL: the baselines always take
+    the greedy selector, as the reference's fair-comparison arm."""
+    return cfg.method == "drfl" and cfg.selector == "marl"
+
+
 def check_supported(cfg) -> None:
-    """Refuse, up front, every configuration outside this port's slice:
-    the sync engine, DR-FL with the MARL selector, the ``cnn`` and
-    ``transformer`` families, the bucketed executor, the flat QMIX
-    state/mixer and the trivial energy scenario."""
+    """Refuse, up front, every configuration outside this port's slices:
+    the sync engine; DR-FL, HeteroFL and ScaleFL with any of the four
+    selectors; the ``cnn`` and ``transformer`` families (a family that
+    lacks the method raises the reference's ``ValueError``); either client
+    executor; the flat QMIX state/mixer and the trivial energy
+    scenario."""
     checks = [
         (cfg.engine_mode != "sync", f"engine_mode={cfg.engine_mode!r}",
          "async engine"),
-        (cfg.method != "drfl", f"method={cfg.method!r}", "baseline arms"),
-        (cfg.selector != "marl", f"selector={cfg.selector!r}",
-         "other selectors"),
         (cfg.model_family not in ("cnn", "transformer"),
          f"model_family={cfg.model_family!r}", "other families"),
         (cfg.hotplug_n > 0, "hotplug_n > 0", "hot-plug"),
@@ -81,16 +103,21 @@ def check_supported(cfg) -> None:
         (cfg.fault_crashes or cfg.fault_timeouts or cfg.fault_disconnects
          or cfg.fault_corrupts, "fault injection", "checkpoints and faults"),
         (cfg.fleet_mesh not in (0, 1), "fleet_mesh", "fleet sharding"),
-        (resolve_client_executor(cfg) != "batched",
-         f"client_executor={cfg.client_executor!r} (the per-client path; "
-         "'auto' resolves to it below 64 devices)", "per-client executor"),
     ]
     for bad, what, item in checks:
         if bad:
             raise not_ported(what, item)
-    n_agents = cfg.n_devices + cfg.hotplug_n
-    resolve_state_mode(cfg.state_mode, n_agents)   # raise above 256 agents
-    resolve_mixer_mode(cfg.mixer_mode, n_agents)
+    family = get_family(cfg.model_family)
+    if not family.supports(cfg.method):
+        raise family.unsupported(cfg.method)
+    if cfg.selector not in SELECTORS:
+        raise ValueError(f"unknown selector {cfg.selector!r} (expected one "
+                         f"of {SELECTORS})")
+    resolve_client_executor(cfg)
+    if uses_marl(cfg):
+        n_agents = cfg.n_devices + cfg.hotplug_n
+        resolve_state_mode(cfg.state_mode, n_agents)  # raise above 256
+        resolve_mixer_mode(cfg.mixer_mode, n_agents)
 
 
 @dataclasses.dataclass
@@ -170,8 +197,8 @@ def _data_to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def resolve_client_executor(cfg) -> str:
     """"auto" is the bucketed executor from 64 devices up and the
-    per-client path below (as the JAX package on a GPU); only "batched"
-    is ported, so the engine refuses "perclient"."""
+    per-client path below, as the JAX package on a GPU
+    (``engine.py:232-241``)."""
     mode = cfg.client_executor
     if mode == "auto":
         return "perclient" if cfg.n_devices < 64 else "batched"
@@ -240,6 +267,69 @@ class RoundEngine:
                 f["n_quarantined"] += 1
         self._qpend.clear()
 
+    def _train_and_aggregate(self, t, cohort, choice, global_params, x_dev,
+                             y_dev, phase, sim_time):
+        """One round's local training on the resolved executor and its
+        aggregation (``engine.py:659-716``); the validity verdicts go to
+        ``self._qpend``, pulled once at the end.  Returns the new global
+        params."""
+        cfg, w = self.cfg, self.world
+        seeds = [client_update_seed(cfg.seed, t, i) for i in cohort]
+        models = [int(choice[i]) for i in cohort]
+        if self.executor == "batched":
+            with _span(phase, "clients"):
+                res = fl_batch.run_cohort(
+                    cfg.method, global_params, x_dev, y_dev,
+                    [w.parts[i] for i in cohort], cohort, models, seeds,
+                    epochs=cfg.local_epochs, batch=cfg.batch_size,
+                    lr=cfg.lr, family=w.family)
+            if cfg.method == "drfl":
+                with _span(phase, "aggregate"):
+                    global_params, valid = \
+                        fl_server.aggregate_drfl_stacked(
+                            global_params,
+                            [(b.model_idx, b.stacked_delta, b.weights, None)
+                             for b in res.buckets], server_lr=cfg.server_lr,
+                            family=w.family)
+                devs, models = [], []
+                for b in res.buckets:
+                    pad = len(b.weights) - len(b.participants)
+                    devs += list(b.participants) + [None] * pad
+                    models += [b.model_idx] * len(b.weights)
+            else:
+                contribs = res.unstacked()
+                with _span(phase, "aggregate"):
+                    global_params, valid = fl_server.aggregate_sliced(
+                        global_params, [c[2] for c in contribs],
+                        [c[3] for c in contribs])
+                devs = [c[0] for c in contribs]
+                models = [c[1] for c in contribs]
+        else:
+            deltas, weights = [], []
+            with _span(phase, "clients"):
+                for i, m, seed in zip(cohort, models, seeds):
+                    steps = torch.as_tensor(
+                        client_schedule(w.parts[i], seed, cfg.local_epochs,
+                                        cfg.batch_size),
+                        dtype=torch.int64, device=x_dev.device)
+                    delta, _ = w.family.train_steps(
+                        cfg.method, global_params, m, x_dev[steps],
+                        y_dev[steps], lr=cfg.lr)
+                    deltas.append(delta)
+                    weights.append(float(len(w.parts[i])))
+            with _span(phase, "aggregate"):
+                if cfg.method == "drfl":
+                    global_params, valid = fl_server.aggregate_drfl(
+                        global_params, deltas, models, weights,
+                        server_lr=cfg.server_lr, family=w.family)
+                else:
+                    global_params, valid = fl_server.aggregate_sliced(
+                        global_params, deltas, weights)
+            devs = list(cohort)
+        self._qpend.append(({"devices": devs, "models": models, "round": t,
+                             "time": sim_time}, valid))
+        return global_params
+
     def _run_sync(self) -> Dict:
         cfg, w = self.cfg, self.world
         dev = w.device
@@ -304,27 +394,9 @@ class RoundEngine:
             cohort = [i for i in sel.participants
                       if survivors[i] and len(w.parts[i])]
             if cohort:
-                with _span(phase, "clients"):
-                    res = fl_batch.run_cohort(
-                        cfg.method, global_params, x_dev, y_dev,
-                        [w.parts[i] for i in cohort], cohort,
-                        [int(choice[i]) for i in cohort],
-                        [client_update_seed(cfg.seed, t, i) for i in cohort],
-                        epochs=cfg.local_epochs, batch=cfg.batch_size,
-                        lr=cfg.lr, family=w.family)
-                with _span(phase, "aggregate"):
-                    global_params, valid = fl_server.aggregate_drfl_stacked(
-                        global_params,
-                        [(b.model_idx, b.stacked_delta, b.weights, None)
-                         for b in res.buckets], server_lr=cfg.server_lr,
-                        family=w.family)
-                devs, models = [], []
-                for b in res.buckets:
-                    pad = len(b.weights) - len(b.participants)
-                    devs += list(b.participants) + [None] * pad
-                    models += [b.model_idx] * len(b.weights)
-                self._qpend.append(({"devices": devs, "models": models,
-                                     "round": t, "time": sim_time}, valid))
+                global_params = self._train_and_aggregate(
+                    t, cohort, choice, global_params, x_dev, y_dev, phase,
+                    sim_time)
                 n_agg += 1
 
             with _span(phase, "evaluate"):

@@ -1,18 +1,35 @@
-"""FL server: evaluation and stacked DR-FL aggregation — port of
-``repro.fl.server`` (``evaluate``, ``staleness_scale``,
-``aggregate_drfl_stacked``, ``_stacked_agg_program``).
+"""FL server: evaluation and aggregation — port of ``repro.fl.server``.
 
-The stacked path runs eagerly: bucket-stacked deltas are flattened into
-``[N, R, seg]`` rows, poisoned rows are quarantined, and the masked mean
-is one ``layer_agg`` kernel launch per aggregation.
+Three aggregations, each quarantining poisoned deltas (non-finite, or an
+element beyond ``DELTA_MAG_CAP``) and returning ``(new_params, valid)``
+with the [N] validity left on the device for the caller's batched pull:
+
+* :func:`aggregate_drfl`: DR-FL layer-aligned averaging over a list of
+  full-structure deltas (the per-client executor's, ``tree_map`` per
+  leaf), staleness applied per exit-layer;
+* :func:`aggregate_drfl_stacked`: the same over bucket-stacked deltas,
+  flattened into ``[N, R, seg]`` rows and averaged by one ``layer_agg``
+  kernel launch (the bucketed executor's); :func:`aggregate_drfl_from_list`
+  routes a list of deltas there as P = 1 buckets;
+* :func:`aggregate_sliced`: the HeteroFL/ScaleFL scatter average, keyed
+  by tree path.
+
+Keywords of the reference that no caller sets are left out: quarantine is
+always on at ``DELTA_MAG_CAP``, the staleness decay is the constant
+``STALENESS_DECAY`` and the validity is always returned.
 """
 from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core import aggregation
+from repro_torch.core.aggregation import (delta_valid, layerwise_aggregate,
+                                          sanitize_delta, tree_path_align,
+                                          tree_path_items)
 from repro_torch.models.family import resolve_family
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 #: FedAsync polynomial staleness decay (``FLConfig.staleness_decay``'s
 #: default; the sync engine sends no staleness, so nothing sets another)
@@ -40,6 +57,104 @@ def staleness_scale(staleness: float) -> float:
     if staleness <= 0:
         return 1.0
     return float((1.0 + float(staleness)) ** (-STALENESS_DECAY))
+
+
+def aggregate_drfl(global_params, deltas: List, model_idxs: List[int],
+                   weights: Sequence[float], server_lr: float = 1.0,
+                   staleness: Optional[Sequence[float]] = None, family=None):
+    """DR-FL layer-aligned aggregation over full-structure deltas
+    (``server.py:67-114``).  A poisoned delta's masks are zeroed (its
+    weight leaves every denominator) and its non-finite elements zeroed;
+    all-valid input is exactly the unvalidated mean.  A stale delta is
+    multiplied by its alpha on exactly the stem, stages and exits it
+    holds (``update_mask(scale=alpha)``), so a lone stale contributor
+    moves a layer by alpha times its update.  Returns
+    ``(new_params, valid [N] bool on the device)``."""
+    fam = resolve_family(family)
+    masks = [fam.update_mask(global_params, m) for m in model_idxs]
+    valid = [delta_valid(d) for d in deltas]
+    deltas = [sanitize_delta(d) for d in deltas]
+    masks = [tree_map(lambda mm, v=v: mm * v.float(), mask)
+             for mask, v in zip(masks, valid)]
+    if staleness is not None and any(s > 0 for s in staleness):
+        scaled = []
+        for d, m, s in zip(deltas, model_idxs, staleness):
+            a = staleness_scale(s)
+            if a == 1.0:
+                scaled.append(d)
+                continue
+            smask = fam.update_mask(global_params, m, scale=a)
+            scaled.append(tree_map(
+                lambda u, sm: (u.float() * sm).to(u.dtype), d, smask))
+        deltas = scaled
+    out = layerwise_aggregate(global_params, deltas, masks, weights,
+                              server_lr=server_lr)
+    return out, torch.stack(valid)
+
+
+def aggregate_drfl_from_list(global_params, deltas: List,
+                             model_idxs: List[int], weights: Sequence[float],
+                             server_lr: float = 1.0,
+                             staleness: Optional[Sequence[float]] = None,
+                             family=None):
+    """:func:`aggregate_drfl`'s contract through the stacked path: each
+    full-structure delta becomes a P = 1 bucket of its submodel (views, no
+    copies), so the mean is one ``layer_agg`` launch on the card."""
+    fam = resolve_family(family)
+    buckets = []
+    for j, (d, m) in enumerate(zip(deltas, model_idxs)):
+        sub = fam.submodel_tree(d, m)
+        stal = None if staleness is None else [staleness[j]]
+        buckets.append((m, tree_map(lambda a: a.unsqueeze(0), sub),
+                        [weights[j]], stal))
+    return aggregate_drfl_stacked(global_params, buckets,
+                                  server_lr=server_lr, family=fam)
+
+
+def _scatter_avg(gp, contribs):
+    """contribs: (delta leaf, weight) pairs; a delta may be a channel
+    prefix of ``gp`` (the reference pads it at each axis's end)."""
+    num = torch.zeros(gp.shape, dtype=torch.float32, device=gp.device)
+    den = torch.zeros_like(num)
+    for u, w in contribs:
+        at = tuple(slice(0, s) for s in u.shape)
+        num[at] += w * u.float()
+        den[at] += w
+    avg = torch.where(den > 0, num / torch.clamp_min(den, 1e-12),
+                      torch.zeros_like(num))
+    return (gp.float() + avg).to(gp.dtype)
+
+
+def aggregate_sliced(global_params, deltas: List, weights: Sequence[float]):
+    """HeteroFL/ScaleFL scatter aggregation (``server.py:283-328``): each
+    client's (depth-truncated, width-sliced) delta is aligned with the
+    global tree by path, and every entry is averaged over the clients
+    that hold it.  A poisoned client's weight is multiplied by its 0/1
+    validity, so it leaves numerator and denominator.  No ``server_lr``,
+    as in the reference.  Returns ``(new_params, valid [N])``."""
+    valid = [delta_valid(d) for d in deltas]
+    deltas = [sanitize_delta(d) for d in deltas]
+    table: Dict[tuple, list] = {
+        path: [] for path, _ in tree_path_items(global_params)}
+    for d, w, v in zip(deltas, weights, valid):
+        wj = float(w) * v.float()
+        for path, leaf in tree_path_align(global_params, d):
+            if leaf is not None:
+                table[path].append((leaf, wj))
+    wtot = float(sum(weights)) or 1.0
+
+    def rebuild(gp, path=()):
+        if isinstance(gp, dict):
+            return {k: rebuild(v, path + (k,)) for k, v in gp.items()}
+        if isinstance(gp, (list, tuple)):
+            t = [rebuild(v, path + (i,)) for i, v in enumerate(gp)]
+            return t if isinstance(gp, list) else tuple(t)
+        contribs = table[path]
+        if not contribs:
+            return gp
+        return _scatter_avg(gp, [(u, w / wtot) for u, w in contribs])
+
+    return rebuild(global_params), torch.stack(valid)
 
 
 def _stacked_agg_program(global_params, deltas, weights, alphas, *, family,

@@ -1,9 +1,11 @@
 """DR-FL federated simulation — port of ``repro.fl.simulation``.
 
 :class:`FLConfig` keeps every field and default of the JAX config, so a
-config carries across packages.  This slice runs the sync engine with
-``method="drfl"``, ``selector="marl"``, the ``cnn`` family and the
-bucketed executor (64+ devices); every other setting raises
+config carries across packages.  The port runs the sync engine with every
+arm of the paper's Table 1 and Fig. 5: DR-FL with the ``marl``,
+``greedy``, ``random`` or ``static`` selector, and HeteroFL/ScaleFL (always
+greedy), on the ``cnn`` family (the ``transformer`` family: DR-FL), with
+either client executor; every other setting raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -13,10 +15,12 @@ import logging
 from typing import Dict
 
 from repro_torch.core.marl.buffer import ReplayBuffer
-from repro_torch.core.selection import (OBS_DIM, MarlSelector,
+from repro_torch.core.selection import (OBS_DIM, GreedySelector,
+                                        MarlSelector, RandomSelector,
+                                        SelectorBase, StaticTierSelector,
                                         marl_state_dim)
 from repro_torch.device import resolve_device
-from repro_torch.fl.engine import RoundEngine, check_supported, not_ported
+from repro_torch.fl.engine import RoundEngine, check_supported, uses_marl
 from repro_torch.models.family import get_family
 
 
@@ -77,13 +81,21 @@ class FLConfig:
     task_deadline_factor: float = 4.0
 
 
-def _make_selector(cfg: FLConfig, n_models: int, *, device="cuda"):
-    if cfg.method != "drfl" or cfg.selector != "marl":
-        raise not_ported(f"method={cfg.method!r}, selector={cfg.selector!r}",
-                         "other selectors")
-    return MarlSelector(cfg.n_devices + cfg.hotplug_n, n_models,
-                        cfg.n_rounds, cfg.seed, state_mode=cfg.state_mode,
-                        mixer_mode=cfg.mixer_mode, device=device)
+def _make_selector(cfg: FLConfig, n_models: int, *,
+                   device="cuda") -> SelectorBase:
+    """The config's selector; HeteroFL and ScaleFL always take the greedy
+    one, the paper's fair-comparison arm (``simulation.py:129-142``)."""
+    if cfg.method in ("heterofl", "scalefl"):
+        return GreedySelector()
+    return {
+        "marl": lambda: MarlSelector(
+            cfg.n_devices + cfg.hotplug_n, n_models, cfg.n_rounds, cfg.seed,
+            state_mode=cfg.state_mode, mixer_mode=cfg.mixer_mode,
+            device=device),
+        "greedy": GreedySelector,
+        "random": lambda: RandomSelector(cfg.seed),
+        "static": lambda: StaticTierSelector(cfg.seed),
+    }[cfg.selector]()
 
 
 # replay-buffer obs storage budget (float32 elements), as the reference
@@ -112,20 +124,24 @@ def _make_buffer(cfg: FLConfig) -> ReplayBuffer:
 def run_simulation(cfg: FLConfig, verbose: bool = False, *,
                    device="cuda") -> Dict:
     """Run the FL simulation on ``device`` (the card unless the caller
-    asks for ``"cpu"``; no silent fallback).  With ``marl_episodes > 1``
-    the earlier episodes pre-train the QMIX policy (fresh fleet and model
-    each episode, persistent learner and replay) and the LAST episode is
-    returned."""
+    asks for ``"cpu"``; no silent fallback).  With DR-FL + MARL and
+    ``marl_episodes > 1`` the earlier episodes pre-train the QMIX policy
+    (fresh fleet and model each episode, persistent learner and replay)
+    and the LAST episode is returned; every other arm runs one episode and
+    keeps no replay (``simulation.py:234-262``)."""
     dev = resolve_device(device)
     check_supported(cfg)
     selector = _make_selector(
         cfg, get_family(cfg.model_family).num_submodels(), device=dev)
-    buffer = _make_buffer(cfg)
+    marl = uses_marl(cfg)
+    buffer = _make_buffer(cfg) if marl else None
+    episodes = cfg.marl_episodes if marl else 1
     hist = None
-    for ep in range(cfg.marl_episodes):
-        selector.reset_episode()
+    for ep in range(episodes):
+        if marl:
+            selector.reset_episode()
         engine = RoundEngine(cfg, selector, buffer,
-                             verbose=verbose and ep == cfg.marl_episodes - 1,
+                             verbose=verbose and ep == episodes - 1,
                              device=dev)
         hist = engine.run()
     return hist

@@ -151,7 +151,12 @@ def flops_per_sample(model_idx: int, image_hw: int = 32,
 
 
 class CnnFamily(LayerwiseFamily):
+    """The paper's multi-exit ResNet-18; the one family with all three FL
+    methods (HeteroFL/ScaleFL submodels are channel-prefix slices,
+    :mod:`repro_torch.core.baselines`)."""
+
     name = "cnn"
+    supported_methods = ("drfl", "heterofl", "scalefl")
 
     def init(self, gen: torch.Generator, num_classes: int = 10,
              width_mult: float = 1.0, hw: int = 32):
@@ -170,6 +175,16 @@ class CnnFamily(LayerwiseFamily):
     def flops_per_sample(self, model_idx: int, image_hw: int = 32,
                          width_mult: float = 1.0) -> float:
         return flops_per_sample(model_idx, image_hw, width_mult)
+
+    def submodel_params(self, method: str, global_params, model_idx: int):
+        from repro_torch.core.baselines import (WIDTH_LEVELS,
+                                                scalefl_submodel,
+                                                width_slice_cnn)
+        if method == "heterofl":
+            return width_slice_cnn(global_params, WIDTH_LEVELS[model_idx])
+        if method == "scalefl":
+            return scalefl_submodel(global_params, model_idx)
+        return super().submodel_params(method, global_params, model_idx)
 
 
 register_family(CnnFamily())

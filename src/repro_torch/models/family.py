@@ -7,17 +7,27 @@ stem + stages[:m+1] + exits[:m+1].  Aggregation groups are stem + each
 stage + each exit, flattened for the stacked ``layer_agg`` path in
 ``tree_leaves`` order (sorted dict keys, as ``jax.tree.leaves``).
 
-Ported: the ``cnn`` family (:mod:`repro_torch.models.cnn`) and the
-``transformer`` family (:mod:`repro_torch.models.transformer_family`).
+Ported: the ``cnn`` family (:mod:`repro_torch.models.cnn`, the one with
+the HeteroFL/ScaleFL width slices) and the ``transformer`` family
+(:mod:`repro_torch.models.transformer_family`).
+
+Client training has two forms: the bucket programs of
+:mod:`repro_torch.fl.batch` (every participant of a submodel at once) and
+:meth:`LayerwiseFamily.client_update` / :meth:`LayerwiseFamily.train_steps`,
+one client's SGD loop, the per-client executor's (``family.py:275-437``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import aggregation
-from repro_torch.tree import tree_leaves, tree_shapes
+from repro_torch.core.baselines import kd_loss
+from repro_torch.data.loader import client_schedule
+from repro_torch.tree import tree_leaves, tree_map, tree_shapes, \
+    tree_unflatten_like
 
 
 def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -46,10 +56,22 @@ class LayerwiseFamily:
     #: autograd differentiates it, as kernels bound through ctypes need:
     #: ``torch.func`` transforms cannot see inside them.
     stacked_forward = False
+    supported_methods = ("drfl",)
 
     def __init__(self):
+        # masks depend only on the tree's shapes, its device and
+        # (model_idx, scale); their 0-d leaves are never written
+        self._mask_cache: dict = {}
         self._template_cache: dict = {}
         self._cost_cache: dict = {}
+
+    def supports(self, method: str) -> bool:
+        return method in self.supported_methods
+
+    def unsupported(self, method: str) -> ValueError:
+        """The reference's error for a method this family lacks."""
+        return ValueError(f"family {self.name!r} does not support method "
+                          f"{method!r} (supported: {self.supported_methods})")
 
     # -- data -------------------------------------------------------------
     def make_dataset(self, n: int, num_classes: int = 10, hw: int = 32,
@@ -68,11 +90,9 @@ class LayerwiseFamily:
                 "exits": tree["exits"][:model_idx + 1]}
 
     def submodel_params(self, method: str, global_params, model_idx: int):
-        if method != "drfl":
-            raise NotImplementedError(
-                f"method {method!r} is not ported (ROADMAP Queue 1, "
-                "'baseline arms')")
-        return self.submodel_tree(global_params, model_idx)
+        if method == "drfl":
+            return self.submodel_tree(global_params, model_idx)
+        raise self.unsupported(method)
 
     def _size_tree(self, params, model_idx: int):
         """What a Model_{idx+1} client holds: depth prefix + ITS exit."""
@@ -80,7 +100,35 @@ class LayerwiseFamily:
                 "stages": params["stages"][:model_idx + 1],
                 "exits": [params["exits"][model_idx]]}
 
+    def submodel_size_bytes(self, params, model_idx: int) -> int:
+        return sum(l.numel() * l.element_size()
+                   for l in tree_leaves(self._size_tree(params, model_idx)))
+
     # -- aggregation layout ----------------------------------------------
+    def update_mask(self, global_params, model_idx: int, scale: float = 1.0):
+        """0-d float32 masks over the layer-wise tree: ``scale`` (1.0, or a
+        staleness alpha) on the stem, stages <= m and exits <= m, 0.0 on
+        the rest — the reference's masks, on the params' device."""
+        dev = tree_leaves(global_params)[0].device
+        key = (tree_shapes(global_params), str(dev), int(model_idx),
+               float(scale))
+        hit = self._mask_cache.get(key)
+        if hit is not None:
+            return hit
+
+        def const(tree, v):
+            t = torch.tensor(v, dtype=torch.float32, device=dev)
+            return tree_map(lambda _: t, tree)
+        mask = {"stem": const(global_params["stem"], scale),
+                "stages": [const(st, scale if i <= model_idx else 0.0)
+                           for i, st in enumerate(global_params["stages"])],
+                "exits": [const(e, scale if i <= model_idx else 0.0)
+                          for i, e in enumerate(global_params["exits"])]}
+        if len(self._mask_cache) > 512:     # staleness scales are open-ended
+            self._mask_cache.clear()
+        self._mask_cache[key] = mask
+        return mask
+
     def stack_groups(self, params) -> List:
         return ([params["stem"]] + list(params["stages"])
                 + list(params["exits"]))
@@ -115,17 +163,98 @@ class LayerwiseFamily:
     def _drfl_loss(self, sub, x, y):
         return self._joint_ce(self.apply_all_exits(sub, x), y)
 
+    def _slice_loss(self, sub, x, y):
+        """Width-sliced trees (HeteroFL): CE at the deepest exit."""
+        return cross_entropy(self.apply_all_exits(sub, x)[-1], y)
+
+    def _scalefl_loss(self, sub, x, y):
+        """Depth + width tree (ScaleFL): CE at every held exit plus the
+        deepest exit distilled into each shallower one."""
+        outs = self.apply_all_exits(sub, x)
+        teacher = outs[-1]
+        loss = cross_entropy(teacher, y)
+        for o in outs[:-1]:
+            loss = loss + 0.5 * (cross_entropy(o, y)
+                                 + kd_loss(o, teacher.detach()))
+        return loss / max(len(outs), 1)
+
+    def _drfl_step_loss(self, params, x, y, model_idx: int):
+        """The per-client DR-FL step's loss over the FULL tree: the joint
+        CE of the depth-prefix submodel, so every leaf past it gets no
+        gradient and its delta is exactly zero."""
+        return self._drfl_loss(self.submodel_tree(params, model_idx), x, y)
+
     def stacked_loss_fn(self, sub, x, y):
         """Every participant's DR-FL loss, [P], from stacked trees and
         batches: the bucket step of ``stacked_forward`` families."""
         return self._joint_ce(self.apply_all_exits_stacked(sub, x), y)
 
-    def loss_fn(self, method: str):
-        if method != "drfl":
-            raise NotImplementedError(
-                f"method {method!r} is not ported (ROADMAP Queue 1, "
-                "'baseline arms')")
-        return self._drfl_loss
+    def loss_fn(self, method: str) -> Callable:
+        try:
+            return {"drfl": self._drfl_loss,
+                    "heterofl": self._slice_loss,
+                    "scalefl": self._scalefl_loss}[method]
+        except KeyError:
+            raise ValueError(f"unknown method {method!r}") from None
+
+    # -- client training (the per-client executor) ------------------------
+    def train_steps(self, method: str, global_params, model_idx: int,
+                    xs: torch.Tensor, ys: torch.Tensor, *, lr: float):
+        """One client's local SGD over the batches ``xs [T, B, ...]``,
+        ``ys [T, B]`` (on the params' device): ``(delta, mean loss)``, the
+        mean loss a 0-d device tensor (nothing here waits for the card).
+
+        ``drfl`` steps the full tree with the gradient of
+        :meth:`_drfl_step_loss`, so the delta is the full structure, zero
+        outside the submodel; the other methods train the sliced tree of
+        :meth:`submodel_params` and return the sliced delta."""
+        if not self.supports(method):
+            raise self.unsupported(method)
+        if method == "drfl":
+            start = global_params
+
+            def loss_of(p, xb, yb):
+                return self._drfl_step_loss(p, xb, yb, model_idx)
+        else:
+            start = self.submodel_params(method, global_params, model_idx)
+            loss_of = self.loss_fn(method)
+        leaves = tree_leaves(start)
+        losses = []
+        for t in range(xs.shape[0]):
+            req = [l.detach().requires_grad_() for l in leaves]
+            with torch.enable_grad():
+                loss = loss_of(tree_unflatten_like(start, req), xs[t], ys[t])
+                grads = torch.autograd.grad(loss, req, allow_unused=True)
+            # p - lr * g, two multi-tensor launches for the whole tree; a
+            # leaf the loss does not reach has a zero gradient: p - lr*0
+            got = [i for i, g in enumerate(grads) if g is not None]
+            stepped = torch._foreach_sub(
+                [leaves[i].detach() for i in got],
+                torch._foreach_mul([grads[i] for i in got], lr))
+            for i, p in zip(got, stepped):
+                leaves[i] = p
+            losses.append(loss.detach())
+        delta = torch._foreach_sub(leaves, tree_leaves(start))
+        mean = (torch.stack(losses).mean() if losses
+                else torch.zeros((), device=leaves[0].device))
+        return tree_unflatten_like(start, delta), mean
+
+    def client_update(self, method: str, global_params, model_idx: int,
+                      x, y, *, epochs: int = 5, batch: int = 32,
+                      lr: float = 0.05, seed: int = 0):
+        """One client's local run on its own data ``x``, ``y`` (numpy or
+        tensors): the reference's ``epoch_batches`` sequence from
+        ``default_rng(seed)``, gathered on the params' device;
+        ``(delta, mean loss)`` as :meth:`train_steps`."""
+        dev = tree_leaves(global_params)[0].device
+        x = torch.as_tensor(x, device=dev)
+        x = x if x.is_floating_point() else x.long()
+        y = torch.as_tensor(y, device=dev).long()
+        steps = torch.as_tensor(
+            client_schedule(np.arange(len(x)), seed, epochs, batch),
+            dtype=torch.int64, device=dev)
+        return self.train_steps(method, global_params, model_idx, x[steps],
+                                y[steps], lr=lr)
 
     @torch.no_grad()
     def eval_fn(self, params, x, y) -> torch.Tensor:

@@ -28,12 +28,14 @@ from __future__ import annotations
 import math
 from typing import List
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.models.family import LayerwiseFamily, register_family
+from repro_torch.models.family import (LayerwiseFamily, cross_entropy,
+                                       register_family)
 from repro_torch.models.layers import (apply_rope, dense_bias_init,
                                        dense_init, embed_init,
                                        gelu_mlp_init, rmsnorm_init,
@@ -188,6 +190,23 @@ class TransformerFamily(LayerwiseFamily):
         from repro_torch.data.synthetic import synthetic_token_dataset
         return synthetic_token_dataset(n, num_classes, seq_len=hw,
                                        noise=noise, seed=seed)
+
+    def _drfl_step_loss(self, params, x, y, model_idx: int):
+        """The reference's ``_masked_drfl_loss``: a full-depth forward with
+        per-exit weights 1.0 at the held depth, 0.3 shallower and exactly
+        0.0 deeper, normalised by ``1 + 0.3 m`` in float32.  Every block
+        and exit runs forward and backward whatever ``m`` (12 ``rmsnorm``
+        and 4 ``flash_attention`` launches each way a step); the zero
+        weights give the deeper leaves exactly zero gradient."""
+        outs = self.apply_all_exits(params, x)
+        ces = torch.stack([cross_entropy(o, y) for o in outs])
+        idx = torch.arange(len(outs), device=ces.device)
+        w = torch.where(idx == model_idx, 1.0,
+                        torch.where(idx < model_idx, 0.3, 0.0)
+                        ).to(torch.float32)
+        # the reference's traced float32 arithmetic, on the host
+        den = np.float32(1.0) + np.float32(0.3) * np.float32(model_idx)
+        return torch.sum(w * ces) / float(den)
 
 
 register_family(TransformerFamily())

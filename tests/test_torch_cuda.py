@@ -294,3 +294,42 @@ def test_launch_counts_move_only_on_a_launch(cuda, call, fwd_key):
         call(cuda)
     assert LAUNCHES[fwd_key] == before[fwd_key] + 2
     assert LAUNCHES[bwd_key] == before[bwd_key] + 1
+
+
+# the per-client executor's shapes: one client's block norms (G 1, R = 32
+# sequences x 32 positions, d 128) and its attention (BH = 32 sequences x
+# 4 heads, S 32, D 32, causal), forward and backward
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention"])
+def test_per_client_shapes_match_plain(cuda, kernel):
+    if kernel == "rmsnorm":
+        ins = _leaves([(1, 1024, 128), (1, 128)], torch.float32, cuda, 11)
+        pairs = _fwd_bwd(rmsnorm, rmsnorm_plain, ins, seed=12)
+    else:
+        ins = _leaves([(128, 32, 32)] * 3, torch.float32, cuda, 13)
+        pairs = _fwd_bwd(
+            lambda a, b, c: flash_attention_bhsd(a, b, c, causal=True),
+            lambda a, b, c: attention_plain(a, b, c, causal=True), ins,
+            seed=14)
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert _rel_err(got, ref) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [0.25, 0.5, 0.75, 1.0])
+def test_width_slice_cnn_on_the_card(cuda, frac):
+    """The HeteroFL slices of a tree on the card: views of its tensors
+    (no copy), equal to the CPU tree's slices."""
+    from repro_torch.core.baselines import width_slice_cnn
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_leaves, tree_map
+    cpu = cnn.init(torch.Generator().manual_seed(0), 10, width_mult=0.25)
+    dev = tree_map(lambda t: t.to(cuda), cpu)
+    got, ref = width_slice_cnn(dev, frac), width_slice_cnn(cpu, frac)
+    for g, r, full in zip(tree_leaves(got), tree_leaves(ref),
+                          tree_leaves(dev)):
+        assert g.is_cuda and g.shape == r.shape
+        assert g.untyped_storage().data_ptr() == \
+            full.untyped_storage().data_ptr()
+        assert torch.equal(g.cpu(), r)

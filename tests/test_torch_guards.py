@@ -60,10 +60,10 @@ BASE = dict(n_devices=64, n_rounds=1, width_mult=0.125, hw=8, n_train=640)
 
 @pytest.mark.parametrize("change,item", [
     (dict(engine_mode="async"), "async engine"),
-    (dict(n_devices=40), "per-client executor"),
-    (dict(client_executor="perclient"), "per-client executor"),
-    (dict(method="heterofl"), "baseline arms"),
-    (dict(selector="greedy"), "other selectors"),
+    (dict(availability_profile="diurnal"), "energy scenarios"),
+    (dict(fault_corrupts=1), "checkpoints and faults"),
+    (dict(mixer_mode="set"), "MARL at fleet scale"),
+    (dict(fleet_mesh=2), "fleet sharding"),
     (dict(model_family="mlp"), "other families"),
     (dict(hotplug_n=4), "hot-plug"),
     (dict(charge_profile="solar", charge_rate=0.1), "energy scenarios"),
@@ -77,6 +77,21 @@ def test_unported_settings_raise(change, item):
     cfg = dataclasses.replace(FLConfig(**BASE), **change)
     with pytest.raises(NotImplementedError, match=item):
         run_simulation(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(n_devices=40), dict(client_executor="perclient"),
+    dict(method="heterofl"), dict(selector="greedy")],
+    ids=["n_devices=40", "perclient", "heterofl", "greedy"])
+def test_formerly_unported_settings_run(change):
+    """The per-client executor, the baseline arms and the other selectors
+    are ported: these settings, once refused, run on the CPU."""
+    kw = dict(BASE, n_devices=8, n_train=400, participation=0.5,
+              local_epochs=1)
+    kw.update(change)
+    hist = run_simulation(FLConfig(**kw), device="cpu")
+    assert len(hist["acc"]) == 1 and hist["n_aggregations"] == 1
+    assert hist["executor"] == "perclient"
 
 
 def test_flconfig_fields_and_defaults_equal_the_jax_config():
