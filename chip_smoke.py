@@ -11,7 +11,8 @@ its own lines; any failure raises and exits non-zero:
 1. build every kernel (``layer_agg``, ``rmsnorm``, ``flash_attention``)
    from ``src/repro_torch/kernels/<name>/csrc`` with ``nvcc``, one
    process per source, all started together;
-2. hold each kernel, forward and backward, against its plain PyTorch
+2. time the card's launch floor (``floor_ms``: a fill of one element),
+   then hold each kernel, forward and backward, against its plain PyTorch
    version on the card (the backward against autograd through the plain
    version) at its path's shapes and edge shapes; at the path's shape,
    time the kernel, the plain version and the one-call PyTorch yardstick
@@ -20,7 +21,10 @@ its own lines; any failure raises and exits non-zero:
    attention's backward route (fused or three passes) is printed for
    every shape, and the model-layout call, the one the transformer path
    makes, is checked and timed at the path's shape beside SDPA on the same
-   layout;
+   layout; ``rmsnorm``'s route (vec or general) and its backward's splits
+   are printed for every shape, and its backward is run twice (bitwise
+   equal) and held against its CPU emulation (``rmsnorm_bwd_blocked``,
+   the kernel's order of sums) at 1e-6;
 3. drive the main path through ``repro_torch.fl.run_simulation``: 64
    devices, the full-width multi-exit ResNet-18 on 32x32 images, sync
    DR-FL + QMIX, bucketed executor; launch counts are reset just before
@@ -267,70 +271,174 @@ def _attach_per_client(records, per_client):
         r["per_client"] = {k: pc[k] for k in (
             "shape", "max_abs_err", "max_rel_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "call_ms",
-            "plain_call_ms", "library_call_ms")}
+            "plain_call_ms", "library_call_ms", "rmsnorm_route", "splits")
+            if k in pc}
     return records
 
 
+#: rmsnorm's timed shapes: (G, R, d, where)
+RMSNORM_TIMED = {"block norms": (16, 1024, 128, "the bucketed path's shape"),
+                 "per-client block norms": (1, 1024, 128,
+                                            "the per-client shape")}
+
+
+def _rmsnorm_inputs(G, R, d, dtype, g, offset=0):
+    """x (times 3), scale and dy on the card; x starts ``offset``
+    elements into its storage (off the 16-byte grid for 1)."""
+    import torch
+    flat = torch.randn((G * R * d + offset,), generator=g, device="cuda") * 3
+    x = flat[offset:].view(G, R, d).to(dtype).requires_grad_()
+    s = torch.randn((G, d), generator=g, device="cuda").to(dtype)
+    dy = torch.randn((G, R, d), generator=g, device="cuda").to(dtype)
+    return x, s.requires_grad_(), dy
+
+
+def rmsnorm_timed(mod, where, x, s, dy, errs):
+    """The records of rmsnorm's forward and backward on x [G, R, d] (at
+    ``where``), beside the plain version and ``F.rms_norm``
+    with one [d] scale row for every group (the same bytes and flops, no
+    per-group scale).  Uses only ``mod.rmsnorm``, ``rmsnorm_plain`` and
+    ``EPS``, so ``scripts/rmsnorm_ab.py`` times earlier designs with it."""
+    import torch.nn.functional as F
+    G, R, d = x.shape
+    s1 = s.detach()[0].contiguous()
+    n = G * R * d
+    records = _timed_records(
+        ("rmsnorm", "rmsnorm_bwd"),
+        "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm/rmsnorm.py:20", errs,
+        [(mod.rmsnorm, [x, s]), (mod.rmsnorm_plain, [x, s]),
+         (lambda a, b: F.rms_norm(a, (d,), b, mod.EPS), [x, s1])], dy,
+        # forward: x in, y out, scale in, rstd out; ~4 flops an element.
+        # Backward: x, dy in, dx out, scale in, dscale out, rstd in; ~9
+        # flops an element
+        [(4 * (2 * n + G * d + G * R), 4 * n),
+         (4 * (3 * n + 2 * G * d + G * R), 9 * n)],
+        "F.rms_norm with one [d] scale", where)
+    for r in records:
+        r["shape"] = f"G={G} R={R} d={d} {x.dtype}".replace("torch.", "")
+    return records
+
+
+def _rmsnorm_blocked_check(mod, label, x, s, dy):
+    """The backward kernel called twice on the same inputs (with rstd from
+    torch): bitwise equal; and against its CPU emulation of the kernel's
+    order of sums, at 1e-6 of the largest magnitude.  Returns the
+    backward's (route, splits)."""
+    import torch
+    G, R, d = x.shape
+    x, s = x.detach(), s.detach()
+    rstd = torch.rsqrt(torch.mean(x.float() ** 2, dim=-1) + mod.EPS)
+    runs = [mod._backward(x, s, dy, rstd) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    route, splits = mod.rmsnorm_route(
+        G, R, d, x.dtype, [x.data_ptr(), s.data_ptr(), dy.data_ptr(),
+                           runs[0][0].data_ptr()], mod._sm_count(x.device))
+    emu = mod.rmsnorm_bwd_blocked(x.cpu(), s.cpu(), dy.cpu(), rstd.cpu(),
+                                  route, splits)
+    err = max(_errors(a.cpu(), b)[1] for a, b in zip(runs[0], emu))
+    print(f"[kernel] rmsnorm {label}: backward route {route}, {splits} "
+          f"splits a group; two calls bitwise equal: {same}; against the "
+          f"blocked emulation rel err {err:.2e} (limit 1e-06)")
+    if not same or err > 1e-6:
+        raise AssertionError(f"rmsnorm's backward at {label} is not "
+                             "deterministic or disagrees with its emulation")
+    return route, splits
+
+
 def phase_rmsnorm():
-    """rmsnorm forward and backward against the plain version; returns
-    the records of both kernels, timed at the transformer path's block
-    norms (16 participants x 32 sequences x 32 positions, d 128) and, under
-    ``per_client``, at the per-client executor's (one client: G 1)."""
+    """rmsnorm forward and backward against the plain version, and the
+    backward against itself (bitwise) and its blocked emulation, at the
+    paths' and edge shapes (the general route: d not a multiple of 4, d
+    over the vec route's 1024, x off the 16-byte grid, and the model
+    layout on such a view); returns the records of both kernels, timed
+    at the transformer path's block norms (16 participants x 32
+    sequences x 32 positions, d 128) and, under ``per_client``, at the
+    per-client executor's (one client: G 1)."""
     import importlib
     import torch
-    import torch.nn.functional as F
     mod = importlib.import_module("repro_torch.kernels.rmsnorm.rmsnorm")
-    shapes = [("block norms", 16, 1024, 128, "float32"),
-              ("per-client block norms", 1, 1024, 128, "float32"),
-              ("exit norms", 16, 32, 128, "float32"),
-              ("odd R", 3, 11, 128, "float32"),
-              ("odd R, one group", 1, 7, 64, "float32"),
-              ("d not a power of two", 4, 33, 100, "float32"),
-              ("d 8192", 2, 5, 8192, "float32"),
-              ("block norms bf16", 16, 1024, 128, "bfloat16")]
-    timed = {"block norms": "the bucketed path's shape",
-             "per-client block norms": "the per-client shape"}
+    # (label, G, R, d, dtype, x's offset in elements)
+    shapes = [("block norms", 16, 1024, 128, "float32", 0),
+              ("per-client block norms", 1, 1024, 128, "float32", 0),
+              ("exit norms", 16, 32, 128, "float32", 0),
+              ("odd R", 3, 11, 128, "float32", 0),
+              ("odd R, one group", 1, 7, 64, "float32", 0),
+              ("one row", 4, 1, 128, "float32", 0),
+              ("d not a power of two", 4, 33, 100, "float32", 0),
+              ("d not a multiple of 4", 2, 9, 99, "float32", 0),
+              ("d 8192", 2, 5, 8192, "float32", 0),
+              ("x off the 16-byte grid", 1, 1024, 128, "float32", 1),
+              ("block norms bf16", 16, 1024, 128, "bfloat16", 0),
+              ("d 100 bf16", 4, 33, 100, "bfloat16", 0)]
     g = torch.Generator(device="cuda").manual_seed(0)
     records = {}
-    for label, G, R, d, dt in shapes:
-        dtype = getattr(torch, dt)
-        x = (torch.randn((G, R, d), generator=g, device="cuda") * 3
-             ).to(dtype).requires_grad_()
-        s = torch.randn((G, d), generator=g,
-                        device="cuda").to(dtype).requires_grad_()
-        dy = torch.randn((G, R, d), generator=g, device="cuda").to(dtype)
+    for label, G, R, d, dt, offset in shapes:
+        x, s, dy = _rmsnorm_inputs(G, R, d, getattr(torch, dt), g, offset)
+        fwd_route, _ = mod.rmsnorm_route(
+            G, R, d, x.dtype, [x.data_ptr(), s.data_ptr()], 1)
         abs_errs, errs = _fwd_bwd_errors(mod.rmsnorm, mod.rmsnorm_plain,
                                          [x, s], dy)
-        print(f"[kernel] rmsnorm {label} G={G} R={R} d={d} {dt}: rel err "
-              f"y {errs[0]:.2e}, dx {errs[1]:.2e}, dscale {errs[2]:.2e} "
-              f"(limit {KERNEL_TOL[dt]:.0e}); abs err y {abs_errs[0]:.2e}, "
-              f"grads {max(abs_errs[1:]):.2e}")
+        print(f"[kernel] rmsnorm {label} G={G} R={R} d={d} {dt} (forward "
+              f"route {fwd_route}): rel err y {errs[0]:.2e}, dx "
+              f"{errs[1]:.2e}, dscale {errs[2]:.2e} (limit "
+              f"{KERNEL_TOL[dt]:.0e}); abs err y {abs_errs[0]:.2e}, grads "
+              f"{max(abs_errs[1:]):.2e}")
         if max(errs) > KERNEL_TOL[dt]:
             raise AssertionError(f"rmsnorm disagrees with its plain "
                                  f"version at {label}")
-        if label not in timed:
+        route, splits = _rmsnorm_blocked_check(mod, label, x, s, dy)
+        if label not in RMSNORM_TIMED:
             continue
-        # the one-call yardstick has one [d] scale row for every group:
-        # the same bytes and flops, no per-group scale
-        s1 = s.detach()[0].contiguous()
-        n = G * R * d
-        records[label] = _timed_records(
-            ("rmsnorm", "rmsnorm_bwd"),
-            "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-            "src/repro/kernels/rmsnorm/rmsnorm.py:20",
-            [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
-            [(mod.rmsnorm, [x, s]), (mod.rmsnorm_plain, [x, s]),
-             (lambda a, b: F.rms_norm(a, (d,), b, mod.EPS), [x, s1])], dy,
-            # forward: x in, y out, scale in, rstd out; ~4 flops an
-            # element.  Backward: x, dy in, dx out, scale in, dscale out,
-            # rstd in; ~9 flops an element
-            [(4 * (2 * n + G * d + G * R), 4 * n),
-             (4 * (3 * n + 2 * G * d + G * R), 9 * n)],
-            "F.rms_norm with one [d] scale", timed[label])
-        for r in records[label]:
-            r["shape"] = f"G={G} R={R} d={d} {dt}"
+        rec = records[label] = rmsnorm_timed(
+            mod, RMSNORM_TIMED[label][3], x, s, dy,
+            [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))])
+        rec[0]["rmsnorm_route"] = fwd_route
+        rec[1]["rmsnorm_route"], rec[1]["splits"] = route, splits
+        for r in rec:
+            print(f"[kernel] {r['name']} at {RMSNORM_TIMED[label][3]}: route "
+                  f"{r['rmsnorm_route']}, splits {r.get('splits', '-')}")
+    _rmsnorm_op_offset_view(mod)
     return _attach_per_client(records["block norms"],
                               records["per-client block norms"])
+
+
+def _rmsnorm_op_offset_view(mod):
+    """The model layout ([32, 32, 128], one client's block norms) on a
+    contiguous view that starts one element into its storage: the general
+    route forward and backward, against the plain version."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((32 * 32 * 128 + 1,), generator=g, device="cuda")[1:]
+    x = x.view(32, 32, 128).requires_grad_()
+    s = torch.randn((128,), generator=g, device="cuda").requires_grad_()
+    w = torch.randn((32, 32, 128), generator=g, device="cuda")
+    before = dict(LAUNCHES)
+    abs_errs, errs = _fwd_bwd_errors(mod.rmsnorm_op, mod.rmsnorm_plain,
+                                     [x, s], w)
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+             if LAUNCHES[k] != before[k]}
+    print(f"[kernel] rmsnorm_op on a view one element in, [32, 32, 128] "
+          f"f32: launches {moved}; rel err y {errs[0]:.2e}, dx "
+          f"{errs[1]:.2e}, dscale {errs[2]:.2e} (limit "
+          f"{KERNEL_TOL['float32']:.0e})")
+    if max(errs) > KERNEL_TOL["float32"] or \
+            moved.get("rmsnorm_general") != 1 or \
+            moved.get("rmsnorm_bwd_general") != 1:
+        raise AssertionError("rmsnorm_op on an unaligned view")
+
+
+def phase_floor():
+    """The card's launch floor: the device ms of the smallest ATen
+    kernel, a fill of a one-element tensor, through :func:`_times`."""
+    import torch
+    t = torch.empty((1,), device="cuda")
+    ms, call = _times(lambda: t.fill_(0.0))
+    print(f"[floor] a fill of one element: device ms {ms:.4f} (call ms "
+          f"{call:.4f})")
+    return ms
 
 
 def _attention_pairs(BH, Sq, Sk, causal, window) -> int:
@@ -707,6 +815,10 @@ def phase_transformer():
                if launches[k] < 1]
     if missing:
         raise AssertionError(f"the transformer path never launched {missing}")
+    if launches["rmsnorm_vec"] != launches["rmsnorm"] or \
+            launches["rmsnorm_bwd_vec"] != launches["rmsnorm_bwd"]:
+        raise AssertionError("the transformer path's rmsnorm did not always "
+                             f"take the vec route: {launches}")
     if launches["flash_attention_bwd_fused"] != \
             launches["flash_attention_bwd"]:
         raise AssertionError("the transformer path's attention backward "
@@ -821,7 +933,9 @@ def phase_transformer_perclient():
         steps, evals = counted["steps"], counted["evals"] = \
             _client_steps(cfg, hist)
         return {"layer_agg": 0, "rmsnorm": 12 * (steps + evals),
-                "rmsnorm_bwd": 12 * steps,
+                "rmsnorm_vec": 12 * (steps + evals), "rmsnorm_general": 0,
+                "rmsnorm_bwd": 12 * steps, "rmsnorm_bwd_vec": 12 * steps,
+                "rmsnorm_bwd_general": 0,
                 "flash_attention": 4 * (steps + evals),
                 "flash_attention_bwd": 4 * steps,
                 "flash_attention_bwd_fused": 4 * steps,
@@ -1006,7 +1120,12 @@ def main() -> int:
           f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
     from repro_torch.fl import FLConfig
     phase_build()
+    floor = phase_floor()
     records = [phase_kernels()] + phase_rmsnorm() + phase_attention()
+    for r in records:
+        r["floor_ms"] = floor
+        if "per_client" in r:
+            r["per_client"]["floor_ms"] = floor
     records[0]["launches"] = phase_main_path()["layer_agg"]
     phase_profile(phase_all_submodels())
     cfg, launches = phase_transformer()
@@ -1016,6 +1135,9 @@ def main() -> int:
             r["route_launches"] = {
                 k: launches[f"flash_attention_bwd_{k}"]
                 for k in ("fused", "three_pass")}
+        if "rmsnorm_route" in r:
+            r["route_launches"] = {
+                k: launches[f"{r['name']}_{k}"] for k in ("vec", "general")}
     phase_profile(cfg, "transformer profile")
     phase_paper_fleet()
     phase_defaults()
@@ -1024,6 +1146,9 @@ def main() -> int:
     launches = phase_transformer_perclient()
     for r in records[1:]:
         r["per_client"]["launches"] = launches[r["name"]]
+        if "rmsnorm_route" in r:
+            r["per_client"]["route_launches"] = {
+                k: launches[f"{r['name']}_{k}"] for k in ("vec", "general")}
     phase_from_list()
     phase_executors()
     small = dict(n_devices=64, n_rounds=3, hw=8, n_train=1280,

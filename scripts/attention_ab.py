@@ -40,16 +40,19 @@ def one(root: Path) -> None:
     cs.phase_profile(cfg, "round")
 
 
-def main(argv) -> int:
+def take_turns(argv, one, script, doc) -> int:
+    """``script OLD NEW NEW OLD``: run ``script --one ROOT`` for each root
+    in turn, each in a fresh process, its lines labelled with the root's
+    position; ``script --one ROOT`` runs ``one(ROOT)``."""
     if len(argv) == 3 and argv[1] == "--one":
         one(Path(argv[2]).resolve())
         return 0
     if len(argv) < 2:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     rc = 0
     for i, root in enumerate(argv[1:]):
-        proc = subprocess.Popen([sys.executable, __file__, "--one", root],
+        proc = subprocess.Popen([sys.executable, script, "--one", root],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         for line in proc.stdout:
@@ -59,4 +62,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv))
+    sys.exit(take_turns(sys.argv, one, __file__, __doc__))

@@ -6,13 +6,17 @@ and nowhere else (its plain version on CPU tensors does not count), so a
 run can show that the main path went through the kernel.  A backward
 kernel counts under its own ``<name>_bwd`` key, once per backward call;
 ``flash_attention``'s backward also counts under the route it took,
-``flash_attention_bwd_fused`` or ``flash_attention_bwd_three_pass``.
+``flash_attention_bwd_fused`` or ``flash_attention_bwd_three_pass``, and
+``rmsnorm``'s forward and backward under theirs, ``rmsnorm_vec`` or
+``rmsnorm_general`` and ``rmsnorm_bwd_vec`` or ``rmsnorm_bwd_general``.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"layer_agg": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
+                            "rmsnorm_vec": 0, "rmsnorm_general": 0,
+                            "rmsnorm_bwd_vec": 0, "rmsnorm_bwd_general": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
                             "flash_attention_bwd_fused": 0,
                             "flash_attention_bwd_three_pass": 0}

@@ -12,7 +12,9 @@ Tolerances, relative to the largest magnitude of the plain result:
 ``layer_agg`` 1e-5 (float32 sums over N in another order than the
 einsum's); ``rmsnorm`` and ``flash_attention`` 2e-5 in float32 (the JAX
 sweep's), 2e-2 in bfloat16, forward and backward (the backward's oracle
-is autograd through the plain version).
+is autograd through the plain version).  The ``rmsnorm`` backward is also
+held against its CPU emulation (``rmsnorm_bwd_blocked``, the kernel's
+order of sums) at 1e-6, and against itself bitwise.
 """
 import importlib
 
@@ -27,7 +29,9 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention_bhsd,
                                                  fused_backward)
 from repro_torch.kernels.layer_agg import layer_agg, layer_agg_plain
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_blocked,
+                                         rmsnorm_op, rmsnorm_plain,
+                                         rmsnorm_route)
 
 torch.set_num_threads(1)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -106,6 +110,139 @@ def test_rmsnorm_forward_backward_match_plain(cuda, G, R, d, dtype):
     torch.cuda.synchronize()
     for got, ref in pairs:
         assert _rel_err(got, ref) <= TOL[dtype]
+
+
+RMS_SHAPES = [(16, 512, 128), (1, 7, 64), (3, 11, 100), (2, 5, 8192),
+              (4, 33, 40), (1, 1024, 128), (1, 1, 128), (5, 1, 64)]
+
+
+def _rms_inputs(G, R, d, dtype, dev, placement, seed):
+    """x [G, R, d] (times 3), scale [G, d] and dy on the card; ``offset``
+    puts x one element past the 16-byte grid (a contiguous view that
+    starts one element into its storage)."""
+    g = torch.Generator().manual_seed(seed)
+    flat = (torch.randn((G * R * d + 1,), generator=g) * 3).to(dev, dtype)
+    lo = 1 if placement == "offset" else 0
+    x = flat[lo:lo + G * R * d].view(G, R, d)
+    s = torch.randn((G, d), generator=g).to(dev, dtype)
+    dy = torch.randn((G, R, d), generator=g).to(dev, dtype)
+    return x, s, dy
+
+
+def _rms_route(x, s, extra=()):
+    G, R, d = x.shape
+    return rmsnorm_route(G, R, d, x.dtype, [x.data_ptr(), s.data_ptr(),
+                                            *extra],
+                         torch.cuda.get_device_properties(
+                             x.device).multi_processor_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("G,R,d", RMS_SHAPES)
+def test_rmsnorm_routes_match_plain(cuda, G, R, d, dtype, placement):
+    """Each route, forward and backward, against the plain version; the
+    route counters move by one each way, on the route the shape and the
+    pointers pick (offset x: the general route)."""
+    x, s, dy = _rms_inputs(G, R, d, dtype, cuda, placement, seed=G + R + d)
+    route, _ = _rms_route(x, s)
+    assert route == ("vec" if placement == "aligned" and d <= 1024 and
+                     d % (16 // x.element_size()) == 0 else "general")
+    x.requires_grad_()
+    s.requires_grad_()
+    before = dict(LAUNCHES)
+    out = rmsnorm(x, s)
+    got = torch.autograd.grad(out, [x, s], dy)
+    torch.cuda.synchronize()
+    for key in ("rmsnorm", f"rmsnorm_{route}", "rmsnorm_bwd",
+                f"rmsnorm_bwd_{route}"):
+        assert LAUNCHES[key] == before[key] + 1, key
+    assert sum(LAUNCHES[k] - before[k] for k in LAUNCHES) == 4
+    ref_in = [t.detach().clone().requires_grad_() for t in (x, s)]
+    ref_out = rmsnorm_plain(*ref_in)
+    ref = torch.autograd.grad(ref_out, ref_in, dy)
+    for a, b in [(out, ref_out), *zip(got, ref)]:
+        assert torch.isfinite(a.float()).all()
+        assert _rel_err(a, b) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["aligned", "offset"])
+@pytest.mark.parametrize("G,R,d,dtype", [
+    (1, 1024, 128, torch.float32), (16, 1024, 128, torch.float32),
+    (16, 32, 128, torch.float32), (3, 37, 100, torch.float32),
+    (2, 5, 8192, torch.float32), (16, 1024, 128, torch.bfloat16),
+    (2, 1, 64, torch.float32)])
+def test_rmsnorm_backward_is_deterministic_and_matches_blocked(
+        cuda, G, R, d, dtype, placement):
+    """No float atomics: two backward calls give the same bits, and they
+    agree with the CPU emulation of the kernel's order of sums at 1e-6 of
+    the largest magnitude."""
+    rmsnorm_mod = importlib.import_module(
+        "repro_torch.kernels.rmsnorm.rmsnorm")
+    x, s, dy = _rms_inputs(G, R, d, dtype, cuda, placement, seed=d + R)
+    rstd = torch.rsqrt(torch.mean(x.float() ** 2, dim=-1) + 1e-5)
+    runs = [rmsnorm_mod._backward(x, s, dy, rstd) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    route, splits = _rms_route(x, s, [dy.data_ptr()])
+    emu = rmsnorm_bwd_blocked(x.cpu(), s.cpu(), dy.cpu(), rstd.cpu(), route,
+                              splits)
+    for a, b in zip(runs[0], emu):
+        assert _rel_err(a.cpu(), b) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["aligned", "offset"])
+def test_rmsnorm_backward_is_one_launch(cuda, placement):
+    """The backward runs one kernel on the card: no second pass, no memset
+    (a warm call first: the tickets are made, zeroed, at first use)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, s, dy = _rms_inputs(1, 1024, 128, torch.float32, cuda, placement, 5)
+    x.requires_grad_()
+    s.requires_grad_()
+    out = rmsnorm(x, s)
+    torch.autograd.grad(out, [x, s], dy, retain_graph=True)
+    torch.cuda.synchronize()
+    for _ in range(3):              # a read with no device activity retries
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, [x, s], dy, retain_graph=True)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert len(set(names)) == 1 and "rmsnorm_bwd" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", [0, 1, 2])
+def test_rmsnorm_op_on_unaligned_views(cuda, lo):
+    """The model layout on a contiguous view ``lo`` elements into its
+    storage: 1 and 2 are off the 16-byte grid and take the general
+    route; the result is the plain version's."""
+    B, S, d = 4, 32, 128
+    g = torch.Generator().manual_seed(lo)
+    flat = torch.randn((B * S * d + 2,), generator=g).to(cuda)
+    x = flat[lo:lo + B * S * d].view(B, S, d).requires_grad_()
+    s = torch.randn((d,), generator=g).to(cuda).requires_grad_()
+    before = dict(LAUNCHES)
+    out = rmsnorm_op(x, s)
+    w = torch.randn(out.shape, generator=g).to(cuda)
+    got = torch.autograd.grad(out, [x, s], w)
+    torch.cuda.synchronize()
+    route = "vec" if lo == 0 else "general"
+    assert LAUNCHES[f"rmsnorm_{route}"] == before[f"rmsnorm_{route}"] + 1
+    assert LAUNCHES[f"rmsnorm_bwd_{route}"] == \
+        before[f"rmsnorm_bwd_{route}"] + 1
+    ref_in = [t.detach().clone().requires_grad_() for t in (x, s)]
+    ref_out = rmsnorm_plain(*ref_in)
+    ref = torch.autograd.grad(ref_out, ref_in, w)
+    for a, b in [(out, ref_out), *zip(got, ref)]:
+        assert _rel_err(a, b) <= TOL[torch.float32]
 
 
 # (BH, BHkv, Sq, Sk, D, causal, window): the transformer path's shape,
