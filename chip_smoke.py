@@ -51,12 +51,22 @@ its own lines; any failure raises and exits non-zero:
    round's deltas aggregated by the list path and by its stacked route
    through ``layer_agg`` (``[from list]``); the two executors on the same
    run (``[executors]``);
-7. check small runs on the card against the same runs on the CPU (plain
+7. the async engine (``engine_mode="async"``): Fig. 6's 64-device DR-FL
+   + MARL row at full width on the bucketed executor (``[async]``: one
+   ``layer_agg`` launch per completion, N = 1, some of them stale; the
+   cost of one completion's aggregation; then a profile of two warm
+   virtual rounds), its HeteroFL arm (``[async heterofl]``), the
+   transformer path (``[async transformer]``: every kernel's launch count
+   exact from the dispatch ticks' buckets) and seeded faults with
+   deadline reaping and quarantine (``[async faults]``);
+8. check small runs on the card against the same runs on the CPU (plain
    versions): each family on the bucketed executor, and the CNN's DR-FL
    greedy, HeteroFL and ScaleFL arms on the per-client executor;
    identical picks, accuracy within one validation sample, weights
-   allclose at rtol 1e-4, atol 1e-5;
-8. print the card's name and power limit, the kernels' JSON line and,
+   allclose at rtol 1e-4, atol 1e-5; and async runs (``[async
+   reference]``: bucketed with hot-plug, and per-client), with identical
+   task logs;
+9. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -95,6 +105,12 @@ PERCLIENT_REFERENCE_ARMS = (
 PAPER_CFG = dict(n_devices=40, participation=0.1, local_epochs=5,
                  n_train=6000, energy_scale=0.6, width_mult=1.0, hw=32,
                  seed=0)
+#: Fig. 6's 64-device row (benchmarks/fig6_scalability.py:62-80) on the
+#: paper's harness: n_train 6000 * 64 / 40, 10%, the async engine with a
+#: reward evaluation every round(0.1 * 64) aggregations; 3 virtual rounds
+#: (a budget of 18 tasks), not the harness's 30
+ASYNC_CFG = dict(PAPER_CFG, n_devices=64, n_train=9600, engine_mode="async",
+                 async_eval_every=6, n_rounds=3)
 KERNELS = ("layer_agg", "rmsnorm", "flash_attention")
 #: our kernels' names in a profiler trace
 OWN_KERNELS = ("layer_agg", "rmsnorm", "fa_")
@@ -587,15 +603,44 @@ def _model_layout_times(mod):
               f"backward device ms {dev2:.4f} (call ms {call2:.4f})")
 
 
+def _layer_agg_record(U, M, w, err, scale):
+    """layer_agg's record at U's shape: the kernel, the plain version and
+    the einsum + divide library call, beside the bound (each input read
+    once, the output written once)."""
+    import torch
+    N, R, D = U.shape
+
+    def library():
+        wm = w[:, None] * M
+        return (torch.einsum("nl,nld->ld", wm, U)
+                / wm.sum(dim=0).clamp_min(1e-12)[:, None])
+    from repro_torch.kernels.layer_agg import layer_agg, layer_agg_plain
+    times = [_times(f) for f in (lambda: layer_agg(U, M, w),
+                                 lambda: layer_agg_plain(U, M, w), library)]
+    n_bytes = 4 * (N * R * D + N * R + N + R * D)
+    record = _record("layer_agg",
+                     "src/repro_torch/kernels/layer_agg/csrc/layer_agg.cu",
+                     "src/repro/kernels/layer_agg/layer_agg.py:37", err,
+                     err / scale, times, n_bytes, 2 * N * R * D + R * D)
+    record["shape"] = f"N={N} R={R} D={D} float32"
+    _print_record(record, "einsum+divide", record["shape"])
+    print(f"[kernel] layer_agg {record['shape']}: {n_bytes / 1e6:.1f} MB at "
+          f"3.35 TB/s; {n_bytes / record['ms'] / 1e6:.1f} GB/s of device "
+          "time")
+    return record
+
+
 def phase_kernels():
-    """layer_agg against its plain version; returns the timing record."""
+    """layer_agg against its plain version; returns the record timed at
+    the sync main path's shape (N 9), with the async engine's (one client
+    a launch, N 1) under ``async``."""
     import torch
     from repro_torch.core.aggregation import stacked_masked_mean
     from repro_torch.kernels.layer_agg import layer_agg, layer_agg_plain
     shapes = [("main path", 9, 11084, 1024), ("one client", 1, 11084, 1024),
               ("300 clients", 300, 1024, 1024), ("ragged D", 5, 1000, 1000),
               ("D over one chunk", 3, 257, 3000)]
-    record = None
+    records = {}
     for label, N, R, D in shapes:
         U, M, w = _agg_inputs(N, R, D, seed=N + R)
         got = layer_agg(U, M, w)
@@ -610,34 +655,25 @@ def phase_kernels():
         if err > REL_TOL * scale or not zero_rows_ok:
             raise AssertionError(f"layer_agg disagrees with its plain "
                                  f"version at {label}")
-        if label == "main path":
-            def library():
-                wm = w[:, None] * M
-                return (torch.einsum("nl,nld->ld", wm, U)
-                        / wm.sum(dim=0).clamp_min(1e-12)[:, None])
-            times = [_times(f) for f in (lambda: layer_agg(U, M, w),
-                                         lambda: layer_agg_plain(U, M, w),
-                                         library)]
-            n_bytes = 4 * (N * R * D + N * R + N + R * D)
-            record = _record(
-                "layer_agg",
-                "src/repro_torch/kernels/layer_agg/csrc/layer_agg.cu",
-                "src/repro/kernels/layer_agg/layer_agg.py:37", err,
-                err / scale, times, n_bytes, 2 * N * R * D + R * D)
-            _print_record(record, "einsum+divide")
-            print(f"[kernel] layer_agg main path: {n_bytes / 1e6:.1f} MB "
-                  f"at 3.35 TB/s; {n_bytes / record['ms'] / 1e6:.1f} GB/s "
-                  "of device time")
+        if label in ("main path", "one client"):
+            records[label] = _layer_agg_record(U, M, w, err, scale)
         del U, M, w, got, ref
-    # staleness alphas: kernel path on the card vs the plain path on the CPU
-    U, M, w = _agg_inputs(9, 2048, 1024, seed=5)
-    a = torch.rand((9,), device="cuda") * 0.8 + 0.2
-    got = stacked_masked_mean(U, M, w, a)
-    ref = stacked_masked_mean(U.cpu(), M.cpu(), w.cpu(), a.cpu())
-    err = (got.cpu() - ref).abs().max().item()
-    print(f"[kernel] layer_agg alpha path: max_abs_err={err:.3e}")
-    if err > REL_TOL * max(ref.abs().max().item(), 1.0):
-        raise AssertionError("alpha path disagrees with the CPU plain path")
+    # staleness alphas: kernel path on the card vs the plain path on the
+    # CPU, at 9 clients and at the async engine's one (R 11084)
+    for N, R in ((9, 2048), (1, 11084)):
+        U, M, w = _agg_inputs(N, R, 1024, seed=5)
+        a = torch.rand((N,), device="cuda") * 0.8 + 0.2
+        got = stacked_masked_mean(U, M, w, a)
+        ref = stacked_masked_mean(U.cpu(), M.cpu(), w.cpu(), a.cpu())
+        err = (got.cpu() - ref).abs().max().item()
+        print(f"[kernel] layer_agg alpha path N={N} R={R}: "
+              f"max_abs_err={err:.3e}")
+        if err > REL_TOL * max(ref.abs().max().item(), 1.0):
+            raise AssertionError("alpha path disagrees with the CPU plain "
+                                 "path")
+        del U, M, w, got, ref
+    record = records["main path"]
+    record["async"] = records["one client"]
     return record
 
 
@@ -695,8 +731,9 @@ def _drive(tag, cfg, executor, expect):
 
 
 def _one_per_round(hist):
-    """``layer_agg`` once per round with a cohort (the stacked DR-FL
-    aggregation of the bucketed executor)."""
+    """``layer_agg`` once per aggregation (the stacked DR-FL aggregation
+    of the bucketed executor): a sync round with a cohort, or an async
+    completion."""
     return {"layer_agg": hist["n_aggregations"]}
 
 
@@ -734,29 +771,35 @@ def phase_all_submodels():
     return cfg
 
 
-def phase_profile(cfg, tag="profile"):
-    """Device busy share of one warm round of ``cfg`` (``torch.profiler``,
-    device activity only: recording every host op of the vmapped programs
-    makes the trace too large to read back in time).  Busy time is the
-    union of the kernels' intervals inside the round, so overlapping or
-    doubly reported kernels are not counted twice."""
+def phase_profile(cfg, tag="profile", rounds=1):
+    """Device busy share of ``rounds`` warm rounds of ``cfg`` (virtual
+    rounds on the async engine; ``torch.profiler``, device activity only:
+    recording every host op of the vmapped programs makes the trace too
+    large to read back in time).  Busy time is the union of the kernels'
+    intervals inside the rounds, so overlapping or doubly reported kernels
+    are not counted twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.fl import run_simulation
-    cfg = dataclasses.replace(cfg, n_rounds=1)
+    cfg = dataclasses.replace(cfg, n_rounds=rounds)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         hist = run_simulation(cfg)
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     spans = _device_spans(prof)
+    round_s = sum(hist["wall_clock"])
     if not spans:
         print(f"[{tag}] device busy time: not measured (no device events "
               "in the trace)")
-        return hist["wall_clock"][0], None
-    # the round ends in its tail pull, right after its last kernel: the
-    # window is the round's host wall time ending there
-    round_us = hist["wall_clock"][0] * 1e6
-    hi = max(e_ for _, e_, _ in spans)
+        return round_s, None
+    # the rounds end in the last one's tail pull, right after its last
+    # kernel: the window is their host wall time ending there.  The async
+    # engine trains QMIX after its last row: that span's host seconds (it
+    # ends in a pull, so they cover its device work) come off the end
+    round_us = round_s * 1e6
+    tail_us = (hist["phase_s"][-1].get("marl_train", 0.0) * 1e6
+               if hist["engine"] == "async" else 0.0)
+    hi = max(e_ for _, e_, _ in spans) - tail_us
     lo = hi - round_us
     busy_us, cur_s, cur_e = 0.0, None, None
     for s_, e_, _ in spans:
@@ -769,10 +812,11 @@ def phase_profile(cfg, tag="profile"):
         else:
             cur_e = max(cur_e, e_)
     busy_us += 0.0 if cur_e is None else cur_e - cur_s
-    in_round = [(s_, e_, n) for s_, e_, n in spans if s_ >= lo]
-    print(f"[{tag}] one warm round of {cfg.model_family}, participation "
-          f"{cfg.participation}, "
-          f"submodels {sorted(set(hist['model_choices'][0]))}: wall "
+    in_round = [(s_, e_, n) for s_, e_, n in spans if lo <= s_ < hi]
+    print(f"[{tag}] {rounds} warm round(s) of {cfg.model_family} "
+          f"{cfg.method} ({hist['engine']}), participation "
+          f"{cfg.participation}, submodels "
+          f"{sorted(set(m for r in hist['model_choices'] for m in r))}: wall "
           f"{round_us / 1e6:.3f} s, "
           f"{len(in_round)} kernels summing "
           f"{sum(e_ - s_ for s_, e_, _ in in_round) / 1e6:.3f} s, card busy "
@@ -784,14 +828,16 @@ def phase_profile(cfg, tag="profile"):
         by_name[name] = (n + 1, t + e_ - s_)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
         print(f"[{tag}] kernel {name[:60]}: {n} launches, {t / 1e3:.2f} ms")
-    elem = [(n, t) for name, (n, t) in by_name.items()
-            if "elementwise" in name]
-    print(f"[{tag}] ATen elementwise kernels in the round: "
-          f"{sum(n for n, _ in elem)} launches, "
-          f"{sum(t for _, t in elem) / 1e3:.2f} ms")
+    for what, keys in (("ATen elementwise kernels", ("elementwise",)),
+                       ("copies (cat, copy kernels, memcpy)",
+                        ("Cat", "copy", "Memcpy"))):
+        hit = [(n, t) for name, (n, t) in by_name.items()
+               if any(k in name for k in keys)]
+        print(f"[{tag}] {what} in the rounds: {sum(n for n, _ in hit)} "
+              f"launches, {sum(t for _, t in hit) / 1e3:.2f} ms")
     for name, (n, t) in sorted(by_name.items()):
         if any(k in name for k in OWN_KERNELS):
-            print(f"[{tag}] own kernel {name[:60]} in the round: {n} "
+            print(f"[{tag}] own kernel {name[:60]} in the rounds: {n} "
                   f"launches, {t / 1e3:.4f} ms")
     return round_us / 1e6, busy_us / round_us
 
@@ -1061,17 +1107,12 @@ def phase_executors():
               f"{'not measured' if busy is None else f'{busy:.3f}'})")
 
 
-def phase_reference(tag, cfg):
-    """A small run on the card against the same run on the CPU; a MARL
+def _card_and_cpu(cfg):
+    """The same run on the card and on the CPU (plain versions); a MARL
     run acts greedily (ε = 0: the two devices' generators draw different
-    numbers).  Weights are held at rtol=1e-4, atol=1e-5, the tolerance of
-    the parity tests after SGD steps and QMIX updates (float32 sums in
-    another order on each device)."""
-    import numpy as np
-    import torch
+    numbers).  Returns (card hist, CPU hist)."""
     from repro_torch.fl.engine import RoundEngine, uses_marl
     from repro_torch.fl.simulation import _make_buffer, _make_selector
-    from repro_torch.tree import tree_leaves
     hists = {}
     for dev in ("cuda", "cpu"):
         sel, buf = _make_selector(cfg, 4, device=dev), None
@@ -1081,7 +1122,18 @@ def phase_reference(tag, cfg):
             sel.reset_episode()
             buf = _make_buffer(cfg)
         hists[dev] = RoundEngine(cfg, sel, buf, device=dev).run()
-    g, c = hists["cuda"], hists["cpu"]
+    return hists["cuda"], hists["cpu"]
+
+
+def phase_reference(tag, cfg):
+    """A small run on the card against the same run on the CPU.  Weights
+    are held at rtol=1e-4, atol=1e-5, the tolerance of the parity tests
+    after SGD steps and QMIX updates (float32 sums in another order on
+    each device)."""
+    import numpy as np
+    import torch
+    from repro_torch.tree import tree_leaves
+    g, c = _card_and_cpu(cfg)
     n_val = max(64, int(cfg.n_val_fraction * cfg.n_train))
     acc_diff = float(np.max(np.abs(np.stack(g["acc"]) - np.stack(c["acc"]))))
     pairs = [(a.cpu(), b) for a, b in zip(tree_leaves(g["params"]),
@@ -1102,6 +1154,238 @@ def phase_reference(tag, cfg):
         raise AssertionError("card and CPU runs picked differently")
     if acc_diff > 1.0 / n_val + 1e-6 or not p_close:
         raise AssertionError("card and CPU runs disagree")
+
+
+def _print_async(tag, hist):
+    """Per virtual round: picks, the staleness of its completions and its
+    sim time (``_drive`` printed its wall and host seconds by phase); then
+    the episode's event totals."""
+    i = 0
+    for t, picks in enumerate(hist["participants"]):
+        print(f"[{tag}] virtual round {t}: picks {picks} staleness "
+              f"{hist['staleness'][i:i + len(picks)]} lost {hist['lost'][t]}"
+              f" sim time {hist['sim_time'][t]:.1f} s wall "
+              f"{hist['wall_clock'][t]:.3f} s")
+        i += len(picks)
+    print(f"[{tag}] tasks {hist['n_tasks']}, aggregations "
+          f"{hist['n_aggregations']}, terminated {hist['terminated']}, "
+          f"k_final {hist['k_final']}, sim time {hist['sim_time_total']:.1f}"
+          f" s, idle {hist['idle_time']:.1f} s, wait for work "
+          f"{hist['wait_for_work']:.1f} s, hot-plug {hist['hotplug']}")
+
+
+def _async_agg_cost(cfg):
+    """One async completion's DR-FL aggregation at full width: the whole
+    model's rows of one client (the deepest submodel, stale by 2) stacked,
+    one ``layer_agg`` launch, unstacked; device ms and call ms."""
+    import torch
+    from repro_torch.fl import server as fl_server
+    from repro_torch.fl.engine import build_world
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_map
+    w = build_world(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    delta = tree_map(
+        lambda a: torch.randn(a.shape, generator=g, device="cuda")[None]
+        * 1e-3, w.family.submodel_tree(w.global_params, 3))
+    bucket = [(3, delta, [150.0], [2])]
+
+    def agg():
+        return fl_server.aggregate_drfl_stacked(
+            w.global_params, bucket, server_lr=cfg.server_lr,
+            staleness_decay=cfg.staleness_decay, family=w.family)
+    reset_launches()
+    agg()
+    torch.cuda.synchronize()
+    if LAUNCHES["layer_agg"] != 1:
+        raise AssertionError("one async aggregation launched layer_agg "
+                             f"{LAUNCHES['layer_agg']} times")
+    dev, call = _times(agg, iters=10)
+    print(f"[async] one completion's aggregation (aggregate_drfl_stacked, "
+          f"N = 1, the full ResNet-18, staleness 2): device ms {dev:.4f}, "
+          f"call ms {call:.4f}, one layer_agg launch")
+    return dev, call
+
+
+def phase_async():
+    """The slice's path: Fig. 6's 64-device DR-FL + MARL row on the async
+    engine, full width, bucketed executor: one ``layer_agg`` launch per
+    completion (N = 1), through the alpha route when stale.  Returns
+    (cfg, launches)."""
+    from repro_torch.fl import FLConfig
+    cfg = FLConfig(**ASYNC_CFG)
+    hist, launches = _drive("async", cfg, "batched", _one_per_round)
+    _print_async("async", hist)
+    budget = 18
+    if hist["n_tasks"] != budget and hist["terminated"]["reason"] not in (
+            "fleet_dead", "starved"):
+        raise AssertionError(f"[async] {hist['n_tasks']} tasks of {budget},"
+                             f" terminated {hist['terminated']}")
+    if max(hist["staleness"]) < 1:
+        raise AssertionError("[async] no aggregation was stale")
+    if hist.get("qmix", {}).get("updates", 0) < 1:
+        raise AssertionError("[async] no QMIX update at the episode's end")
+    _async_agg_cost(cfg)
+    return cfg, launches
+
+
+def phase_async_heterofl():
+    """Fig. 6's other arm on the same config, greedy, 2 virtual rounds:
+    the sliced aggregation, pre-scaled by the staleness, no ``layer_agg``."""
+    from repro_torch.fl import FLConfig
+    hist, _ = _drive("async heterofl", FLConfig(**dict(
+        ASYNC_CFG, n_rounds=2, method="heterofl", selector="greedy")),
+        "batched", _no_layer_agg)
+    _print_async("async heterofl", hist)
+
+
+def _async_block_steps(cfg, hist):
+    """(bucket steps x blocks, validation batches) of an async bucketed
+    transformer run: each dispatch tick trained its tasks with data as one
+    program per submodel of next_pow2(longest schedule) steps, each
+    running submodel m's m + 1 blocks (three ``rmsnorm``, one
+    ``flash_attention``) forward and backward; the evaluations (the first,
+    one per row and, for MARL, one per ``async_eval_every`` aggregations)
+    each run ceil(n_val / 256) batches through the 4 blocks."""
+    from repro_torch.data.loader import client_schedule
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.fl.batch import _next_pow2
+    from repro_torch.fl.client import client_update_seed
+    from repro_torch.fl.engine import uses_marl
+    from repro_torch.models.family import get_family
+    _, y = get_family(cfg.model_family).make_dataset(
+        cfg.n_train, cfg.num_classes, hw=cfg.hw, noise=cfg.noise,
+        seed=cfg.seed)
+    n_val = max(64, int(cfg.n_val_fraction * cfg.n_train))
+    parts = dirichlet_partition(y[n_val:], cfg.n_devices + cfg.hotplug_n,
+                                cfg.alpha, cfg.seed)
+    buckets = {}
+    for t in hist["task_log"]:
+        if len(parts[t["device"]]):
+            buckets.setdefault((t["dispatch"], t["m"]), []).append(
+                t["device"])
+    block_steps = sum(
+        _next_pow2(max(len(client_schedule(
+            parts[i], client_update_seed(cfg.seed, cid, i),
+            cfg.local_epochs, cfg.batch_size)) for i in devs)) * (m + 1)
+        for (cid, m), devs in buckets.items())
+    evals = 1 + len(hist["acc"]) + (
+        hist["n_aggregations"] // cfg.async_eval_every if uses_marl(cfg)
+        else 0)
+    p1 = sum(len(d) == 1 for d in buckets.values())
+    return block_steps, evals * -(-n_val // 256), p1, len(buckets)
+
+
+def phase_async_transformer():
+    """The transformer path on the async engine (``TRANSFORMER_CFG``, 2
+    virtual rounds): after the first dispatch tick, each completion
+    dispatches one task, a P = 1 bucket; every ``rmsnorm`` and
+    ``flash_attention`` launch count is exact, forward, backward and
+    route.  Returns the launches."""
+    from repro_torch.fl import FLConfig
+    cfg = FLConfig(**dict(TRANSFORMER_CFG, engine_mode="async", n_rounds=2))
+    counted = {}
+
+    def expect(hist):
+        steps, evals, p1, n_buckets = _async_block_steps(cfg, hist)
+        counted.update(steps=steps, evals=evals, p1=p1, buckets=n_buckets)
+        return {"layer_agg": hist["n_aggregations"],
+                "rmsnorm": 3 * steps + 12 * evals,
+                "rmsnorm_vec": 3 * steps + 12 * evals, "rmsnorm_general": 0,
+                "rmsnorm_bwd": 3 * steps, "rmsnorm_bwd_vec": 3 * steps,
+                "rmsnorm_bwd_general": 0,
+                "flash_attention": steps + 4 * evals,
+                "flash_attention_bwd": steps,
+                "flash_attention_bwd_fused": steps,
+                "flash_attention_bwd_three_pass": 0}
+    hist, launches = _drive("async transformer", cfg, "batched", expect)
+    _print_async("async transformer", hist)
+    print(f"[async transformer] {counted['buckets']} bucket programs "
+          f"({counted['p1']} of one task), {counted['steps']} bucket steps "
+          f"x blocks and {counted['evals']} validation batches: launches "
+          "exact")
+    return launches
+
+
+def phase_async_faults():
+    """Seeded faults on the async engine: DR-FL greedy, bucketed, 64
+    devices at FLConfig's default width (0.25, 16x16), two of each fault
+    kind; the time horizon is the same config's sync run on the card (as
+    ``benchmarks/async_bench.py``).  Every poisoned delta is quarantined,
+    every lost task reaped, the weights finite."""
+    import torch
+    from repro_torch.fl import FLConfig, run_simulation
+    from repro_torch.tree import tree_leaves
+    base = dict(n_devices=64, n_rounds=10, selector="greedy",
+                client_executor="batched", seed=0)
+    horizon = run_simulation(FLConfig(**base))["sim_time_total"]
+    cfg = FLConfig(**base, engine_mode="async", async_time_horizon=horizon,
+                   fault_crashes=2, fault_timeouts=2, fault_disconnects=2,
+                   fault_corrupts=2)
+    hist, _ = _drive("async faults", cfg, "batched", _one_per_round)
+    _print_async("async faults", hist)
+    faults = hist["faults"]
+    for e in faults["events"]:
+        print(f"[async faults] event {e}")
+    poisoned = sorted((e["device"], e["poisoned_version"])
+                      for e in faults["events"]
+                      if e["outcome"] == "poisoned")
+    quarantined = sorted((q["device"], q["version"])
+                         for q in faults["quarantined"])
+    lost = sum(1 for t in hist["task_log"] if t.get("lost"))
+    print(f"[async faults] sync horizon {horizon:.1f} s; poisoned "
+          f"{poisoned}, quarantined {quarantined}, reaped "
+          f"{faults['n_reaped']} of {lost} lost tasks")
+    if not set(poisoned) <= set(quarantined) or faults["n_reaped"] != lost:
+        raise AssertionError("[async faults] a poisoned delta was not "
+                             "quarantined or a lost task not reaped")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(hist["params"])):
+        raise AssertionError("[async faults] non-finite weights")
+
+
+def phase_async_reference():
+    """Small async runs on the card against the CPU: bucketed DR-FL greedy
+    at 64 devices with 8 joining after the first virtual round, and
+    per-client DR-FL greedy at 16 devices.  The task log identical
+    (device, dispatch, version, staleness, submodel); times and energy at
+    rtol 1e-4; accuracy and weights at ``[executors]``'s tolerances (mean
+    accuracy atol 0.06, weights atol 6e-3: cuDNN's float32 convolutions
+    are not deterministic on the H100)."""
+    import numpy as np
+    from repro_torch.fl import FLConfig
+    from repro_torch.tree import tree_leaves
+    keys = ("device", "dispatch", "version", "staleness", "m")
+    for tag, cfg in (
+            ("async reference", FLConfig(
+                n_devices=64, n_rounds=3, hw=8, n_train=1280,
+                local_epochs=1, participation=0.1, width_mult=0.125,
+                seed=1, selector="greedy", engine_mode="async",
+                client_executor="batched", hotplug_n=8, hotplug_round=1)),
+            ("async reference perclient", FLConfig(**dict(
+                PERCLIENT_REFERENCE, n_devices=16, selector="greedy",
+                engine_mode="async", client_executor="perclient")))):
+        g, c = _card_and_cpu(cfg)
+        same_log = [[t[k] for k in keys] for t in g["task_log"]] == \
+            [[t[k] for k in keys] for t in c["task_log"]]
+        w_diff = max(float((a.cpu() - b).abs().max()) for a, b in
+                     zip(tree_leaves(g["params"]), tree_leaves(c["params"])))
+        acc = float(np.max(np.abs(np.subtract(g["acc_mean"],
+                                              c["acc_mean"]))))
+        times_ok = all(np.allclose(g[k], c[k], rtol=1e-4, atol=1e-5)
+                       for k in ("sim_time", "energy", "idle"))
+        hp = [h["hotplug"] and {k: h["hotplug"][k] for k in (
+            "vround", "version", "k_before", "k_after")} for h in (g, c)]
+        print(f"[{tag}] card vs CPU, {g['executor']} n={cfg.n_devices} "
+              f"hot-plug {hp[0]}: {len(g['task_log'])} tasks, task log "
+              f"equal={same_log}, times and energy close={times_ok}, max "
+              f"mean accuracy diff {acc:.4f} (limit 0.06), max weight diff "
+              f"{w_diff:.3e} (limit 6e-3)")
+        if not same_log or not times_ok or acc > 0.06 or w_diff > 6e-3:
+            raise AssertionError(f"[{tag}] card and CPU runs disagree")
+        if hp[0] != hp[1] or (cfg.hotplug_n and not (
+                hp[0] and hp[0]["k_after"] > hp[0]["k_before"])):
+            raise AssertionError(f"[{tag}] the hot-plug differs or did not "
+                                 f"raise k: {hp}")
 
 
 def main() -> int:
@@ -1151,6 +1435,15 @@ def main() -> int:
                 k: launches[f"{r['name']}_{k}"] for k in ("vec", "general")}
     phase_from_list()
     phase_executors()
+    cfg, launches = phase_async()
+    records[0]["async_launches"] = launches["layer_agg"]
+    records[0]["async"]["launches"] = launches["layer_agg"]
+    phase_profile(cfg, "async profile", rounds=2)
+    phase_async_heterofl()
+    launches = phase_async_transformer()
+    for r in records[1:]:
+        r["async_launches"] = launches[r["name"]]
+    phase_async_faults()
     small = dict(n_devices=64, n_rounds=3, hw=8, n_train=1280,
                  local_epochs=1)
     phase_reference("reference", FLConfig(participation=0.1,
@@ -1164,6 +1457,7 @@ def main() -> int:
     for arm in PERCLIENT_REFERENCE_ARMS:
         phase_reference(f"reference perclient {arm['method']}", FLConfig(
             **dict(PERCLIENT_REFERENCE, **arm)))
+    phase_async_reference()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -11,8 +11,12 @@ the same fleet as the JAX package.
 Eq. 3-7 as batched tensor ops: :func:`fleet_cost_matrix` (time and energy
 for every device x submodel), :func:`fleet_affordability` (strict ``<``,
 as ``fleet.py:304``) and :func:`fleet_charge` (strict ``>``, as
-``fleet.py:323``; a device that cannot pay dies).  All functions return new
-states; the input is never changed.
+``fleet.py:323``; a device that cannot pay dies).  The churn updates of
+the async engine and hot-plug (``fleet.py:336-406``): :func:`fleet_connect`,
+:func:`fleet_disconnect`, :func:`fleet_kill`, :func:`fleet_set_alive`,
+:func:`fleet_set_busy` and the host mask :func:`fleet_idle`.  All functions
+return new states, their masks built on the fleet's device; the input is
+never changed.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.energy import make_fleet
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host
 
 
 @dataclasses.dataclass
@@ -38,6 +42,11 @@ class FleetState:
     mode_compute: torch.Tensor  # POWER_MODES compute multiplier
     mode_power: torch.Tensor    # POWER_MODES power multiplier
     alive: torch.Tensor         # bool
+    #: per-device virtual clock (sim seconds) of the async engine: the
+    #: device is mid-task until then.  float32, an observability mirror
+    #: only: the engine keeps its authoritative clocks on the host in
+    #: float64, as the reference does
+    busy_until: torch.Tensor
     #: human-readable labels, static (not tensors): each device's tier and
     #: power mode, as the JAX ``FleetState`` keeps them
     tiers: Tuple[str, ...] = ()
@@ -77,6 +86,7 @@ def make_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
         mode_power=f32([m[1] for m in mults]),
         alive=torch.tensor([d.alive for d in devs], dtype=torch.bool,
                            device=device),
+        busy_until=torch.zeros((n,), dtype=torch.float32, device=device),
         tiers=tuple(d.profile.tier for d in devs),
         modes=tuple(d.mode for d in devs))
 
@@ -134,3 +144,71 @@ def fleet_charge(fleet: FleetState, e_need: torch.Tensor,
 def fleet_total_remaining(fleet: FleetState) -> float:
     """Eq. 6 fleet energy ledger as a host float (one sync)."""
     return float(fleet.remaining.sum())
+
+
+def _index_mask(fleet: FleetState, indices) -> torch.Tensor:
+    """[n] bool mask on the fleet's device, True at ``indices``."""
+    dev = fleet.remaining.device
+    mask = torch.zeros((len(fleet),), dtype=torch.bool, device=dev)
+    mask[torch.as_tensor(np.asarray(indices, np.int64), device=dev)] = True
+    return mask
+
+
+def _from(fleet: FleetState, start: int) -> torch.Tensor:
+    """[n] bool mask of the devices ``[start:]``."""
+    return torch.arange(len(fleet), device=fleet.remaining.device) >= start
+
+
+def fleet_connect(fleet: FleetState, start: int, energy_scale: float = 1.0,
+                  now: float = 0.0) -> FleetState:
+    """Hot-plug (paper §4.2 Step 1): devices ``[start:]`` come online with
+    fresh (scaled) batteries, idle as of sim time ``now``."""
+    joins = _from(fleet, start)
+    return fleet.replace(
+        remaining=torch.where(joins, fleet.battery * energy_scale,
+                              fleet.remaining),
+        alive=fleet.alive | joins,
+        busy_until=torch.where(joins, _f32(fleet, now), fleet.busy_until))
+
+
+def fleet_disconnect(fleet: FleetState, start: int) -> FleetState:
+    """Mark devices ``[start:]`` as not yet connected (dead, no energy)."""
+    out = _from(fleet, start)
+    return fleet.replace(
+        remaining=torch.where(out, torch.zeros_like(fleet.remaining),
+                              fleet.remaining),
+        alive=fleet.alive & ~out)
+
+
+def fleet_idle(fleet: FleetState, now: float) -> np.ndarray:
+    """[n] bool host mask (one pull): alive and not mid-task at ``now``."""
+    alive, busy = to_host(fleet.alive, fleet.busy_until)
+    return alive & (busy <= now + 1e-9)
+
+
+def fleet_set_busy(fleet: FleetState, indices, until) -> FleetState:
+    """Mark ``indices`` busy until the given sim times (a scalar or one per
+    index), rounded to the float32 mirror; no host pull."""
+    busy = fleet.busy_until.clone()
+    idx = torch.as_tensor(np.asarray(indices, np.int64),
+                          device=busy.device)
+    busy[idx] = _f32(fleet, np.asarray(until, np.float64))
+    return fleet.replace(busy_until=busy)
+
+
+def fleet_kill(fleet: FleetState, indices) -> FleetState:
+    """Hard crash of ``indices``: battery spent, alive False (the fault
+    plan's "crash"); energy already charged for a task stays spent."""
+    mask = _index_mask(fleet, indices)
+    return fleet.replace(
+        remaining=torch.where(mask, torch.zeros_like(fleet.remaining),
+                              fleet.remaining),
+        alive=fleet.alive & ~mask)
+
+
+def fleet_set_alive(fleet: FleetState, indices, value: bool) -> FleetState:
+    """Set liveness at ``indices`` without touching energy: a transient
+    disconnect (False) and its rejoin (True) keep the battery."""
+    mask = _index_mask(fleet, indices)
+    return fleet.replace(alive=(fleet.alive | mask) if value
+                         else (fleet.alive & ~mask))

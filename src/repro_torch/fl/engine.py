@@ -1,46 +1,72 @@
-"""Sync FL round engine — port of ``repro.fl.engine`` (``build_world``,
-``resolve_client_executor``, ``_marl_train`` and ``RoundEngine._run_sync``,
-``engine.py:492-798``, without the scenario, budget, hot-plug and
-checkpoint hooks, which are not ported).
+"""FL round engine — port of ``repro.fl.engine``: ``build_world``,
+``resolve_client_executor``, ``sync_task_budget``, ``_marl_train`` and
+``RoundEngine`` in both modes, without the energy-scenario, global-budget
+and checkpoint hooks, which are not ported (``check_supported`` refuses
+them up front).
 
-Per round: selection, Eq. 5/7 costs and the energy charge on the device,
-ONE batched host pull at the round head (charge outcome and round times),
-the clients' local training, aggregation, evaluation, and ONE batched pull
-at the round tail (per-exit accuracy, fleet energy, liveness).  The client
-executor is the reference's choice (:func:`resolve_client_executor`):
+* ``engine_mode="sync"`` (``engine.py:492-798``): barrier rounds.  Per
+  round: the hot-plug hook, selection, Eq. 5/7 costs and the energy charge
+  on the device, ONE batched host pull at the round head (charge outcome
+  and round times), the clients' local training, aggregation, evaluation,
+  and ONE batched pull at the round tail (per-exit accuracy, fleet
+  energy, liveness).
+* ``engine_mode="async"`` (``engine.py:804-1576``): an event heap of
+  ``(time, seq, kind, payload)`` over per-device virtual clocks kept on
+  the host in float64.  A dispatch tick selects among the idle devices and
+  charges them (two batched pulls: the task times, then the charge
+  outcome); each completion aggregates its delta at once, down-weighted by
+  its staleness (``cfg.staleness_decay``), and back-fills the freed slot.
+  Completions are grouped into virtual rounds of k tasks (one pull per
+  emitted row); rewards are committed to the selector in dispatch order;
+  the MARL learner trains at the end of the episode.  Hot-plug joins and,
+  with a fault plan (:mod:`repro_torch.fl.faults`), crashes, timeouts,
+  disconnects and corrupt deltas are timeline events; a fault plan gives
+  every task a deadline at ``task_deadline_factor x t_cost``, where a lost
+  task is reaped.
+
+The client executor is the reference's choice
+(:func:`resolve_client_executor`):
 
 * ``"batched"``: one program per submodel bucket (:mod:`fl.batch`); DR-FL
-  aggregates the stacked deltas through the ``layer_agg`` kernel, the
-  baselines take them apart for the sliced scatter average;
+  aggregates the stacked deltas through the ``layer_agg`` kernel (the
+  async engine: one launch per completion, N = 1), the baselines take
+  them apart for the sliced scatter average.  The async engine trains a
+  dispatch tick's tasks at the tick, on the weights of that moment;
 * ``"perclient"``: each client's SGD loop in turn, its batches gathered
   on the device from the resident training set through its
   ``client_schedule`` (one index copy per client, no host sync per
   step); DR-FL aggregates with ``aggregate_drfl`` (``layerwise_aggregate``
   per leaf, as the reference), the baselines with ``aggregate_sliced``.
+  The async engine trains a task at its completion, on the weights it
+  pulled at dispatch: every aggregation builds new tensors, so such a
+  snapshot is never changed under it.
 
-Each phase of a round (select, charge, clients, aggregate, evaluate,
-marl_train) is a ``torch.profiler.record_function`` span named
+Each phase of a (virtual) round (select, charge, clients, aggregate,
+evaluate, marl_train) is a ``torch.profiler.record_function`` span named
 ``round.<phase>`` and has its host seconds recorded in
-``hist["phase_s"]`` (one dict per round).  ``select``, ``charge``,
-``evaluate`` and ``marl_train`` end in a host pull, and so do the
-batched executor's ``clients`` (one losses pull per bucket), so their
+``hist["phase_s"]`` (one dict per round or emitted row).  ``select``,
+``charge``, ``evaluate`` and ``marl_train`` end in a host pull, and so do
+the batched executor's ``clients`` (one losses pull per bucket), so their
 host time covers their device work.  ``aggregate`` and the per-client
 executor's ``clients`` pull nothing: their host seconds are enqueue time,
-and their device work is waited for inside ``evaluate``.
+and their device work is waited for by the next pull.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import heapq
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.fleet import (FleetState, fleet_charge,
-                                    fleet_cost_matrix, fleet_total_remaining,
+from repro_torch.core.fleet import (FleetState, fleet_charge, fleet_connect,
+                                    fleet_cost_matrix, fleet_disconnect,
+                                    fleet_kill, fleet_set_alive,
+                                    fleet_set_busy, fleet_total_remaining,
                                     make_fleet_state)
 from repro_torch.core.selection import (MarlSelector, resolve_mixer_mode,
                                         resolve_state_mode)
@@ -50,6 +76,7 @@ from repro_torch.device import resolve_device, to_host
 from repro_torch.fl import batch as fl_batch
 from repro_torch.fl import server as fl_server
 from repro_torch.fl.client import client_update_seed
+from repro_torch.fl.faults import FaultPlan, poison_payload
 from repro_torch.models.family import LayerwiseFamily, get_family
 from repro_torch.tree import tree_map
 
@@ -82,26 +109,24 @@ def uses_marl(cfg) -> bool:
 
 def check_supported(cfg) -> None:
     """Refuse, up front, every configuration outside this port's slices:
-    the sync engine; DR-FL, HeteroFL and ScaleFL with any of the four
-    selectors; the ``cnn`` and ``transformer`` families (a family that
-    lacks the method raises the reference's ``ValueError``); either client
-    executor; the flat QMIX state/mixer and the trivial energy
-    scenario."""
+    the sync and async engines, with hot-plug and (async) fault plans;
+    DR-FL, HeteroFL and ScaleFL with any of the four selectors; the
+    ``cnn`` and ``transformer`` families (a family that lacks the method
+    raises the reference's ``ValueError``); either client executor; the
+    flat QMIX state/mixer and the trivial energy scenario."""
+    if cfg.engine_mode not in ("sync", "async"):
+        raise ValueError(f"unknown engine_mode {cfg.engine_mode!r} "
+                         "(expected 'sync' or 'async')")
     checks = [
-        (cfg.engine_mode != "sync", f"engine_mode={cfg.engine_mode!r}",
-         "async engine"),
         (cfg.model_family not in ("cnn", "transformer"),
          f"model_family={cfg.model_family!r}", "other families"),
-        (cfg.hotplug_n > 0, "hotplug_n > 0", "hot-plug"),
         (cfg.charge_profile != "constant" or cfg.charge_rate != 0.0
          or cfg.availability_profile != "always"
          or cfg.availability_duty != 1.0,
          "a non-trivial energy scenario", "energy scenarios"),
         (cfg.global_budget_j != 0.0, "global_budget_j", "energy scenarios"),
         (bool(cfg.checkpoint_dir) or cfg.checkpoint_every or cfg.resume,
-         "checkpointing", "checkpoints and faults"),
-        (cfg.fault_crashes or cfg.fault_timeouts or cfg.fault_disconnects
-         or cfg.fault_corrupts, "fault injection", "checkpoints and faults"),
+         "checkpointing", "checkpoints"),
         (cfg.fleet_mesh not in (0, 1), "fleet_mesh", "fleet sharding"),
     ]
     for bad, what, item in checks:
@@ -161,9 +186,10 @@ def build_world(cfg, *, device="cuda", global_params=None) -> World:
     """Data, Dirichlet split, fleet, model init and cost model — the JAX
     ``build_world`` with the same numpy draws.  The corpus is the
     family's (``make_dataset``: images, or token windows for the
-    transformer).  The model init draws from a CPU
-    ``torch.Generator(seed)`` (so it is the same on every device); tests
-    inject converted JAX weights through ``global_params``."""
+    transformer).  The ``hotplug_n`` joiners are in the fleet from the
+    start, not yet connected (dead, no energy).  The model init draws from
+    a CPU ``torch.Generator(seed)`` (so it is the same on every device);
+    tests inject converted JAX weights through ``global_params``."""
     dev = resolve_device(device)
     family = get_family(cfg.model_family)
     x, y = family.make_dataset(cfg.n_train, cfg.num_classes, hw=cfg.hw,
@@ -174,6 +200,8 @@ def build_world(cfg, *, device="cuda", global_params=None) -> World:
     fleet = make_fleet_state(n_total, cfg.seed,
                              data_sizes=[len(p) for p in parts], device=dev)
     fleet = fleet.replace(remaining=fleet.battery * cfg.energy_scale)
+    if cfg.hotplug_n:
+        fleet = fleet_disconnect(fleet, cfg.n_devices)
     if global_params is None:
         global_params = family.init(torch.Generator().manual_seed(cfg.seed),
                                     cfg.num_classes,
@@ -208,6 +236,25 @@ def resolve_client_executor(cfg) -> str:
                      "(expected 'auto', 'perclient' or 'batched')")
 
 
+def sync_task_budget(cfg) -> int:
+    """Client tasks a sync run of ``cfg`` dispatches at most (the sum over
+    rounds of the connected fleet's Top-K k): the async engine's default
+    work budget, so both modes do the same amount of training."""
+    k_pre = max(1, int(round(cfg.participation * cfg.n_devices)))
+    if not cfg.hotplug_n:
+        return cfg.n_rounds * k_pre
+    hr = min(max(int(cfg.hotplug_round), 0), cfg.n_rounds)
+    k_post = max(1, int(round(
+        cfg.participation * (cfg.n_devices + cfg.hotplug_n))))
+    return hr * k_pre + (cfg.n_rounds - hr) * k_post
+
+
+def _check_selection(sel, n_total: int) -> None:
+    if len(sel.model_choice) != n_total:
+        raise ValueError(f"selector returned {len(sel.model_choice)} model "
+                         f"choices for a fleet of {n_total}")
+
+
 def _marl_train(marl, buffer, hist, fleet, round_idx, n_updates):
     """Flush the episode trace into replay, run QMIX updates and record the
     replay telemetry under ``hist["qmix"]`` (same call order as the JAX
@@ -228,12 +275,21 @@ def _marl_train(marl, buffer, hist, fleet, round_idx, n_updates):
     q["td_loss"].extend(losses)
 
 
+def _poisoned(delta, value: float):
+    """A corrupt device's delta: every element ``value``."""
+    return tree_map(lambda a: torch.full_like(a, value), delta)
+
+
 class RoundEngine:
-    """Runs one sync FL episode.  ``selector`` and ``buffer`` are owned by
-    the caller (``run_simulation`` keeps them across episodes)."""
+    """Runs one FL episode under ``cfg.engine_mode``.  ``selector`` and
+    ``buffer`` are owned by the caller (``run_simulation`` keeps them
+    across episodes).  ``fault_plan`` (or the ``cfg.fault_*`` counts)
+    injects seeded churn into the async timeline; the sync engine refuses
+    one with the reference's ``ValueError``."""
 
     def __init__(self, cfg, selector, buffer=None, verbose: bool = False, *,
-                 device="cuda", global_params=None):
+                 device="cuda", global_params=None,
+                 fault_plan: Optional[FaultPlan] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.selector = selector
@@ -241,17 +297,28 @@ class RoundEngine:
         self.verbose = verbose
         self.device = resolve_device(device)
         self.executor = resolve_client_executor(cfg)
+        self.faults = (fault_plan if fault_plan is not None
+                       else FaultPlan.from_config(cfg))
+        if self.faults is not None and not len(self.faults):
+            self.faults = None
+        if self.faults is not None and cfg.engine_mode == "sync":
+            raise ValueError("fault injection needs the event timeline: "
+                             "set engine_mode='async'")
         self._global_params = global_params
         self._qpend: List[Any] = []   # (info, device validity) pairs
 
     def run(self) -> Dict:
         self.world = build_world(self.cfg, device=self.device,
                                  global_params=self._global_params)
+        if self.cfg.engine_mode == "async":
+            return self._run_async()
         return self._run_sync()
 
     def _flush_quarantine(self, hist) -> None:
         """Pull every pending validity verdict in ONE batch (at finalize)
-        and record the quarantined rows under ``hist["faults"]``."""
+        and record each quarantined row under ``hist["faults"]``: every
+        key of its aggregation's info but ``devices``/``models``, plus
+        ``device`` and ``m`` (``engine.py:458-489``)."""
         if not self._qpend:
             return
         f = hist["faults"]
@@ -260,12 +327,51 @@ class RoundEngine:
             for j, dev in enumerate(info["devices"]):
                 if dev is None or bool(v[j]):
                     continue
-                f["quarantined"].append({"round": info["round"],
-                                         "time": info["time"],
-                                         "device": int(dev),
-                                         "m": int(info["models"][j])})
+                rec = {k: info[k] for k in info
+                       if k not in ("devices", "models")}
+                rec["device"] = int(dev)
+                rec["m"] = int(info["models"][j])
+                f["quarantined"].append(rec)
                 f["n_quarantined"] += 1
         self._qpend.clear()
+
+    def _finalize(self, hist, global_params) -> Dict:
+        self._flush_quarantine(hist)
+        hist["final_acc"] = hist["acc"][-1] if hist["acc"] else np.zeros(4)
+        hist["best_acc"] = (np.max(np.stack(hist["acc"]), axis=0)
+                            if hist["acc"] else np.zeros(4))
+        hist["params"] = global_params
+        return hist
+
+    def _device_data(self):
+        """The training and validation sets on the device (tokens and
+        labels as int64): the executors gather their mini-batches there."""
+        w = self.world
+        dev = w.device
+        x_dev, x_val = (_data_to_device(a, dev) for a in (w.x_tr, w.x_val))
+        y_dev = torch.as_tensor(w.y_tr, dtype=torch.int64, device=dev)
+        y_val = torch.as_tensor(w.y_val, dtype=torch.int64, device=dev)
+        return x_dev, y_dev, x_val, y_val
+
+    def _cohort(self, params, devices, models, seeds, x_dev, y_dev):
+        """The bucketed executor's pass over ``devices`` (all with data)."""
+        cfg, w = self.cfg, self.world
+        return fl_batch.run_cohort(
+            cfg.method, params, x_dev, y_dev, [w.parts[i] for i in devices],
+            devices, models, seeds, epochs=cfg.local_epochs,
+            batch=cfg.batch_size, lr=cfg.lr, family=w.family)
+
+    def _train_one(self, params, i, m, seed, x_dev, y_dev):
+        """Client ``i``'s local SGD on submodel ``m`` from ``params`` (the
+        per-client executor): its delta."""
+        cfg, w = self.cfg, self.world
+        steps = torch.as_tensor(
+            client_schedule(w.parts[i], seed, cfg.local_epochs,
+                            cfg.batch_size),
+            dtype=torch.int64, device=x_dev.device)
+        delta, _ = w.family.train_steps(cfg.method, params, m, x_dev[steps],
+                                        y_dev[steps], lr=cfg.lr)
+        return delta
 
     def _train_and_aggregate(self, t, cohort, choice, global_params, x_dev,
                              y_dev, phase, sim_time):
@@ -278,11 +384,8 @@ class RoundEngine:
         models = [int(choice[i]) for i in cohort]
         if self.executor == "batched":
             with _span(phase, "clients"):
-                res = fl_batch.run_cohort(
-                    cfg.method, global_params, x_dev, y_dev,
-                    [w.parts[i] for i in cohort], cohort, models, seeds,
-                    epochs=cfg.local_epochs, batch=cfg.batch_size,
-                    lr=cfg.lr, family=w.family)
+                res = self._cohort(global_params, cohort, models, seeds,
+                                   x_dev, y_dev)
             if cfg.method == "drfl":
                 with _span(phase, "aggregate"):
                     global_params, valid = \
@@ -305,18 +408,11 @@ class RoundEngine:
                 devs = [c[0] for c in contribs]
                 models = [c[1] for c in contribs]
         else:
-            deltas, weights = [], []
             with _span(phase, "clients"):
-                for i, m, seed in zip(cohort, models, seeds):
-                    steps = torch.as_tensor(
-                        client_schedule(w.parts[i], seed, cfg.local_epochs,
-                                        cfg.batch_size),
-                        dtype=torch.int64, device=x_dev.device)
-                    delta, _ = w.family.train_steps(
-                        cfg.method, global_params, m, x_dev[steps],
-                        y_dev[steps], lr=cfg.lr)
-                    deltas.append(delta)
-                    weights.append(float(len(w.parts[i])))
+                deltas = [self._train_one(global_params, i, m, seed, x_dev,
+                                          y_dev)
+                          for i, m, seed in zip(cohort, models, seeds)]
+            weights = [float(len(w.parts[i])) for i in cohort]
             with _span(phase, "aggregate"):
                 if cfg.method == "drfl":
                     global_params, valid = fl_server.aggregate_drfl(
@@ -338,11 +434,7 @@ class RoundEngine:
         M = w.n_models
         selector, buffer = self.selector, self.buffer
         marl = selector if isinstance(selector, MarlSelector) else None
-        # the training and validation sets stay on the device: the
-        # executor gathers its mini-batches there (tokens as int64)
-        x_dev, x_val = (_data_to_device(a, dev) for a in (w.x_tr, w.x_val))
-        y_dev = torch.as_tensor(w.y_tr, dtype=torch.int64, device=dev)
-        y_val = torch.as_tensor(w.y_val, dtype=torch.int64, device=dev)
+        x_dev, y_dev, x_val, y_val = self._device_data()
 
         w1, w2, w3 = cfg.reward_weights
         hist = {"acc": [], "acc_mean": [], "energy": [], "round_time": [],
@@ -358,18 +450,24 @@ class RoundEngine:
         sim_time = 0.0
         n_agg = 0
         fleet_dead = False
-        k = max(1, int(round(cfg.participation * cfg.n_devices)))
+        hotplug_done = False
 
         for t in range(cfg.n_rounds):
             t0 = time.time()
             phase: Dict[str, float] = {}
+            if cfg.hotplug_n and not hotplug_done and t >= cfg.hotplug_round:
+                # paper Step 1 hot-plug: the joiners connect with full
+                # (scaled) batteries and pull the global model
+                fleet = fleet_connect(fleet, cfg.n_devices, cfg.energy_scale)
+                hotplug_done = True
+            # Top-K follows the connected fleet
+            n_connected = cfg.n_devices + (cfg.hotplug_n if hotplug_done
+                                           else 0)
+            k = max(1, int(round(cfg.participation * n_connected)))
             with _span(phase, "select"):
                 sel = selector.select(fleet, t, k, w.sizes, w.fractions,
                                       cfg.local_epochs, cfg.batch_size)
-            if len(sel.model_choice) != w.n_total:
-                raise ValueError(
-                    f"selector returned {len(sel.model_choice)} model "
-                    f"choices for a fleet of {w.n_total}")
+            _check_selection(sel, w.n_total)
             choice = np.asarray(sel.model_choice, np.int64)
             active = choice >= 0
             m_col = torch.as_tensor(np.clip(choice, 0, M - 1),
@@ -449,9 +547,539 @@ class RoundEngine:
             "sim_time": sim_time}
         hist["n_aggregations"] = n_agg
         hist["sim_time_total"] = sim_time
-        self._flush_quarantine(hist)
-        hist["final_acc"] = hist["acc"][-1] if hist["acc"] else np.zeros(4)
-        hist["best_acc"] = (np.max(np.stack(hist["acc"]), axis=0)
-                            if hist["acc"] else np.zeros(4))
-        hist["params"] = global_params
-        return hist
+        return self._finalize(hist, global_params)
+
+    # ------------------------------------------------------------------
+    # async mode: an event heap over per-device virtual clocks
+    # (engine.py:804-1576, without the scenario, budget and checkpoint
+    # hooks)
+    # ------------------------------------------------------------------
+
+    def _run_async(self) -> Dict:
+        cfg, w = self.cfg, self.world
+        dev = w.device
+        fleet = w.fleet
+        global_params = w.global_params
+        selector, buffer = self.selector, self.buffer
+        marl = selector if isinstance(selector, MarlSelector) else None
+        decay = cfg.staleness_decay
+        eval_every = max(1, int(cfg.async_eval_every))
+        horizon = float(cfg.async_time_horizon)
+        budget = int(cfg.async_task_budget or sync_task_budget(cfg))
+        w1, w2, w3 = cfg.reward_weights
+        x_dev, y_dev, x_val, y_val = self._device_data()
+        batched = self.executor == "batched"
+
+        deadline_factor = float(cfg.task_deadline_factor)
+        # deadlines (and their reap events) exist only with a fault plan:
+        # a reap pop reruns refill(), which can draw from the selector's
+        # RNG, so a clean run must see no reap event at all
+        reaping = self.faults is not None
+        task_by_dev: Dict[int, dict] = {}  # device -> its in-flight task
+        disconnected: set = set()
+        corrupt_pending: Dict[int, list] = {}  # dev -> [(payload, ev_idx)]
+        hist = {"acc": [], "acc_mean": [], "energy": [], "round_time": [],
+                "alive": [], "participants": [], "model_choices": [],
+                "reward": [], "wall_clock": [], "sim_time": [], "idle": [],
+                "phase_s": [], "staleness": [], "task_log": [], "lost": [],
+                "dropouts": 0, "idle_time": 0.0, "wait_for_work": 0.0,
+                "hotplug": None, "engine": "async", "executor": self.executor,
+                "faults": {"events": [], "quarantined": [],
+                           "n_reaped": 0, "n_quarantined": 0}}
+        acc_prev = float(np.mean(to_host(fl_server.evaluate(
+            global_params, x_val, y_val, family=w.family))[0]))
+        state = dict(now=0.0, version=0, seq=0, vround=0, tasks_started=0,
+                     completions=0, inflight=0, n_cohorts=0, next_commit=0,
+                     last_event=0.0, hotplug_done=not cfg.hotplug_n,
+                     acc_prev=acc_prev, window_t0=0.0,
+                     window_wall0=time.time(), window_reward=0.0,
+                     window_idle=0.0, window_lost=0)
+        heap: list = []
+        cohorts: Dict[int, dict] = {}   # one per selector.select call
+        last_done: Dict[int, float] = {}
+        window_devices: List[int] = []
+        window_models: List[int] = []
+        phase: Dict[str, float] = {}    # host seconds of the open row
+        # the authoritative virtual clocks and liveness, on the host in
+        # float64 (fleet.busy_until is a float32 mirror, whose resolution
+        # at large sim times could mark a mid-task device idle); liveness
+        # is kept from values the loop pulls anyway, so the per-event idle
+        # check costs no device sync
+        busy_h, alive_h = to_host(fleet.busy_until, fleet.alive)
+        busy64 = busy_h.astype(np.float64)
+        alive_host = alive_h.copy()
+        if self.faults is not None:
+            # injected churn rides the heap with the completions; seq
+            # numbers assigned up front break fault/completion ties
+            for ev in self.faults.events:
+                heapq.heappush(heap, (float(ev.time), state["seq"], "fault",
+                                      {"kind": ev.kind,
+                                       "device": int(ev.device),
+                                       "duration": float(ev.duration),
+                                       "payload": ev.payload}))
+                state["seq"] += 1
+
+        def n_connected():
+            return cfg.n_devices + (cfg.hotplug_n if state["hotplug_done"]
+                                    else 0)
+
+        def top_k():
+            return max(1, int(round(cfg.participation * n_connected())))
+
+        def credit(cid, amount):
+            cohorts[cid]["reward"] += amount
+            state["window_reward"] += amount
+
+        def commit_ready():
+            # rewards reach the selector IN DISPATCH ORDER, so the MARL
+            # trace stays (obs_t, action_t, reward_t)-aligned even when
+            # later dispatches complete first
+            while (state["next_commit"] < state["n_cohorts"]
+                   and cohorts[state["next_commit"]]["pending"] == 0):
+                c = cohorts.pop(state["next_commit"])
+                selector.observe_reward(c["reward"], sim_time=state["now"])
+                state["next_commit"] += 1
+
+        def maybe_hotplug(force: bool = False):
+            nonlocal fleet
+            if state["hotplug_done"] or (not force and state["vround"]
+                                         < cfg.hotplug_round):
+                return
+            now = state["now"]
+            k_before = top_k()
+            fleet = fleet_connect(fleet, cfg.n_devices, cfg.energy_scale,
+                                  now=now)
+            busy64[cfg.n_devices:] = now
+            alive_host[cfg.n_devices:] = True
+            state["hotplug_done"] = True
+            (remaining,) = to_host(fleet.remaining)   # once per run
+            hist["hotplug"] = {
+                "sim_time": now, "vround": state["vround"],
+                "version": state["version"], "k_before": k_before,
+                "k_after": top_k(),
+                "join_remaining": [float(r)
+                                   for r in remaining[cfg.n_devices:]]}
+
+        def try_dispatch(n_sel) -> int:
+            nonlocal fleet, alive_host
+            now = state["now"]
+            idle = alive_host & (busy64 <= now + 1e-9)
+            if not idle.any():
+                return 0
+            cid = state["n_cohorts"]
+            state["n_cohorts"] += 1
+            cohorts[cid] = {"pending": 0, "reward": 0.0}
+            with _span(phase, "select"):
+                sel = selector.select(
+                    fleet.replace(alive=torch.as_tensor(idle, device=dev)),
+                    state["vround"], n_sel, w.sizes, w.fractions,
+                    cfg.local_epochs, cfg.batch_size)
+            _check_selection(sel, w.n_total)
+            choice = np.asarray(sel.model_choice, np.int64)
+            active = choice >= 0
+            with _span(phase, "charge"):
+                if active.any():
+                    m_col = torch.as_tensor(np.clip(choice, 0,
+                                                    w.n_models - 1),
+                                            device=dev)[:, None]
+                    t_tra, t_com, e_tra, e_com = fleet_cost_matrix(
+                        fleet, w.sizes, w.fractions, cfg.local_epochs,
+                        cfg.batch_size)
+                    need_d = (e_tra + e_com).gather(1, m_col)[:, 0]
+                    # the first of the tick's two batched pulls: the task
+                    # times for the event heap
+                    (t_cost,) = to_host((t_tra + t_com).gather(1, m_col)[:, 0])
+                    if horizon > 0:
+                        # only work that can land inside the time budget
+                        active &= (now + t_cost) <= horizon + 1e-9
+                    allow = budget - state["tasks_started"]
+                    kept = [i for i in sel.participants if active[i]][:allow]
+                    active = np.zeros(w.n_total, bool)
+                    active[kept] = True
+                if not active.any():
+                    return 0
+                e_before_d = fleet.remaining.sum()
+                fleet, ok_d = fleet_charge(fleet, need_d,
+                                           torch.as_tensor(active, device=dev))
+                # the second: charge outcome and the energy reward terms
+                ok, e_before_a, e_after_a = to_host(
+                    ok_d, e_before_d, fleet.remaining.sum())
+            e_before, e_after = float(e_before_a), float(e_after_a)
+            # fleet_charge kills the attempted-but-unaffordable devices
+            alive_host &= ~(active & ~ok)
+            hist["dropouts"] += int((active & ~ok).sum())
+            # energy term at SEND time (batteries wasted by deaths included)
+            credit(cid, -w2 * (e_before - e_after))
+            started = [i for i in sel.participants if active[i] and ok[i]]
+            if not started:
+                return 0
+            busy64[np.asarray(started)] = now + t_cost[np.asarray(started)]
+            fleet = fleet_set_busy(fleet, started,
+                                   now + t_cost[np.asarray(started)])
+            # micro-bucket: the tick's tasks train against the same
+            # snapshot, so the bucketed executor runs them now (one program
+            # per bucket) and each completion takes its row
+            rows_by_dev: Dict[int, Any] = {}
+            if batched:
+                with_data = [i for i in started if len(w.parts[i])]
+                if with_data:
+                    with _span(phase, "clients"):
+                        res = self._cohort(
+                            global_params, with_data,
+                            [int(choice[i]) for i in with_data],
+                            [client_update_seed(cfg.seed, cid, i)
+                             for i in with_data], x_dev, y_dev)
+                    for b in res.buckets:
+                        for r, d in enumerate(b.participants):
+                            rows_by_dev[d] = (b, r)
+            for i in started:
+                if i in last_done:            # wait-for-work since last task
+                    hist["wait_for_work"] += now - last_done[i]
+                task = {"device": i, "m": int(choice[i]),
+                        "version": state["version"], "cid": cid, "t0": now,
+                        "t_cost": float(t_cost[i])}
+                if batched:
+                    task["delta_row"] = rows_by_dev.get(i)
+                else:
+                    # trains at its completion, on the weights pulled now
+                    task["params"] = global_params
+                task_by_dev[i] = task
+                heapq.heappush(heap, (now + float(t_cost[i]), state["seq"],
+                                      "done", task))
+                state["seq"] += 1
+                if reaping:
+                    # strictly after the completion: a lost task's slot is
+                    # reclaimed here, a healthy task's reap is a no-op
+                    task["deadline"] = now + deadline_factor * float(
+                        t_cost[i])
+                    heapq.heappush(heap, (task["deadline"], state["seq"],
+                                          "reap", task))
+                    state["seq"] += 1
+            cohorts[cid]["pending"] = len(started)
+            state["tasks_started"] += len(started)
+            state["inflight"] += len(started)
+            return len(started)
+
+        def refill():
+            while (state["tasks_started"] < budget
+                   and state["inflight"] < top_k()):
+                if horizon > 0 and state["now"] >= horizon:
+                    break
+                n_sel = min(top_k() - state["inflight"],
+                            budget - state["tasks_started"])
+                if try_dispatch(n_sel) == 0:
+                    break
+
+        def emit_row():
+            now = state["now"]
+            with _span(phase, "evaluate"):
+                accs_d = fl_server.evaluate(global_params, x_val, y_val,
+                                            family=w.family)
+                # the one batched pull of a virtual round
+                accs, e_now_a, alive_a = to_host(
+                    accs_d, fleet.remaining.sum(), fleet.alive)
+            acc = float(np.mean(accs))
+            # re-baseline the accuracy term, so eval_every > 1 leaks no
+            # uncredited progress into later rewards
+            state["window_reward"] += w1 * (acc - state["acc_prev"])
+            state["acc_prev"] = acc
+            e_now, alive_now = float(e_now_a), int(alive_a.sum())
+            hist["acc"].append(np.asarray(accs))
+            hist["acc_mean"].append(acc)
+            hist["energy"].append(e_now)
+            hist["round_time"].append(now - state["window_t0"])
+            hist["alive"].append(alive_now)
+            hist["participants"].append(list(window_devices))
+            hist["model_choices"].append(list(window_models))
+            hist["reward"].append(state["window_reward"])
+            hist["wall_clock"].append(time.time() - state["window_wall0"])
+            hist["phase_s"].append(dict(phase))
+            hist["sim_time"].append(now)
+            hist["idle"].append(state["window_idle"])
+            hist["lost"].append(state["window_lost"])
+            if self.verbose:
+                print(f"  vround {state['vround']:3d}: acc={acc:.3f}"
+                      f" alive={alive_now} energy={e_now:,.0f}J"
+                      f" t={now:.1f}s r={state['window_reward']:+.2f}")
+            window_devices.clear()
+            window_models.clear()
+            phase.clear()
+            state.update(window_t0=now, window_wall0=time.time(),
+                         window_reward=0.0, window_idle=0.0, window_lost=0)
+            state["vround"] += 1
+
+        def maybe_emit():
+            # lost (reaped) tasks count toward the row's quota, so heavy
+            # churn still advances the virtual rounds
+            if len(window_devices) + state["window_lost"] >= top_k():
+                emit_row()
+                maybe_hotplug()
+
+        def process_completion(task):
+            nonlocal global_params
+            now = state["now"]
+            i = task["device"]
+            task["done"] = True
+            if task_by_dev.get(i) is task:
+                del task_by_dev[i]
+            state["inflight"] -= 1
+            last_done[i] = now
+            staleness = state["version"] - task["version"]
+            cid = task["cid"]
+            cohorts[cid]["pending"] -= 1
+            # the time term pays the virtual time this event advanced: the
+            # gaps telescope to the row's duration (sync's t_round)
+            credit(cid, -w3 * ((now - state["last_event"]) / 60.0))
+            state["last_event"] = now
+            # straggler wait: the update is aggregated at this very event
+            agg_wait = now - (task["t0"] + task["t_cost"])
+            hist["idle_time"] += agg_wait
+            state["window_idle"] += agg_wait
+            n_i = len(w.parts[i])
+            aggregated = False
+            if n_i:
+                poison_val = None
+                if corrupt_pending.get(i):
+                    # an armed "corrupt" fault poisons this delta; the
+                    # aggregation's quarantine must keep it out
+                    payload, ev_idx = corrupt_pending[i].pop(0)
+                    poison_val = poison_payload(payload)
+                    ev_rec = hist["faults"]["events"][ev_idx]
+                    ev_rec["outcome"] = "poisoned"
+                    ev_rec["poisoned_version"] = state["version"]
+                if batched:
+                    bucket, row = task["delta_row"]
+                else:
+                    with _span(phase, "clients"):
+                        delta = self._train_one(
+                            task["params"], i, task["m"],
+                            client_update_seed(cfg.seed, cid, i), x_dev,
+                            y_dev)
+                qinfo = {"devices": [i], "models": [task["m"]],
+                         "version": state["version"], "time": now}
+                with _span(phase, "aggregate"):
+                    if cfg.method == "drfl" and batched:
+                        delta_1 = tree_map(lambda a: a[row:row + 1],
+                                           bucket.stacked_delta)
+                        if poison_val is not None:
+                            delta_1 = _poisoned(delta_1, poison_val)
+                        global_params, valid = \
+                            fl_server.aggregate_drfl_stacked(
+                                global_params,
+                                [(task["m"], delta_1, [float(n_i)],
+                                  [staleness])], server_lr=cfg.server_lr,
+                                staleness_decay=decay, family=w.family)
+                    elif cfg.method == "drfl":
+                        if poison_val is not None:
+                            delta = _poisoned(delta, poison_val)
+                        global_params, valid = fl_server.aggregate_drfl(
+                            global_params, [delta], [task["m"]],
+                            [float(n_i)], server_lr=cfg.server_lr,
+                            staleness=[staleness], staleness_decay=decay,
+                            family=w.family)
+                    else:
+                        if batched:
+                            delta = tree_map(lambda a: a[row],
+                                             bucket.stacked_delta)
+                        if poison_val is not None:
+                            delta = _poisoned(delta, poison_val)
+                        # the sliced scatter takes no staleness: the
+                        # delta comes pre-scaled by its alpha
+                        a = fl_server.staleness_scale(staleness, decay)
+                        if a != 1.0:
+                            delta = tree_map(lambda u: (u * a).to(u.dtype),
+                                             delta)
+                        global_params, valid = fl_server.aggregate_sliced(
+                            global_params, [delta], [float(n_i)])
+                self._qpend.append((qinfo, valid))
+                state["version"] += 1
+                aggregated = True
+            hist["staleness"].append(staleness)
+            hist["task_log"].append({
+                "device": i, "dispatch": cid, "version": task["version"],
+                "staleness": staleness, "m": task["m"],
+                "t_dispatch": task["t0"], "t_done": now})
+            # the per-aggregation evaluations feed event-time rewards, which
+            # only the MARL selector learns from
+            if marl and aggregated and state["version"] % eval_every == 0:
+                with _span(phase, "evaluate"):
+                    (accs,) = to_host(fl_server.evaluate(
+                        global_params, x_val, y_val, family=w.family))
+                acc = float(np.mean(accs))
+                credit(cid, w1 * (acc - state["acc_prev"]))
+                state["acc_prev"] = acc
+            window_devices.append(i)
+            window_models.append(task["m"])
+            state["completions"] += 1
+            maybe_emit()
+
+        def process_reap(task):
+            # a lost task's deadline passed: reclaim its slot and settle its
+            # cohort; a healthy task's reap pops as a no-op
+            nonlocal fleet
+            if task.get("done") or task.get("reaped") \
+                    or not task.get("lost"):
+                return
+            task["reaped"] = True
+            now = state["now"]
+            i = task["device"]
+            if task_by_dev.get(i) is task:
+                del task_by_dev[i]
+            state["inflight"] -= 1
+            cohorts[task["cid"]]["pending"] -= 1
+            # the cohort pays for the virtual time its silence stalled
+            credit(task["cid"], -w3 * ((now - state["last_event"]) / 60.0))
+            state["last_event"] = now
+            busy64[i] = min(busy64[i], now)
+            fleet = fleet_set_busy(fleet, [i], float(busy64[i]))
+            hist["faults"]["n_reaped"] += 1
+            state["window_lost"] += 1
+            hist["task_log"].append({
+                "device": i, "dispatch": task["cid"],
+                "version": task["version"], "staleness": None,
+                "m": task["m"], "t_dispatch": task["t0"], "t_done": None,
+                "lost": True, "reaped_at": now})
+            maybe_emit()
+
+        def process_fault(ev):
+            nonlocal fleet
+            now = state["now"]
+            i = int(ev["device"])
+            kind = ev["kind"]
+            entry = {"time": now, "kind": kind, "device": i,
+                     "injected": kind != "rejoin"}
+            task = task_by_dev.get(i)
+            if kind == "rejoin":
+                if i in disconnected:
+                    disconnected.discard(i)
+                    fleet = fleet_set_alive(fleet, [i], True)
+                    alive_host[i] = True
+                    busy64[i] = now
+                    fleet = fleet_set_busy(fleet, [i], now)
+                    entry["outcome"] = "rejoined"
+                else:
+                    # it crashed while disconnected: it stays dead
+                    entry["outcome"] = "noop"
+            elif kind == "crash":
+                if not alive_host[i]:
+                    entry["outcome"] = "already_dead"
+                else:
+                    # one scalar pull per injected crash (plan-bounded)
+                    (e_lost,) = to_host(fleet.remaining[i])
+                    e_lost = float(e_lost)
+                    fleet = fleet_kill(fleet, [i])
+                    alive_host[i] = False
+                    entry["e_lost"] = e_lost
+                    if task is not None and not task.get("lost"):
+                        # mid-task: the cohort that picked this device eats
+                        # the wasted battery, so MARL learns flakiness
+                        task["lost"] = True
+                        credit(task["cid"], -w2 * e_lost)
+                        entry["outcome"] = "crash_mid_task"
+                    else:
+                        entry["outcome"] = "crash_idle"
+            elif kind == "timeout":
+                if task is None or task.get("lost"):
+                    entry["outcome"] = "no_inflight_task"
+                else:
+                    # a straggler: silent until its deadline reaps the task;
+                    # the device keeps its battery
+                    task["lost"] = True
+                    busy64[i] = task["deadline"]
+                    fleet = fleet_set_busy(fleet, [i], task["deadline"])
+                    entry["outcome"] = "timed_out"
+                    entry["reap_at"] = task["deadline"]
+            elif kind == "disconnect":
+                if not alive_host[i]:
+                    entry["outcome"] = "already_dead"
+                else:
+                    alive_host[i] = False
+                    fleet = fleet_set_alive(fleet, [i], False)
+                    disconnected.add(i)
+                    if task is not None and not task.get("lost"):
+                        task["lost"] = True
+                        entry["outcome"] = "disconnect_mid_task"
+                    else:
+                        entry["outcome"] = "disconnected"
+                    t_back = now + max(float(ev.get("duration", 0.0)), 1e-6)
+                    heapq.heappush(heap, (t_back, state["seq"], "fault",
+                                          {"kind": "rejoin", "device": i}))
+                    state["seq"] += 1
+                    entry["rejoin_at"] = t_back
+            elif kind == "corrupt":
+                entry["payload"] = ev.get("payload") or "nan"
+                entry["outcome"] = "armed"
+            hist["faults"]["events"].append(entry)
+            if kind == "corrupt":
+                corrupt_pending.setdefault(i, []).append(
+                    (entry["payload"], len(hist["faults"]["events"]) - 1))
+
+        # --- timeline -------------------------------------------------
+        maybe_hotplug()     # hotplug_round == 0 joins before any dispatch
+        refill()
+        commit_ready()
+        while True:
+            if not heap:
+                if not state["hotplug_done"] \
+                        and state["tasks_started"] < budget:
+                    # no event can advance the virtual rounds to the join
+                    # (the whole initial fleet is too drained to take a
+                    # task), where sync would tick empty rounds: connect
+                    # the joiners now, so both modes tell the same story
+                    maybe_hotplug(force=True)
+                    refill()
+                    commit_ready()
+                    if heap:
+                        continue
+                break
+            t_ev, _, kind, payload = heapq.heappop(heap)
+            state["now"] = t_ev
+            if kind == "done":
+                # a task marked lost settles at its reap event instead
+                if not payload.get("lost"):
+                    process_completion(payload)
+            elif kind == "reap":
+                process_reap(payload)
+            else:
+                process_fault(payload)
+            refill()
+            commit_ready()
+
+        if window_devices or state["window_lost"]:
+            emit_row()
+        # flush the cohorts whose tasks the horizon or budget cut
+        for c in cohorts.values():
+            c["pending"] = 0
+        commit_ready()
+
+        if marl and buffer is not None and marl.ep_rewards:
+            # no mid-run barrier to train at: the learner trains at the
+            # episode's end, with the update count a sync run would use
+            n_updates = cfg.marl_updates_per_round * max(
+                1, state["vround"] // max(1, cfg.marl_train_every))
+            with _span(hist["phase_s"][-1] if hist["phase_s"] else phase,
+                       "marl_train"):
+                _marl_train(marl, buffer, hist, fleet, state["vround"],
+                            n_updates)
+
+        if state["tasks_started"] >= budget:
+            reason = "budget_exhausted"
+        elif not alive_host.any():
+            # every device, in-flight work included, died
+            reason = "fleet_dead"
+        elif horizon > 0:
+            reason = "horizon_reached"
+        else:
+            reason = "starved"
+        hist["terminated"] = {
+            "reason": reason, "vrounds": state["vround"],
+            "tasks_started": state["tasks_started"],
+            "completions": state["completions"],
+            "lost": hist["faults"]["n_reaped"], "sim_time": state["now"]}
+        if reason == "budget_exhausted":
+            hist["terminated"]["budget"] = "tasks"
+        hist["n_tasks"] = state["tasks_started"]
+        hist["n_aggregations"] = state["version"]
+        hist["sim_time_total"] = state["now"]
+        hist["k_final"] = top_k()
+        return self._finalize(hist, global_params)

@@ -15,8 +15,9 @@ with the [N] validity left on the device for the caller's batched pull:
   by tree path.
 
 Keywords of the reference that no caller sets are left out: quarantine is
-always on at ``DELTA_MAG_CAP``, the staleness decay is the constant
-``STALENESS_DECAY`` and the validity is always returned.
+always on at ``DELTA_MAG_CAP`` and the validity is always returned.  The
+staleness decay is the caller's (``FLConfig.staleness_decay``, which the
+async engine passes in; 0.5 by default, as the reference).
 """
 from __future__ import annotations
 
@@ -30,11 +31,6 @@ from repro_torch.core.aggregation import (delta_valid, layerwise_aggregate,
                                           tree_path_items)
 from repro_torch.models.family import resolve_family
 from repro_torch.tree import tree_leaves, tree_map
-
-#: FedAsync polynomial staleness decay (``FLConfig.staleness_decay``'s
-#: default; the sync engine sends no staleness, so nothing sets another)
-STALENESS_DECAY = 0.5
-
 
 def evaluate(params, x_val: torch.Tensor, y_val: torch.Tensor,
              batch: int = 256, family=None) -> torch.Tensor:
@@ -51,17 +47,18 @@ def evaluate(params, x_val: torch.Tensor, y_val: torch.Tensor,
     return total / max(n, 1)
 
 
-def staleness_scale(staleness: float) -> float:
-    """FedAsync polynomial discount (1 + s)^(-STALENESS_DECAY); s <= 0
-    maps to 1.0."""
+def staleness_scale(staleness: float, decay: float = 0.5) -> float:
+    """FedAsync polynomial discount (1 + s)^(-decay); s <= 0 maps to
+    exactly 1.0, so fresh rows are untouched."""
     if staleness <= 0:
         return 1.0
-    return float((1.0 + float(staleness)) ** (-STALENESS_DECAY))
+    return float((1.0 + float(staleness)) ** (-float(decay)))
 
 
 def aggregate_drfl(global_params, deltas: List, model_idxs: List[int],
                    weights: Sequence[float], server_lr: float = 1.0,
-                   staleness: Optional[Sequence[float]] = None, family=None):
+                   staleness: Optional[Sequence[float]] = None,
+                   staleness_decay: float = 0.5, family=None):
     """DR-FL layer-aligned aggregation over full-structure deltas
     (``server.py:67-114``).  A poisoned delta's masks are zeroed (its
     weight leaves every denominator) and its non-finite elements zeroed;
@@ -79,7 +76,7 @@ def aggregate_drfl(global_params, deltas: List, model_idxs: List[int],
     if staleness is not None and any(s > 0 for s in staleness):
         scaled = []
         for d, m, s in zip(deltas, model_idxs, staleness):
-            a = staleness_scale(s)
+            a = staleness_scale(s, staleness_decay)
             if a == 1.0:
                 scaled.append(d)
                 continue
@@ -96,7 +93,7 @@ def aggregate_drfl_from_list(global_params, deltas: List,
                              model_idxs: List[int], weights: Sequence[float],
                              server_lr: float = 1.0,
                              staleness: Optional[Sequence[float]] = None,
-                             family=None):
+                             staleness_decay: float = 0.5, family=None):
     """:func:`aggregate_drfl`'s contract through the stacked path: each
     full-structure delta becomes a P = 1 bucket of its submodel (views, no
     copies), so the mean is one ``layer_agg`` launch on the card."""
@@ -108,7 +105,9 @@ def aggregate_drfl_from_list(global_params, deltas: List,
         buckets.append((m, tree_map(lambda a: a.unsqueeze(0), sub),
                         [weights[j]], stal))
     return aggregate_drfl_stacked(global_params, buckets,
-                                  server_lr=server_lr, family=fam)
+                                  server_lr=server_lr,
+                                  staleness_decay=staleness_decay,
+                                  family=fam)
 
 
 def _scatter_avg(gp, contribs):
@@ -191,7 +190,7 @@ def _stacked_agg_program(global_params, deltas, weights, alphas, *, family,
 
 
 def aggregate_drfl_stacked(global_params, buckets, server_lr: float = 1.0,
-                           family=None):
+                           staleness_decay: float = 0.5, family=None):
     """Layer-aligned aggregation over ``(model_idx, stacked_delta, weights,
     staleness)`` buckets.  Pad rows carry weight 0.0 and drop out of the
     mean exactly; staleness alphas scale the numerator only, and all-fresh
@@ -208,7 +207,7 @@ def aggregate_drfl_stacked(global_params, buckets, server_lr: float = 1.0,
         ws.append(torch.tensor([float(x) for x in weights],
                                dtype=torch.float32, device=dev))
         scales = ([1.0] * len(weights) if stal is None else
-                  [staleness_scale(s) for s in stal])
+                  [staleness_scale(s, staleness_decay) for s in stal])
         any_stale = any_stale or any(a != 1.0 for a in scales)
         alphas.append(torch.tensor(scales, dtype=torch.float32, device=dev))
     if not deltas:

@@ -1,12 +1,13 @@
 """DR-FL federated simulation — port of ``repro.fl.simulation``.
 
 :class:`FLConfig` keeps every field and default of the JAX config, so a
-config carries across packages.  The port runs the sync engine with every
-arm of the paper's Table 1 and Fig. 5: DR-FL with the ``marl``,
-``greedy``, ``random`` or ``static`` selector, and HeteroFL/ScaleFL (always
-greedy), on the ``cnn`` family (the ``transformer`` family: DR-FL), with
-either client executor; every other setting raises
-``NotImplementedError`` naming its ROADMAP item.
+config carries across packages.  The port runs the sync and async engines
+(hot-plug on both, seeded fault plans on the async one) with every arm of
+the paper's Table 1 and Fig. 5: DR-FL with the ``marl``, ``greedy``,
+``random`` or ``static`` selector, and HeteroFL/ScaleFL (always greedy), on
+the ``cnn`` family (the ``transformer`` family: DR-FL), with either client
+executor; every other setting raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from repro_torch.core.selection import (OBS_DIM, GreedySelector,
                                         SelectorBase, StaticTierSelector,
                                         marl_state_dim)
 from repro_torch.device import resolve_device
-from repro_torch.fl.engine import RoundEngine, check_supported, uses_marl
+from repro_torch.fl.engine import (RoundEngine, check_supported,
+                                   sync_task_budget, uses_marl)
 from repro_torch.models.family import get_family
 
 
@@ -103,11 +105,17 @@ _BUFFER_OBS_ELEMS = 2 ** 24
 
 
 def _make_buffer(cfg: FLConfig) -> ReplayBuffer:
-    """The sync engine's replay buffer (flat state: one row of
-    n * OBS_DIM per step); capacity degrades below 64 episodes when the
-    obs budget would be exceeded."""
+    """The replay buffer (flat state: one row of n * OBS_DIM per step);
+    capacity degrades below 64 episodes when the obs budget would be
+    exceeded.  A sync episode has one step per round; an async one a step
+    per ``select`` call: at most one per task plus one failed dispatch per
+    completion or row boundary (``simulation.py:159-164``)."""
     n_agents = cfg.n_devices + cfg.hotplug_n
-    episode_len = cfg.n_rounds
+    if cfg.engine_mode == "async":
+        budget = int(cfg.async_task_budget or sync_task_budget(cfg))
+        episode_len = 2 * budget + cfg.n_rounds + 8
+    else:
+        episode_len = cfg.n_rounds
     state_dim = marl_state_dim(cfg.state_mode, n_agents,
                                get_family(cfg.model_family).num_submodels())
     capacity = max(4, min(64, _BUFFER_OBS_ELEMS

@@ -1,7 +1,8 @@
 """The port's stacked DR-FL aggregation against the JAX package's on the
 same numpy deltas: ``stacked_masked_mean`` (plain and with staleness
 alphas) and ``aggregate_drfl_stacked`` end to end, including a poisoned
-(NaN) client row that both sides must quarantine.
+(NaN) client row that both sides must quarantine; and the staleness decay
+of all three DR-FL aggregations at values other than the default.
 
 Tolerance: rtol=1e-5, atol=1e-6 — one float32 masked mean and one add
 per element, in a different reduction order.
@@ -77,3 +78,55 @@ def test_aggregate_drfl_stacked_matches_with_quarantine(staleness):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, np.asarray(r), **TOL)
 
+
+
+@pytest.mark.parametrize("decay", [0.25, 1.0])
+@pytest.mark.parametrize("fn", ["aggregate_drfl", "aggregate_drfl_stacked",
+                                "aggregate_drfl_from_list"])
+def test_staleness_decay_matches(fn, decay):
+    """``staleness_decay`` (the config's, other than the default 0.5) on a
+    fresh row and two stale ones, in each DR-FL aggregation; the default
+    decay gives other weights, so the keyword reached the result."""
+    for s in (0, 1, 2.5, 7):
+        assert tserver.staleness_scale(s, decay) == \
+            jserver.staleness_scale(s, decay)
+    rng = np.random.default_rng(11)
+    jfam = jax_get_family("cnn")
+    gp = _jax_params(rng)
+    idxs, stal, w = [0, 3, 1], [0, 2, 5], [37.0, 120.0, 64.0]
+    subs = [jax.tree.map(lambda a: (rng.normal(size=a.shape) * 0.01
+                                    ).astype(np.float32),
+                         jfam.submodel_tree(gp, m)) for m in idxs]
+    if fn == "aggregate_drfl_stacked":
+        one = [jax.tree.map(lambda a: a[None], d) for d in subs]
+        jargs = (gp, [(m, d, [wi], [s])
+                      for m, d, wi, s in zip(idxs, one, w, stal)])
+        targs = (cnn_params_from_jax(gp),
+                 [(m, cnn_params_from_jax(d, stacked=True), [wi], [s])
+                  for m, d, wi, s in zip(idxs, one, w, stal)])
+        jkw = dict(family=jfam)
+        tkw = {}
+    else:
+        # full-structure deltas: the submodel's leaves, zero elsewhere
+        full = []
+        for m, d in zip(idxs, subs):
+            f = jax.tree.map(np.zeros_like, gp)
+            f["stem"] = d["stem"]
+            f["stages"][:m + 1] = d["stages"]
+            f["exits"][:m + 1] = d["exits"]
+            full.append(f)
+        jargs = (gp, full, idxs, w)
+        targs = (cnn_params_from_jax(gp),
+                 [cnn_params_from_jax(f) for f in full], idxs, w)
+        jkw = tkw = dict(staleness=stal, family="cnn")
+    ref, _ = getattr(jserver, fn)(*jargs, server_lr=0.7,
+                                  staleness_decay=decay, with_stats=True,
+                                  **jkw)
+    got, _ = getattr(tserver, fn)(*targs, server_lr=0.7,
+                                  staleness_decay=decay, **tkw)
+    for g, r in zip(tree_leaves(cnn_params_to_jax_layout(got)),
+                    jax.tree.leaves(ref)):
+        np.testing.assert_allclose(g, np.asarray(r), **TOL)
+    default, _ = getattr(tserver, fn)(*targs, server_lr=0.7, **tkw)
+    assert not all(torch.allclose(a, b) for a, b in
+                   zip(tree_leaves(got), tree_leaves(default)))

@@ -470,3 +470,57 @@ def test_width_slice_cnn_on_the_card(cuda, frac):
         assert g.untyped_storage().data_ptr() == \
             full.untyped_storage().data_ptr()
         assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staleness", [0, 3])
+def test_layer_agg_one_row_alpha_route(cuda, staleness):
+    """The async engine's aggregation: one client's rows (N = 1), scaled
+    by its staleness alpha when stale, one launch, against the plain
+    version on the CPU."""
+    from repro_torch.core.aggregation import stacked_masked_mean
+    from repro_torch.fl.server import staleness_scale
+    U, M, w = _inputs(1, 64, 1024, cuda, seed=staleness)
+    a = torch.tensor([staleness_scale(staleness, 0.25)], device=cuda)
+    alpha = a if staleness else None
+    before = LAUNCHES["layer_agg"]
+    got = stacked_masked_mean(U, M, w, alpha)
+    torch.cuda.synchronize()
+    assert LAUNCHES["layer_agg"] == before + 1
+    ref = stacked_masked_mean(U.cpu(), M.cpu(), w.cpu(),
+                              None if alpha is None else alpha.cpu())
+    assert _rel_err(got.cpu(), ref) <= 1e-5
+    if staleness:
+        fresh = stacked_masked_mean(U.cpu(), M.cpu(), w.cpu(), None)
+        assert torch.allclose(ref, fresh * a.item(), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_async_bucketed_run_matches_the_cpu(cuda):
+    """A small bucketed async DR-FL run on the card and on the CPU: the
+    same task log, one ``layer_agg`` launch per aggregation on the card,
+    sim times at rtol 1e-4; weights at the reference's tolerance for its
+    two executors (atol 6e-3, ``tests/test_batch.py:111``): cuDNN's
+    float32 convolutions are not deterministic on the card, and SGD over
+    12 aggregations amplifies that past 1e-5."""
+    import numpy as np
+    from repro_torch.fl import FLConfig, run_simulation
+    from repro_torch.kernels import reset_launches
+    from repro_torch.tree import tree_leaves
+    cfg = FLConfig(n_devices=8, n_rounds=3, participation=0.5,
+                   local_epochs=1, batch_size=16, n_train=400, hw=8,
+                   width_mult=0.125, seed=1, selector="greedy",
+                   engine_mode="async", client_executor="batched")
+    reset_launches()
+    card = run_simulation(cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES["layer_agg"] == card["n_aggregations"] >= 1
+    cpu = run_simulation(cfg, device="cpu")
+    keys = ("device", "dispatch", "version", "staleness", "m")
+    assert [[t[k] for k in keys] for t in card["task_log"]] == \
+        [[t[k] for k in keys] for t in cpu["task_log"]]
+    assert max(card["staleness"]) >= 1
+    np.testing.assert_allclose(card["sim_time"], cpu["sim_time"], rtol=1e-4)
+    diff = max((g.cpu() - c).abs().max().item() for g, c in
+               zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])))
+    assert diff <= 6e-3, diff

@@ -79,3 +79,44 @@ def test_charge_matches(fleets):
     assert dead.any() and np.asarray(jok).any()
     np.testing.assert_allclose(tfleet.fleet_total_remaining(tnew),
                                jfleet.fleet_total_remaining(jnew), **TOL)
+
+
+def _same_fleet(tf, jf):
+    """Energy, liveness and the virtual clocks equal (exact: selections and
+    float32 copies, no arithmetic but one product with energy_scale)."""
+    for name in ("remaining", "alive", "busy_until"):
+        np.testing.assert_array_equal(getattr(tf, name).numpy(),
+                                      np.asarray(getattr(jf, name)),
+                                      err_msg=name)
+
+
+# (name, JAX call, port call): each churn update of the async engine and
+# hot-plug (fleet.py:336-406) on the same fleet, one after another
+CHURN_STEPS = [
+    ("disconnect", lambda f, m: m.fleet_disconnect(f, 18)),
+    ("set_busy", lambda f, m: m.fleet_set_busy(
+        f, [0, 5, 7], np.array([12.5, 3.25, 1e5 + 0.1]))),
+    ("set_busy scalar", lambda f, m: m.fleet_set_busy(f, [9], 7.75)),
+    ("kill", lambda f, m: m.fleet_kill(f, [1, 5])),
+    ("set_alive False", lambda f, m: m.fleet_set_alive(f, [2, 3], False)),
+    ("set_alive True", lambda f, m: m.fleet_set_alive(f, [3, 20], True)),
+    ("connect", lambda f, m: m.fleet_connect(f, 18, 0.6, now=41.5)),
+]
+
+
+def test_churn_updates_match(fleets):
+    jf, tf, _ = fleets
+    assert tf.busy_until.dtype == torch.float32
+    _same_fleet(tf, jf)
+    for name, step in CHURN_STEPS:
+        jf2, tf2 = step(jf, jfleet), step(tf, tfleet)
+        _same_fleet(tf2, jf2)
+        # functional: the input states are unchanged
+        _same_fleet(tf, jf)
+        jf, tf = jf2, tf2
+        for now in (0.0, 3.25, 12.5, 50.0):
+            np.testing.assert_array_equal(tfleet.fleet_idle(tf, now),
+                                          jfleet.fleet_idle(jf, now),
+                                          err_msg=f"{name} idle at {now}")
+    assert not tf.alive[18:].logical_not().any()
+    np.testing.assert_array_equal(tf.busy_until[18:].numpy(), 41.5)

@@ -58,23 +58,36 @@ def test_run_simulation_defaults_to_cuda_and_never_falls_back():
 BASE = dict(n_devices=64, n_rounds=1, width_mult=0.125, hw=8, n_train=640)
 
 
+ASYNC = dict(engine_mode="async")
+
+
 @pytest.mark.parametrize("change,item", [
-    (dict(engine_mode="async"), "async engine"),
+    (dict(ASYNC, availability_profile="diurnal"), "energy scenarios"),
     (dict(availability_profile="diurnal"), "energy scenarios"),
-    (dict(fault_corrupts=1), "checkpoints and faults"),
+    (dict(fault_corrupts=1, fault_horizon=100.0), ValueError),
     (dict(mixer_mode="set"), "MARL at fleet scale"),
     (dict(fleet_mesh=2), "fleet sharding"),
     (dict(model_family="mlp"), "other families"),
-    (dict(hotplug_n=4), "hot-plug"),
+    (dict(ASYNC, hotplug_n=4, global_budget_j=1e5), "energy scenarios"),
     (dict(charge_profile="solar", charge_rate=0.1), "energy scenarios"),
     (dict(global_budget_j=1e5), "energy scenarios"),
-    (dict(checkpoint_dir="ckpt", checkpoint_every=1),
-     "checkpoints and faults"),
-    (dict(engine_mode="sync", fault_crashes=1), "checkpoints and faults"),
+    (dict(checkpoint_dir="ckpt", checkpoint_every=1), "checkpoints"),
+    (dict(engine_mode="sync", fault_crashes=1, fault_horizon=100.0),
+     ValueError),
     (dict(n_devices=300), "MARL at fleet scale"),
+    (dict(ASYNC, checkpoint_dir="ckpt", checkpoint_every=1), "checkpoints"),
+    (dict(ASYNC, mixer_mode="set"), "MARL at fleet scale"),
+    (dict(ASYNC, n_devices=300), "MARL at fleet scale"),
 ])
 def test_unported_settings_raise(change, item):
+    """Every setting outside the port raises ``NotImplementedError`` naming
+    its ROADMAP item, on either engine; a fault plan on the sync engine
+    raises the reference's ``ValueError`` (faults need the timeline)."""
     cfg = dataclasses.replace(FLConfig(**BASE), **change)
+    if item is ValueError:
+        with pytest.raises(ValueError, match="engine_mode='async'"):
+            run_simulation(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         run_simulation(cfg, device="cpu")
 
