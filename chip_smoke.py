@@ -66,7 +66,18 @@ its own lines; any failure raises and exits non-zero:
    allclose at rtol 1e-4, atol 1e-5; and async runs (``[async
    reference]``: bucketed with hot-plug, and per-client), with identical
    task logs;
-9. print the card's name and power limit, the kernels' JSON line and,
+9. the energy scenarios (``repro_torch.energy``): the main path with
+   18.9 J batteries under a static battery, solar harvesting, a diurnal
+   wave, carbon-priced windows and a global joule budget (``[energy]``:
+   ``layer_agg`` once per aggregation; each scenario must bite: more
+   energy under solar, every pick open under a gate while some device was
+   not, the budget ending the run within its limit), Fig. 6's async row
+   under a diurnal wave and a budget (``[energy async]``), every scenario
+   on both engines and both executors at the tests' size on the card
+   against the CPU (``[energy reference]``), and
+   ``benchmarks/energy_bench.py``'s n = 256 grid, 4 scenarios x 4
+   selectors (``[energy grid]``, no JSON written);
+10. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1388,6 +1399,261 @@ def phase_async_reference():
                                  f"raise k: {hp}")
 
 
+#: the energy scenarios on the main path: its config with batteries of
+#: 18.9 J (``benchmarks/energy_bench.py``'s ``energy_scale``), so every
+#: device affords submodel 0 (4.8 J at the median) and a battery binds
+#: after three or four picks.  A day lasts as long as the trivial run's
+#: three rounds of sim time (2.97 s in the port's CPU run at this fleet
+#: and cost model), so the waves turn within the run
+ENERGY_CFG = dict(MAIN_CFG, n_rounds=3, participation=0.1,
+                  energy_scale=0.0025, charge_period=3.0)
+#: a round of six submodel-0 picks costs about 29 J: 30 J funds one
+#: round and part of the next
+ENERGY_SCENARIOS = {
+    "constant": {},
+    "solar": dict(charge_profile="solar", charge_rate=2.0),
+    "diurnal": dict(availability_profile="diurnal", availability_duty=0.5),
+    "carbon_window": dict(charge_profile="carbon_window", charge_rate=2.0),
+    "global_budget": dict(charge_profile="solar", charge_rate=2.0,
+                          global_budget_j=30.0)}
+#: benchmarks/energy_bench.py's grid at n = 256 (run_cell, SCENARIOS,
+#: DAY, K_TARGET, BUDGET_PER_PICK): FLConfig's width and images
+GRID_N, GRID_ROUNDS, GRID_DAY = 256, 8, 3600.0
+GRID_SCENARIOS = {
+    "constant": {},
+    "solar": dict(charge_profile="solar", charge_rate=2.0,
+                  charge_period=GRID_DAY),
+    "diurnal": dict(availability_profile="diurnal", availability_duty=0.5,
+                    charge_period=GRID_DAY),
+    "global_budget": dict(charge_profile="solar", charge_rate=2.0,
+                          charge_period=GRID_DAY,
+                          global_budget_j=18.0 * 8 * GRID_ROUNDS)}
+GRID_SELECTORS = ("marl", "greedy", "random", "static")
+
+
+def _gate_check(tag, cfg, hist):
+    """Under an availability gate: every round's participants were open at
+    its start (the host twin over the fleet's phases, drawn as
+    ``build_world`` draws them) and some device was offline.  Returns the
+    offline count per round."""
+    import numpy as np
+    from repro_torch.core.fleet import make_fleet_state
+    from repro_torch.energy import scenario_from_config
+    sc = scenario_from_config(cfg)
+    n = cfg.n_devices + cfg.hotplug_n
+    tz = sc.init_fleet(make_fleet_state(n, cfg.seed, device="cpu"),
+                       cfg.seed).tz_phase.numpy().astype(np.float64)
+    starts = np.asarray(hist["sim_time"]) - np.asarray(hist["round_time"])
+    gated = []
+    for t, picks in zip(starts, hist["participants"]):
+        ok = sc.available_host(tz, float(t))
+        gated.append(int((~ok).sum()))
+        if not all(ok[i] for i in picks):
+            raise AssertionError(f"[{tag}] a device offline at sim time "
+                                 f"{t:.3f} s was picked: {picks}")
+    if hist["dropouts"] or not any(gated):
+        raise AssertionError(f"[{tag}] the gate never kept an alive device "
+                             f"out (offline per round {gated}, dropouts "
+                             f"{hist['dropouts']})")
+    return gated
+
+
+def phase_energy():
+    """The main path under each energy scenario, full width, bucketed,
+    DR-FL + MARL: ``layer_agg`` once per aggregation.  Each scenario
+    bites: solar ends with more fleet energy than constant; every pick of
+    the diurnal and carbon-window runs was open at its round's start while
+    some alive device was not; the budget ends the run within its limit.
+    Returns {scenario: layer_agg launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.device import to_host
+    from repro_torch.fl import FLConfig
+    hists, launches = {}, {}
+    for name, kw in ENERGY_SCENARIOS.items():
+        tag = f"energy {name}"
+        cfg = FLConfig(**ENERGY_CFG, **kw)
+        t0 = time.perf_counter()
+        hist, counts = _drive(tag, cfg, "batched", _one_per_round)
+        hists[name], launches[name] = hist, counts["layer_agg"]
+        walls = [w for w, p in zip(hist["wall_clock"], hist["participants"])
+                 if p]
+        print(f"[{tag}] rounds {len(hist['acc'])}, participants per round "
+              f"{[len(p) for p in hist['participants']]}, energy "
+              f"{np.round(hist['energy'], 2).tolist()} J, sim time "
+              f"{np.round(hist['sim_time'], 3).tolist()} s, budget "
+              f"{hist.get('budget')}, terminated {hist['terminated']}, "
+              f"layer_agg {counts['layer_agg']} launches for "
+              f"{hist['n_aggregations']} aggregations, warm round wall "
+              f"{walls[-1]:.3f} s, charge phase s "
+              f"{[round(p.get('charge', 0.0), 4) for p in hist['phase_s']]}"
+              f", phase {time.perf_counter() - t0:.2f} s")
+        if name in ("diurnal", "carbon_window"):
+            print(f"[{tag}] offline devices at each round's start "
+                  f"{_gate_check(tag, cfg, hist)}; every pick was open")
+    if not hists["solar"]["energy"][-1] > hists["constant"]["energy"][-1]:
+        raise AssertionError("[energy] solar harvesting left no more energy"
+                             " than the static battery")
+    gb = hists["global_budget"]
+    b = gb["budget"]
+    if gb["terminated"]["reason"] != "budget_exhausted" or \
+            gb["terminated"].get("budget") != "energy" or \
+            b["spent"] > b["limit"] + 1e-6:
+        raise AssertionError(f"[energy] the budget did not end the run "
+                             f"within its limit: {gb['terminated']}, {b}")
+    # the budget's one extra pull a round: the picks' 64 costs
+    need = torch.rand(64, device="cuda")
+    to_host(need)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        to_host(need)
+    print(f"[energy] the budget's extra pull (64 float32 costs to the host,"
+          f" one sync): {(time.perf_counter() - t0) * 1e4:.2f} us a round")
+    return launches
+
+
+def phase_energy_async():
+    """Fig. 6's 64-device row on the async engine (``ASYNC_CFG``) with
+    18.9 J batteries, under a diurnal wave and then a global budget over a
+    solar fleet: ``layer_agg`` once per completion."""
+    from repro_torch.fl import FLConfig
+    out = {}
+    for name, kw in (("diurnal", ENERGY_SCENARIOS["diurnal"]),
+                     ("global_budget", dict(ENERGY_SCENARIOS["solar"],
+                                            global_budget_j=60.0))):
+        tag = f"energy async {name}"
+        cfg = FLConfig(**dict(ASYNC_CFG, energy_scale=0.0025,
+                              charge_period=4.4, **kw))
+        hist, counts = _drive(tag, cfg, "batched", _one_per_round)
+        _print_async(tag, hist)
+        print(f"[{tag}] tasks {hist['n_tasks']}, wake events "
+              f"{len(hist.get('wakes', []))} at {hist.get('wakes')}, budget "
+              f"{hist.get('budget')}, terminated {hist['terminated']}, "
+              f"layer_agg {counts['layer_agg']} launches for "
+              f"{hist['n_aggregations']} completions")
+        if name == "global_budget" and (
+                hist["terminated"]["reason"] != "budget_exhausted"
+                or hist["budget"]["spent"] > 60.0 + 1e-6):
+            raise AssertionError(f"[{tag}] {hist['terminated']}, "
+                                 f"{hist['budget']}")
+        out[name] = counts["layer_agg"]
+    return out
+
+
+#: the tests' size for [energy reference] (tests/test_torch_energy_live.py)
+ENERGY_REFERENCE = dict(n_devices=8, n_rounds=3, participation=0.5,
+                        local_epochs=1, batch_size=16, n_train=400, hw=8,
+                        width_mult=0.125, seed=1, selector="greedy",
+                        energy_scale=0.005, charge_period=30.0)
+ENERGY_REFERENCE_SCENARIOS = {
+    "solar": dict(charge_profile="solar", charge_rate=1.0),
+    "diurnal": dict(availability_profile="diurnal", availability_duty=0.15,
+                    seed=6),
+    "carbon_window": dict(charge_profile="carbon_window", charge_rate=1.0,
+                          seed=2),
+    "global_budget": dict(charge_profile="solar", charge_rate=1.0,
+                          global_budget_j=60.0)}
+
+
+def phase_energy_reference():
+    """Each scenario on both engines and both executors at the tests' size,
+    on the card against the CPU: picks, model choices, task logs,
+    termination and the budget's trims identical; energy, sim times and
+    the budget's joules at rtol 1e-4; weights at ``[async reference]``'s
+    atol 6e-3 (cuDNN's float32 convolutions are not deterministic)."""
+    import numpy as np
+    from repro_torch.fl import FLConfig
+    from repro_torch.tree import tree_leaves
+    keys = ("device", "dispatch", "version", "staleness", "m")
+    for name, kw in ENERGY_REFERENCE_SCENARIOS.items():
+        for mode in ("sync", "async"):
+            for ex in ("perclient", "batched"):
+                tag = f"energy reference {name} {mode} {ex}"
+                cfg = FLConfig(**dict(ENERGY_REFERENCE, **kw,
+                                      engine_mode=mode, client_executor=ex))
+                g, c = _card_and_cpu(cfg)
+                same = all(g[k] == c[k] for k in (
+                    "participants", "model_choices", "dropouts", "alive"))
+                same_log = [[t[k] for k in keys]
+                            for t in g.get("task_log", [])] == \
+                    [[t[k] for k in keys] for t in c.get("task_log", [])]
+                term = g["terminated"]["reason"] == c["terminated"][
+                    "reason"] and g["terminated"].get("budget") == \
+                    c["terminated"].get("budget")
+                close = all(np.allclose(g[k], c[k], rtol=1e-4, atol=1e-5)
+                            for k in ("energy", "sim_time"))
+                bud = ("budget" in g) == ("budget" in c) and (
+                    "budget" not in c or (
+                        g["budget"]["trimmed"] == c["budget"]["trimmed"]
+                        and np.isclose(g["budget"]["spent"],
+                                       c["budget"]["spent"], rtol=1e-4)))
+                w_diff = max(float((a.cpu() - b).abs().max()) for a, b in
+                             zip(tree_leaves(g["params"]),
+                                 tree_leaves(c["params"])))
+                print(f"[{tag}] card vs CPU: picks {g['participants']}, "
+                      f"models equal={same}, task log equal={same_log} "
+                      f"({len(g.get('task_log', []))} tasks), terminated "
+                      f"{g['terminated']['reason']}/"
+                      f"{g['terminated'].get('budget')} equal={term}, budget"
+                      f" {g.get('budget')} equal={bud}, energy and sim time"
+                      f" close={close}, wakes {len(g.get('wakes', []))}, max"
+                      f" weight diff {w_diff:.3e} (limit 6e-3)")
+                if not (same and same_log and term and close and bud) or \
+                        w_diff > 6e-3:
+                    raise AssertionError(f"[{tag}] card and CPU disagree")
+
+
+def phase_energy_grid():
+    """``benchmarks/energy_bench.py``'s n = 256 cells on the card: 4
+    scenarios x 4 selectors, 8 rounds, MARL pre-trained for 3 episodes;
+    each row's fields as the bench prints them (no JSON is written).
+    Returns the rows."""
+    import numpy as np
+    from repro_torch.fl import FLConfig, run_simulation
+    rows = []
+    t_grid = time.perf_counter()
+    for scenario, kw in GRID_SCENARIOS.items():
+        for selector in GRID_SELECTORS:
+            cfg = FLConfig(n_devices=GRID_N, n_rounds=GRID_ROUNDS,
+                           participation=8 / GRID_N, n_train=3 * GRID_N,
+                           local_epochs=1, method="drfl", selector=selector,
+                           energy_scale=0.0025, seed=0,
+                           marl_episodes=3 if selector == "marl" else 1,
+                           **kw)
+            t0 = time.perf_counter()
+            h = run_simulation(cfg)
+            wall = time.perf_counter() - t0
+            joules = max(GRID_N * 7560.0 * 0.0025 - float(h["energy"][-1]),
+                         0.0)
+            acc = float(h["acc_mean"][-1])
+            row = dict(scenario=scenario, selector=selector,
+                       rounds_run=len(h["acc_mean"]), final_acc=acc,
+                       surviving=int(h["alive"][-1]),
+                       dropouts=int(h["dropouts"]), joules=joules,
+                       joules_per_acc_point=joules / max(100.0 * acc, 1e-9),
+                       terminated=h["terminated"]["reason"], wall_s=wall)
+            if "budget" in h:
+                row["budget_spent"] = h["budget"]["spent"]
+            rows.append(row)
+            print(f"[energy grid] {scenario:14s} {selector:7s} n={GRID_N} "
+                  f"acc={acc:.4f} alive={row['surviving']} dropouts="
+                  f"{row['dropouts']} J={joules:.2f} J/acc-pt="
+                  f"{row['joules_per_acc_point']:.3f} "
+                  f"[{row['terminated']}] budget spent "
+                  f"{row.get('budget_spent')} executor {h['executor']} "
+                  f"wall {wall:.2f} s")
+            if not np.all(np.isfinite(h["energy"])):
+                raise AssertionError("[energy grid] non-finite energy")
+    for scenario in ("solar", "global_budget"):
+        m, r = (next(x["joules_per_acc_point"] for x in rows
+                     if (x["scenario"], x["selector"]) == (scenario, s))
+                for s in ("marl", "random"))
+        print(f"[energy grid] claim marl_beats_random_jpap/{scenario}/"
+              f"n{GRID_N}: {m < r} (marl {m:.3f}, random {r:.3f})")
+    print(f"[energy grid] {len(rows)} cells in "
+          f"{time.perf_counter() - t_grid:.1f} s")
+    return rows
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1458,6 +1724,10 @@ def main() -> int:
         phase_reference(f"reference perclient {arm['method']}", FLConfig(
             **dict(PERCLIENT_REFERENCE, **arm)))
     phase_async_reference()
+    records[0]["energy_launches"] = phase_energy()
+    records[0]["energy_async_launches"] = phase_energy_async()
+    phase_energy_reference()
+    phase_energy_grid()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,7 +1,9 @@
 """Struct-of-arrays device fleet on the card — port of ``repro.core.fleet``.
 
 Every array field of :class:`FleetState` is an ``[n]`` tensor on one
-device: float32 for the energy and profile fields (the JAX package runs its
+device: float32 for the energy and profile fields (among them the energy
+scenarios' ``charge_rate`` and ``tz_phase``, zeros unless
+:meth:`repro_torch.energy.EnergyScenario.init_fleet` draws them) (the JAX package runs its
 fleet with 64-bit mode off, so float32 is the reference precision), int32
 data sizes and a bool ``alive``; the tier and power-mode labels are static
 tuples of strings.  The profiles are drawn by the numpy scalar
@@ -10,7 +12,8 @@ the same fleet as the JAX package.
 
 Eq. 3-7 as batched tensor ops: :func:`fleet_cost_matrix` (time and energy
 for every device x submodel), :func:`fleet_affordability` (strict ``<``,
-as ``fleet.py:304``) and :func:`fleet_charge` (strict ``>``, as
+as ``fleet.py:304``; a fleet-wide ``budget_left`` masks inclusively, as
+``fleet.py:305-306``) and :func:`fleet_charge` (strict ``>``, as
 ``fleet.py:323``; a device that cannot pay dies).  The churn updates of
 the async engine and hot-plug (``fleet.py:336-406``): :func:`fleet_connect`,
 :func:`fleet_disconnect`, :func:`fleet_kill`, :func:`fleet_set_alive`,
@@ -47,10 +50,22 @@ class FleetState:
     #: only: the engine keeps its authoritative clocks on the host in
     #: float64, as the reference does
     busy_until: torch.Tensor
+    #: the energy scenarios' per-device profile arrays
+    #: (:mod:`repro_torch.energy`): the harvesting amplitude in J/s (0: the
+    #: device never recharges) and the time-of-day offset in [0, 1) of a
+    #: day, shared by solar charging and diurnal availability.  ``None``
+    #: means zeros of ``remaining``'s dtype on its device, as the reference
+    charge_rate: Optional[torch.Tensor] = None
+    tz_phase: Optional[torch.Tensor] = None
     #: human-readable labels, static (not tensors): each device's tier and
     #: power mode, as the JAX ``FleetState`` keeps them
     tiers: Tuple[str, ...] = ()
     modes: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        for f in ("charge_rate", "tz_phase"):
+            if getattr(self, f) is None:
+                setattr(self, f, torch.zeros_like(self.remaining))
 
     def __len__(self) -> int:
         return int(self.compute.shape[0])
@@ -113,15 +128,20 @@ def fleet_cost_matrix(fleet: FleetState, model_sizes, model_fractions,
 
 
 def fleet_affordability(fleet: FleetState, model_sizes, model_fractions,
-                        local_epochs: int = 5, batch_size: int = 32
+                        local_epochs: int = 5, batch_size: int = 32,
+                        budget_left: Optional[float] = None
                         ) -> torch.Tensor:
     """[n, M+1] bool action mask: column m < M is "can pay for submodel m"
     (strict ``<``), column M (abstain) is always legal; dead devices can
-    only abstain."""
+    only abstain.  ``budget_left`` (J), the remaining fleet-wide budget,
+    also masks every submodel whose cost alone exceeds it (inclusive
+    ``<=``, compared in float32); ``None`` adds nothing."""
     _, _, e_tra, e_com = fleet_cost_matrix(
         fleet, model_sizes, model_fractions, local_epochs, batch_size)
-    afford = ((e_tra + e_com) < fleet.remaining[:, None]) \
-        & fleet.alive[:, None]
+    e_need = e_tra + e_com
+    afford = (e_need < fleet.remaining[:, None]) & fleet.alive[:, None]
+    if budget_left is not None:
+        afford = afford & (e_need <= _f32(fleet, budget_left))
     abstain = torch.ones((len(fleet), 1), dtype=torch.bool,
                          device=afford.device)
     return torch.cat([afford, abstain], dim=1)

@@ -3,7 +3,8 @@
 the ``greedy``, ``random`` and ``static`` selectors.
 
 MARL, per round: Eq. 9 observations on the device, the affordability
-action mask, the agent Q-net with ε-greedy, ONE batched pull of actions,
+action mask (under a global budget, also of the actions its remainder
+cannot cover), the agent Q-net with ε-greedy, ONE batched pull of actions,
 Q values, liveness and observations, dead devices forced to abstain, then
 Top-K over the chosen Q values with a stable argsort (ties go to the lower
 device index), as ``selection.py:304-349``.  The baselines decide on the
@@ -233,15 +234,17 @@ class MarlSelector(SelectorBase):
         self.ep_actions, self.ep_rewards = [], []
 
     def select(self, fleet: FleetState, round_idx: int, k: int, model_sizes,
-               model_fractions, local_epochs: int = 5,
-               batch_size: int = 32) -> Selection:
+               model_fractions, local_epochs: int = 5, batch_size: int = 32,
+               budget_left: Optional[float] = None) -> Selection:
         obs_d = fleet_obs(fleet, round_idx, self.n_rounds)
         eps = epsilon(self.learner.cfg, self.total_rounds)
         self.total_rounds += 1
         # affordability action mask (paper §4.2 Step 3), priced at the
-        # round the engine will charge
-        avail = fleet_affordability(fleet, model_sizes, model_fractions,
-                                    local_epochs, batch_size)
+        # round the engine will charge; a global budget also masks every
+        # action its remainder cannot cover
+        avail = fleet_affordability(
+            fleet, model_sizes, model_fractions, local_epochs, batch_size,
+            budget_left=None if budget_left is None else float(budget_left))
         actions_d, qv_d, self.hidden = self.learner.act(
             obs_d, self.hidden, eps, avail)
         actions, qv, alive, obs = to_host(actions_d, qv_d, fleet.alive,

@@ -1,8 +1,9 @@
 """FL round engine — port of ``repro.fl.engine``: ``build_world``,
 ``resolve_client_executor``, ``sync_task_budget``, ``_marl_train`` and
-``RoundEngine`` in both modes, without the energy-scenario, global-budget
-and checkpoint hooks, which are not ported (``check_supported`` refuses
-them up front).
+``RoundEngine`` in both modes, with the energy-scenario hooks (charge and
+availability profiles, the global joule budget: :mod:`repro_torch.energy`)
+and without the checkpoint hooks, which are not ported
+(``check_supported`` refuses them up front).
 
 * ``engine_mode="sync"`` (``engine.py:492-798``): barrier rounds.  Per
   round: the hot-plug hook, selection, Eq. 5/7 costs and the energy charge
@@ -23,6 +24,22 @@ them up front).
   disconnects and corrupt deltas are timeline events; a fault plan gives
   every task a deadline at ``task_deadline_factor x t_cost``, where a lost
   task is reaped.
+
+The energy scenario (:mod:`repro_torch.energy`; ``engine.py:506-795`` and
+``:817-1570``) hooks into both modes, each hook gated on the scenario's
+Python flags, so the default scenario launches and pulls nothing more:
+harvesting tops up the alive devices over each round's sim time (sync) or
+over the gap since the last dispatch tick (async); an availability gate
+hides offline devices from the selector (a host mask over a float64 copy
+of ``tz_phase``), fast-forwards the sync clock when the whole surviving
+fleet is offline, and pushes a ``"wake"`` event at the next opening when
+the async timeline starves; a global joule budget masks every selector's
+picks by its remainder, trims the picks in selection order to the
+cumulative cap (the overrun paid in the reward) and ends the run with
+``budget_exhausted``.  Host pulls: an availability gate adds one at setup
+(sync; the async engine folds the phases into its setup pull); a budget
+adds one per sync round (the picks' costs) and one on a round or tick
+that picks nobody, and on the async engine rides the tick's first pull.
 
 The client executor is the reference's choice
 (:func:`resolve_client_executor`):
@@ -73,6 +90,7 @@ from repro_torch.core.selection import (MarlSelector, resolve_mixer_mode,
 from repro_torch.data.loader import client_schedule
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.device import resolve_device, to_host
+from repro_torch.energy import EnergyScenario, scenario_from_config
 from repro_torch.fl import batch as fl_batch
 from repro_torch.fl import server as fl_server
 from repro_torch.fl.client import client_update_seed
@@ -113,18 +131,14 @@ def check_supported(cfg) -> None:
     DR-FL, HeteroFL and ScaleFL with any of the four selectors; the
     ``cnn`` and ``transformer`` families (a family that lacks the method
     raises the reference's ``ValueError``); either client executor; the
-    flat QMIX state/mixer and the trivial energy scenario."""
+    flat QMIX state/mixer; every energy scenario (an unknown profile name
+    raises the reference's ``ValueError``)."""
     if cfg.engine_mode not in ("sync", "async"):
         raise ValueError(f"unknown engine_mode {cfg.engine_mode!r} "
                          "(expected 'sync' or 'async')")
     checks = [
         (cfg.model_family not in ("cnn", "transformer"),
          f"model_family={cfg.model_family!r}", "other families"),
-        (cfg.charge_profile != "constant" or cfg.charge_rate != 0.0
-         or cfg.availability_profile != "always"
-         or cfg.availability_duty != 1.0,
-         "a non-trivial energy scenario", "energy scenarios"),
-        (cfg.global_budget_j != 0.0, "global_budget_j", "energy scenarios"),
         (bool(cfg.checkpoint_dir) or cfg.checkpoint_every or cfg.resume,
          "checkpointing", "checkpoints"),
         (cfg.fleet_mesh not in (0, 1), "fleet_mesh", "fleet sharding"),
@@ -135,6 +149,7 @@ def check_supported(cfg) -> None:
     family = get_family(cfg.model_family)
     if not family.supports(cfg.method):
         raise family.unsupported(cfg.method)
+    scenario_from_config(cfg)
     if cfg.selector not in SELECTORS:
         raise ValueError(f"unknown selector {cfg.selector!r} (expected one "
                          f"of {SELECTORS})")
@@ -163,6 +178,7 @@ class World:
     n_total: int
     family: LayerwiseFamily
     device: torch.device
+    scenario: EnergyScenario
 
 
 def _validate_energy_feasibility(cfg, fleet, sizes, fractions) -> None:
@@ -187,7 +203,9 @@ def build_world(cfg, *, device="cuda", global_params=None) -> World:
     ``build_world`` with the same numpy draws.  The corpus is the
     family's (``make_dataset``: images, or token windows for the
     transformer).  The ``hotplug_n`` joiners are in the fleet from the
-    start, not yet connected (dead, no energy).  The model init draws from
+    start, not yet connected (dead, no energy); a non-trivial energy
+    scenario draws its profile arrays for all of them first, as the
+    reference (``engine.py:166-172``).  The model init draws from
     a CPU ``torch.Generator(seed)`` (so it is the same on every device);
     tests inject converted JAX weights through ``global_params``."""
     dev = resolve_device(device)
@@ -200,6 +218,9 @@ def build_world(cfg, *, device="cuda", global_params=None) -> World:
     fleet = make_fleet_state(n_total, cfg.seed,
                              data_sizes=[len(p) for p in parts], device=dev)
     fleet = fleet.replace(remaining=fleet.battery * cfg.energy_scale)
+    scenario = scenario_from_config(cfg)
+    if not scenario.is_trivial:
+        fleet = scenario.init_fleet(fleet, cfg.seed)
     if cfg.hotplug_n:
         fleet = fleet_disconnect(fleet, cfg.n_devices)
     if global_params is None:
@@ -215,7 +236,7 @@ def build_world(cfg, *, device="cuda", global_params=None) -> World:
                  global_params=global_params,
                  n_models=family.num_submodels(), sizes=sizes,
                  fractions=fractions, n_total=n_total, family=family,
-                 device=dev)
+                 device=dev, scenario=scenario)
 
 
 def _data_to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -273,6 +294,20 @@ def _marl_train(marl, buffer, hist, fleet, round_idx, n_updates):
     q["replay_episodes"] = len(buffer)
     q["updates"] = marl.learner.updates
     q["td_loss"].extend(losses)
+
+
+def _fund(picks, need: np.ndarray, left: float):
+    """The global budget's cumulative cap: ``picks`` in selection order,
+    each funded while the budget's remainder ``left`` covers its cost
+    ``need[i]`` (J, to 1e-9).  Returns (funded picks, overrun J)."""
+    funded, overrun = [], 0.0
+    for i in picks:
+        if need[i] <= left + 1e-9:
+            left -= float(need[i])
+            funded.append(i)
+        else:
+            overrun += float(need[i])
+    return funded, overrun
 
 
 def _poisoned(delta, value: float):
@@ -436,6 +471,21 @@ class RoundEngine:
         marl = selector if isinstance(selector, MarlSelector) else None
         x_dev, y_dev, x_val, y_val = self._device_data()
 
+        # the energy scenario's hooks (engine.py:506-518): each is gated on
+        # a Python flag, so the default scenario launches and pulls nothing
+        # more than the scenario-free engine
+        scenario = w.scenario
+        gate_avail = not scenario.trivial_availability
+        recharge = not scenario.trivial_charge
+        budget_active = scenario.budget_active
+        limit = float(cfg.global_budget_j)
+        tz_host = alive_host = None
+        if gate_avail:
+            # one pull at setup: the host mirrors of the phases and liveness
+            tz_a, alive_a0 = to_host(fleet.tz_phase, fleet.alive)
+            tz_host = tz_a.astype(np.float64)
+            alive_host = alive_a0.copy()
+
         w1, w2, w3 = cfg.reward_weights
         hist = {"acc": [], "acc_mean": [], "energy": [], "round_time": [],
                 "alive": [], "participants": [], "model_choices": [],
@@ -451,6 +501,11 @@ class RoundEngine:
         n_agg = 0
         fleet_dead = False
         hotplug_done = False
+        budget_spent = 0.0
+        budget_exhausted = False
+        if budget_active:
+            hist["budget"] = {"limit": limit, "spent": 0.0, "overrun": 0.0,
+                              "trimmed": 0}
 
         for t in range(cfg.n_rounds):
             t0 = time.time()
@@ -460,24 +515,72 @@ class RoundEngine:
                 # (scaled) batteries and pull the global model
                 fleet = fleet_connect(fleet, cfg.n_devices, cfg.energy_scale)
                 hotplug_done = True
+                if alive_host is not None:
+                    alive_host[cfg.n_devices:] = True
             # Top-K follows the connected fleet
             n_connected = cfg.n_devices + (cfg.hotplug_n if hotplug_done
                                            else 0)
             k = max(1, int(round(cfg.participation * n_connected)))
+            sel_fleet = fleet
+            if gate_avail:
+                # offline devices (diurnal wave, carbon curfew) look dead to
+                # the selector this round; when the whole surviving fleet
+                # is offline, the clock jumps to the next opening
+                av_host = scenario.available_host(tz_host, sim_time)
+                if alive_host.any() and not (av_host & alive_host).any():
+                    sim_time = scenario.next_available_host(
+                        tz_host[alive_host], sim_time)
+                sel_fleet = fleet.replace(
+                    alive=fleet.alive & scenario.available(fleet, sim_time))
+            sel_kw = {}
+            budget_left = overrun = 0.0
+            if budget_active:
+                # no pick may cost more than the budget's remainder
+                budget_left = limit - budget_spent
+                sel_kw["budget_left"] = budget_left
             with _span(phase, "select"):
-                sel = selector.select(fleet, t, k, w.sizes, w.fractions,
-                                      cfg.local_epochs, cfg.batch_size)
+                sel = selector.select(sel_fleet, t, k, w.sizes, w.fractions,
+                                      cfg.local_epochs, cfg.batch_size,
+                                      **sel_kw)
             _check_selection(sel, w.n_total)
             choice = np.asarray(sel.model_choice, np.int64)
             active = choice >= 0
             m_col = torch.as_tensor(np.clip(choice, 0, M - 1),
                                     device=dev)[:, None]
+            had_picks = bool(active.any())
+            budget_starved = False
             with _span(phase, "charge"):
                 t_tra_m, t_com_m, e_tra_m, e_com_m = fleet_cost_matrix(
                     fleet, w.sizes, w.fractions, cfg.local_epochs,
                     cfg.batch_size)
                 t_cost_d = (t_tra_m + t_com_m).gather(1, m_col)[:, 0]
                 need_d = (e_tra_m + e_com_m).gather(1, m_col)[:, 0]
+                if budget_active and not had_picks:
+                    # nobody picked: the budget closed the round (and every
+                    # later one) if some alive device could pay for its
+                    # cheapest submodel from its own battery but not from
+                    # the budget's remainder; one pull, this round only
+                    mn, rem, al = to_host((e_tra_m + e_com_m).amin(1),
+                                          fleet.remaining, fleet.alive)
+                    mn = mn.astype(np.float64)
+                    own_ok = al & (mn < rem.astype(np.float64))
+                    if own_ok.any() and mn[own_ok].min() > budget_left:
+                        budget_starved = True
+                if budget_active:
+                    # the cumulative cap: each pick fits the remainder
+                    # alone, together they may not; trimmed in selection
+                    # order, the trimmed cost paid as an overrun penalty.
+                    # One pull a round: the picks' costs
+                    (need_h,) = to_host(need_d)
+                    need_h = need_h.astype(np.float64)
+                    funded, overrun = _fund(
+                        [i for i in sel.participants if active[i]], need_h,
+                        budget_left)
+                    active = np.zeros(w.n_total, bool)
+                    active[funded] = True
+                    # an attempt's cost counts as spent (a death wastes no
+                    # more than it), so the cap is never overdrawn
+                    budget_spent += float(need_h[active].sum())
                 fleet, ok_d = fleet_charge(
                     fleet, need_d, torch.as_tensor(active, device=dev))
                 # the one batched pull of the round head
@@ -487,6 +590,12 @@ class RoundEngine:
             t_round = float(t_cost[survivors].max()) if survivors.any() \
                 else 0.0
             idle_round = float((t_round - t_cost[survivors]).sum())
+            if recharge and t_round > 0.0:
+                # harvest while the round runs: the midpoint rate over
+                # [sim_time, sim_time + t_round], alive devices only
+                with _span(phase, "charge"):
+                    fleet = scenario.apply_charge(fleet, sim_time,
+                                                  sim_time + t_round)
 
             # contributors: survivors with local data
             cohort = [i for i in sel.participants
@@ -507,6 +616,9 @@ class RoundEngine:
             e_now = float(e_now_a)
             reward = (w1 * (acc - prev_acc) - w2 * (e_prev - e_now)
                       - w3 * (t_round / 60.0))
+            if budget_active and overrun:
+                # the joules proposed past the cap, priced as wasted ones
+                reward -= w2 * overrun
             sim_time += t_round
             selector.observe_reward(reward, sim_time=sim_time)
             prev_acc, e_prev = acc, e_now
@@ -532,6 +644,13 @@ class RoundEngine:
             hist["sim_time"].append(sim_time)
             hist["idle"].append(idle_round)
             hist["idle_time"] += idle_round
+            if alive_host is not None:
+                alive_host = alive_a.copy()
+            if budget_active:
+                hist["budget"]["spent"] = budget_spent
+                hist["budget"]["overrun"] += overrun
+                if overrun:
+                    hist["budget"]["trimmed"] += 1
             if self.verbose:
                 print(f"  round {t:3d}: acc={acc:.3f} exits="
                       f"{np.round(np.asarray(accs), 3)} alive={alive_now}"
@@ -540,19 +659,28 @@ class RoundEngine:
             if alive_now == 0:
                 fleet_dead = True
                 break
+            if budget_active and (limit - budget_spent <= 1e-9
+                                  or budget_starved
+                                  or (had_picks and not active.any())):
+                # nothing left to fund, or the cap trimmed every pick:
+                # stop rather than tick unfunded rounds
+                budget_exhausted = True
+                break
 
         hist["terminated"] = {
-            "reason": "fleet_dead" if fleet_dead else "completed",
+            "reason": ("budget_exhausted" if budget_exhausted
+                       else "fleet_dead" if fleet_dead else "completed"),
             "rounds": len(hist["acc_mean"]), "n_rounds": cfg.n_rounds,
             "sim_time": sim_time}
+        if budget_exhausted:
+            hist["terminated"]["budget"] = "energy"
         hist["n_aggregations"] = n_agg
         hist["sim_time_total"] = sim_time
         return self._finalize(hist, global_params)
 
     # ------------------------------------------------------------------
     # async mode: an event heap over per-device virtual clocks
-    # (engine.py:804-1576, without the scenario, budget and checkpoint
-    # hooks)
+    # (engine.py:804-1576, without the checkpoint hooks)
     # ------------------------------------------------------------------
 
     def _run_async(self) -> Dict:
@@ -569,6 +697,13 @@ class RoundEngine:
         w1, w2, w3 = cfg.reward_weights
         x_dev, y_dev, x_val, y_val = self._device_data()
         batched = self.executor == "batched"
+        # the energy scenario's hooks, gated on Python flags as the sync
+        # engine's (engine.py:817-830)
+        scenario = w.scenario
+        gate_avail = not scenario.trivial_availability
+        recharge = not scenario.trivial_charge
+        budget_active = scenario.budget_active
+        limit = float(cfg.global_budget_j)
 
         deadline_factor = float(cfg.task_deadline_factor)
         # deadlines (and their reap events) exist only with a fault plan:
@@ -593,7 +728,8 @@ class RoundEngine:
                      last_event=0.0, hotplug_done=not cfg.hotplug_n,
                      acc_prev=acc_prev, window_t0=0.0,
                      window_wall0=time.time(), window_reward=0.0,
-                     window_idle=0.0, window_lost=0)
+                     window_idle=0.0, window_lost=0, budget_spent=0.0,
+                     budget_blocked=False, last_charge_t=0.0)
         heap: list = []
         cohorts: Dict[int, dict] = {}   # one per selector.select call
         last_done: Dict[int, float] = {}
@@ -604,10 +740,18 @@ class RoundEngine:
         # float64 (fleet.busy_until is a float32 mirror, whose resolution
         # at large sim times could mark a mid-task device idle); liveness
         # is kept from values the loop pulls anyway, so the per-event idle
-        # check costs no device sync
-        busy_h, alive_h = to_host(fleet.busy_until, fleet.alive)
-        busy64 = busy_h.astype(np.float64)
-        alive_host = alive_h.copy()
+        # check costs no device sync.  An availability gate adds the host
+        # mirror of the phases to the same pull
+        pulled = to_host(fleet.busy_until, fleet.alive,
+                         *([fleet.tz_phase] if gate_avail else []))
+        busy64 = pulled[0].astype(np.float64)
+        alive_host = pulled[1].copy()
+        tz_host = pulled[2].astype(np.float64) if gate_avail else None
+        if budget_active:
+            hist["budget"] = {"limit": limit, "spent": 0.0, "overrun": 0.0,
+                              "trimmed": 0}
+        if gate_avail:
+            hist["wakes"] = []      # the sim times of the wake events
         if self.faults is not None:
             # injected churn rides the heap with the completions; seq
             # numbers assigned up front break fault/completion ties
@@ -660,20 +804,52 @@ class RoundEngine:
                 "join_remaining": [float(r)
                                    for r in remaining[cfg.n_devices:]]}
 
+        def budget_blocked_check(idle, budget_left):
+            """Nothing dispatched: blocked by the budget (not by drained
+            batteries) if some idle device could pay for its cheapest
+            submodel from its own battery but not from the remainder.  One
+            pull, only on a tick that comes back empty."""
+            _, _, e_tra, e_com = fleet_cost_matrix(
+                fleet, w.sizes, w.fractions, cfg.local_epochs,
+                cfg.batch_size)
+            min_need, rem = to_host((e_tra + e_com).amin(1), fleet.remaining)
+            min_need = min_need.astype(np.float64)
+            own_ok = idle & (min_need < rem.astype(np.float64))
+            if own_ok.any() and min_need[own_ok].min() > budget_left:
+                state["budget_blocked"] = True
+
         def try_dispatch(n_sel) -> int:
             nonlocal fleet, alive_host
             now = state["now"]
+            if recharge and now > state["last_charge_t"]:
+                # harvest the gap since the last tick BEFORE costing and
+                # charging, so e_before sees the topped-up fleet
+                with _span(phase, "charge"):
+                    fleet = scenario.apply_charge(
+                        fleet, state["last_charge_t"], now)
+                state["last_charge_t"] = now
             idle = alive_host & (busy64 <= now + 1e-9)
+            if gate_avail:
+                # offline devices are no candidates; when all are, a wake
+                # event reopens the timeline (the heap loop below)
+                idle &= scenario.available_host(tz_host, now)
             if not idle.any():
                 return 0
+            budget_left = 0.0
+            if budget_active:
+                budget_left = limit - state["budget_spent"]
+                if budget_left <= 1e-9:
+                    state["budget_blocked"] = True
+                    return 0
             cid = state["n_cohorts"]
             state["n_cohorts"] += 1
             cohorts[cid] = {"pending": 0, "reward": 0.0}
+            sel_kw = {"budget_left": budget_left} if budget_active else {}
             with _span(phase, "select"):
                 sel = selector.select(
                     fleet.replace(alive=torch.as_tensor(idle, device=dev)),
                     state["vround"], n_sel, w.sizes, w.fractions,
-                    cfg.local_epochs, cfg.batch_size)
+                    cfg.local_epochs, cfg.batch_size, **sel_kw)
             _check_selection(sel, w.n_total)
             choice = np.asarray(sel.model_choice, np.int64)
             active = choice >= 0
@@ -686,17 +862,36 @@ class RoundEngine:
                         fleet, w.sizes, w.fractions, cfg.local_epochs,
                         cfg.batch_size)
                     need_d = (e_tra + e_com).gather(1, m_col)[:, 0]
+                    t_cost_d = (t_tra + t_com).gather(1, m_col)[:, 0]
                     # the first of the tick's two batched pulls: the task
-                    # times for the event heap
-                    (t_cost,) = to_host((t_tra + t_com).gather(1, m_col)[:, 0])
+                    # times for the event heap (and, under a budget, the
+                    # picks' costs in the same pull)
+                    if budget_active:
+                        t_cost, need_h = to_host(t_cost_d, need_d)
+                        need_h = need_h.astype(np.float64)
+                    else:
+                        (t_cost,) = to_host(t_cost_d)
                     if horizon > 0:
                         # only work that can land inside the time budget
                         active &= (now + t_cost) <= horizon + 1e-9
                     allow = budget - state["tasks_started"]
                     kept = [i for i in sel.participants if active[i]][:allow]
+                    if budget_active:
+                        # the cumulative cap (the sync rule), the overrun
+                        # paid by the cohort
+                        funded, overrun = _fund(kept, need_h, budget_left)
+                        if overrun:
+                            credit(cid, -w2 * overrun)
+                            hist["budget"]["overrun"] += overrun
+                            hist["budget"]["trimmed"] += 1
+                        if kept and not funded:
+                            state["budget_blocked"] = True
+                        kept = funded
                     active = np.zeros(w.n_total, bool)
                     active[kept] = True
                 if not active.any():
+                    if budget_active and not state["budget_blocked"]:
+                        budget_blocked_check(idle, budget_left)
                     return 0
                 e_before_d = fleet.remaining.sum()
                 fleet, ok_d = fleet_charge(fleet, need_d,
@@ -710,6 +905,12 @@ class RoundEngine:
             hist["dropouts"] += int((active & ~ok).sum())
             # energy term at SEND time (batteries wasted by deaths included)
             credit(cid, -w2 * (e_before - e_after))
+            if budget_active:
+                # an attempt's cost counts as spent: the cap is never
+                # overdrawn
+                state["budget_spent"] += float(need_h[active].sum())
+                state["budget_blocked"] = False
+                hist["budget"]["spent"] = state["budget_spent"]
             started = [i for i in sel.participants if active[i] and ok[i]]
             if not started:
                 return 0
@@ -1031,6 +1232,24 @@ class RoundEngine:
                     commit_ready()
                     if heap:
                         continue
+                if gate_avail and state["tasks_started"] < budget \
+                        and not state["budget_blocked"]:
+                    # the timeline starved only because every idle device
+                    # is offline: wake at the next opening and dispatch
+                    now = state["now"]
+                    idle_u = alive_host & (busy64 <= now + 1e-9)
+                    if idle_u.any() and not (
+                            scenario.available_host(tz_host, now)
+                            & idle_u).any():
+                        t_wake = scenario.next_available_host(
+                            tz_host[idle_u], now)
+                        if horizon <= 0 or t_wake < horizon - 1e-9:
+                            heapq.heappush(heap, (float(t_wake),
+                                                  state["seq"], "wake",
+                                                  None))
+                            state["seq"] += 1
+                            hist["wakes"].append(float(t_wake))
+                            continue
                 break
             t_ev, _, kind, payload = heapq.heappop(heap)
             state["now"] = t_ev
@@ -1040,8 +1259,9 @@ class RoundEngine:
                     process_completion(payload)
             elif kind == "reap":
                 process_reap(payload)
-            else:
+            elif kind == "fault":
                 process_fault(payload)
+            # a "wake" pops as a tick: refill() below dispatches
             refill()
             commit_ready()
 
@@ -1062,11 +1282,15 @@ class RoundEngine:
                 _marl_train(marl, buffer, hist, fleet, state["vround"],
                             n_updates)
 
+        budget_kind = None
         if state["tasks_started"] >= budget:
-            reason = "budget_exhausted"
+            reason, budget_kind = "budget_exhausted", "tasks"
         elif not alive_host.any():
             # every device, in-flight work included, died
             reason = "fleet_dead"
+        elif budget_active and state["budget_blocked"]:
+            # the global budget can fund no dispatch any more
+            reason, budget_kind = "budget_exhausted", "energy"
         elif horizon > 0:
             reason = "horizon_reached"
         else:
@@ -1076,8 +1300,8 @@ class RoundEngine:
             "tasks_started": state["tasks_started"],
             "completions": state["completions"],
             "lost": hist["faults"]["n_reaped"], "sim_time": state["now"]}
-        if reason == "budget_exhausted":
-            hist["terminated"]["budget"] = "tasks"
+        if budget_kind is not None:
+            hist["terminated"]["budget"] = budget_kind
         hist["n_tasks"] = state["tasks_started"]
         hist["n_aggregations"] = state["version"]
         hist["sim_time_total"] = state["now"]

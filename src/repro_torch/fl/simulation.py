@@ -6,8 +6,11 @@ config carries across packages.  The port runs the sync and async engines
 the paper's Table 1 and Fig. 5: DR-FL with the ``marl``, ``greedy``,
 ``random`` or ``static`` selector, and HeteroFL/ScaleFL (always greedy), on
 the ``cnn`` family (the ``transformer`` family: DR-FL), with either client
-executor; every other setting raises ``NotImplementedError`` naming its
-ROADMAP item.
+executor, under every energy scenario of the reference (charge and
+availability profiles, the global joule budget: the ``charge_*``,
+``availability_*`` and ``global_budget_j`` fields, resolved by
+:func:`repro_torch.energy.scenario_from_config`); every other setting
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -53,6 +56,8 @@ class FLConfig:
     hotplug_round: int = 0
     hotplug_n: int = 0
     energy_scale: float = 1.0
+    # energy scenarios (repro_torch.energy); these defaults are the
+    # trivial scenario, which runs no scenario hook at all
     charge_profile: str = "constant"
     charge_rate: float = 0.0
     charge_period: float = 86400.0

@@ -524,3 +524,63 @@ def test_async_bucketed_run_matches_the_cpu(cuda):
     diff = max((g.cpu() - c).abs().max().item() for g, c in
                zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])))
     assert diff <= 6e-3, diff
+
+
+#: the energy scenarios at ``tests/test_torch_energy_live.py``'s settings
+ENERGY = dict(n_devices=8, n_rounds=3, participation=0.5, local_epochs=1,
+              batch_size=16, n_train=400, hw=8, width_mult=0.125, seed=1,
+              selector="greedy", energy_scale=0.005, charge_period=30.0,
+              client_executor="batched")
+ENERGY_SCENARIOS = {
+    "solar": dict(charge_profile="solar", charge_rate=1.0),
+    "diurnal": dict(availability_profile="diurnal", availability_duty=0.15,
+                    seed=6),
+    "carbon_window": dict(charge_profile="carbon_window", charge_rate=1.0,
+                          seed=2),
+    "global_budget": dict(charge_profile="solar", charge_rate=1.0,
+                          global_budget_j=60.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sync", "async"])
+@pytest.mark.parametrize("scenario", list(ENERGY_SCENARIOS))
+def test_energy_scenario_run_matches_the_cpu(cuda, scenario, mode):
+    """Each energy scenario on the bucketed executor, on the card and on
+    the CPU: the same picks, model choices, task log, termination and
+    budget trims; energy, sim times and the budget's joules at rtol 1e-4;
+    weights at atol 6e-3 (cuDNN, as above); ``layer_agg`` once per
+    aggregation on the card."""
+    import numpy as np
+    from repro_torch.fl import FLConfig, run_simulation
+    from repro_torch.kernels import reset_launches
+    from repro_torch.tree import tree_leaves
+    cfg = FLConfig(**dict(ENERGY, **ENERGY_SCENARIOS[scenario],
+                          engine_mode=mode))
+    reset_launches()
+    card = run_simulation(cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES["layer_agg"] == card["n_aggregations"] >= 1
+    cpu = run_simulation(cfg, device="cpu")
+    for key in ("participants", "model_choices", "alive", "dropouts",
+                "n_aggregations"):
+        assert card[key] == cpu[key], key
+    keys = ("device", "dispatch", "version", "staleness", "m")
+    assert [[t[k] for k in keys] for t in card.get("task_log", [])] == \
+        [[t[k] for k in keys] for t in cpu.get("task_log", [])]
+    assert card["terminated"]["reason"] == cpu["terminated"]["reason"]
+    assert card["terminated"].get("budget") == cpu["terminated"].get(
+        "budget")
+    for key in ("energy", "sim_time"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=1e-4)
+    assert ("budget" in card) == ("budget" in cpu)
+    if "budget" in cpu:
+        assert card["budget"]["trimmed"] == cpu["budget"]["trimmed"]
+        np.testing.assert_allclose(card["budget"]["spent"],
+                                   cpu["budget"]["spent"], rtol=1e-4)
+    assert ("wakes" in card) == ("wakes" in cpu)
+    if "wakes" in cpu:
+        assert len(card["wakes"]) == len(cpu["wakes"])
+        np.testing.assert_allclose(card["wakes"], cpu["wakes"], rtol=1e-4)
+    diff = max((g.cpu() - c).abs().max().item() for g, c in
+               zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])))
+    assert diff <= 6e-3, diff

@@ -1,7 +1,8 @@
 """Guards of the port's boundaries: it imports with jax absent and imports
 nothing of the JAX package; its entry points run on the card unless the
 caller asks for the CPU, with no fallback; every setting outside the
-ported slice raises ``NotImplementedError`` naming its ROADMAP item."""
+ported slices raises ``NotImplementedError`` naming its ROADMAP item,
+and every setting a slice ported runs."""
 import dataclasses
 import os
 import re
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.fl import FLConfig, run_simulation
+from repro_torch.fl.engine import check_supported
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,15 +64,10 @@ ASYNC = dict(engine_mode="async")
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(ASYNC, availability_profile="diurnal"), "energy scenarios"),
-    (dict(availability_profile="diurnal"), "energy scenarios"),
     (dict(fault_corrupts=1, fault_horizon=100.0), ValueError),
     (dict(mixer_mode="set"), "MARL at fleet scale"),
     (dict(fleet_mesh=2), "fleet sharding"),
     (dict(model_family="mlp"), "other families"),
-    (dict(ASYNC, hotplug_n=4, global_budget_j=1e5), "energy scenarios"),
-    (dict(charge_profile="solar", charge_rate=0.1), "energy scenarios"),
-    (dict(global_budget_j=1e5), "energy scenarios"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=1), "checkpoints"),
     (dict(engine_mode="sync", fault_crashes=1, fault_horizon=100.0),
      ValueError),
@@ -105,6 +102,38 @@ def test_formerly_unported_settings_run(change):
     hist = run_simulation(FLConfig(**kw), device="cpu")
     assert len(hist["acc"]) == 1 and hist["n_aggregations"] == 1
     assert hist["executor"] == "perclient"
+
+
+@pytest.mark.parametrize("change", [
+    dict(ASYNC, availability_profile="diurnal"),
+    dict(availability_profile="diurnal"),
+    dict(ASYNC, hotplug_n=4, global_budget_j=1e5),
+    dict(charge_profile="solar", charge_rate=0.1),
+    dict(global_budget_j=1e5)],
+    ids=["async-diurnal", "diurnal", "async-hotplug-budget", "solar",
+         "budget"])
+def test_energy_scenario_settings_run(change):
+    """The energy scenarios are ported: these settings, once refused, pass
+    ``check_supported`` and run on the CPU, a budget with its record."""
+    kw = dict(BASE, n_devices=8, n_train=400, participation=0.5,
+              local_epochs=1, selector="greedy")
+    kw.update(change)
+    cfg = FLConfig(**kw)
+    check_supported(cfg)
+    hist = run_simulation(cfg, device="cpu")
+    assert hist["n_aggregations"] >= 1
+    assert ("budget" in hist) == (cfg.global_budget_j > 0)
+    if "budget" in hist:
+        assert 0 < hist["budget"]["spent"] <= cfg.global_budget_j
+
+
+def test_unknown_energy_profile_raises_the_references_error():
+    for change, what in ((dict(charge_profile="fusion"), "charge"),
+                         (dict(availability_profile="sometimes"),
+                          "availability")):
+        cfg = dataclasses.replace(FLConfig(**BASE), **change)
+        with pytest.raises(ValueError, match=f"unknown {what} profile"):
+            check_supported(cfg)
 
 
 def test_flconfig_fields_and_defaults_equal_the_jax_config():

@@ -2,15 +2,18 @@
 port's run to the JAX package's: the shared body of the parametrised
 live-run tests in ``tests/test_torch_perclient.py``,
 ``tests/test_torch_baselines.py``, ``tests/test_torch_async.py`` and
-``tests/test_torch_faults.py`` (one arm per case, split over files so that
-the suite's per-file workers share the cost).
+``tests/test_torch_faults.py`` and ``tests/test_torch_energy_live.py``
+(one arm per case, split over files so that the suite's per-file workers
+share the cost).
 
 Both runs go through ``RoundEngine(cfg, selector, buffer).run()`` with
 the selector of ``_make_selector`` (and, for DR-FL + MARL, the buffer of
 ``_make_buffer``).  The port starts from the JAX package's own weights:
 the family init exactly as the JAX ``build_world`` makes it, converted,
 and the JAX selector's QMIX params; ε is 0 on both sides (``jax.random``
-draws cannot be reproduced).  Picks and model choices must be identical
+draws cannot be reproduced), or, with ``explore=True``, ε as configured
+and the port's learner given the JAX learner's actions call by call
+(:func:`_replay_jax_actions`).  Picks and model choices must be identical
 every round; per-exit accuracy within one validation sample; energy,
 reward, round times and the final weights allclose at rtol=1e-4,
 atol=1e-5 (SGD over float32 reductions in another order).  An async run
@@ -20,12 +23,15 @@ staleness, submodel, lost), the termination, the hot-plug and every fault
 event's outcome; the times in them at rtol=1e-4.  Its rows' rewards sum
 many small energy terms, each a difference of two float32 sums of the
 fleet's energy: their absolute tolerance is the float32 spacing there
-(:func:`_energy_term_atol`).
+(:func:`_energy_term_atol`).  Under an energy scenario both runs also
+keep the same ``hist["terminated"]`` and ``hist["budget"]`` (``trimmed``
+equal; ``spent``, ``overrun`` and ``limit`` at TOL).
 """
 import dataclasses
 
 import jax
 import numpy as np
+import torch
 
 from repro.fl import simulation as jsim
 from repro.fl.engine import RoundEngine as JaxRoundEngine
@@ -33,6 +39,7 @@ from repro.models.family import get_family as jax_get_family
 from repro_torch.convert import (cnn_params_from_jax,
                                  cnn_params_to_jax_layout, params_from_jax)
 from repro_torch.core.energy import BATTERY_JOULES
+from repro_torch.core.marl.networks import agent_step
 from repro_torch.fl import faults as tfaults
 from repro_torch.fl import simulation as tsim
 from repro_torch.fl.engine import RoundEngine
@@ -50,9 +57,35 @@ def _eps_zero(selector):
         selector.learner.cfg, eps_start=0.0, eps_end=0.0)
 
 
-def run_both(kw, fault_plan=None):
+def _replay_jax_actions(jsel, tsel):
+    """ε-exploration draws from ``jax.random``, which torch cannot
+    reproduce: record the JAX learner's actions at every ``act`` and hand
+    them, in call order, to the port's learner, whose Q values and hidden
+    state stay its own.  Every replayed action must be one the port's own
+    action mask allows."""
+    taken = []
+    jax_act = jsel.learner.act
+
+    def record(*args, **kw):
+        out = jax_act(*args, **kw)
+        taken.append(np.array(out[0]))
+        return out
+
+    def replay(obs, hidden, eps, avail):
+        q, h = agent_step(tsel.learner.params["agent"], obs, hidden)
+        act = torch.as_tensor(taken.pop(0), dtype=torch.int64,
+                              device=q.device)
+        assert bool(avail.gather(-1, act[:, None]).all()), \
+            "a JAX action outside the port's action mask"
+        return act, q.gather(-1, act[:, None])[:, 0], h
+    jsel.learner.act = record
+    tsel.learner.act = replay
+
+
+def run_both(kw, fault_plan=None, explore=False):
     """(JAX hist, port hist, JAX selector, port selector) of one arm;
-    ``fault_plan`` (the JAX package's) goes to both engines."""
+    ``fault_plan`` (the JAX package's) goes to both engines; ``explore``
+    keeps a MARL selector's ε and replays the JAX actions into the port."""
     jcfg, tcfg = jsim.FLConfig(**kw), tsim.FLConfig(**kw)
     jsel, tsel = jsim._make_selector(jcfg, 4), tsim._make_selector(
         tcfg, 4, device="cpu")
@@ -62,8 +95,11 @@ def run_both(kw, fault_plan=None):
         tsel.learner.load_params(params_from_jax(jsel.learner.params))
         qmix_init = params_from_jax(jsel.learner.params)
         for sel in (jsel, tsel):
-            _eps_zero(sel)
+            if not explore:
+                _eps_zero(sel)
             sel.reset_episode()
+        if explore:
+            _replay_jax_actions(jsel, tsel)
     fam = jcfg.model_family
     jp = jax_get_family(fam).init(jax.random.PRNGKey(jcfg.seed),
                                   jcfg.num_classes,
@@ -181,10 +217,24 @@ def _assert_qmix_replays_reference(kw, jh, th, jsel, tsel):
                                    atol=step)
 
 
+def _assert_budget_agree(jh, th):
+    """The global budget's record: present in both or neither, ``trimmed``
+    equal, the joules at TOL."""
+    assert ("budget" in th) == ("budget" in jh)
+    if "budget" in jh:
+        tb, jb = dict(th["budget"]), dict(jh["budget"])
+        assert tb.pop("trimmed") == jb.pop("trimmed")
+        _assert_records_equal([tb], [jb], "budget")
+
+
 def assert_runs_agree(kw, jh, th, jsel, tsel, executor):
-    assert len(th["participants"]) == kw["n_rounds"]
+    if th["terminated"]["reason"] != "budget_exhausted":
+        assert len(th["participants"]) == kw["n_rounds"]
     _assert_rows_agree(kw, jh, th, executor,
                        ("energy", "round_time", "sim_time", "idle"))
+    _assert_records_equal([th["terminated"]], [jh["terminated"]],
+                          "terminated")
+    _assert_budget_agree(jh, th)
     _assert_final_state_agree(kw, jh, th, jsel, tsel)
 
 
@@ -231,6 +281,7 @@ def assert_async_runs_agree(kw, jh, th, jsel, tsel, executor):
     _assert_records_equal(th["task_log"], jh["task_log"], "task_log")
     _assert_records_equal([th["terminated"]], [jh["terminated"]],
                           "terminated")
+    _assert_budget_agree(jh, th)
     assert (th["hotplug"] is None) == (jh["hotplug"] is None)
     if jh["hotplug"] is not None:
         hp_t, hp_j = dict(th["hotplug"]), dict(jh["hotplug"])
