@@ -21,8 +21,10 @@ its own lines; any failure raises and exits non-zero:
    attention's backward route (fused or three passes) is printed for
    every shape, and the model-layout call, the one the transformer path
    makes, is checked and timed at the path's shape beside SDPA on the same
-   layout; ``rmsnorm``'s route (vec or general) and its backward's splits
-   are printed for every shape, and its backward is run twice (bitwise
+   layout; attention is also timed at the set mixer's shape of step 10
+   (non-causal, 4 seed queries over 1024 agents) beside non-causal SDPA;
+   ``rmsnorm``'s route (vec or general) and its backward's splits are
+   printed for every shape, and its backward is run twice (bitwise
    equal) and held against its CPU emulation (``rmsnorm_bwd_blocked``,
    the kernel's order of sums) at 1e-6;
 3. drive the main path through ``repro_torch.fl.run_simulation``: 64
@@ -77,7 +79,17 @@ its own lines; any failure raises and exits non-zero:
    against the CPU (``[energy reference]``), and
    ``benchmarks/energy_bench.py``'s n = 256 grid, 4 scenarios x 4
    selectors (``[energy grid]``, no JSON written);
-10. print the card's name and power limit, the kernels' JSON line and,
+10. MARL at fleet scale (the factored QMIX state, the set/attention
+   mixer on the non-causal ``flash_attention``, sampled-agent replay):
+   Fig. 6's 1024-device row at full width on the async engine
+   (``[fig6 n1024]``: ``flash_attention`` twice per QMIX update, its
+   three-pass backward once, ``layer_agg`` once per completion; the wall
+   of one set-mode update), ``benchmarks/marl_train_bench.py``'s rows to
+   n = 1M (``[marl train]``: the set mixer's step time flat in n), a
+   300-device run on the card against the CPU, sync and async, with
+   identical picks, task logs, sampled agents and factored states
+   (``[fleet scale reference]``);
+11. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -483,7 +495,10 @@ def phase_attention():
     returns the records of both, timed at the transformer path's shape
     (BH = 16 participants x 32 sequences x 4 heads, S 32, D 32, causal)
     and, under ``per_client``, at the per-client executor's (one client:
-    BH = 32 sequences x 4 heads)."""
+    BH = 32 sequences x 4 heads); then the two records at the set mixer's
+    path shape ([fig6 n1024]: BH = 208 replay steps, 4 seed queries over
+    1024 agents, D 32, non-causal; the seeds carry sqrt(32) and the keys
+    a log-weight in slot -1), timed beside non-causal SDPA."""
     import importlib
     import torch
     import torch.nn.functional as F
@@ -498,6 +513,12 @@ def phase_attention():
               ("non-causal", 4, 4, 64, 64, 64, False, 0, "float32"),
               ("GQA 6:2", 6, 2, 128, 128, 64, True, 0, "float32"),
               ("set mixer", 2, 2, 4, 4096, 32, False, 0, "float32"),
+              ("set mixer path", 208, 208, 4, 1024, 32, False, 0,
+               "float32"),
+              ("set mixer ragged", 208, 208, 4, 300, 32, False, 0,
+               "float32"),
+              ("set mixer bench", 12, 12, 4, 4096, 32, False, 0,
+               "float32"),
               ("rows with no key", 2, 1, 40, 24, 16, True, 5, "float32"),
               ("odd sizes", 3, 3, 33, 17, 20, False, 3, "float32"),
               ("path bf16", 2048, 2048, 32, 32, 32, True, 0, "bfloat16"),
@@ -515,14 +536,19 @@ def phase_attention():
               ("fused limit D64 bf16", 64, 64, 64, 64, 64, True, 0,
                "bfloat16")]
     timed = {"path": "the bucketed path's shape",
-             "per-client path": "the per-client shape"}
+             "per-client path": "the per-client shape",
+             "set mixer path": "the set mixer's path shape"}
     g = torch.Generator(device="cuda").manual_seed(1)
     records = {}
     for label, BH, BHkv, Sq, Sk, D, causal, window, dt in shapes:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                   .requires_grad_()
                    for shape in ((BH, Sq, D), (BHkv, Sk, D), (BHkv, Sk, D)))
+        if label.startswith("set mixer"):
+            q[..., -1] = D ** 0.5
+            k[..., -1] = torch.randn((BHkv, Sk), generator=g,
+                                     device="cuda") * 0.1
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
         do = torch.randn((BH, Sq, D), generator=g, device="cuda").to(dtype)
 
         def fn(a, b, c):
@@ -548,9 +574,10 @@ def phase_attention():
             continue
 
         def sdpa(a, b, c):
-            return F.scaled_dot_product_attention(a, b, c, is_causal=True)
+            return F.scaled_dot_product_attention(a, b, c,
+                                                  is_causal=causal)
         pairs = _attention_pairs(BH, Sq, Sk, causal, window)
-        n = BH * Sq * D
+        nq, nk = BH * Sq * D, BHkv * Sk * D
         rec = records[label] = _timed_records(
             ("flash_attention", "flash_attention_bwd"),
             "src/repro_torch/kernels/flash_attention/csrc/fwd.cu",
@@ -560,17 +587,21 @@ def phase_attention():
             # forward: q, k, v in, o and lse out; q.k and p.v per kept
             # pair.  Backward: q, k, v, o, dO, lse in; dq, dk, dv out;
             # five products per kept pair (s, dp, dv, dq, dk)
-            [(4 * (4 * n + BH * Sq), 4 * D * pairs),
-             (4 * (8 * n + BH * Sq), 10 * D * pairs)],
-            "SDPA is_causal", timed[label])
+            [(4 * (2 * nq + 2 * nk + BH * Sq), 4 * D * pairs),
+             (4 * (4 * nq + 4 * nk + BH * Sq), 10 * D * pairs)],
+            "SDPA is_causal" if causal else "SDPA", timed[label])
         rec[1]["source"] = (
             "src/repro_torch/kernels/flash_attention/csrc/"
             + ("bwd_fused.cu" if route == "fused" else "bwd_three_pass.cu"))
         rec[1]["bwd_route"] = route
         for r in rec:
-            r["shape"] = f"BH={BH} S={Sq} D={D} causal {dt}"
+            r["shape"] = (f"BH={BH} S={Sq} D={D} causal {dt}" if causal else
+                          f"BH={BH} Sq={Sq} Sk={Sk} D={D} non-causal {dt}")
     _model_layout_times(mod)
-    return _attach_per_client(records["path"], records["per-client path"])
+    for r in records["set mixer path"]:
+        r["path"] = "fig6 n1024 set mixer"
+    return (_attach_per_client(records["path"], records["per-client path"]),
+            records["set mixer path"])
 
 
 def _model_layout_times(mod):
@@ -1118,10 +1149,11 @@ def phase_executors():
               f"{'not measured' if busy is None else f'{busy:.3f}'})")
 
 
-def _card_and_cpu(cfg):
+def _card_and_cpu(cfg, keep=None):
     """The same run on the card and on the CPU (plain versions); a MARL
     run acts greedily (ε = 0: the two devices' generators draw different
-    numbers).  Returns (card hist, CPU hist)."""
+    numbers).  Returns (card hist, CPU hist); ``keep``, a dict, gets each
+    device's (selector, buffer)."""
     from repro_torch.fl.engine import RoundEngine, uses_marl
     from repro_torch.fl.simulation import _make_buffer, _make_selector
     hists = {}
@@ -1133,6 +1165,8 @@ def _card_and_cpu(cfg):
             sel.reset_episode()
             buf = _make_buffer(cfg)
         hists[dev] = RoundEngine(cfg, sel, buf, device=dev).run()
+        if keep is not None:
+            keep[dev] = (sel, buf)
     return hists["cuda"], hists["cpu"]
 
 
@@ -1416,8 +1450,11 @@ ENERGY_SCENARIOS = {
     "carbon_window": dict(charge_profile="carbon_window", charge_rate=2.0),
     "global_budget": dict(charge_profile="solar", charge_rate=2.0,
                           global_budget_j=30.0)}
-#: benchmarks/energy_bench.py's grid at n = 256 (run_cell, SCENARIOS,
-#: DAY, K_TARGET, BUDGET_PER_PICK): FLConfig's width and images
+#: benchmarks/energy_bench.py's grid (run_cell, SCENARIOS, DAY, K_TARGET,
+#: BUDGET_PER_PICK) at n = 256: FLConfig's width and images.  Its n =
+#: 4096 cells (factored state, set mixer) take phase_energy_grid(4096),
+#: about 190 s on the card, which main() leaves out to keep the script
+#: within half its time limit
 GRID_N, GRID_ROUNDS, GRID_DAY = 256, 8, 3600.0
 GRID_SCENARIOS = {
     "constant": {},
@@ -1603,19 +1640,31 @@ def phase_energy_reference():
                     raise AssertionError(f"[{tag}] card and CPU disagree")
 
 
-def phase_energy_grid():
-    """``benchmarks/energy_bench.py``'s n = 256 cells on the card: 4
-    scenarios x 4 selectors, 8 rounds, MARL pre-trained for 3 episodes;
-    each row's fields as the bench prints them (no JSON is written).
-    Returns the rows."""
+def _bench_energy_rows(n):
+    """``BENCH_energy.json``'s rows at n (the JAX package's run on a
+    CPU), keyed by (scenario, selector); {} where the file has none."""
+    path = SRC.parent / "BENCH_energy.json"
+    rows = json.loads(path.read_text())["rows"] if path.exists() else []
+    return {(r["scenario"], r["selector"]): r for r in rows if r["n"] == n}
+
+
+def phase_energy_grid(n=GRID_N):
+    """``benchmarks/energy_bench.py``'s cells at n on the card: 4
+    scenarios x 4 selectors, 8 rounds, MARL pre-trained for 3 episodes
+    (above 256 devices on the factored state and the set mixer); each
+    row's fields as the bench prints them (no JSON is written).  The
+    non-MARL cells are held to ``BENCH_energy.json``: survivors and
+    termination equal, joules within 0.1 J (float32 fleet sums in another
+    order: a few spacings of 2^-7 J at n 4096).  Returns the rows."""
     import numpy as np
     from repro_torch.fl import FLConfig, run_simulation
     rows = []
+    bench = _bench_energy_rows(n)
     t_grid = time.perf_counter()
     for scenario, kw in GRID_SCENARIOS.items():
         for selector in GRID_SELECTORS:
-            cfg = FLConfig(n_devices=GRID_N, n_rounds=GRID_ROUNDS,
-                           participation=8 / GRID_N, n_train=3 * GRID_N,
+            cfg = FLConfig(n_devices=n, n_rounds=GRID_ROUNDS,
+                           participation=8 / n, n_train=3 * n,
                            local_epochs=1, method="drfl", selector=selector,
                            energy_scale=0.0025, seed=0,
                            marl_episodes=3 if selector == "marl" else 1,
@@ -1623,8 +1672,7 @@ def phase_energy_grid():
             t0 = time.perf_counter()
             h = run_simulation(cfg)
             wall = time.perf_counter() - t0
-            joules = max(GRID_N * 7560.0 * 0.0025 - float(h["energy"][-1]),
-                         0.0)
+            joules = max(n * 7560.0 * 0.0025 - float(h["energy"][-1]), 0.0)
             acc = float(h["acc_mean"][-1])
             row = dict(scenario=scenario, selector=selector,
                        rounds_run=len(h["acc_mean"]), final_acc=acc,
@@ -1635,24 +1683,248 @@ def phase_energy_grid():
             if "budget" in h:
                 row["budget_spent"] = h["budget"]["spent"]
             rows.append(row)
-            print(f"[energy grid] {scenario:14s} {selector:7s} n={GRID_N} "
+            ref = bench.get((scenario, selector))
+            print(f"[energy grid] {scenario:14s} {selector:7s} n={n} "
                   f"acc={acc:.4f} alive={row['surviving']} dropouts="
                   f"{row['dropouts']} J={joules:.2f} J/acc-pt="
                   f"{row['joules_per_acc_point']:.3f} "
                   f"[{row['terminated']}] budget spent "
                   f"{row.get('budget_spent')} executor {h['executor']} "
-                  f"wall {wall:.2f} s")
+                  f"wall {wall:.2f} s"
+                  + ("" if ref is None else
+                     f"; BENCH_energy.json J={ref['joules']:.2f} alive="
+                     f"{ref['surviving']} [{ref['terminated']}]"))
             if not np.all(np.isfinite(h["energy"])):
                 raise AssertionError("[energy grid] non-finite energy")
+            if ref is not None and selector != "marl" and (
+                    row["surviving"] != ref["surviving"]
+                    or row["terminated"] != ref["terminated"]
+                    or abs(joules - ref["joules"]) > 0.1):
+                raise AssertionError(f"[energy grid] n={n} {scenario}/"
+                                     f"{selector} differs from "
+                                     "BENCH_energy.json")
     for scenario in ("solar", "global_budget"):
         m, r = (next(x["joules_per_acc_point"] for x in rows
                      if (x["scenario"], x["selector"]) == (scenario, s))
                 for s in ("marl", "random"))
         print(f"[energy grid] claim marl_beats_random_jpap/{scenario}/"
-              f"n{GRID_N}: {m < r} (marl {m:.3f}, random {r:.3f})")
-    print(f"[energy grid] {len(rows)} cells in "
+              f"n{n}: {m < r} (marl {m:.3f}, random {r:.3f})")
+    print(f"[energy grid] n={n}: {len(rows)} cells in "
           f"{time.perf_counter() - t_grid:.1f} s")
     return rows
+
+
+#: Fig. 6's first row past the flat QMIX state (benchmarks/
+#: fig6_scalability.py:56-104 on the paper-scale profile of
+#: benchmarks/common.py:29-30): 1024 devices, k = 20, the async engine
+#: with a budget of 2k tasks, at the full-width ResNet-18.  "auto" takes
+#: the factored state and the set mixer; the episode has 2 x 40 + 120 + 8
+#: = 208 steps over all 1024 agents (the budget is 4096)
+FIG6_CFG = dict(n_devices=1024, n_train=60000, local_epochs=5,
+                participation=0.02, energy_scale=0.6, n_rounds=120,
+                engine_mode="async", async_eval_every=20,
+                async_task_budget=40, client_executor="batched",
+                marl_episodes=1, method="drfl", selector="marl",
+                width_mult=1.0, hw=32, seed=0)
+
+
+def _set_mixer_launches(hist):
+    """The set mixer runs twice per QMIX update (online with its backward,
+    target without), always past the fused backward's lengths; each async
+    completion aggregates through ``layer_agg``."""
+    u = hist["qmix"]["updates"]
+    return {"layer_agg": hist["n_aggregations"], "flash_attention": 2 * u,
+            "flash_attention_bwd": u, "flash_attention_bwd_three_pass": u,
+            "flash_attention_bwd_fused": 0, "rmsnorm": 0}
+
+
+def _update_wall(n_agents, T, stored):
+    """(device ms, wall ms) of one set-mode QMIX update on a fresh learner
+    from a replay batch of the given shape (B 1: one episode)."""
+    import numpy as np
+    from repro_torch.core.marl.qmix import QmixConfig, QmixLearner
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.random((1, T + 1, stored, 5), np.float32),
+             "state": rng.random((1, T + 1, 25), np.float32),
+             "actions": rng.integers(0, 5, (1, T, stored)),
+             "rewards": rng.normal(size=(1, T)).astype(np.float32),
+             "mask": np.ones((1, T), np.float32),
+             "agent_logw": np.zeros((1, stored), np.float32)}
+    learner = QmixLearner(QmixConfig(
+        n_agents=n_agents, obs_dim=5, num_actions=5, state_dim=25,
+        mixer_mode="set"), 0)
+    return _times(lambda: learner.update(batch), iters=5, warmup=2)
+
+
+def phase_fig6():
+    """``[fig6 n1024]``: the slice's path, through ``run_simulation`` on
+    the card.  ``flash_attention`` launches exactly twice per QMIX update
+    and its three-pass backward once, ``layer_agg`` once per completion;
+    the QMIX update count is the reference's formula at the episode's end
+    (``engine.py:1540-1541``).  Returns the launches."""
+    from repro_torch.fl import FLConfig
+    cfg = FLConfig(**FIG6_CFG)
+    hist, launches = _drive("fig6 n1024", cfg, "batched",
+                            _set_mixer_launches)
+    _print_async("fig6 n1024", hist)
+    q = hist["qmix"]
+    vrounds = hist["terminated"]["vrounds"]
+    want = cfg.marl_updates_per_round * max(1, vrounds
+                                            // cfg.marl_train_every)
+    print(f"[fig6 n1024] qmix: mixer {q['mixer_mode']}, replay agents "
+          f"{q['replay_agents']} of {cfg.n_devices}, episode length "
+          f"{q['replay_episode_len']}, capacity {q['replay_capacity']}, "
+          f"updates {q['updates']} (the reference's formula at {vrounds} "
+          f"virtual rounds: {want}), td_loss {q['td_loss']}")
+    if (q["mixer_mode"], q["replay_agents"], q["replay_episode_len"]) != \
+            ("set", 1024, 208) or q["updates"] != want or want < 1:
+        raise AssertionError(f"[fig6 n1024] qmix record {q}")
+    if hist["n_tasks"] != 40:
+        raise AssertionError(f"[fig6 n1024] {hist['n_tasks']} tasks of 40")
+    dev, wall = _update_wall(cfg.n_devices, q["replay_episode_len"],
+                             q["replay_agents"])
+    print(f"[fig6 n1024] one set-mode QMIX update (B 1, T 208, 1024 "
+          f"agents, a fresh learner): wall ms {wall:.2f}, device ms "
+          f"{dev:.2f}")
+    return launches
+
+
+#: benchmarks/marl_train_bench.py's _bench_one: factored state, replay
+#: of capacity 8 filled by 3 episodes of 4 selects (so B = 3), batch 16
+MARL_TRAIN_ROWS = ((256, "flat"), (256, "set"), (4096, "flat"),
+                   (4096, "set"), (65536, "set"), (1_048_576, "set"))
+
+
+def _marl_train_row(n, mixer_mode, iters, seed=0, agent_budget=4096):
+    """One row of the bench on the card: the replay filled by real
+    ``select`` episodes over a sampled fleet, then 13 warm-up updates and
+    ``iters`` timed ones (wall clock: each update ends in its pull)."""
+    import statistics
+    from repro_torch.core.fleet import sample_fleet_state
+    from repro_torch.core.marl.buffer import ReplayBuffer
+    from repro_torch.core.selection import OBS_DIM, MarlSelector
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    sizes = (2.8e6, 8.4e6, 22.5e6, 44.8e6)
+    fracs = (0.11, 0.3, 0.72, 1.0)
+    k, T = max(1, n // 100), 4
+    sel = MarlSelector(n, len(sizes), T, seed=seed, state_mode="factored",
+                       mixer_mode=mixer_mode, agent_budget=agent_budget)
+    buf = ReplayBuffer(8, T, n, OBS_DIM, sel.learner.cfg.state_dim, seed,
+                       agent_budget=agent_budget if mixer_mode == "set"
+                       else None)
+    t0 = time.perf_counter()
+    for ep in range(3):
+        fleet = sample_fleet_state(n, seed=seed + ep)
+        sel.reset_episode()
+        for t in range(T):
+            sel.select(fleet, t, k, sizes, fracs)
+            sel.observe_reward(0.1 * (ep + t))
+        buf.add_episode(*sel.episode_arrays(fleet, T))
+    fill_s = time.perf_counter() - t0
+    losses, times = [], []
+    reset_launches()
+    for i in range(13 + iters):
+        t0 = time.perf_counter()
+        losses.append(sel.learner.update(
+            buf.sample(sel.learner.cfg.batch_size))["td_loss"])
+        if i >= 13:
+            times.append(time.perf_counter() - t0)
+    steps = 13 + iters
+    want = ({"flash_attention": 2 * steps,
+             "flash_attention_bwd_three_pass": steps}
+            if mixer_mode == "set" else
+            {"flash_attention": 0, "flash_attention_bwd": 0})
+    wrong = {key: (LAUNCHES[key], v) for key, v in want.items()
+             if LAUNCHES[key] != v}
+    if wrong:
+        raise AssertionError(f"[marl train] n={n} {mixer_mode} launches "
+                             f"(counted, expected): {wrong}")
+    row = dict(n=n, mode=mixer_mode, agents_stored=buf.N,
+               batch=min(sel.learner.cfg.batch_size, len(buf)),
+               train_step_s=statistics.median(times),
+               train_step_min_s=min(times), replay_fill_s=fill_s,
+               replay_mb=buf.nbytes / 1e6, loss_first=losses[0],
+               loss_last=losses[-1], loss_decreased=losses[-1] < losses[0],
+               state_dim=sel.learner.cfg.state_dim)
+    print(f"[marl train] {mixer_mode:4s} n={n:7d} stored agents "
+          f"{row['agents_stored']} B {row['batch']}: train step median "
+          f"{row['train_step_s'] * 1e3:.2f} ms (min "
+          f"{row['train_step_min_s'] * 1e3:.2f}), replay fill "
+          f"{fill_s:.2f} s, replay {row['replay_mb']:.2f} MB, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (decreased "
+          f"{row['loss_decreased']})")
+    return row
+
+
+def phase_marl_train():
+    """``[marl train]``: the port's twin of ``benchmarks/
+    marl_train_bench.py`` on the card (the flat mixer up to 4096, the set
+    mixer to 1M devices, storing 4096 agents: attention at BH 12, Sk
+    4096).  The bench's own acceptance: the set rows' step time is flat in
+    n, here each row's fastest of 10 steps from 4096 up within 1.5x of
+    the 4096 row's (a step is ~30 ms of host work, and a median of a few
+    wall-clock steps moves by 40% on the shared host).  Loss behaviour is
+    compared with ``BENCH_marl_train.json`` (a JAX run on a CPU) in
+    PERF.md, not the times.  Returns the rows."""
+    rows = [_marl_train_row(n, mode, iters=10)
+            for n, mode in MARL_TRAIN_ROWS]
+    base = next(r["train_step_min_s"] for r in rows
+                if (r["n"], r["mode"]) == (4096, "set"))
+    ratios = {r["n"]: r["train_step_min_s"] / base for r in rows
+              if r["mode"] == "set" and r["n"] >= 4096}
+    print("[marl train] set rows' fastest step over the n = 4096 row's: "
+          + ", ".join(f"n={n}: {x:.3f}" for n, x in ratios.items()))
+    if max(ratios.values()) > 1.5:
+        raise AssertionError("[marl train] the set mixer's step time grows "
+                             f"with n: {ratios}")
+    return rows
+
+
+def phase_fleet_scale_reference():
+    """``[fleet scale reference]``: MARL at fleet scale on the card
+    against the CPU, greedy (ε = 0), at the live tests' size (300
+    devices, width 0.125, 8x8 images, the trace sampled to 64 agents),
+    sync and async on the bucketed executor: picks, model choices, task
+    logs, the sampled agents and every stored factored state and
+    observation identical; weights at ``[executors]``'s atol 6e-3.  Seed
+    3: the fresh greedy policy trains submodels 0 and 1 on both engines
+    (at seed 1 its async run picks nobody)."""
+    import numpy as np
+    from repro_torch.fl import FLConfig
+    from repro_torch.tree import tree_leaves
+    keys = ("device", "dispatch", "version", "staleness", "m")
+    base = dict(n_devices=300, n_rounds=3, participation=0.02,
+                local_epochs=1, batch_size=16, n_train=1500, hw=8,
+                width_mult=0.125, seed=3, marl_agent_budget=64,
+                client_executor="batched")
+    for mode in ("sync", "async"):
+        cfg = FLConfig(**dict(base, engine_mode=mode,
+                              async_task_budget=12))
+        keep = {}
+        g, c = _card_and_cpu(cfg, keep)
+        (gs, gb), (cs, cb) = keep["cuda"], keep["cpu"]
+        same = (g["participants"] == c["participants"]
+                and g["model_choices"] == c["model_choices"]
+                and [[t[k] for k in keys] for t in g.get("task_log", [])]
+                == [[t[k] for k in keys] for t in c.get("task_log", [])])
+        same_idx = np.array_equal(gs._ep_idx, cs._ep_idx)
+        same_state = np.array_equal(gb.state, cb.state)
+        same_obs = np.array_equal(gb.obs, cb.obs)
+        w_diff = max(float((a.cpu() - b).abs().max()) for a, b in
+                     zip(tree_leaves(g["params"]), tree_leaves(c["params"])))
+        print(f"[fleet scale reference] {mode}: {gs.state_mode} state, "
+              f"{gs.mixer_mode} mixer, {gb.N} of {cfg.n_devices} agents "
+              f"stored, {g['n_aggregations']} aggregations, qmix updates "
+              f"{g['qmix']['updates']}: picks, models and task log equal="
+              f"{same}, sampled agents equal={same_idx}, factored states "
+              f"equal={same_state}, observations equal={same_obs}, max "
+              f"weight diff {w_diff:.3e} (limit 6e-3)")
+        if not (same and same_idx and same_state and same_obs) or \
+                w_diff > 6e-3 or gs._ep_idx is None or \
+                g["n_aggregations"] < 1:
+            raise AssertionError(f"[fleet scale reference] {mode}: card "
+                                 "and CPU disagree")
+
 
 def main() -> int:
     import torch
@@ -1671,8 +1943,9 @@ def main() -> int:
     from repro_torch.fl import FLConfig
     phase_build()
     floor = phase_floor()
-    records = [phase_kernels()] + phase_rmsnorm() + phase_attention()
-    for r in records:
+    attention, set_mixer = phase_attention()
+    records = [phase_kernels()] + phase_rmsnorm() + attention
+    for r in records + set_mixer:
         r["floor_ms"] = floor
         if "per_client" in r:
             r["per_client"]["floor_ms"] = floor
@@ -1728,6 +2001,14 @@ def main() -> int:
     records[0]["energy_async_launches"] = phase_energy_async()
     phase_energy_reference()
     phase_energy_grid()
+    launches = phase_fig6()
+    for r in set_mixer:
+        r["launches"] = launches[r["name"]]
+        r["route_launches"] = {k: launches[f"flash_attention_bwd_{k}"]
+                               for k in ("fused", "three_pass")}
+    records += set_mixer
+    phase_marl_train()
+    phase_fleet_scale_reference()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

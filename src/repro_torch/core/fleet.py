@@ -20,6 +20,16 @@ the async engine and hot-plug (``fleet.py:336-406``): :func:`fleet_connect`,
 :func:`fleet_set_busy` and the host mask :func:`fleet_idle`.  All functions
 return new states, their masks built on the fleet's device; the input is
 never changed.
+
+Fleet scale (``fleet.py:213-255``, ``:419-538``): :func:`sample_fleet_state`
+(batched numpy draws for 65k-1M devices), :func:`fleet_topk_mask` (ties
+to the lower index through a stable sort) and :func:`fleet_summary`, the
+factored QMIX state of ``summary_width(M)`` features.  Its histogram bins
+are exact: the float32 quotients are true divisions on every device (a
+CUDA division by a host scalar multiplies by the reciprocal, which can
+move a value across a bin edge), and every fleet sum is taken exactly in
+float64 and rounded once, so the card and the CPU give the same bits and
+the JAX package's float32 sums agree to their own rounding.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.energy import make_fleet
+from repro_torch.core.energy import BATTERY_JOULES, DEVICE_TIERS, make_fleet
 from repro_torch.device import resolve_device, to_host
 
 
@@ -104,6 +114,39 @@ def make_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
         busy_until=torch.zeros((n,), dtype=torch.float32, device=device),
         tiers=tuple(d.profile.tier for d in devs),
         modes=tuple(d.mode for d in devs))
+
+
+def sample_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
+                       data_sizes: Optional[List[int]] = None, *,
+                       device="cuda") -> FleetState:
+    """The large-fleet constructor (``fleet.py:213-255``): the reference's
+    batched numpy draws (tier mix, per-tier jitter, data sizes), rounded to
+    float32 tensors on ``device``; no labels.  Not the draws of
+    :func:`make_fleet_state` for a seed, as in the reference."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    tier_names = list(DEVICE_TIERS)
+    tiers = rng.choice(len(tier_names), size=n, p=list(tier_probs))
+    base = np.asarray([DEVICE_TIERS[t] for t in tier_names], np.float64)
+    jitter = rng.uniform(0.85, 1.15, size=(n, 3))
+    c, pt, pc = (base[tiers] * jitter).T
+    if data_sizes is not None:
+        ds = np.asarray(data_sizes, np.int64)
+    else:
+        ds = rng.integers(200, 1200, size=n)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=torch.float32,
+                            device=device)
+    battery = f32(np.full(n, BATTERY_JOULES))
+    return FleetState(
+        compute=f32(c), p_train=f32(pt), p_com=f32(pc),
+        bandwidth=f32(np.full(n, 2.5e6)), battery=battery,
+        remaining=battery.clone(),
+        data_size=torch.tensor(ds, dtype=torch.int32, device=device),
+        mode_compute=f32(np.ones(n)), mode_power=f32(np.ones(n)),
+        alive=torch.ones((n,), dtype=torch.bool, device=device),
+        busy_until=torch.zeros((n,), dtype=torch.float32, device=device))
 
 
 def _f32(fleet: FleetState, vals) -> torch.Tensor:
@@ -232,3 +275,111 @@ def fleet_set_alive(fleet: FleetState, indices, value: bool) -> FleetState:
     mask = _index_mask(fleet, indices)
     return fleet.replace(alive=(fleet.alive | mask) if value
                          else (fleet.alive & ~mask))
+
+
+# ---------------------------------------------------------------------------
+# Top-K participant cut and the factored fleet summary (fleet.py:419-538)
+# ---------------------------------------------------------------------------
+
+
+def fleet_topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """[n] bool mask of the k highest ``scores``; ties go to the lower
+    index (a stable descending sort: ``torch.topk`` keeps no tie order,
+    ``jax.lax.top_k`` and the host selectors' stable argsort do).  ``-inf``
+    scores are never selected."""
+    n = int(scores.shape[0])
+    k = max(0, min(int(k), n))
+    mask = torch.zeros((n,), dtype=torch.bool, device=scores.device)
+    if k:
+        idx = torch.sort(scores, descending=True, stable=True).indices[:k]
+        mask[idx] = True
+    return mask & torch.isfinite(scores)
+
+
+#: histogram resolution of the factored summary (per-feature bin count)
+SUMMARY_BINS = 8
+#: width of the non-histogram tail of the summary vector
+_SUMMARY_TOTALS = 5
+
+
+def summary_width(n_models: int, n_bins: int = SUMMARY_BINS) -> int:
+    """Width of :func:`fleet_summary`: battery and capability histograms
+    (``n_bins`` each), per-submodel affordability fractions and 5 fleet
+    totals, independent of the fleet's size."""
+    return 2 * n_bins + int(n_models) + _SUMMARY_TOTALS
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true float32 division on every device (a CUDA
+    division by a host scalar is a product with its reciprocal)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _exact_sum(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """A float32 fleet sum taken in float64 (exact for the fleet's
+    energies, counts and fractions, whatever the order of the adds) and
+    rounded once."""
+    x = x.double()
+    return (x.sum() if dim is None else x.sum(dim=dim)).float()
+
+
+def _histogram(values: torch.Tensor, weights: torch.Tensor, lo: float,
+               hi: float, n_bins: int) -> torch.Tensor:
+    """Weighted counts of ``values`` over ``n_bins`` equal bins of [lo,
+    hi): bin ``trunc((v - lo) / (hi - lo) * n_bins)`` in float32, clipped
+    (``fleet.py:460-472``; ``hi - lo`` is rounded to float32 first, as the
+    reference's weak-typed scalar)."""
+    scaled = true_div(values - lo, float(np.float32(hi - lo))) * n_bins
+    idx = torch.clamp(scaled.to(torch.int32), 0, n_bins - 1)
+    onehot = idx[:, None] == torch.arange(n_bins, device=idx.device)
+    return _exact_sum(onehot * weights[:, None], dim=0)
+
+
+def fleet_summary(fleet: FleetState, model_sizes, model_fractions,
+                  round_idx=0, n_rounds: int = 1, local_epochs: int = 5,
+                  batch_size: int = 32, n_bins: int = SUMMARY_BINS,
+                  afford: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The factored QMIX state (``fleet.py:475-535``): a float32 vector of
+    :func:`summary_width` features on the fleet's device, whatever the
+    fleet's size or order:
+
+    * the alive mass per battery-fraction bin and per effective-compute
+      bin (``/ 500``, as the agents' observation), over n;
+    * per submodel, the fraction of the fleet that can pay for it;
+    * remaining over battery energy, the alive fraction, the mean battery
+      fraction and data size (/ 1000) of the alive devices, ``t /
+      n_rounds``.
+
+    ``afford``, an [n, M+1] action mask the caller already holds (the
+    selector's, under a budget the budget-masked one), saves pricing the
+    fleet twice."""
+    n = len(fleet)
+    inv_n = float(np.float32(1.0 / float(n)))
+    alive = fleet.alive.to(fleet.remaining.dtype)
+    n_alive = torch.clamp_min(_exact_sum(alive), 1.0)
+    batt_frac = fleet.remaining / fleet.battery
+    hist_b = _histogram(batt_frac, alive, 0.0, 1.0 + 1e-9, n_bins) * inv_n
+    eff = true_div(fleet.compute * fleet.mode_compute, 500.0)
+    hist_c = _histogram(eff, alive, 0.0, 2.0, n_bins) * inv_n
+    if afford is None:
+        afford = fleet_affordability(fleet, model_sizes, model_fractions,
+                                     local_epochs, batch_size)
+    afford_frac = _exact_sum(afford[:, :-1], dim=0) * inv_n
+    t = np.float32(round_idx) / np.float32(max(int(n_rounds), 1))
+    totals = torch.stack([
+        _exact_sum(fleet.remaining) / _exact_sum(fleet.battery),
+        _exact_sum(alive) * inv_n,
+        _exact_sum(batt_frac * alive) / n_alive,
+        true_div(_exact_sum(fleet.data_size * alive) / n_alive, 1000.0),
+        torch.full((), float(t), dtype=torch.float32,
+                   device=alive.device),
+    ])
+    return torch.cat([hist_b, hist_c, afford_frac, totals]).float()
+
+
+# Array fields :func:`fleet_summary` does not read directly, as the
+# reference lists them: the powers and bandwidth enter through the cost
+# model only, ``busy_until`` is the async engine's mirror, and the energy
+# scenario's profile arrays show through the battery histogram
+SUMMARY_EXCLUDED_FIELDS = ("p_train", "p_com", "bandwidth", "mode_power",
+                           "busy_until", "charge_rate", "tz_phase")

@@ -1,5 +1,7 @@
-"""QMIX learner (Rashid et al. 2018), flat mixer — port of
-``repro.core.marl.qmix``.
+"""QMIX learner (Rashid et al. 2018) — port of ``repro.core.marl.qmix``,
+with either mixer: the flat hypernet mixer or the set/attention mixer
+(``mixer_mode="set"``), which trains on sampled-agent replay batches
+(their ``agent_logw`` column, broadcast over T, enters its logits).
 
 TD target (paper §3.2), double-Q with the online net's argmax:
     y_t = r_t + gamma * Q_tot^target(s_{t+1}, argmax_a Q(s_{t+1}, a))
@@ -17,7 +19,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.marl.networks import (agent_init, agent_step,
-                                            mixer_apply, mixer_init)
+                                            mixer_apply, mixer_init,
+                                            set_mixer_apply, set_mixer_init)
 from repro_torch.device import resolve_device, to_host
 from repro_torch.optim.optimizers import adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
@@ -38,7 +41,10 @@ class QmixConfig:
     eps_end: float = 0.05
     eps_decay_rounds: int = 200
     batch_size: int = 16
+    # "flat": the per-agent hypernet mixer (O(n_agents) params); "set":
+    # the set/attention mixer (params independent of n_agents)
     mixer_mode: str = "flat"
+    n_seeds: int = 4          # set-mixer seed queries
 
 
 def epsilon(cfg: QmixConfig, round_idx: int) -> float:
@@ -54,17 +60,17 @@ class QmixLearner:
     """Online + target params, the AdamW state and the act/update steps."""
 
     def __init__(self, cfg: QmixConfig, seed: int, *, device="cuda"):
-        if cfg.mixer_mode != "flat":
-            raise NotImplementedError(
-                "only the flat QMIX mixer is ported (the set mixer is "
-                "ROADMAP Queue 1, 'MARL at fleet scale')")
         self.cfg = cfg
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
-        params = {"agent": agent_init(gen, cfg.obs_dim, cfg.num_actions,
-                                      cfg.hidden),
-                  "mixer": mixer_init(gen, cfg.n_agents, cfg.state_dim,
-                                      cfg.mixer_embed)}
+        agent = agent_init(gen, cfg.obs_dim, cfg.num_actions, cfg.hidden)
+        if cfg.mixer_mode == "set":
+            mixer = set_mixer_init(gen, cfg.state_dim, cfg.obs_dim,
+                                   cfg.mixer_embed, cfg.n_seeds)
+        else:
+            mixer = mixer_init(gen, cfg.n_agents, cfg.state_dim,
+                               cfg.mixer_embed)
+        params = {"agent": agent, "mixer": mixer}
         self.load_params(params)
         self.act_gen = torch.Generator(device=self.device).manual_seed(
             int(seed) + 1)
@@ -126,19 +132,37 @@ def _unroll(cfg: QmixConfig, params, obs_seq):
     return torch.stack(qs, dim=1)
 
 
+def _mix(cfg: QmixConfig, mix_params, q_agents, obs_steps, state_steps,
+         logw):
+    """The configured mixer on per-agent Qs (``qmix.py:131-139``)."""
+    if cfg.mixer_mode == "set":
+        return set_mixer_apply(mix_params, q_agents, obs_steps, state_steps,
+                               n_seeds=cfg.n_seeds, embed=cfg.mixer_embed,
+                               logw=logw)
+    return mixer_apply(mix_params, q_agents, state_steps, cfg.n_agents,
+                       cfg.mixer_embed)
+
+
 def td_loss(cfg: QmixConfig, params, target, batch) -> torch.Tensor:
+    """The reference's ``_update`` loss (``qmix.py:142-169``).  N is the
+    batch's agent axis: ``cfg.n_agents``, or the stored agents of
+    sampled-agent replay, whose ``agent_logw`` [B, N] (absent from flat
+    batches) is broadcast over T."""
     obs, state = batch["obs"], batch["state"]            # [B, T+1, ...]
     actions, rewards, mask = batch["actions"], batch["rewards"], batch["mask"]
+    logw = batch.get("agent_logw")
+    if logw is not None:
+        logw = logw[:, None, :]
     qs = _unroll(cfg, params, obs)                       # [B, T+1, N, A]
     q_taken = qs[:, :-1].gather(-1, actions[..., None])[..., 0]   # [B, T, N]
-    q_tot = mixer_apply(params["mixer"], q_taken, state[:, :-1],
-                        cfg.n_agents, cfg.mixer_embed)   # [B, T]
+    q_tot = _mix(cfg, params["mixer"], q_taken, obs[:, :-1], state[:, :-1],
+                 logw)                                   # [B, T]
     with torch.no_grad():
         tq = _unroll(cfg, target, obs)
         next_best = torch.argmax(qs[:, 1:], dim=-1)      # double-Q
         tq_next = tq[:, 1:].gather(-1, next_best[..., None])[..., 0]
-        tq_tot = mixer_apply(target["mixer"], tq_next, state[:, 1:],
-                             cfg.n_agents, cfg.mixer_embed)
+        tq_tot = _mix(cfg, target["mixer"], tq_next, obs[:, 1:],
+                      state[:, 1:], logw)
     y = rewards + cfg.gamma * tq_tot * mask
     td = (y - q_tot) * mask
     return torch.sum(td ** 2) / torch.clamp_min(mask.sum(), 1.0)

@@ -1,15 +1,22 @@
 """Dual selection (paper §4.3) and its baselines — port of
-``repro.core.selection``: the flat-state, flat-mixer ``MarlSelector`` and
-the ``greedy``, ``random`` and ``static`` selectors.
+``repro.core.selection``: the ``MarlSelector`` with either QMIX state
+(``"flat"``, the n * OBS_DIM concatenation; ``"factored"``, the
+fixed-width :func:`repro_torch.core.fleet.fleet_summary`) and either mixer
+(``"flat"``; ``"set"``, with episode traces cut to ``agent_budget``
+agents drawn per episode), the ``greedy``, ``random`` and ``static``
+selectors, and :func:`dual_selection_energy_step`, the greedy selection
+and energy step as one function of device tensors.
 
 MARL, per round: Eq. 9 observations on the device, the affordability
 action mask (under a global budget, also of the actions its remainder
-cannot cover), the agent Q-net with ε-greedy, ONE batched pull of actions,
-Q values, liveness and observations, dead devices forced to abstain, then
-Top-K over the chosen Q values with a stable argsort (ties go to the lower
-device index), as ``selection.py:304-349``.  The baselines decide on the
-host after one batched pull each, with the reference's stable sorts and
-numpy draw order.
+cannot cover; the factored state is summarised from the same mask), the
+agent Q-net with ε-greedy, ONE batched pull of actions, Q values,
+liveness, observations and the factored state, dead devices forced to
+abstain, then Top-K over the chosen Q values with a stable argsort (ties
+go to the lower device index), as ``selection.py:304-349``.  The sampled
+agents come from numpy, ``default_rng((seed, 0xA6E))``, so they are the
+reference's.  The baselines decide on the host after one batched pull
+each, with the reference's stable sorts and numpy draw order.
 """
 from __future__ import annotations
 
@@ -20,46 +27,53 @@ import numpy as np
 import torch
 
 from repro_torch.core.fleet import (FleetState, fleet_affordability,
-                                    fleet_cost_matrix)
+                                    fleet_charge, fleet_cost_matrix,
+                                    fleet_summary, fleet_topk_mask,
+                                    summary_width, true_div)
+from repro_torch.core.marl.networks import agent_step
 from repro_torch.core.marl.qmix import QmixConfig, QmixLearner, epsilon
 from repro_torch.device import to_host
 
 OBS_DIM = 5
-#: largest fleet for which "auto" keeps the flat QMIX state and mixer
+#: largest fleet for which "auto" keeps the flat QMIX state and mixer;
+#: strictly above it the factored state and the set mixer take over
 FACTORED_AUTO_N = 256
 
+STATE_MODES = ("flat", "factored")
+MIXER_MODES = ("flat", "set")
 
-def _not_ported_scale(what: str, mode: str):
-    return NotImplementedError(
-        f"{what}={mode!r} is not ported; only 'flat' (fleets of at most "
-        f"{FACTORED_AUTO_N} devices) is (ROADMAP Queue 1, "
-        "'MARL at fleet scale')")
+#: default sampled-agent budget of set-mixer replay: an episode's trace
+#: stores at most this many agents, drawn uniformly without replacement
+SAMPLE_AGENT_BUDGET = 4096
 
 
 def resolve_state_mode(state_mode: str, n_agents: int) -> str:
+    """``"auto"``: flat at or below :data:`FACTORED_AUTO_N` agents,
+    factored above."""
     if state_mode == "auto":
-        state_mode = "factored" if n_agents > FACTORED_AUTO_N else "flat"
-    if state_mode == "factored":
-        raise _not_ported_scale("state_mode", state_mode)
-    if state_mode != "flat":
-        raise ValueError(f"unknown state_mode {state_mode!r} "
-                         "(expected 'auto', 'flat' or 'factored')")
-    return state_mode
+        return "factored" if n_agents > FACTORED_AUTO_N else "flat"
+    if state_mode in STATE_MODES:
+        return state_mode
+    raise ValueError(f"unknown state_mode {state_mode!r} "
+                     "(expected 'auto', 'flat' or 'factored')")
 
 
 def resolve_mixer_mode(mixer_mode: str, n_agents: int) -> str:
+    """``"auto"``: the flat mixer at or below :data:`FACTORED_AUTO_N`
+    agents, the set mixer above."""
     if mixer_mode == "auto":
-        mixer_mode = "set" if n_agents > FACTORED_AUTO_N else "flat"
-    if mixer_mode == "set":
-        raise _not_ported_scale("mixer_mode", mixer_mode)
-    if mixer_mode != "flat":
-        raise ValueError(f"unknown mixer_mode {mixer_mode!r} "
-                         "(expected 'auto', 'flat' or 'set')")
-    return mixer_mode
+        return "set" if n_agents > FACTORED_AUTO_N else "flat"
+    if mixer_mode in MIXER_MODES:
+        return mixer_mode
+    raise ValueError(f"unknown mixer_mode {mixer_mode!r} "
+                     "(expected 'auto', 'flat' or 'set')")
 
 
 def marl_state_dim(state_mode: str, n_agents: int, n_models: int) -> int:
-    resolve_state_mode(state_mode, n_agents)
+    """The mixer's ``state_dim``: ``n_agents * OBS_DIM`` flat,
+    :func:`summary_width` factored."""
+    if resolve_state_mode(state_mode, n_agents) == "factored":
+        return summary_width(n_models)
     return n_agents * OBS_DIM
 
 
@@ -193,7 +207,7 @@ def fleet_obs(fleet: FleetState, round_idx: int,
     t = round_idx / max(n_rounds, 1)
     return torch.stack([
         (fleet.data_size.double() / 1000.0).float(),
-        fleet.compute * fleet.mode_compute / 500.0,
+        true_div(fleet.compute * fleet.mode_compute, 500.0),
         fleet.remaining / fleet.battery,
         torch.full((len(fleet),), t, dtype=torch.float32,
                    device=fleet.remaining.device),
@@ -201,20 +215,96 @@ def fleet_obs(fleet: FleetState, round_idx: int,
     ], dim=1)
 
 
+def fleet_obs_batch(fleet: FleetState, round_idx,
+                    n_rounds: int) -> torch.Tensor:
+    """The reference's device twin of :func:`fleet_obs`
+    (``selection.py:508-523``): every column in float32, data size
+    included."""
+    dt = fleet.remaining.dtype
+    t = np.float32(round_idx) / np.float32(max(int(n_rounds), 1))
+    return torch.stack([
+        true_div(fleet.data_size.to(dt), 1000.0),
+        true_div(fleet.compute * fleet.mode_compute, 500.0),
+        fleet.remaining / fleet.battery,
+        torch.full((len(fleet),), float(t), dtype=dt,
+                   device=fleet.remaining.device),
+        fleet.alive.to(dt),
+    ], dim=1)
+
+
+def dual_selection_energy_step(agent_params, hidden, fleet: FleetState,
+                               model_sizes, model_fractions, k: int,
+                               round_idx=0, n_rounds: int = 1,
+                               local_epochs: int = 5, batch_size: int = 32,
+                               budget_left=None, charge_profile=None,
+                               sim_time=0.0, charge_dt: float = 0.0,
+                               energy_scale: float = 1.0, avail_mask=None):
+    """One greedy MARL dual selection and energy step on device tensors,
+    no host pull (``selection.py:526-598``): observations, the shared
+    agent's Q values, the affordability-masked argmax, Top-K over the
+    chosen Qs of the willing devices, the Eq. 5/7 charge, then the
+    factored summary of the charged fleet.  ``budget_left`` tightens the
+    action mask, ``avail_mask`` ([n] bool) gates willingness like
+    liveness, and ``charge_profile`` harvests ``charge_dt`` sim-seconds
+    after the charge (midpoint rate, alive devices, capped at ``battery *
+    energy_scale``).  Returns ``(new_fleet, new_hidden, participants[n]
+    bool, actions[n], summary)``."""
+    M = len(model_sizes)
+    obs = fleet_obs_batch(fleet, round_idx, n_rounds)
+    q, h = agent_step(agent_params, obs, hidden)               # [n, M+1]
+    avail = fleet_affordability(fleet, model_sizes, model_fractions,
+                                local_epochs, batch_size,
+                                budget_left=budget_left)
+    actions = torch.argmax(torch.where(avail, q, -1e9), dim=-1)
+    q_chosen = q.gather(-1, actions[:, None])[:, 0]
+    willing = (actions < M) & fleet.alive
+    if avail_mask is not None:
+        willing = willing & avail_mask
+    scores = torch.where(willing, q_chosen.to(fleet.remaining.dtype),
+                         -torch.inf)
+    participants = fleet_topk_mask(scores, k)
+    m_idx = torch.clamp(actions, 0, M - 1)
+    _, _, e_tra, e_com = fleet_cost_matrix(
+        fleet, model_sizes, model_fractions, local_epochs, batch_size)
+    need = (e_tra + e_com).gather(-1, m_idx[:, None])[:, 0]
+    fleet, ok = fleet_charge(fleet, need, participants)
+    if charge_profile is not None and charge_dt > 0:
+        rate = charge_profile.rate(fleet, sim_time + 0.5 * charge_dt)
+        cap = fleet.battery * energy_scale
+        topped = torch.minimum(fleet.remaining + rate * charge_dt,
+                               torch.maximum(cap, fleet.remaining))
+        fleet = fleet.replace(remaining=torch.where(fleet.alive, topped,
+                                                    fleet.remaining))
+    # the summary prices the charged fleet (what the next decision sees)
+    summary = fleet_summary(fleet, model_sizes, model_fractions, round_idx,
+                            n_rounds, local_epochs, batch_size)
+    return fleet, h, participants & ok, actions, summary
+
+
 class MarlSelector(SelectorBase):
-    """The paper's MARL dual selection (QMIX, Fig. 3), flat state and
-    mixer: per-agent ε-greedy Q picks the model action (action M = do not
-    participate), Top-K over the chosen Q values picks participants."""
+    """The paper's MARL dual selection (QMIX, Fig. 3): per-agent ε-greedy
+    Q picks the model action (action M = do not participate), Top-K over
+    the chosen Q values picks participants.
+
+    ``state_mode``: ``"flat"`` or ``"factored"`` (the mixer state of
+    :func:`fleet_summary`); ``mixer_mode``: ``"flat"`` or ``"set"``, which
+    also cuts the episode trace to ``agent_budget`` agents (``_ep_idx``,
+    drawn anew each episode, fixed within one); ``"auto"`` resolves
+    either.  ``select`` always acts on the whole fleet."""
 
     name = "marl"
 
     def __init__(self, n_devices: int, n_models: int, n_rounds: int,
                  seed: int = 0, state_mode: str = "flat",
-                 mixer_mode: str = "flat", *, device="cuda"):
+                 mixer_mode: str = "flat",
+                 agent_budget: int = SAMPLE_AGENT_BUDGET, *, device="cuda"):
         self.n_models = n_models
         self.n_rounds = n_rounds
         self.state_mode = resolve_state_mode(state_mode, n_devices)
         self.mixer_mode = resolve_mixer_mode(mixer_mode, n_devices)
+        self.agent_budget = int(agent_budget)
+        self.n_sampled = (min(n_devices, self.agent_budget)
+                          if self.mixer_mode == "set" else n_devices)
         cfg = QmixConfig(
             n_agents=n_devices, obs_dim=OBS_DIM, num_actions=n_models + 1,
             state_dim=marl_state_dim(self.state_mode, n_devices, n_models),
@@ -223,13 +313,34 @@ class MarlSelector(SelectorBase):
         self.learner = QmixLearner(cfg, seed, device=device)
         self.hidden = self.learner.init_hidden()
         self.total_rounds = 0   # ε decays on TOTAL experience
+        # the pricing of the latest select: the terminal factored summary
+        # of episode_arrays is priced the same way
+        self._last_pricing = None
+        self._sample_rng = np.random.default_rng((seed, 0xA6E))
+        self._ep_idx: Optional[np.ndarray] = None
+        self._draw_agent_sample()
         self.ep_obs: List[np.ndarray] = []
         self.ep_state: List[np.ndarray] = []
         self.ep_actions: List[np.ndarray] = []
         self.ep_rewards: List[float] = []
 
+    def _draw_agent_sample(self):
+        """The episode's sampled agents (set mixer with fewer stored than
+        alive agents only): sorted, uniform without replacement."""
+        n = self.learner.cfg.n_agents
+        if self.mixer_mode == "set" and self.n_sampled < n:
+            self._ep_idx = np.sort(self._sample_rng.choice(
+                n, self.n_sampled, replace=False))
+        else:
+            self._ep_idx = None
+
+    def _trace_agents(self, arr: np.ndarray) -> np.ndarray:
+        """A per-agent [n, ...] row cut to the episode's sampled agents."""
+        return arr if self._ep_idx is None else arr[self._ep_idx]
+
     def reset_episode(self):
         self.hidden = self.learner.init_hidden()
+        self._draw_agent_sample()
         self.ep_obs, self.ep_state = [], []
         self.ep_actions, self.ep_rewards = [], []
 
@@ -237,6 +348,8 @@ class MarlSelector(SelectorBase):
                model_fractions, local_epochs: int = 5, batch_size: int = 32,
                budget_left: Optional[float] = None) -> Selection:
         obs_d = fleet_obs(fleet, round_idx, self.n_rounds)
+        self._last_pricing = (tuple(model_sizes), tuple(model_fractions),
+                              local_epochs, batch_size)
         eps = epsilon(self.learner.cfg, self.total_rounds)
         self.total_rounds += 1
         # affordability action mask (paper §4.2 Step 3), priced at the
@@ -245,10 +358,16 @@ class MarlSelector(SelectorBase):
         avail = fleet_affordability(
             fleet, model_sizes, model_fractions, local_epochs, batch_size,
             budget_left=None if budget_left is None else float(budget_left))
+        # the factored state reuses the mask the actions see
+        extra = []
+        if self.state_mode == "factored":
+            extra = [fleet_summary(fleet, model_sizes, model_fractions,
+                                   round_idx, self.n_rounds, local_epochs,
+                                   batch_size, afford=avail)]
         actions_d, qv_d, self.hidden = self.learner.act(
             obs_d, self.hidden, eps, avail)
-        actions, qv, alive, obs = to_host(actions_d, qv_d, fleet.alive,
-                                          obs_d)
+        actions, qv, alive, obs, *summary = to_host(
+            actions_d, qv_d, fleet.alive, obs_d, *extra)
         actions = np.where(alive, actions, self.n_models)   # dead abstain
         willing = np.flatnonzero(actions < self.n_models)
         order = willing[np.argsort(-qv[willing], kind="stable")]
@@ -256,9 +375,11 @@ class MarlSelector(SelectorBase):
         model_choice = [-1] * len(fleet)
         for i in chosen:
             model_choice[i] = int(actions[i])
-        self.ep_obs.append(obs)
-        self.ep_state.append(obs.reshape(-1))
-        self.ep_actions.append(actions.copy())
+        # the learning trace: the whole fleet, or the episode's sampled
+        # agents under the set mixer; a flat state stays the whole fleet's
+        self.ep_obs.append(self._trace_agents(obs))
+        self.ep_state.append(summary[0] if summary else obs.reshape(-1))
+        self.ep_actions.append(self._trace_agents(actions).copy())
         return Selection(participants=chosen, model_choice=model_choice,
                          q_values=qv)
 
@@ -266,10 +387,29 @@ class MarlSelector(SelectorBase):
         self.ep_rewards.append(float(reward))
 
     def episode_arrays(self, fleet: FleetState, round_idx: int):
-        """(obs [T+1, n, OBS_DIM], state [T+1, n*OBS_DIM], actions [T, n],
-        rewards [T]) for the replay buffer, as host numpy."""
-        (final_obs,) = to_host(fleet_obs(fleet, round_idx, self.n_rounds))
-        obs = np.stack(self.ep_obs + [final_obs])
-        state = obs.reshape(obs.shape[0], -1)
+        """(obs [T+1, N, OBS_DIM], state [T+1, state_dim], actions [T, N],
+        rewards [T]) for the replay buffer, as host numpy; N is the
+        episode's sampled agents under the set mixer.  The terminal
+        factored state is priced as the latest select, without its
+        budget mask (``selection.py:357-383``)."""
+        final = [fleet_obs(fleet, round_idx, self.n_rounds)]
+        if self.state_mode == "factored":
+            if self._last_pricing is None:
+                raise ValueError("episode_arrays() before any select(): "
+                                 "no round pricing to build the terminal "
+                                 "factored summary from")
+            sizes, fracs, epochs, batch = self._last_pricing
+            final.append(fleet_summary(fleet, sizes, fracs, round_idx,
+                                       self.n_rounds, epochs, batch))
+        final_obs_full, *final_state = to_host(*final)
+        obs = np.stack(self.ep_obs + [self._trace_agents(final_obs_full)])
+        if final_state:
+            state = np.stack(self.ep_state + final_state)
+        elif self._ep_idx is not None:
+            # sampled trace, flat state: the state stays the whole fleet's
+            # observations; only the per-agent columns were cut
+            state = np.stack(self.ep_state + [final_obs_full.reshape(-1)])
+        else:
+            state = obs.reshape(obs.shape[0], -1)
         rewards = np.asarray(self.ep_rewards, np.float32)
         return obs, state, np.stack(self.ep_actions), rewards

@@ -130,9 +130,9 @@ def check_supported(cfg) -> None:
     the sync and async engines, with hot-plug and (async) fault plans;
     DR-FL, HeteroFL and ScaleFL with any of the four selectors; the
     ``cnn`` and ``transformer`` families (a family that lacks the method
-    raises the reference's ``ValueError``); either client executor; the
-    flat QMIX state/mixer; every energy scenario (an unknown profile name
-    raises the reference's ``ValueError``)."""
+    raises the reference's ``ValueError``); either client executor; either
+    QMIX state and mixer at every fleet size; every energy scenario (an
+    unknown profile name raises the reference's ``ValueError``)."""
     if cfg.engine_mode not in ("sync", "async"):
         raise ValueError(f"unknown engine_mode {cfg.engine_mode!r} "
                          "(expected 'sync' or 'async')")
@@ -156,8 +156,8 @@ def check_supported(cfg) -> None:
     resolve_client_executor(cfg)
     if uses_marl(cfg):
         n_agents = cfg.n_devices + cfg.hotplug_n
-        resolve_state_mode(cfg.state_mode, n_agents)  # raise above 256
-        resolve_mixer_mode(cfg.mixer_mode, n_agents)
+        resolve_state_mode(cfg.state_mode, n_agents)  # an unknown name
+        resolve_mixer_mode(cfg.mixer_mode, n_agents)  # raises ValueError
 
 
 @dataclasses.dataclass

@@ -9,8 +9,11 @@ the ``cnn`` family (the ``transformer`` family: DR-FL), with either client
 executor, under every energy scenario of the reference (charge and
 availability profiles, the global joule budget: the ``charge_*``,
 ``availability_*`` and ``global_budget_j`` fields, resolved by
-:func:`repro_torch.energy.scenario_from_config`); every other setting
-raises ``NotImplementedError`` naming its ROADMAP item.
+:func:`repro_torch.energy.scenario_from_config`), and MARL at every fleet
+size (``state_mode`` and ``mixer_mode``: above 256 devices ``"auto"``
+takes the factored state and the set mixer, whose replay stores at most
+``marl_agent_budget`` agents); every other setting raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.core.marl.buffer import ReplayBuffer
 from repro_torch.core.selection import (OBS_DIM, GreedySelector,
                                         MarlSelector, RandomSelector,
                                         SelectorBase, StaticTierSelector,
-                                        marl_state_dim)
+                                        marl_state_dim, resolve_mixer_mode)
 from repro_torch.device import resolve_device
 from repro_torch.fl.engine import (RoundEngine, check_supported,
                                    sync_task_budget, uses_marl)
@@ -98,7 +101,7 @@ def _make_selector(cfg: FLConfig, n_models: int, *,
         "marl": lambda: MarlSelector(
             cfg.n_devices + cfg.hotplug_n, n_models, cfg.n_rounds, cfg.seed,
             state_mode=cfg.state_mode, mixer_mode=cfg.mixer_mode,
-            device=device),
+            agent_budget=cfg.marl_agent_budget, device=device),
         "greedy": GreedySelector,
         "random": lambda: RandomSelector(cfg.seed),
         "static": lambda: StaticTierSelector(cfg.seed),
@@ -110,11 +113,12 @@ _BUFFER_OBS_ELEMS = 2 ** 24
 
 
 def _make_buffer(cfg: FLConfig) -> ReplayBuffer:
-    """The replay buffer (flat state: one row of n * OBS_DIM per step);
-    capacity degrades below 64 episodes when the obs budget would be
-    exceeded.  A sync episode has one step per round; an async one a step
-    per ``select`` call: at most one per task plus one failed dispatch per
-    completion or row boundary (``simulation.py:159-164``)."""
+    """The replay buffer (``simulation.py:149-189``).  A sync episode has
+    one step per round; an async one a step per ``select`` call: at most
+    one per task plus one failed dispatch per completion or row boundary.
+    Under the set mixer it stores at most ``marl_agent_budget`` agents.
+    Capacity degrades below 64 episodes, with a warning, where the obs
+    budget would be exceeded."""
     n_agents = cfg.n_devices + cfg.hotplug_n
     if cfg.engine_mode == "async":
         budget = int(cfg.async_task_budget or sync_task_budget(cfg))
@@ -123,15 +127,22 @@ def _make_buffer(cfg: FLConfig) -> ReplayBuffer:
         episode_len = cfg.n_rounds
     state_dim = marl_state_dim(cfg.state_mode, n_agents,
                                get_family(cfg.model_family).num_submodels())
+    agent_budget = (int(cfg.marl_agent_budget)
+                    if resolve_mixer_mode(cfg.mixer_mode, n_agents) == "set"
+                    else None)
+    stored_agents = (min(n_agents, agent_budget) if agent_budget
+                     else n_agents)
     capacity = max(4, min(64, _BUFFER_OBS_ELEMS
-                          // ((episode_len + 1) * n_agents * OBS_DIM)))
+                          // ((episode_len + 1) * stored_agents * OBS_DIM)))
     if capacity < 64:
         logging.getLogger(__name__).warning(
             "QMIX replay capacity degraded to %d episodes (episode_len=%d, "
-            "agents=%d, obs budget=%d elems)", capacity, episode_len,
-            n_agents, _BUFFER_OBS_ELEMS)
+            "stored agents=%d of %d, obs budget=%d elems); consider "
+            "mixer_mode='set' / a smaller marl_agent_budget",
+            capacity, episode_len, stored_agents, n_agents,
+            _BUFFER_OBS_ELEMS)
     return ReplayBuffer(capacity, episode_len, n_agents, OBS_DIM, state_dim,
-                        cfg.seed)
+                        cfg.seed, agent_budget=agent_budget)
 
 
 def run_simulation(cfg: FLConfig, verbose: bool = False, *,

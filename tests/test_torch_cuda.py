@@ -584,3 +584,119 @@ def test_energy_scenario_run_matches_the_cpu(cuda, scenario, mode):
     diff = max((g.cpu() - c).abs().max().item() for g, c in
                zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])))
     assert diff <= 6e-3, diff
+
+
+# the set mixer's attention (MARL at fleet scale): non-causal, Sq = 4
+# seeds, D 32, Sk = the stored agents; the seeds carry sqrt(32) and the
+# keys a log-weight in slot -1.  BH 208: the replay batch of Fig. 6's
+# 1024-device row (B 1 x T 208); ragged Sk 300; Sk 4096 at the marl_train
+# bench's BH 12; Sk 40, inside the fused backward's range
+SET_MIXER = [(208, 1024), (208, 300), (12, 4096), (208, 40)]
+
+
+def _set_mixer_qkv(BH, N, dev):
+    q, k, v = _leaves([(BH, 4, 32), (BH, N, 32), (BH, N, 32)],
+                      torch.float32, "cpu", seed=BH + N)
+    with torch.no_grad():
+        q[..., -1] = 32 ** 0.5
+        k[..., -1] = torch.randn((BH, N), generator=torch.Generator()
+                                 .manual_seed(N))
+    return [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,N", SET_MIXER)
+def test_set_mixer_attention_matches_plain(cuda, BH, N):
+    """``attention_reduce`` on the card launches the non-causal kernel
+    once forward and once backward (three passes past Sk 64), and agrees
+    with the plain version at 2e-5."""
+    from repro_torch.core.marl.networks import attention_reduce
+    q, k, v = _set_mixer_qkv(BH, N, cuda)
+    before = dict(LAUNCHES)
+    pairs = _fwd_bwd(attention_reduce,
+                     lambda a, b, c: attention_plain(a, b, c, causal=False),
+                     [q, k, v], seed=N)
+    torch.cuda.synchronize()
+    route = "fused" if fused_backward(4, N, 32) else "three_pass"
+    assert route == ("fused" if N <= 64 else "three_pass")
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert LAUNCHES[f"flash_attention_bwd_{route}"] == \
+        before[f"flash_attention_bwd_{route}"] + 1
+    for got, ref in pairs:
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1024, 300, 4096])
+def test_set_mixer_on_the_card_matches_the_cpu(cuda, N, monkeypatch):
+    """The set mixer forward and backward at BH 208 (B 1 x T 208) with
+    log-weights: on the card through the kernel only (the plain version
+    is made to raise there), against the CPU's plain run at 1e-4 of the
+    largest magnitude (float32 matmuls in another order around the
+    attention's 2e-5)."""
+    from repro_torch.core.marl import networks as net
+    from repro_torch.tree import tree_leaves, tree_map
+    params = net.set_mixer_init(torch.Generator().manual_seed(0), 25, 5)
+    g = torch.Generator().manual_seed(N)
+    qs = torch.randn((1, 208, N), generator=g)
+    obs = torch.rand((1, 208, N, 5), generator=g)
+    state = torch.rand((1, 208, 25), generator=g)
+    logw = torch.randn((1, 1, N), generator=g) * 0.1
+    ct = torch.randn((1, 208), generator=g)
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        q = qs.to(dev).requires_grad_()
+        out = net.set_mixer_apply(p, q, obs.to(dev), state.to(dev),
+                                  logw=logw.to(dev))
+        grads = torch.autograd.grad((out * ct.to(dev)).sum(),
+                                    tree_leaves(p) + [q])
+        return [out] + list(grads)
+    cpu = run("cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain attention ran on the card")
+    monkeypatch.setattr(net, "attention_plain", refuse)
+    before = dict(LAUNCHES)
+    card = run(cuda)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert LAUNCHES["flash_attention_bwd_three_pass"] == \
+        before["flash_attention_bwd_three_pass"] + 1
+    for a, b in zip(card, cpu):
+        assert _rel_err(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_set_mode_qmix_update_on_the_card(cuda):
+    """One set-mode QMIX update from a sampled-agent batch (B 1, T 208,
+    1024 stored agents): two forward launches (online and target mixer),
+    one three-pass backward; td_loss as the CPU's at 1e-4, the updated
+    params at rtol 1e-4 and an atol of 2 lr (the key bias's gradient is
+    float32 noise, which AdamW steps by up to lr)."""
+    import numpy as np
+    from repro_torch.core.marl.qmix import QmixConfig, QmixLearner
+    from repro_torch.tree import tree_leaves
+    rng = np.random.default_rng(0)
+    T, N = 208, 1024
+    batch = {"obs": rng.random((1, T + 1, N, 5), np.float32),
+             "state": rng.random((1, T + 1, 25), np.float32),
+             "actions": rng.integers(0, 5, (1, T, N)),
+             "rewards": rng.normal(size=(1, T)).astype(np.float32),
+             "mask": np.ones((1, T), np.float32),
+             "agent_logw": np.zeros((1, N), np.float32)}
+    cfg = QmixConfig(n_agents=N, obs_dim=5, num_actions=5, state_dim=25,
+                     mixer_mode="set")
+    cpu = QmixLearner(cfg, 0, device="cpu")
+    card = QmixLearner(cfg, 0, device=cuda)
+    mc = cpu.update(batch)
+    before = dict(LAUNCHES)
+    mg = card.update(batch)
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert LAUNCHES["flash_attention_bwd_three_pass"] == \
+        before["flash_attention_bwd_three_pass"] + 1
+    assert abs(mg["td_loss"] - mc["td_loss"]) <= 1e-4 * abs(mc["td_loss"])
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=2 * cfg.lr)

@@ -65,16 +65,12 @@ ASYNC = dict(engine_mode="async")
 
 @pytest.mark.parametrize("change,item", [
     (dict(fault_corrupts=1, fault_horizon=100.0), ValueError),
-    (dict(mixer_mode="set"), "MARL at fleet scale"),
     (dict(fleet_mesh=2), "fleet sharding"),
     (dict(model_family="mlp"), "other families"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=1), "checkpoints"),
     (dict(engine_mode="sync", fault_crashes=1, fault_horizon=100.0),
      ValueError),
-    (dict(n_devices=300), "MARL at fleet scale"),
     (dict(ASYNC, checkpoint_dir="ckpt", checkpoint_every=1), "checkpoints"),
-    (dict(ASYNC, mixer_mode="set"), "MARL at fleet scale"),
-    (dict(ASYNC, n_devices=300), "MARL at fleet scale"),
 ])
 def test_unported_settings_raise(change, item):
     """Every setting outside the port raises ``NotImplementedError`` naming
@@ -89,19 +85,39 @@ def test_unported_settings_raise(change, item):
         run_simulation(cfg, device="cpu")
 
 
+#: a fleet above the 256 devices at which "auto" takes the factored QMIX
+#: state and the set mixer, kept tiny: about 3 samples a device, 6 picks
+FLEET_SCALE = dict(n_devices=300, participation=0.02, n_train=900)
+
+
 @pytest.mark.parametrize("change", [
     dict(n_devices=40), dict(client_executor="perclient"),
-    dict(method="heterofl"), dict(selector="greedy")],
-    ids=["n_devices=40", "perclient", "heterofl", "greedy"])
+    dict(method="heterofl"), dict(selector="greedy"),
+    dict(mixer_mode="set"), FLEET_SCALE, dict(ASYNC, mixer_mode="set"),
+    dict(ASYNC, **FLEET_SCALE)],
+    ids=["n_devices=40", "perclient", "heterofl", "greedy", "mixer_mode=set",
+         "n_devices=300", "async-mixer_mode=set", "async-n_devices=300"])
 def test_formerly_unported_settings_run(change):
-    """The per-client executor, the baseline arms and the other selectors
-    are ported: these settings, once refused, run on the CPU."""
+    """The per-client executor, the baseline arms, the other selectors
+    and MARL at fleet scale (the set mixer; above 256 devices the
+    factored state too) are ported: these settings, once refused, run on
+    the CPU, a sync round aggregating once, an async run at most once a
+    task and its QMIX learner trained at the episode's end."""
     kw = dict(BASE, n_devices=8, n_train=400, participation=0.5,
               local_epochs=1)
     kw.update(change)
-    hist = run_simulation(FLConfig(**kw), device="cpu")
-    assert len(hist["acc"]) == 1 and hist["n_aggregations"] == 1
-    assert hist["executor"] == "perclient"
+    cfg = FLConfig(**kw)
+    hist = run_simulation(cfg, device="cpu")
+    assert len(hist["acc"]) == 1
+    assert hist["executor"] == ("perclient" if cfg.n_devices < 64
+                                else "batched")
+    if cfg.engine_mode == "sync":
+        assert hist["n_aggregations"] == 1
+    else:
+        # a device without samples completes its task with no delta
+        assert 1 <= hist["n_aggregations"] <= hist["n_tasks"]
+        assert hist["qmix"]["mixer_mode"] == "set"
+        assert hist["qmix"]["updates"] >= 1
 
 
 @pytest.mark.parametrize("change", [

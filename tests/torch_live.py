@@ -1,10 +1,10 @@
 """Live runs of one FL arm in both packages, and the checks that hold the
 port's run to the JAX package's: the shared body of the parametrised
 live-run tests in ``tests/test_torch_perclient.py``,
-``tests/test_torch_baselines.py``, ``tests/test_torch_async.py`` and
-``tests/test_torch_faults.py`` and ``tests/test_torch_energy_live.py``
-(one arm per case, split over files so that the suite's per-file workers
-share the cost).
+``tests/test_torch_baselines.py``, ``tests/test_torch_async.py``,
+``tests/test_torch_faults.py``, ``tests/test_torch_energy_live.py`` and
+``tests/test_torch_fleet_scale_live.py`` (one arm per case, split over
+files so that the suite's per-file workers share the cost).
 
 Both runs go through ``RoundEngine(cfg, selector, buffer).run()`` with
 the selector of ``_make_selector`` (and, for DR-FL + MARL, the buffer of
@@ -258,11 +258,12 @@ def _energy_term_atol(kw, th):
     terms over its ticks, so a row can differ by a few float32 spacings at
     the fleet's energy for each tick, whatever the tolerance: 4 spacings
     at its bound (every battery full: n x 7,560 J x energy_scale) per
-    charging tick (at most one per task or dropout)."""
+    charging tick (at most one per task or dropout; a sync run's round is
+    one tick)."""
     n = kw["n_devices"] + kw.get("hotplug_n", 0)
     bound = np.float32(n * BATTERY_JOULES * kw.get("energy_scale", 1.0))
     w2 = kw.get("reward_weights", jsim.FLConfig().reward_weights)[1]
-    ticks = th["n_tasks"] + th["dropouts"]
+    ticks = th.get("n_tasks", len(th["reward"])) + th["dropouts"]
     return max(TOL["atol"], 4 * w2 * float(np.spacing(bound)) * ticks)
 
 
