@@ -89,11 +89,24 @@ its own lines; any failure raises and exits non-zero:
    300-device run on the card against the CPU, sync and async, with
    identical picks, task logs, sampled agents and factored states
    (``[fleet scale reference]``);
-11. print the card's name and power limit, the kernels' JSON line and,
+11. engine checkpoints (``repro_torch.checkpoint``): the main path killed
+   after its first round's checkpoint and resumed (``[checkpoint]``:
+   bit for bit as the uninterrupted run under cuDNN's deterministic mode,
+   ``layer_agg`` exactly twice after the resume; the checkpoint's bytes,
+   save and load seconds at full width), Fig. 6's 64-device async row the
+   same way (``[checkpoint async]``: task log, history and weights;
+   ``layer_agg`` once per completion after the save, the QMIX update from
+   the restored replay), and checkpoints crossing devices (``[checkpoint
+   reference]``: greedy and random on both engines killed on the card and
+   resumed on the CPU and the reverse, against the uninterrupted CPU run;
+   the 300-device set-mixer async run killed and resumed on the card,
+   its ``flash_attention`` launches after the resume counted);
+12. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -490,6 +503,74 @@ def _attention_pairs(BH, Sq, Sk, causal, window) -> int:
     return BH * total
 
 
+def _attention_case(mod, g, shape, where=None):
+    """One of :func:`phase_attention`'s shapes, ``(label, BH, BHkv, Sq,
+    Sk, D, causal, window, dtype)``: the kernel's forward and backward held
+    against the plain version; with ``where`` (the shape's name in the
+    printed lines) also timed beside SDPA, returning the forward's and the
+    backward's records."""
+    import torch
+    import torch.nn.functional as F
+    label, BH, BHkv, Sq, Sk, D, causal, window, dt = shape
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn(dims, generator=g, device="cuda").to(dtype)
+               for dims in ((BH, Sq, D), (BHkv, Sk, D), (BHkv, Sk, D)))
+    if label.startswith("set mixer"):
+        q[..., -1] = D ** 0.5
+        k[..., -1] = torch.randn((BHkv, Sk), generator=g,
+                                 device="cuda") * 0.1
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    do = torch.randn((BH, Sq, D), generator=g, device="cuda").to(dtype)
+
+    def fn(a, b, c):
+        return mod.flash_attention_bhsd(a, b, c, causal=causal,
+                                        window=window)
+
+    def plain(a, b, c):
+        return mod.attention_plain(a, b, c, causal=causal,
+                                   window=window)
+    abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
+    route = "fused" if mod.fused_backward(Sq, Sk, D) else "three_pass"
+    print(f"[kernel] flash_attention {label} BH={BH} BHkv={BHkv} "
+          f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}"
+          f" (backward {route}):"
+          f" rel err o {errs[0]:.2e}, dq {errs[1]:.2e}, dk "
+          f"{errs[2]:.2e}, dv {errs[3]:.2e} (limit "
+          f"{KERNEL_TOL[dt]:.0e}); abs err o {abs_errs[0]:.2e}, grads "
+          f"{max(abs_errs[1:]):.2e}")
+    if max(errs) > KERNEL_TOL[dt]:
+        raise AssertionError(f"flash_attention disagrees with its plain"
+                             f" version at {label}")
+    if where is None:
+        return None
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c,
+                                              is_causal=causal)
+    pairs = _attention_pairs(BH, Sq, Sk, causal, window)
+    nq, nk = BH * Sq * D, BHkv * Sk * D
+    rec = _timed_records(
+        ("flash_attention", "flash_attention_bwd"),
+        "src/repro_torch/kernels/flash_attention/csrc/fwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:67",
+        [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
+        [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
+        # forward: q, k, v in, o and lse out; q.k and p.v per kept
+        # pair.  Backward: q, k, v, o, dO, lse in; dq, dk, dv out;
+        # five products per kept pair (s, dp, dv, dq, dk)
+        [(4 * (2 * nq + 2 * nk + BH * Sq), 4 * D * pairs),
+         (4 * (4 * nq + 4 * nk + BH * Sq), 10 * D * pairs)],
+        "SDPA is_causal" if causal else "SDPA", where)
+    rec[1]["source"] = (
+        "src/repro_torch/kernels/flash_attention/csrc/"
+        + ("bwd_fused.cu" if route == "fused" else "bwd_three_pass.cu"))
+    rec[1]["bwd_route"] = route
+    for r in rec:
+        r["shape"] = (f"BH={BH} S={Sq} D={D} causal {dt}" if causal else
+                      f"BH={BH} Sq={Sq} Sk={Sk} D={D} non-causal {dt}")
+    return rec
+
+
 def phase_attention():
     """flash_attention forward and backward against the plain version;
     returns the records of both, timed at the transformer path's shape
@@ -501,7 +582,6 @@ def phase_attention():
     a log-weight in slot -1), timed beside non-causal SDPA."""
     import importlib
     import torch
-    import torch.nn.functional as F
     mod = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
     # (label, BH, BHkv, Sq, Sk, D, causal, window, dtype)
@@ -540,63 +620,10 @@ def phase_attention():
              "set mixer path": "the set mixer's path shape"}
     g = torch.Generator(device="cuda").manual_seed(1)
     records = {}
-    for label, BH, BHkv, Sq, Sk, D, causal, window, dt in shapes:
-        dtype = getattr(torch, dt)
-        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                   for shape in ((BH, Sq, D), (BHkv, Sk, D), (BHkv, Sk, D)))
-        if label.startswith("set mixer"):
-            q[..., -1] = D ** 0.5
-            k[..., -1] = torch.randn((BHkv, Sk), generator=g,
-                                     device="cuda") * 0.1
-        q, k, v = (t.requires_grad_() for t in (q, k, v))
-        do = torch.randn((BH, Sq, D), generator=g, device="cuda").to(dtype)
-
-        def fn(a, b, c):
-            return mod.flash_attention_bhsd(a, b, c, causal=causal,
-                                            window=window)
-
-        def plain(a, b, c):
-            return mod.attention_plain(a, b, c, causal=causal,
-                                       window=window)
-        abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
-        route = "fused" if mod.fused_backward(Sq, Sk, D) else "three_pass"
-        print(f"[kernel] flash_attention {label} BH={BH} BHkv={BHkv} "
-              f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}"
-              f" (backward {route}):"
-              f" rel err o {errs[0]:.2e}, dq {errs[1]:.2e}, dk "
-              f"{errs[2]:.2e}, dv {errs[3]:.2e} (limit "
-              f"{KERNEL_TOL[dt]:.0e}); abs err o {abs_errs[0]:.2e}, grads "
-              f"{max(abs_errs[1:]):.2e}")
-        if max(errs) > KERNEL_TOL[dt]:
-            raise AssertionError(f"flash_attention disagrees with its plain"
-                                 f" version at {label}")
-        if label not in timed:
-            continue
-
-        def sdpa(a, b, c):
-            return F.scaled_dot_product_attention(a, b, c,
-                                                  is_causal=causal)
-        pairs = _attention_pairs(BH, Sq, Sk, causal, window)
-        nq, nk = BH * Sq * D, BHkv * Sk * D
-        rec = records[label] = _timed_records(
-            ("flash_attention", "flash_attention_bwd"),
-            "src/repro_torch/kernels/flash_attention/csrc/fwd.cu",
-            "src/repro/kernels/flash_attention/flash_attention.py:67",
-            [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
-            [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
-            # forward: q, k, v in, o and lse out; q.k and p.v per kept
-            # pair.  Backward: q, k, v, o, dO, lse in; dq, dk, dv out;
-            # five products per kept pair (s, dp, dv, dq, dk)
-            [(4 * (2 * nq + 2 * nk + BH * Sq), 4 * D * pairs),
-             (4 * (4 * nq + 4 * nk + BH * Sq), 10 * D * pairs)],
-            "SDPA is_causal" if causal else "SDPA", timed[label])
-        rec[1]["source"] = (
-            "src/repro_torch/kernels/flash_attention/csrc/"
-            + ("bwd_fused.cu" if route == "fused" else "bwd_three_pass.cu"))
-        rec[1]["bwd_route"] = route
-        for r in rec:
-            r["shape"] = (f"BH={BH} S={Sq} D={D} causal {dt}" if causal else
-                          f"BH={BH} Sq={Sq} Sk={Sk} D={D} non-causal {dt}")
+    for shape in shapes:
+        rec = _attention_case(mod, g, shape, timed.get(shape[0]))
+        if rec is not None:
+            records[shape[0]] = rec
     _model_layout_times(mod)
     for r in records["set mixer path"]:
         r["path"] = "fig6 n1024 set mixer"
@@ -1728,14 +1755,17 @@ FIG6_CFG = dict(n_devices=1024, n_train=60000, local_epochs=5,
                 width_mult=1.0, hw=32, seed=0)
 
 
-def _set_mixer_launches(hist):
+def _set_mixer_launches(hist, fused):
     """The set mixer runs twice per QMIX update (online with its backward,
-    target without), always past the fused backward's lengths; each async
-    completion aggregates through ``layer_agg``."""
+    target without): 4 seed queries over the stored agents, D 32, its
+    backward fused (``fused``: the caller's expectation, 64 stored agents)
+    or in three passes (1024); each async completion aggregates through
+    ``layer_agg``."""
     u = hist["qmix"]["updates"]
     return {"layer_agg": hist["n_aggregations"], "flash_attention": 2 * u,
-            "flash_attention_bwd": u, "flash_attention_bwd_three_pass": u,
-            "flash_attention_bwd_fused": 0, "rmsnorm": 0}
+            "flash_attention_bwd": u,
+            "flash_attention_bwd_three_pass": 0 if fused else u,
+            "flash_attention_bwd_fused": u if fused else 0, "rmsnorm": 0}
 
 
 def _update_wall(n_agents, T, stored):
@@ -1765,7 +1795,7 @@ def phase_fig6():
     from repro_torch.fl import FLConfig
     cfg = FLConfig(**FIG6_CFG)
     hist, launches = _drive("fig6 n1024", cfg, "batched",
-                            _set_mixer_launches)
+                            lambda h: _set_mixer_launches(h, fused=False))
     _print_async("fig6 n1024", hist)
     q = hist["qmix"]
     vrounds = hist["terminated"]["vrounds"]
@@ -1926,6 +1956,303 @@ def phase_fleet_scale_reference():
                                  "and CPU disagree")
 
 
+#: host clocks: the records a resumed run may change
+RESUME_EXEMPT = ("wall_clock", "phase_s", "params")
+
+
+def _canon(x):
+    """A history record as comparable bytes (tensors and arrays by dtype
+    and bytes)."""
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    if isinstance(x, np.ndarray):
+        return ("arr", str(x.dtype), x.tobytes())
+    if isinstance(x, dict):
+        return {k: _canon(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_canon(v) for v in x]
+    return x
+
+
+def _hist_diff(a, b):
+    """(history keys that differ, host clocks apart; max |a - b| over the
+    final weights)."""
+    from repro_torch.tree import tree_leaves
+    keys = [k for k in a if k not in RESUME_EXEMPT
+            and _canon(a.get(k)) != _canon(b.get(k))]
+    keys += [k for k in b if k not in a]
+    w = max(float((x.cpu() - y.cpu()).abs().max()) for x, y in
+            zip(tree_leaves(a["params"]), tree_leaves(b["params"])))
+    return keys, w
+
+
+def _same_picks(a, b):
+    keys = ("device", "dispatch", "version", "staleness", "m")
+    return (a["participants"] == b["participants"]
+            and a["model_choices"] == b["model_choices"]
+            and [[t[k] for k in keys] for t in a.get("task_log", [])]
+            == [[t[k] for k in keys] for t in b.get("task_log", [])])
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms for this block, then the settings
+    as they were (its default float32 convolutions are not deterministic
+    on the H100; the package never sets these)."""
+    import torch
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = was
+
+
+@contextlib.contextmanager
+def _timed_saves(seconds):
+    """Each ``EngineCheckpointer.save`` of this block timed into
+    ``seconds`` (host clock: the save pulls every tensor, so it ends on
+    the host)."""
+    from repro_torch.checkpoint import EngineCheckpointer
+    save = EngineCheckpointer.save
+
+    def timed(self, state, meta):
+        t0 = time.perf_counter()
+        out = save(self, state, meta)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    EngineCheckpointer.save = timed
+    try:
+        yield
+    finally:
+        EngineCheckpointer.save = save
+
+
+def _kill_and_resume(tag, cfg, ckpt_dir, resumed_expect,
+                     executor="batched", device="cuda",
+                     resume_device="cuda"):
+    """The checkpoint phases' pattern on ``cfg``: a run on ``device`` with
+    ``checkpoint_every=1`` killed after its first save (it must raise
+    ``CheckpointHalt``), the checkpoint loaded and timed, then the resumed
+    run on ``resume_device``, through :func:`_drive` on the card, where
+    ``resumed_expect(hist, saved_state)`` gives its exact launch counts.
+    Returns (resumed hist, saved state, {save s, load s, bytes, step})."""
+    import os
+    from repro_torch.checkpoint import CheckpointHalt, EngineCheckpointer
+    from repro_torch.fl import run_simulation
+    ck = dataclasses.replace(cfg, checkpoint_dir=ckpt_dir,
+                             checkpoint_every=1)
+    saves = []
+    try:
+        with _timed_saves(saves):
+            run_simulation(ck, device=device, halt_after_saves=1)
+    except CheckpointHalt:
+        pass
+    else:
+        raise AssertionError(f"[{tag}] the checkpointed run was not halted")
+    t0 = time.perf_counter()
+    saved, meta = EngineCheckpointer(ckpt_dir).load()
+    load_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(ckpt_dir, n))
+               for n in os.listdir(ckpt_dir))
+    resumed = dataclasses.replace(ck, resume=True)
+    if resume_device == "cuda":
+        res, _ = _drive(f"{tag} resumed", resumed, executor,
+                        lambda h: resumed_expect(h, saved))
+    else:
+        res = run_simulation(resumed, device="cpu")
+    return res, saved, {"save_s": saves[0], "load_s": load_s,
+                        "bytes": size, "step": meta["step"]}
+
+
+def _hold_resumed(tag, cfg, ref, res):
+    """The resumed run against the uninterrupted one: bit for bit, host
+    clocks apart; where they differ, a second uninterrupted run measures
+    the card's run-to-run difference, which the resumed run must keep
+    within, with identical picks and task log."""
+    from repro_torch.fl import run_simulation
+    keys, w = _hist_diff(ref, res)
+    if not keys and w == 0.0:
+        print(f"[{tag}] resumed == uninterrupted bit for bit (history, "
+              "task log, QMIX record and final weights)")
+        return
+    again = run_simulation(cfg)
+    keys2, w2 = _hist_diff(ref, again)
+    print(f"[{tag}] resumed differs from uninterrupted in {keys}, max "
+          f"weight diff {w:.3e}; two uninterrupted runs differ in {keys2},"
+          f" max weight diff {w2:.3e}; picks and task log equal="
+          f"{_same_picks(ref, res)}")
+    if not _same_picks(ref, res) or w > w2:
+        raise AssertionError(f"[{tag}] the resumed run is off the "
+                             "uninterrupted one past their run-to-run "
+                             "difference")
+
+
+def phase_checkpoint():
+    """``[checkpoint]``: the main path killed after its first round's
+    checkpoint and resumed: bit for bit as the uninterrupted run (or
+    within the measured run-to-run difference), ``layer_agg`` exactly
+    once per resumed round; the checkpoint's bytes, save and load
+    seconds at full width."""
+    import tempfile
+    from repro_torch.fl import FLConfig
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = FLConfig(n_rounds=3, participation=0.1, **MAIN_CFG)
+    with _cudnn_deterministic(), tempfile.TemporaryDirectory() as d:
+        ref, _ = _drive("checkpoint uninterrupted", cfg, "batched",
+                        _one_per_round)
+        res, saved, cost = _kill_and_resume(
+            "checkpoint", cfg, d,
+            lambda h, st: {"layer_agg": h["n_aggregations"] - st["n_agg"]})
+        _hold_resumed("checkpoint", cfg, ref, res)
+    resumed = res["n_aggregations"] - saved["n_agg"]
+    n_weights = sum(t.numel() for t in tree_leaves(res["params"]))
+    print(f"[checkpoint] main path, full width ({n_weights} float32 "
+          f"weights): checkpoint after round {cost['step']} of "
+          f"{cfg.n_rounds}, {cost['bytes']} bytes on disk (zlib), save "
+          f"{cost['save_s']:.3f} s, load {cost['load_s']:.3f} s; the "
+          f"resumed run launched layer_agg {resumed} times "
+          f"({cfg.n_rounds - cost['step']} rounds); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if resumed != 2:
+        raise AssertionError(f"[checkpoint] {resumed} aggregations after "
+                             "the resume, not 2")
+    return cost
+
+
+def phase_checkpoint_async():
+    """``[checkpoint async]``: Fig. 6's 64-device row (``[async]``) killed
+    after its first virtual round's checkpoint and resumed: task log,
+    history and weights as the uninterrupted run's; ``layer_agg`` once per
+    completion after the save; the QMIX update at the episode's end from
+    the restored replay and learner."""
+    import tempfile
+    from repro_torch.fl import FLConfig
+    t0 = time.perf_counter()
+    cfg = FLConfig(**ASYNC_CFG)
+    with _cudnn_deterministic(), tempfile.TemporaryDirectory() as d:
+        ref, _ = _drive("checkpoint async uninterrupted", cfg, "batched",
+                        _one_per_round)
+        res, saved, cost = _kill_and_resume(
+            "checkpoint async", cfg, d,
+            lambda h, st: {"layer_agg": h["n_aggregations"]
+                           - st["state"]["version"]})
+        _hold_resumed("checkpoint async", cfg, ref, res)
+    st = saved["state"]
+    print(f"[checkpoint async] checkpoint at virtual round {cost['step']}:"
+          f" {st['version']} aggregations, {st['inflight']} tasks in "
+          f"flight, {len(saved['heap'])} heap events, replay episodes "
+          f"{saved['buffer']['size']}; {cost['bytes']} bytes, save "
+          f"{cost['save_s']:.3f} s, load {cost['load_s']:.3f} s; resumed: "
+          f"{res['n_aggregations'] - st['version']} completions aggregated,"
+          f" qmix updates {res['qmix']['updates']} (uninterrupted "
+          f"{ref['qmix']['updates']}), td_loss {res['qmix']['td_loss']}; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    if st["inflight"] < 1 or res["qmix"]["updates"] < 1 or \
+            saved["buffer"]["size"] != 0:
+        raise AssertionError("[checkpoint async] the save must fall inside "
+                             "the episode, before its QMIX update")
+
+
+def phase_checkpoint_reference():
+    """``[checkpoint reference]``: checkpoints cross devices.  Greedy and
+    random DR-FL on both engines at the per-client reference size: killed
+    on the card and resumed on the CPU, and killed on the CPU and resumed
+    on the card, each held to the uninterrupted CPU run with picks, models
+    and task log identical, at the card-against-CPU tolerances of its
+    engine: sync, ``[reference]``'s (accuracy within one validation
+    sample, weights allclose at rtol 1e-4, atol 1e-5); async, ``[async
+    reference]``'s (mean accuracy atol 0.06, weights atol 6e-3: its tasks
+    aggregate one client at a time, and cuDNN's float32 convolutions,
+    not deterministic on the card, drift further over them; sim times
+    and energy at rtol 1e-4).  Then the set-mixer async arm of ``[fleet scale
+    reference]`` on the card, killed inside its episode and resumed:
+    its QMIX update after the resume launches ``flash_attention`` twice
+    (online, target) and its fused backward once per update (64 stored
+    agents)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.fl import FLConfig, run_simulation
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    for mode in ("sync", "async"):
+        for selector in ("greedy", "random"):
+            cfg = FLConfig(**dict(PERCLIENT_REFERENCE, engine_mode=mode,
+                                  selector=selector))
+            cpu = run_simulation(cfg, device="cpu")
+            n_val = max(64, int(cfg.n_val_fraction * cfg.n_train))
+            for kill, resume in (("cuda", "cpu"), ("cpu", "cuda")):
+                with tempfile.TemporaryDirectory() as d:
+                    res, _, cost = _kill_and_resume(
+                        f"checkpoint reference {mode} {selector} {kill}",
+                        cfg, d, lambda h, st: {"layer_agg": 0},
+                        executor="perclient", device=kill,
+                        resume_device=resume)
+                pairs = [(a.cpu(), b) for a, b in zip(
+                    tree_leaves(res["params"]), tree_leaves(cpu["params"]))]
+                w = max(float((a - b).abs().max()) for a, b in pairs)
+                if mode == "sync":
+                    acc = float(np.max(np.abs(np.stack(res["acc"])
+                                              - np.stack(cpu["acc"]))))
+                    acc_lim = 1.0 / n_val + 1e-6
+                    close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+                                for a, b in pairs)
+                else:
+                    acc = float(np.max(np.abs(np.subtract(
+                        res["acc_mean"], cpu["acc_mean"]))))
+                    acc_lim = 0.06
+                    close = w <= 6e-3 and all(
+                        np.allclose(res[k], cpu[k], rtol=1e-4, atol=1e-5)
+                        for k in ("sim_time", "energy", "idle"))
+                same = _same_picks(res, cpu)
+                print(f"[checkpoint reference] {mode} {selector}: killed on"
+                      f" {kill} after round {cost['step']}, resumed on "
+                      f"{resume}, against the uninterrupted CPU run: picks,"
+                      f" models and task log equal={same}, max accuracy "
+                      f"diff {acc:.4f} (limit {acc_lim:.4f}), max weight "
+                      f"diff {w:.3e} (within {mode}'s card-against-CPU "
+                      f"tolerance: {close})")
+                if not same or acc > acc_lim or not close:
+                    raise AssertionError("[checkpoint reference] a "
+                                         "checkpoint did not cross devices")
+    cfg = FLConfig(n_devices=300, n_rounds=3, participation=0.02,
+                   local_epochs=1, batch_size=16, n_train=1500, hw=8,
+                   width_mult=0.125, seed=3, marl_agent_budget=64,
+                   client_executor="batched", engine_mode="async",
+                   async_task_budget=12)
+
+    def after_resume(h, st):
+        return dict(_set_mixer_launches(h, fused=True),
+                    layer_agg=h["n_aggregations"] - st["state"]["version"])
+    with _cudnn_deterministic(), tempfile.TemporaryDirectory() as d:
+        ref, _ = _drive("checkpoint reference set mixer uninterrupted", cfg,
+                        "batched",
+                        lambda h: _set_mixer_launches(h, fused=True))
+        res, saved, cost = _kill_and_resume(
+            "checkpoint reference set mixer", cfg, d, after_resume)
+        _hold_resumed("checkpoint reference set mixer", cfg, ref, res)
+    u = res["qmix"]["updates"]
+    want = after_resume(res, saved)
+    route = ("fused" if want["flash_attention_bwd_fused"] else
+             "three-pass")
+    print(f"[checkpoint reference] set mixer async n=300: killed at "
+          f"virtual round {cost['step']} ({saved['state']['version']} "
+          f"aggregations, replay episodes {saved['buffer']['size']}), "
+          f"resumed on the card: {u} QMIX updates, flash_attention "
+          f"{want['flash_attention']} forward and "
+          f"{want['flash_attention_bwd']} {route} backward launches, "
+          f"counted; phase {time.perf_counter() - t0:.1f} s")
+    if u < 1 or res["qmix"]["mixer_mode"] != "set":
+        raise AssertionError("[checkpoint reference] no set-mixer QMIX "
+                             "update after the resume")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2009,6 +2336,12 @@ def main() -> int:
     records += set_mixer
     phase_marl_train()
     phase_fleet_scale_reference()
+    t0 = time.perf_counter()
+    phase_checkpoint()
+    phase_checkpoint_async()
+    phase_checkpoint_reference()
+    print(f"[checkpoint] the three checkpoint phases took "
+          f"{time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -8,9 +8,12 @@ Each argument is the root of a checkout (its ``src/``).  Each runs in a
 fresh process, in the order given, so two versions alternate on the same
 card, and each is measured by this repository's own ``chip_smoke.py``
 phases: the kernel build, the model-layout ``flash_attention`` call at
-the transformer path's shape (checked, then timed beside SDPA), and one
-warm round of the transformer path under ``torch.profiler`` (our kernels'
-and ATen's elementwise launches).  Every output line carries the
+the transformer path's shape (checked, then timed beside SDPA), the set
+mixer's shapes of ``[fig6 n1024]`` (BH 208, Sq 4, Sk 1024) and of
+``[marl train]``'s n = 1M row (BH 12, Sq 4, Sk 4096), each checked and
+timed forward and backward beside SDPA, and one warm round of the
+transformer path under ``torch.profiler`` (our kernels' and ATen's
+elementwise launches).  Every output line carries the
 checkout's label (its position and root).  Needs one NVIDIA card and
 ``nvcc``; imports neither jax nor the JAX package.
 """
@@ -32,9 +35,18 @@ def one(root: Path) -> None:
     spec.loader.exec_module(cs)
     import repro_torch  # noqa: F401  (sets the float32 precision flags)
     from repro_torch.fl import FLConfig, run_simulation
+    import torch
     cs.phase_build()
-    cs._model_layout_times(importlib.import_module(
-        "repro_torch.kernels.flash_attention.flash_attention"))
+    mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    cs._model_layout_times(mod)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for shape, where in (
+            (("set mixer path", 208, 208, 4, 1024, 32, False, 0, "float32"),
+             "the set mixer's path shape"),
+            (("set mixer bench", 12, 12, 4, 4096, 32, False, 0, "float32"),
+             "the set mixer's n = 1M shape")):
+        cs._attention_case(mod, g, shape, where)
     cfg = FLConfig(**dict(cs.TRANSFORMER_CFG, n_rounds=1))
     run_simulation(cfg)                        # warm
     cs.phase_profile(cfg, "round")

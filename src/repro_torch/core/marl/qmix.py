@@ -84,6 +84,24 @@ class QmixLearner:
         self.opt = adamw_init(self.params)
         self.updates = 0
 
+    def state_dict(self) -> Dict:
+        """Online and target params (the set mixer's too), the AdamW state
+        and the update count (``qmix.py:97-107``); the ε generator is the
+        selector's to save."""
+        return {"params": self.params, "target": self.target,
+                "opt": self.opt, "updates": self.updates}
+
+    def load_state_dict(self, state: Dict) -> None:
+        def dev(tree):
+            return tree_map(lambda t: torch.as_tensor(t).to(self.device),
+                            tree)
+        self.params = dev(state["params"])
+        self.target = dev(state["target"])
+        opt = state["opt"]
+        self.opt = {"step": int(opt["step"]), "mu": dev(opt["mu"]),
+                    "nu": dev(opt["nu"])}
+        self.updates = int(state["updates"])
+
     def init_hidden(self) -> torch.Tensor:
         return torch.zeros((self.cfg.n_agents, self.cfg.hidden),
                            device=self.device)

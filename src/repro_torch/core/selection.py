@@ -32,7 +32,8 @@ from repro_torch.core.fleet import (FleetState, fleet_affordability,
                                     summary_width, true_div)
 from repro_torch.core.marl.networks import agent_step
 from repro_torch.core.marl.qmix import QmixConfig, QmixLearner, epsilon
-from repro_torch.device import to_host
+from repro_torch.device import (set_torch_rng_state, to_host,
+                                torch_rng_state)
 
 OBS_DIM = 5
 #: largest fleet for which "auto" keeps the flat QMIX state and mixer;
@@ -108,6 +109,17 @@ class SelectorBase:
                        sim_time: Optional[float] = None):
         """Credit the reward of the latest ``select`` (baselines: no-op)."""
 
+    def state_dict(self) -> dict:
+        """The selector's mutable state for a checkpoint
+        (``selection.py:113-131``); restored into a fresh selector of the
+        same config it continues the decisions bit for bit."""
+        return {"kind": "stateless"}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("kind") != "stateless":
+            raise ValueError(f"selector snapshot kind {state.get('kind')!r}"
+                             f" does not match selector {self.name!r}")
+
 
 class GreedySelector(SelectorBase):
     """Energy-aware greedy (the paper's baseline): every device picks the
@@ -162,6 +174,15 @@ class _RandomCohort(SelectorBase):
 
     def _model(self, fleet, i: int, n_models: int) -> int:
         raise NotImplementedError
+
+    def state_dict(self) -> dict:
+        return {"kind": "rng", "rng": self.rng.bit_generator.state}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("kind") != "rng":
+            raise ValueError(f"selector snapshot kind {state.get('kind')!r}"
+                             f" does not match selector {self.name!r}")
+        self.rng.bit_generator.state = state["rng"]
 
     def select(self, fleet, round_idx, k, model_sizes, model_fractions,
                local_epochs=5, batch_size=32, budget_left=None):
@@ -413,3 +434,48 @@ class MarlSelector(SelectorBase):
             state = obs.reshape(obs.shape[0], -1)
         rewards = np.asarray(self.ep_rewards, np.float32)
         return obs, state, np.stack(self.ep_actions), rewards
+
+    def state_dict(self) -> dict:
+        """The whole mid-episode state (``selection.py:384-425``): the
+        QMIX learner, the ε generator's state (in place of the JAX act
+        key), the GRU hidden state, the ε schedule's position, the last
+        pricing, the sampled-agent RNG and sample, and the episode trace."""
+        return {
+            "kind": "marl",
+            "learner": self.learner.state_dict(),
+            "act_gen": torch_rng_state(self.learner.act_gen),
+            "hidden": self.hidden,
+            "total_rounds": self.total_rounds,
+            "last_pricing": self._last_pricing,
+            "sample_rng": self._sample_rng.bit_generator.state,
+            "ep_idx": self._ep_idx,
+            "ep_obs": list(self.ep_obs),
+            "ep_state": list(self.ep_state),
+            "ep_actions": list(self.ep_actions),
+            "ep_rewards": list(self.ep_rewards),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`.  A generator state made on another
+        device type raises ``ValueError``; ``act_gen=None`` (a carried JAX
+        checkpoint, whose key torch cannot use) keeps the generator as
+        constructed, seeded from the learner's seed."""
+        if state.get("kind") != "marl":
+            raise ValueError("checkpoint selector snapshot is "
+                             f"{state.get('kind')!r}, not 'marl': the "
+                             "selector config drifted since the save")
+        if state.get("act_gen") is not None:
+            set_torch_rng_state(self.learner.act_gen, state["act_gen"])
+        self.learner.load_state_dict(state["learner"])
+        self.hidden = torch.as_tensor(state["hidden"]).to(
+            self.learner.device)
+        self.total_rounds = int(state["total_rounds"])
+        lp = state["last_pricing"]
+        self._last_pricing = tuple(lp) if lp is not None else None
+        self._sample_rng.bit_generator.state = state["sample_rng"]
+        ep_idx = state["ep_idx"]
+        self._ep_idx = None if ep_idx is None else np.asarray(ep_idx)
+        self.ep_obs = list(state["ep_obs"])
+        self.ep_state = list(state["ep_state"])
+        self.ep_actions = list(state["ep_actions"])
+        self.ep_rewards = [float(r) for r in state["ep_rewards"]]

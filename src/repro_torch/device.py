@@ -1,4 +1,5 @@
-"""Device resolution and the batched device-to-host pull."""
+"""Device resolution, the batched device-to-host pull and the
+checkpointable state of a ``torch.Generator``."""
 from __future__ import annotations
 
 from typing import List
@@ -28,3 +29,20 @@ def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
     for dev in {t.device for t in tensors if t.is_cuda}:
         torch.cuda.current_stream(dev).synchronize()
     return [o.numpy() for o in outs]
+
+
+def torch_rng_state(gen: torch.Generator) -> dict:
+    """A ``torch.Generator``'s state with its device type: a CPU state
+    (Mersenne Twister) and a CUDA one (Philox seed and offset) are
+    different things and cannot stand in for each other."""
+    return {"device": gen.device.type, "state": gen.get_state()}
+
+
+def set_torch_rng_state(gen: torch.Generator, state: dict) -> None:
+    if state["device"] != gen.device.type:
+        raise ValueError(
+            f"the checkpoint's generator state was made on a "
+            f"{state['device']!r} device and cannot be restored into a "
+            f"{gen.device.type!r} generator: resume on a {state['device']!r}"
+            " device")
+    gen.set_state(torch.as_tensor(state["state"]).cpu())

@@ -2,8 +2,7 @@
 ``resolve_client_executor``, ``sync_task_budget``, ``_marl_train`` and
 ``RoundEngine`` in both modes, with the energy-scenario hooks (charge and
 availability profiles, the global joule budget: :mod:`repro_torch.energy`)
-and without the checkpoint hooks, which are not ported
-(``check_supported`` refuses them up front).
+and the checkpoint hooks (:mod:`repro_torch.checkpoint`).
 
 * ``engine_mode="sync"`` (``engine.py:492-798``): barrier rounds.  Per
   round: the hot-plug hook, selection, Eq. 5/7 costs and the energy charge
@@ -58,6 +57,21 @@ The client executor is the reference's choice
   pulled at dispatch: every aggregation builds new tensors, so such a
   snapshot is never changed under it.
 
+Checkpoints (opt-in: ``cfg.checkpoint_dir`` and ``cfg.checkpoint_every``;
+``engine.py:325-456``, ``:777-786``, ``:1420-1468``): every N rounds (sync,
+at the round's tail) or virtual rounds (async, after the event that
+emitted the row) the whole run state is saved through
+:class:`repro_torch.checkpoint.EngineCheckpointer`: the fleet's tensors,
+the weights, the history, the partitions, the selector and the replay,
+the energy scenario's budget state and, async, the event heap and its
+tasks (a bucketed task's delta row saved as its own ``[1, ...]`` slice, a
+per-client task's dispatch-time weights once per model version), the
+cohorts, the host clocks and liveness, and the fault bookkeeping.  The
+decoded state, passed back as ``resume_state``, continues the run bit for
+bit as if it had never stopped; ``halt_counter`` raises
+:class:`repro_torch.checkpoint.CheckpointHalt` after its N-th save (the
+simulated crash of the tests and of ``chip_smoke.py``).
+
 Each phase of a (virtual) round (select, charge, clients, aggregate,
 evaluate, marl_train) is a ``torch.profiler.record_function`` span named
 ``round.<phase>`` and has its host seconds recorded in
@@ -74,12 +88,16 @@ import contextlib
 import dataclasses
 import heapq
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.checkpoint.engine import (CheckpointHalt,
+                                           EngineCheckpointer,
+                                           config_fingerprint)
+from repro_torch.checkpoint.io import FLEET_CHECKPOINT_FIELDS
 from repro_torch.core.fleet import (FleetState, fleet_charge, fleet_connect,
                                     fleet_cost_matrix, fleet_disconnect,
                                     fleet_kill, fleet_set_alive,
@@ -132,15 +150,14 @@ def check_supported(cfg) -> None:
     ``cnn`` and ``transformer`` families (a family that lacks the method
     raises the reference's ``ValueError``); either client executor; either
     QMIX state and mixer at every fleet size; every energy scenario (an
-    unknown profile name raises the reference's ``ValueError``)."""
+    unknown profile name raises the reference's ``ValueError``);
+    checkpoints and resume on both engines."""
     if cfg.engine_mode not in ("sync", "async"):
         raise ValueError(f"unknown engine_mode {cfg.engine_mode!r} "
                          "(expected 'sync' or 'async')")
     checks = [
         (cfg.model_family not in ("cnn", "transformer"),
          f"model_family={cfg.model_family!r}", "other families"),
-        (bool(cfg.checkpoint_dir) or cfg.checkpoint_every or cfg.resume,
-         "checkpointing", "checkpoints"),
         (cfg.fleet_mesh not in (0, 1), "fleet_mesh", "fleet sharding"),
     ]
     for bad, what, item in checks:
@@ -158,6 +175,13 @@ def check_supported(cfg) -> None:
         n_agents = cfg.n_devices + cfg.hotplug_n
         resolve_state_mode(cfg.state_mode, n_agents)  # an unknown name
         resolve_mixer_mode(cfg.mixer_mode, n_agents)  # raises ValueError
+
+
+class _RestoredBucket(NamedTuple):
+    """A bucket result restored from a checkpoint (``engine.py:81-86``):
+    the task's own row was saved as a ``[1, ...]`` slice, so row 0 of this
+    bucket is the slice the uninterrupted run takes."""
+    stacked_delta: Any
 
 
 @dataclasses.dataclass
@@ -320,11 +344,16 @@ class RoundEngine:
     ``buffer`` are owned by the caller (``run_simulation`` keeps them
     across episodes).  ``fault_plan`` (or the ``cfg.fault_*`` counts)
     injects seeded churn into the async timeline; the sync engine refuses
-    one with the reference's ``ValueError``."""
+    one with the reference's ``ValueError``.  ``episode`` numbers the
+    checkpoints; ``resume_state`` (a decoded checkpoint) continues a run;
+    ``halt_counter``, a shared ``{"remaining": N}``, raises
+    :class:`CheckpointHalt` right after the N-th save."""
 
     def __init__(self, cfg, selector, buffer=None, verbose: bool = False, *,
                  device="cuda", global_params=None,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None, episode: int = 0,
+                 resume_state: Optional[dict] = None,
+                 halt_counter: Optional[dict] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.selector = selector
@@ -341,13 +370,105 @@ class RoundEngine:
                              "set engine_mode='async'")
         self._global_params = global_params
         self._qpend: List[Any] = []   # (info, device validity) pairs
+        self.episode = int(episode)
+        self.ckpt = (EngineCheckpointer(cfg.checkpoint_dir,
+                                        keep=cfg.checkpoint_keep)
+                     if cfg.checkpoint_dir else None)
+        self.ckpt_every = int(cfg.checkpoint_every)
+        self._halt = halt_counter
+        self._resume = resume_state
 
     def run(self) -> Dict:
         self.world = build_world(self.cfg, device=self.device,
                                  global_params=self._global_params)
+        rs = self._resume
+        if rs is not None:
+            if rs.get("mode") != self.cfg.engine_mode:
+                raise ValueError(
+                    f"checkpoint was taken in engine_mode={rs.get('mode')!r}"
+                    f" but this engine runs {self.cfg.engine_mode!r}")
+            # partitions, selector and replay are mode-independent
+            self.world.parts = [np.asarray(p) for p in rs["parts"]]
+            self.selector.load_state_dict(rs["selector"])
+            if rs.get("buffer") is not None:
+                if self.buffer is None:
+                    raise ValueError("checkpoint carries replay-buffer state"
+                                     " but the engine has no buffer")
+                self.buffer.load_state_dict(rs["buffer"])
         if self.cfg.engine_mode == "async":
             return self._run_async()
         return self._run_sync()
+
+    # ------------------------------------------------------------------
+    # checkpoint plumbing, shared by both modes (engine.py:380-456)
+    # ------------------------------------------------------------------
+
+    def _ckpt_meta(self, step: int) -> dict:
+        return {"episode": self.episode, "step": int(step),
+                "engine_mode": self.cfg.engine_mode,
+                "fingerprint": config_fingerprint(self.cfg)}
+
+    def _base_snapshot(self, fleet, global_params, hist) -> dict:
+        """The mode-independent run state; the fleet by
+        ``FLEET_CHECKPOINT_FIELDS`` (set-equal to its tensor fields)."""
+        return {
+            "mode": self.cfg.engine_mode,
+            "fleet": {f: getattr(fleet, f) for f in FLEET_CHECKPOINT_FIELDS},
+            "global_params": global_params,
+            "hist": hist,
+            "parts": [np.asarray(p) for p in self.world.parts],
+            "selector": self.selector.state_dict(),
+            "buffer": (self.buffer.state_dict()
+                       if self.buffer is not None else None),
+        }
+
+    def _on_device(self, tree):
+        """A restored tree's tensors (CPU after the load) on the engine's
+        device."""
+        dev = self.world.device
+        return tree_map(lambda t: torch.as_tensor(t).to(dev), tree)
+
+    def _restore_fleet(self, fleet, arrays: dict):
+        return fleet.replace(**self._on_device(dict(arrays)))
+
+    @staticmethod
+    def _encode_task(task: dict, params_table: dict) -> dict:
+        """An async task in saveable form (``engine.py:413-431``): a
+        bucketed task's shared ``(BucketResult, row)`` becomes its own
+        ``[1, ...]`` row slice, a per-client task's dispatch-time weights
+        go to ``params_table`` once per model version (the tasks of one
+        tick share one snapshot)."""
+        enc = {k: v for k, v in task.items()
+               if k not in ("delta_row", "params")}
+        if "delta_row" in task:
+            dr = task["delta_row"]
+            enc["has_delta_row"] = True
+            enc["delta1"] = (None if dr is None else tree_map(
+                lambda a: a[dr[1]:dr[1] + 1], dr[0].stacked_delta))
+        elif "params" in task:
+            v = int(task["version"])
+            params_table[v] = task["params"]
+            enc["params_version"] = v
+        return enc
+
+    def _decode_task(self, enc: dict, params_table: dict) -> dict:
+        task = {k: v for k, v in enc.items()
+                if k not in ("delta1", "has_delta_row", "params_version")}
+        if enc.get("has_delta_row"):
+            d1 = enc["delta1"]
+            task["delta_row"] = (None if d1 is None else
+                                 (_RestoredBucket(self._on_device(d1)), 0))
+        elif "params_version" in enc:
+            task["params"] = params_table[int(enc["params_version"])]
+        return task
+
+    def _after_save(self) -> None:
+        if self._halt is None:
+            return
+        self._halt["remaining"] -= 1
+        if self._halt["remaining"] <= 0:
+            raise CheckpointHalt(
+                "simulated crash: halted after checkpoint save")
 
     def _flush_quarantine(self, hist) -> None:
         """Pull every pending validity verdict in ONE batch (at finalize)
@@ -470,6 +591,10 @@ class RoundEngine:
         selector, buffer = self.selector, self.buffer
         marl = selector if isinstance(selector, MarlSelector) else None
         x_dev, y_dev, x_val, y_val = self._device_data()
+        rs = self._resume
+        if rs is not None:
+            fleet = self._restore_fleet(fleet, rs["fleet"])
+            global_params = self._on_device(rs["global_params"])
 
         # the energy scenario's hooks (engine.py:506-518): each is gated on
         # a Python flag, so the default scenario launches and pulls nothing
@@ -482,32 +607,46 @@ class RoundEngine:
         tz_host = alive_host = None
         if gate_avail:
             # one pull at setup: the host mirrors of the phases and liveness
+            # (on a resume, of the restored fleet: the reference pulls them
+            # before its restore, engine.py:514-518)
             tz_a, alive_a0 = to_host(fleet.tz_phase, fleet.alive)
             tz_host = tz_a.astype(np.float64)
             alive_host = alive_a0.copy()
 
         w1, w2, w3 = cfg.reward_weights
-        hist = {"acc": [], "acc_mean": [], "energy": [], "round_time": [],
-                "alive": [], "participants": [], "model_choices": [],
-                "reward": [], "wall_clock": [], "sim_time": [], "idle": [],
-                "phase_s": [], "dropouts": 0, "idle_time": 0.0, "engine": "sync",
-                "executor": self.executor,
-                "faults": {"events": [], "quarantined": [],
-                           "n_reaped": 0, "n_quarantined": 0}}
-        prev_acc = float(np.mean(to_host(fl_server.evaluate(
-            global_params, x_val, y_val, family=w.family))[0]))
-        e_prev = fleet_total_remaining(fleet)
-        sim_time = 0.0
-        n_agg = 0
+        if rs is None:
+            hist = {"acc": [], "acc_mean": [], "energy": [],
+                    "round_time": [], "alive": [], "participants": [],
+                    "model_choices": [], "reward": [], "wall_clock": [],
+                    "sim_time": [], "idle": [], "phase_s": [],
+                    "dropouts": 0, "idle_time": 0.0, "engine": "sync",
+                    "executor": self.executor,
+                    "faults": {"events": [], "quarantined": [],
+                               "n_reaped": 0, "n_quarantined": 0}}
+            prev_acc = float(np.mean(to_host(fl_server.evaluate(
+                global_params, x_val, y_val, family=w.family))[0]))
+            e_prev = fleet_total_remaining(fleet)
+            sim_time = 0.0
+            n_agg = 0
+            hotplug_done = False
+            t_start = 0
+            budget_spent = 0.0
+        else:
+            hist = rs["hist"]
+            prev_acc = float(rs["prev_acc"])
+            e_prev = float(rs["e_prev"])
+            sim_time = float(rs["sim_time"])
+            n_agg = int(rs["n_agg"])
+            hotplug_done = bool(rs["hotplug_done"])
+            t_start = int(rs["next_round"])
+            budget_spent = float(rs["budget_spent"])
         fleet_dead = False
-        hotplug_done = False
-        budget_spent = 0.0
         budget_exhausted = False
-        if budget_active:
+        if budget_active and "budget" not in hist:
             hist["budget"] = {"limit": limit, "spent": 0.0, "overrun": 0.0,
                               "trimmed": 0}
 
-        for t in range(cfg.n_rounds):
+        for t in range(t_start, cfg.n_rounds):
             t0 = time.time()
             phase: Dict[str, float] = {}
             if cfg.hotplug_n and not hotplug_done and t >= cfg.hotplug_round:
@@ -666,6 +805,16 @@ class RoundEngine:
                 # stop rather than tick unfunded rounds
                 budget_exhausted = True
                 break
+            if self.ckpt is not None and self.ckpt_every > 0 \
+                    and (t + 1) % self.ckpt_every == 0:
+                self._flush_quarantine(hist)
+                state = self._base_snapshot(fleet, global_params, hist)
+                state.update(next_round=t + 1, prev_acc=prev_acc,
+                             e_prev=e_prev, sim_time=sim_time, n_agg=n_agg,
+                             hotplug_done=hotplug_done,
+                             budget_spent=budget_spent)
+                self.ckpt.save(state, self._ckpt_meta(t + 1))
+                self._after_save()
 
         hist["terminated"] = {
             "reason": ("budget_exhausted" if budget_exhausted
@@ -680,7 +829,7 @@ class RoundEngine:
 
     # ------------------------------------------------------------------
     # async mode: an event heap over per-device virtual clocks
-    # (engine.py:804-1576, without the checkpoint hooks)
+    # (engine.py:804-1576)
     # ------------------------------------------------------------------
 
     def _run_async(self) -> Dict:
@@ -711,57 +860,95 @@ class RoundEngine:
         # RNG, so a clean run must see no reap event at all
         reaping = self.faults is not None
         task_by_dev: Dict[int, dict] = {}  # device -> its in-flight task
-        disconnected: set = set()
-        corrupt_pending: Dict[int, list] = {}  # dev -> [(payload, ev_idx)]
-        hist = {"acc": [], "acc_mean": [], "energy": [], "round_time": [],
-                "alive": [], "participants": [], "model_choices": [],
-                "reward": [], "wall_clock": [], "sim_time": [], "idle": [],
-                "phase_s": [], "staleness": [], "task_log": [], "lost": [],
-                "dropouts": 0, "idle_time": 0.0, "wait_for_work": 0.0,
-                "hotplug": None, "engine": "async", "executor": self.executor,
-                "faults": {"events": [], "quarantined": [],
-                           "n_reaped": 0, "n_quarantined": 0}}
-        acc_prev = float(np.mean(to_host(fl_server.evaluate(
-            global_params, x_val, y_val, family=w.family))[0]))
-        state = dict(now=0.0, version=0, seq=0, vround=0, tasks_started=0,
-                     completions=0, inflight=0, n_cohorts=0, next_commit=0,
-                     last_event=0.0, hotplug_done=not cfg.hotplug_n,
-                     acc_prev=acc_prev, window_t0=0.0,
-                     window_wall0=time.time(), window_reward=0.0,
-                     window_idle=0.0, window_lost=0, budget_spent=0.0,
-                     budget_blocked=False, last_charge_t=0.0)
-        heap: list = []
-        cohorts: Dict[int, dict] = {}   # one per selector.select call
-        last_done: Dict[int, float] = {}
-        window_devices: List[int] = []
-        window_models: List[int] = []
         phase: Dict[str, float] = {}    # host seconds of the open row
-        # the authoritative virtual clocks and liveness, on the host in
-        # float64 (fleet.busy_until is a float32 mirror, whose resolution
-        # at large sim times could mark a mid-task device idle); liveness
-        # is kept from values the loop pulls anyway, so the per-event idle
-        # check costs no device sync.  An availability gate adds the host
-        # mirror of the phases to the same pull
-        pulled = to_host(fleet.busy_until, fleet.alive,
-                         *([fleet.tz_phase] if gate_avail else []))
-        busy64 = pulled[0].astype(np.float64)
-        alive_host = pulled[1].copy()
-        tz_host = pulled[2].astype(np.float64) if gate_avail else None
-        if budget_active:
+        rs = self._resume
+        if rs is None:
+            hist = {"acc": [], "acc_mean": [], "energy": [],
+                    "round_time": [], "alive": [], "participants": [],
+                    "model_choices": [], "reward": [], "wall_clock": [],
+                    "sim_time": [], "idle": [], "phase_s": [],
+                    "staleness": [], "task_log": [], "lost": [],
+                    "dropouts": 0, "idle_time": 0.0, "wait_for_work": 0.0,
+                    "hotplug": None, "engine": "async",
+                    "executor": self.executor,
+                    "faults": {"events": [], "quarantined": [],
+                               "n_reaped": 0, "n_quarantined": 0}}
+            acc_prev = float(np.mean(to_host(fl_server.evaluate(
+                global_params, x_val, y_val, family=w.family))[0]))
+            state = dict(now=0.0, version=0, seq=0, vround=0,
+                         tasks_started=0, completions=0, inflight=0,
+                         n_cohorts=0, next_commit=0, last_event=0.0,
+                         hotplug_done=not cfg.hotplug_n, acc_prev=acc_prev,
+                         window_t0=0.0, window_wall0=time.time(),
+                         window_reward=0.0, window_idle=0.0, window_lost=0,
+                         budget_spent=0.0, budget_blocked=False,
+                         last_charge_t=0.0)
+            heap: list = []
+            cohorts: Dict[int, dict] = {}   # one per selector.select call
+            last_done: Dict[int, float] = {}
+            window_devices: List[int] = []
+            window_models: List[int] = []
+            disconnected: set = set()
+            corrupt_pending: Dict[int, list] = {}  # dev -> [(payload, ev)]
+            # the authoritative virtual clocks and liveness, on the host in
+            # float64 (fleet.busy_until is a float32 mirror, whose
+            # resolution at large sim times could mark a mid-task device
+            # idle); liveness is kept from values the loop pulls anyway, so
+            # the per-event idle check costs no device sync.  An
+            # availability gate adds the host mirror of the phases to the
+            # same pull
+            pulled = to_host(fleet.busy_until, fleet.alive,
+                             *([fleet.tz_phase] if gate_avail else []))
+            busy64 = pulled[0].astype(np.float64)
+            alive_host = pulled[1].copy()
+            tz_host = pulled[2].astype(np.float64) if gate_avail else None
+            if gate_avail:
+                hist["wakes"] = []      # the sim times of the wake events
+            if self.faults is not None:
+                # injected churn rides the heap with the completions; seq
+                # numbers assigned up front break fault/completion ties
+                for ev in self.faults.events:
+                    heapq.heappush(heap, (float(ev.time), state["seq"],
+                                          "fault",
+                                          {"kind": ev.kind,
+                                           "device": int(ev.device),
+                                           "duration": float(ev.duration),
+                                           "payload": ev.payload}))
+                    state["seq"] += 1
+        else:
+            # the resume (engine.py:875-916): the heap list was saved
+            # heap-ordered and is restored as it was, its done and reap
+            # entries sharing one task object per task again
+            fleet = self._restore_fleet(fleet, rs["fleet"])
+            global_params = self._on_device(rs["global_params"])
+            hist = rs["hist"]
+            state = dict(rs["state"], window_wall0=time.time())
+            cohorts = {int(k): dict(v) for k, v in rs["cohorts"].items()}
+            last_done = {int(k): float(v)
+                         for k, v in rs["last_done"].items()}
+            window_devices = [int(i) for i in rs["window_devices"]]
+            window_models = [int(m) for m in rs["window_models"]]
+            busy64 = rs["busy64"]
+            alive_host = rs["alive_host"]
+            tz_host = (to_host(fleet.tz_phase)[0].astype(np.float64)
+                       if gate_avail else None)
+            disconnected = {int(i) for i in rs["disconnected"]}
+            corrupt_pending = {int(k): [tuple(x) for x in v]
+                               for k, v in rs["corrupt_pending"].items()}
+            params_table = {int(v): self._on_device(p)
+                            for v, p in rs["params_table"].items()}
+            tasks = {int(tid): self._decode_task(enc, params_table)
+                     for tid, enc in rs["tasks"].items()}
+            heap = [(float(tt), int(sq), kind,
+                     tasks[int(ref)] if kind in ("done", "reap")
+                     else dict(ref) if kind == "fault" else None)
+                    for tt, sq, kind, ref in rs["heap"]]
+            for task in tasks.values():
+                if not task.get("done") and not task.get("reaped"):
+                    task_by_dev[task["device"]] = task
+        if budget_active and "budget" not in hist:
             hist["budget"] = {"limit": limit, "spent": 0.0, "overrun": 0.0,
                               "trimmed": 0}
-        if gate_avail:
-            hist["wakes"] = []      # the sim times of the wake events
-        if self.faults is not None:
-            # injected churn rides the heap with the completions; seq
-            # numbers assigned up front break fault/completion ties
-            for ev in self.faults.events:
-                heapq.heappush(heap, (float(ev.time), state["seq"], "fault",
-                                      {"kind": ev.kind,
-                                       "device": int(ev.device),
-                                       "duration": float(ev.duration),
-                                       "payload": ev.payload}))
-                state["seq"] += 1
 
         def n_connected():
             return cfg.n_devices + (cfg.hotplug_n if state["hotplug_done"]
@@ -1215,10 +1402,57 @@ class RoundEngine:
                 corrupt_pending.setdefault(i, []).append(
                     (entry["payload"], len(hist["faults"]["events"]) - 1))
 
+        def save_checkpoint():
+            # the quarantine verdicts first, so the saved hist is whole; a
+            # heap entry names its task by number (a done and a reap entry
+            # share one task)
+            self._flush_quarantine(hist)
+            params_table: Dict[int, Any] = {}
+            tids: Dict[int, int] = {}
+            tasks_enc: Dict[int, dict] = {}
+            heap_enc = []
+            for tt, sq, kind, payload in heap:
+                if kind == "wake":
+                    heap_enc.append((float(tt), int(sq), kind, None))
+                elif kind == "fault":
+                    heap_enc.append((float(tt), int(sq), kind,
+                                     dict(payload)))
+                else:
+                    tid = tids.setdefault(id(payload), len(tids))
+                    if tid not in tasks_enc:
+                        tasks_enc[tid] = self._encode_task(payload,
+                                                           params_table)
+                    heap_enc.append((float(tt), int(sq), kind, tid))
+            snap = self._base_snapshot(fleet, global_params, hist)
+            snap.update(
+                state=dict(state),
+                cohorts={int(k): dict(v) for k, v in cohorts.items()},
+                last_done=dict(last_done),
+                window_devices=list(window_devices),
+                window_models=list(window_models),
+                busy64=busy64.copy(), alive_host=alive_host.copy(),
+                disconnected=sorted(int(x) for x in disconnected),
+                corrupt_pending={int(k): [tuple(x) for x in v]
+                                 for k, v in corrupt_pending.items()},
+                tasks=tasks_enc, heap=heap_enc, params_table=params_table)
+            self.ckpt.save(snap, self._ckpt_meta(state["vround"]))
+            self._after_save()
+
+        last_ckpt = {"vround": state["vround"]}
+
+        def maybe_checkpoint():
+            if self.ckpt is None or self.ckpt_every <= 0:
+                return
+            v = state["vround"]
+            if v > last_ckpt["vround"] and v % self.ckpt_every == 0:
+                last_ckpt["vround"] = v
+                save_checkpoint()
+
         # --- timeline -------------------------------------------------
-        maybe_hotplug()     # hotplug_round == 0 joins before any dispatch
-        refill()
-        commit_ready()
+        if rs is None:
+            maybe_hotplug()     # hotplug_round == 0 joins before dispatch
+            refill()
+            commit_ready()
         while True:
             if not heap:
                 if not state["hotplug_done"] \
@@ -1264,6 +1498,7 @@ class RoundEngine:
             # a "wake" pops as a tick: refill() below dispatches
             refill()
             commit_ready()
+            maybe_checkpoint()
 
         if window_devices or state["window_lost"]:
             emit_row()

@@ -12,8 +12,10 @@ availability profiles, the global joule budget: the ``charge_*``,
 :func:`repro_torch.energy.scenario_from_config`), and MARL at every fleet
 size (``state_mode`` and ``mixer_mode``: above 256 devices ``"auto"``
 takes the factored state and the set mixer, whose replay stores at most
-``marl_agent_budget`` agents); every other setting raises
-``NotImplementedError`` naming its ROADMAP item.
+``marl_agent_budget`` agents), with engine checkpoints and resume
+(``checkpoint_dir``, ``checkpoint_every``, ``checkpoint_keep``,
+``resume``; a sync checkpoint of the JAX package resumes here too); every
+other setting raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import dataclasses
 import logging
 from typing import Dict
 
+from repro_torch.checkpoint.engine import (JAX_FORMAT, EngineCheckpointer,
+                                           config_fingerprint)
 from repro_torch.core.marl.buffer import ReplayBuffer
 from repro_torch.core.selection import (OBS_DIM, GreedySelector,
                                         MarlSelector, RandomSelector,
@@ -145,27 +149,76 @@ def _make_buffer(cfg: FLConfig) -> ReplayBuffer:
                         cfg.seed, agent_budget=agent_budget)
 
 
+def load_resume_state(cfg: FLConfig):
+    """The latest checkpoint in ``cfg.checkpoint_dir`` as (resume state,
+    meta), or (None, None) where there is none
+    (``simulation.py:228-244``): a config whose fingerprint differs from
+    the checkpoint's raises ``ValueError`` ("refusing to resume"); a JAX
+    package checkpoint is carried into the port's state
+    (:func:`repro_torch.checkpoint.from_jax.resume_state_from_jax`)."""
+    if not cfg.checkpoint_dir:
+        raise ValueError("resume=True needs checkpoint_dir")
+    ck = EngineCheckpointer(cfg.checkpoint_dir, keep=cfg.checkpoint_keep)
+    latest = ck.latest()
+    if latest is None:
+        return None, None
+    state, meta = ck.load(latest)
+    fp = config_fingerprint(cfg)
+    got = meta.get("fingerprint")
+    if got != fp:
+        raise ValueError(
+            f"checkpoint fingerprint {got!r} does not match this config "
+            f"({fp!r}); refusing to resume a different run")
+    if meta["format"] == JAX_FORMAT:
+        # imported here: the carrier imports the engine, whose package
+        # imports this module
+        from repro_torch.checkpoint.from_jax import resume_state_from_jax
+        state = resume_state_from_jax(state, cfg)
+    return state, meta
+
+
 def run_simulation(cfg: FLConfig, verbose: bool = False, *,
-                   device="cuda") -> Dict:
+                   device="cuda", halt_after_saves: int = 0) -> Dict:
     """Run the FL simulation on ``device`` (the card unless the caller
     asks for ``"cpu"``; no silent fallback).  With DR-FL + MARL and
     ``marl_episodes > 1`` the earlier episodes pre-train the QMIX policy
     (fresh fleet and model each episode, persistent learner and replay)
     and the LAST episode is returned; every other arm runs one episode and
-    keeps no replay (``simulation.py:234-262``)."""
+    keeps no replay (``simulation.py:234-262``).
+
+    With ``cfg.checkpoint_dir`` and ``cfg.checkpoint_every`` the engine
+    saves the whole run state on that cadence; with ``cfg.resume`` the
+    latest checkpoint (this port's, or a sync one of the JAX package) is
+    loaded (:func:`load_resume_state`), the episodes before its own are
+    skipped, and its episode continues without ``reset_episode``: the
+    history and weights equal an uninterrupted run's bit for bit.
+    ``halt_after_saves=N`` (> 0) simulates a crash: ``CheckpointHalt``
+    right after the N-th save of this call."""
     dev = resolve_device(device)
     check_supported(cfg)
+    resume_state = resume_meta = None
+    if cfg.resume:
+        resume_state, resume_meta = load_resume_state(cfg)
+    halt = ({"remaining": int(halt_after_saves)} if halt_after_saves > 0
+            else None)
+    start_ep = int(resume_meta["episode"]) if resume_meta else 0
     selector = _make_selector(
         cfg, get_family(cfg.model_family).num_submodels(), device=dev)
     marl = uses_marl(cfg)
     buffer = _make_buffer(cfg) if marl else None
     episodes = cfg.marl_episodes if marl else 1
     hist = None
-    for ep in range(episodes):
-        if marl:
+    for ep in range(start_ep, episodes):
+        resuming = resume_state is not None and ep == start_ep
+        if marl and not resuming:
+            # a resumed episode's trace, hidden state and RNG come from the
+            # checkpoint: a reset would fork the episode
             selector.reset_episode()
         engine = RoundEngine(cfg, selector, buffer,
                              verbose=verbose and ep == episodes - 1,
-                             device=dev)
+                             device=dev, episode=ep,
+                             resume_state=resume_state if resuming else None,
+                             halt_counter=halt)
         hist = engine.run()
+        resume_state = None              # its episode consumed it
     return hist

@@ -700,3 +700,44 @@ def test_set_mode_qmix_update_on_the_card(cuda):
     for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
                                    atol=2 * cfg.lr)
+
+
+@pytest.mark.cuda
+def test_bucketed_kill_and_resume_on_the_card_is_bitwise(cuda, tmp_path,
+                                                         monkeypatch):
+    """A bucketed sync DR-FL + MARL run on the card, killed after its
+    first round's checkpoint and resumed from disk, ends bit for bit as the
+    uninterrupted card run, with one ``layer_agg`` launch per resumed
+    round.  cuDNN runs in its deterministic mode here (its default float32
+    convolutions are not deterministic on the card); the package itself
+    never sets it."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointHalt, EngineCheckpointer
+    from repro_torch.fl import FLConfig, run_simulation
+    from repro_torch.kernels import reset_launches
+    from repro_torch.tree import tree_leaves
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = FLConfig(n_devices=64, n_rounds=3, participation=0.1,
+                   local_epochs=1, batch_size=16, n_train=1280, hw=8,
+                   width_mult=0.125, seed=1)
+    ref = run_simulation(cfg)
+    ck = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / "ck"),
+                             checkpoint_every=1)
+    with pytest.raises(CheckpointHalt):
+        run_simulation(ck, halt_after_saves=1)
+    saved, _ = EngineCheckpointer(ck.checkpoint_dir).load()
+    reset_launches()
+    res = run_simulation(dataclasses.replace(ck, resume=True))
+    torch.cuda.synchronize()
+    assert LAUNCHES["layer_agg"] == res["n_aggregations"] - saved["n_agg"]
+    assert res["n_aggregations"] > saved["n_agg"]
+    for key in ("acc", "energy", "reward", "participants", "model_choices",
+                "qmix", "sim_time"):
+        a, b = ref[key], res[key]
+        if key == "acc":
+            a, b = np.stack(a).tobytes(), np.stack(b).tobytes()
+        assert a == b, key
+    for a, b in zip(tree_leaves(ref["params"]), tree_leaves(res["params"])):
+        assert torch.equal(a, b)

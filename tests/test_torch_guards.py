@@ -67,10 +67,8 @@ ASYNC = dict(engine_mode="async")
     (dict(fault_corrupts=1, fault_horizon=100.0), ValueError),
     (dict(fleet_mesh=2), "fleet sharding"),
     (dict(model_family="mlp"), "other families"),
-    (dict(checkpoint_dir="ckpt", checkpoint_every=1), "checkpoints"),
     (dict(engine_mode="sync", fault_crashes=1, fault_horizon=100.0),
      ValueError),
-    (dict(ASYNC, checkpoint_dir="ckpt", checkpoint_every=1), "checkpoints"),
 ])
 def test_unported_settings_raise(change, item):
     """Every setting outside the port raises ``NotImplementedError`` naming
@@ -90,24 +88,35 @@ def test_unported_settings_raise(change, item):
 FLEET_SCALE = dict(n_devices=300, participation=0.02, n_train=900)
 
 
+#: checkpoints every round, into a directory the test makes
+CHECKPOINTS = dict(checkpoint_dir="ckpt", checkpoint_every=1)
+
+
 @pytest.mark.parametrize("change", [
     dict(n_devices=40), dict(client_executor="perclient"),
     dict(method="heterofl"), dict(selector="greedy"),
     dict(mixer_mode="set"), FLEET_SCALE, dict(ASYNC, mixer_mode="set"),
-    dict(ASYNC, **FLEET_SCALE)],
+    dict(ASYNC, **FLEET_SCALE), CHECKPOINTS, dict(ASYNC, **CHECKPOINTS)],
     ids=["n_devices=40", "perclient", "heterofl", "greedy", "mixer_mode=set",
-         "n_devices=300", "async-mixer_mode=set", "async-n_devices=300"])
-def test_formerly_unported_settings_run(change):
-    """The per-client executor, the baseline arms, the other selectors
-    and MARL at fleet scale (the set mixer; above 256 devices the
-    factored state too) are ported: these settings, once refused, run on
-    the CPU, a sync round aggregating once, an async run at most once a
-    task and its QMIX learner trained at the episode's end."""
+         "n_devices=300", "async-mixer_mode=set", "async-n_devices=300",
+         "checkpoints", "async-checkpoints"])
+def test_formerly_unported_settings_run(change, tmp_path):
+    """The per-client executor, the baseline arms, the other selectors,
+    MARL at fleet scale (the set mixer; above 256 devices the factored
+    state too) and checkpoints are ported: these settings, once refused,
+    run on the CPU, a sync round aggregating once, an async run at most
+    once a task and its QMIX learner trained at the episode's end; a
+    checkpointed run leaves its manifest."""
     kw = dict(BASE, n_devices=8, n_train=400, participation=0.5,
               local_epochs=1)
     kw.update(change)
+    if "checkpoint_dir" in change:
+        kw["checkpoint_dir"] = str(tmp_path / change["checkpoint_dir"])
     cfg = FLConfig(**kw)
     hist = run_simulation(cfg, device="cpu")
+    if cfg.checkpoint_dir:
+        names = os.listdir(cfg.checkpoint_dir)
+        assert "ep0000_step00000001.manifest.json" in names
     assert len(hist["acc"]) == 1
     assert hist["executor"] == ("perclient" if cfg.n_devices < 64
                                 else "batched")
@@ -116,7 +125,8 @@ def test_formerly_unported_settings_run(change):
     else:
         # a device without samples completes its task with no delta
         assert 1 <= hist["n_aggregations"] <= hist["n_tasks"]
-        assert hist["qmix"]["mixer_mode"] == "set"
+        assert hist["qmix"]["mixer_mode"] == (
+            "flat" if cfg.checkpoint_dir else "set")
         assert hist["qmix"]["updates"] >= 1
 
 
