@@ -18,11 +18,16 @@ its own lines; any failure raises and exits non-zero:
    time the kernel, the plain version and the one-call PyTorch yardstick
    (``library_ms``) by device time (``torch.profiler``) and by call time
    (CUDA events, the host's cost included), beside the roofline bound;
-   attention's backward route (fused or three passes) is printed for
-   every shape, and the model-layout call, the one the transformer path
-   makes, is checked and timed at the path's shape beside SDPA on the same
-   layout; attention is also timed at the set mixer's shape of step 10
-   (non-causal, 4 seed queries over 1024 agents) beside non-causal SDPA;
+   attention's route (short: the split-Sk forward and the short-query
+   backward; tiled: the pipelined forward and the fused or three-pass
+   backward) is printed for every shape, the short route's kernels are
+   run twice (bitwise equal) and held against their CPU emulation
+   (``attention_split_blocked``, the kernels' order of sums) at 1e-6, and
+   the model-layout call, the one the transformer path makes, is checked
+   and timed at the path's shape beside SDPA on the same layout;
+   attention is also timed at the set mixer's shapes of step 10
+   (non-causal, 4 seed queries over 1024 agents at BH 208, and over 4096
+   at ``[marl train]``'s BH 12) beside non-causal SDPA;
    ``rmsnorm``'s route (vec or general) and its backward's splits are
    printed for every shape, and its backward is run twice (bitwise
    equal) and held against its CPU emulation (``rmsnorm_bwd_blocked``,
@@ -83,8 +88,9 @@ its own lines; any failure raises and exits non-zero:
    mixer on the non-causal ``flash_attention``, sampled-agent replay):
    Fig. 6's 1024-device row at full width on the async engine
    (``[fig6 n1024]``: ``flash_attention`` twice per QMIX update, its
-   three-pass backward once, ``layer_agg`` once per completion; the wall
-   of one set-mode update), ``benchmarks/marl_train_bench.py``'s rows to
+   backward once, all on the short-query route, ``layer_agg`` once per
+   completion; the wall of one set-mode update),
+   ``benchmarks/marl_train_bench.py``'s rows to
    n = 1M (``[marl train]``: the set mixer's step time flat in n), a
    300-device run on the card against the CPU, sync and async, with
    identical picks, task logs, sampled agents and factored states
@@ -503,12 +509,102 @@ def _attention_pairs(BH, Sq, Sk, causal, window) -> int:
     return BH * total
 
 
+def attention_routes(mod, Sq, Sk, D, group):
+    """(forward route, backward route, split) of a shape: ``split`` and
+    ``short`` on the short-query route, else ``tiled`` and ``fused`` or
+    ``three_pass`` (a checkout without the short route: always tiled)."""
+    route, split = (mod.attention_route(Sq, Sk, D, group)
+                    if hasattr(mod, "attention_route") else ("tiled", 0))
+    if route == "short":
+        return "split", "short", split
+    return ("tiled", "fused" if mod.fused_backward(Sq, Sk, D)
+            else "three_pass", 0)
+
+
+ATTENTION_SOURCES = {
+    r: f"src/repro_torch/kernels/flash_attention/csrc/{f}" for r, f in (
+        ("split", "fwd_split.cu"), ("tiled", "fwd.cu"),
+        ("short", "bwd_short.cu"), ("fused", "bwd_fused.cu"),
+        ("three_pass", "bwd_three_pass.cu"))}
+
+
+def _short_launch(mod, q, k, v, do, causal, window):
+    """The short route's forward and backward launched directly on [BH, S,
+    D] tensors, through their model-layout views as
+    ``flash_attention_bhsd`` hands them over: (o, lse, dq, dk, dv)."""
+    import torch
+    BH, BHkv = q.shape[0], k.shape[0]
+
+    def model(t, heads):
+        return t.unflatten(0, (BHkv, heads)).transpose(1, 2)
+    qm, km, vm, dom = (model(q, BH // BHkv), model(k, 1), model(v, 1),
+                       model(do, BH // BHkv))
+    om, dqm, dkm, dvm = (torch.empty_like(t) for t in (qm, qm, km, vm))
+    lse = mod._forward(qm, km, vm, om, causal, window)
+    mod._backward(qm, km, vm, om, dom, lse, dqm, dkm, dvm, causal, window)
+
+    def bhsd(t):
+        return t.transpose(1, 2).flatten(0, 1)
+    return [bhsd(om), lse] + [bhsd(t) for t in (dqm, dkm, dvm)]
+
+
+def _attention_short_check(mod, label, q, k, v, do, causal, window, split):
+    """The short route's kernels called twice on the same inputs (also
+    where the shape's Sk is below ``SHORT_MIN_SK``, the route's edge cases
+    with rows that see no key): bitwise equal in o, lse, dq, dk and dv;
+    against the plain version at the kernels' tolerance; and against
+    their CPU emulation of the kernels' order of sums at 1e-6 of the
+    largest magnitude in float32 (1e-2 in bfloat16, a rounding of the
+    output apart), lse -1e30 on both for rows that see no key."""
+    import torch
+    q, k, v = (t.detach() for t in (q, k, v))
+    least = mod.SHORT_MIN_SK
+    mod.SHORT_MIN_SK = 1
+    try:
+        runs = [_short_launch(mod, q, k, v, do, causal, window)
+                for _ in range(2)]
+    finally:
+        mod.SHORT_MIN_SK = least
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = mod.attention_plain(*ins, causal=causal, window=window)
+    refs = [ref, *torch.autograd.grad(ref, ins, do)]
+    plain = max(_errors(a, b)[1] for a, b in zip(runs[0][:1] + runs[0][2:],
+                                                 refs))
+    got = [t.cpu() for t in runs[0]]
+    cpu = [t.cpu() for t in (q, k, v)]
+    o, lse = mod.attention_split_blocked(*cpu, causal=causal,
+                                         window=window, split=split)
+    emu = [o, lse, *mod.attention_split_blocked_bwd(
+        *cpu, got[0], do.cpu(), got[1], causal=causal, window=window,
+        split=split)]
+    seen = lse > -1e29
+    keyless_equal = torch.equal(got[1][~seen], lse[~seen])
+    errs = [_errors(got[1][seen], lse[seen])[1]] + [
+        _errors(a, b)[1] for a, b in zip(got[:1] + got[2:],
+                                         emu[:1] + emu[2:])]
+    lim = 1e-6 if q.dtype == torch.float32 else 1e-2
+    tol = KERNEL_TOL[str(q.dtype).replace("torch.", "")]
+    print(f"[kernel] flash_attention {label}: short route, split {split}; "
+          f"two launches bitwise equal: {same}; against the plain version "
+          f"rel err {plain:.2e} (limit {tol:.0e}); against the blocked "
+          f"emulation rel err lse {errs[0]:.2e}, o {errs[1]:.2e}, dq "
+          f"{errs[2]:.2e}, dk {errs[3]:.2e}, dv {errs[4]:.2e} (limit "
+          f"{lim:.0e}); keyless rows' lse equal: {keyless_equal}")
+    if not same or not keyless_equal or max(errs) > lim or plain > tol:
+        raise AssertionError(f"flash_attention's short route at {label} is "
+                             "not deterministic or disagrees with its "
+                             "emulation")
+
+
 def _attention_case(mod, g, shape, where=None):
     """One of :func:`phase_attention`'s shapes, ``(label, BH, BHkv, Sq,
     Sk, D, causal, window, dtype)``: the kernel's forward and backward held
-    against the plain version; with ``where`` (the shape's name in the
-    printed lines) also timed beside SDPA, returning the forward's and the
-    backward's records."""
+    against the plain version (on the short route also against their
+    emulation, and bitwise against themselves); with ``where`` (the
+    shape's name in the printed lines) also timed beside SDPA, returning
+    the forward's and the backward's records."""
     import torch
     import torch.nn.functional as F
     label, BH, BHkv, Sq, Sk, D, causal, window, dt = shape
@@ -530,10 +626,10 @@ def _attention_case(mod, g, shape, where=None):
         return mod.attention_plain(a, b, c, causal=causal,
                                    window=window)
     abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
-    route = "fused" if mod.fused_backward(Sq, Sk, D) else "three_pass"
+    fwd_route, route, split = attention_routes(mod, Sq, Sk, D, BH // BHkv)
     print(f"[kernel] flash_attention {label} BH={BH} BHkv={BHkv} "
           f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}"
-          f" (backward {route}):"
+          f" (forward {fwd_route}, backward {route}):"
           f" rel err o {errs[0]:.2e}, dq {errs[1]:.2e}, dk "
           f"{errs[2]:.2e}, dv {errs[3]:.2e} (limit "
           f"{KERNEL_TOL[dt]:.0e}); abs err o {abs_errs[0]:.2e}, grads "
@@ -541,6 +637,9 @@ def _attention_case(mod, g, shape, where=None):
     if max(errs) > KERNEL_TOL[dt]:
         raise AssertionError(f"flash_attention disagrees with its plain"
                              f" version at {label}")
+    if route == "short" or label.startswith("short"):
+        _attention_short_check(mod, label, q, k, v, do, causal, window,
+                               split or mod.short_split(D))
     if where is None:
         return None
 
@@ -551,7 +650,7 @@ def _attention_case(mod, g, shape, where=None):
     nq, nk = BH * Sq * D, BHkv * Sk * D
     rec = _timed_records(
         ("flash_attention", "flash_attention_bwd"),
-        "src/repro_torch/kernels/flash_attention/csrc/fwd.cu",
+        ATTENTION_SOURCES[fwd_route],
         "src/repro/kernels/flash_attention/flash_attention.py:67",
         [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
         [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
@@ -561,10 +660,8 @@ def _attention_case(mod, g, shape, where=None):
         [(4 * (2 * nq + 2 * nk + BH * Sq), 4 * D * pairs),
          (4 * (4 * nq + 4 * nk + BH * Sq), 10 * D * pairs)],
         "SDPA is_causal" if causal else "SDPA", where)
-    rec[1]["source"] = (
-        "src/repro_torch/kernels/flash_attention/csrc/"
-        + ("bwd_fused.cu" if route == "fused" else "bwd_three_pass.cu"))
-    rec[1]["bwd_route"] = route
+    rec[0]["fwd_route"], rec[1]["bwd_route"] = fwd_route, route
+    rec[1]["source"] = ATTENTION_SOURCES[route]
     for r in rec:
         r["shape"] = (f"BH={BH} S={Sq} D={D} causal {dt}" if causal else
                       f"BH={BH} Sq={Sq} Sk={Sk} D={D} non-causal {dt}")
@@ -576,10 +673,12 @@ def phase_attention():
     returns the records of both, timed at the transformer path's shape
     (BH = 16 participants x 32 sequences x 4 heads, S 32, D 32, causal)
     and, under ``per_client``, at the per-client executor's (one client:
-    BH = 32 sequences x 4 heads); then the two records at the set mixer's
-    path shape ([fig6 n1024]: BH = 208 replay steps, 4 seed queries over
-    1024 agents, D 32, non-causal; the seeds carry sqrt(32) and the keys
-    a log-weight in slot -1), timed beside non-causal SDPA."""
+    BH = 32 sequences x 4 heads); then the records at the set mixer's
+    shapes, timed beside non-causal SDPA: its path shape ([fig6 n1024]:
+    BH = 208 replay steps, 4 seed queries over 1024 agents, D 32,
+    non-causal; the seeds carry sqrt(32) and the keys a log-weight in
+    slot -1) and [marl train]'s n = 1M shape (BH 12, 4096 stored
+    agents)."""
     import importlib
     import torch
     mod = importlib.import_module(
@@ -614,10 +713,34 @@ def phase_attention():
               ("fused GQA 4:1 window", 64, 16, 48, 48, 64, True, 16,
                "float32"),
               ("fused limit D64 bf16", 64, 64, 64, 64, 64, True, 0,
+               "bfloat16"),
+              # the short-query route's edges: Sq 1 and 8; a split of 128
+              # keys (D 32) one key short, whole, one key over; GQA; D 64
+              # and 128 (splits of 64 and 32 keys); causal rows whose
+              # later splits are all masked; a window with rows that see
+              # no key; bf16.  The wrapper takes Sk below SHORT_MIN_SK
+              # (5, 33) to the tiled route; the short check forces them
+              # through the short kernels
+              ("short Sq 1", 16, 16, 1, 1000, 32, False, 0, "float32"),
+              ("short Sq 8", 16, 16, 8, 300, 32, False, 0, "float32"),
+              ("short split - 1", 16, 16, 4, 127, 32, False, 0, "float32"),
+              ("short split", 16, 16, 4, 128, 32, False, 0, "float32"),
+              ("short split + 1", 16, 16, 4, 129, 32, False, 0, "float32"),
+              ("short GQA 4:1", 16, 4, 4, 300, 32, False, 0, "float32"),
+              ("short GQA 8:1 causal D64", 16, 2, 3, 257, 64, True, 0,
+               "float32"),
+              ("short causal D128", 8, 8, 8, 200, 128, True, 0, "float32"),
+              ("short window", 8, 8, 8, 300, 32, True, 4, "float32"),
+              ("short rows with no key", 6, 3, 8, 5, 16, True, 2,
+               "float32"),
+              ("short set mixer bf16", 208, 208, 4, 1024, 32, False, 0,
+               "bfloat16"),
+              ("short GQA 4:1 bf16 D128", 8, 2, 8, 33, 128, False, 0,
                "bfloat16")]
     timed = {"path": "the bucketed path's shape",
              "per-client path": "the per-client shape",
-             "set mixer path": "the set mixer's path shape"}
+             "set mixer path": "the set mixer's path shape",
+             "set mixer bench": "the set mixer's n = 1M shape"}
     g = torch.Generator(device="cuda").manual_seed(1)
     records = {}
     for shape in shapes:
@@ -627,8 +750,10 @@ def phase_attention():
     _model_layout_times(mod)
     for r in records["set mixer path"]:
         r["path"] = "fig6 n1024 set mixer"
+    for r in records["set mixer bench"]:
+        r["path"] = "marl train n=1048576 set mixer"
     return (_attach_per_client(records["path"], records["per-client path"]),
-            records["set mixer path"])
+            records["set mixer path"] + records["set mixer bench"])
 
 
 def _model_layout_times(mod):
@@ -939,6 +1064,9 @@ def phase_transformer():
         raise AssertionError("the transformer path's attention backward "
                              f"did not always take the fused kernel: "
                              f"{launches}")
+    if launches["flash_attention_fwd_tiled"] != launches["flash_attention"]:
+        raise AssertionError("the transformer path's attention forward did "
+                             f"not always take the tiled route: {launches}")
     if max(len(m) for m in per_round) < 2:
         raise AssertionError("no round trained more than one bucket")
     deepest = len(hist["acc"][0]) - 1
@@ -1755,17 +1883,30 @@ FIG6_CFG = dict(n_devices=1024, n_train=60000, local_epochs=5,
                 width_mult=1.0, hw=32, seed=0)
 
 
-def _set_mixer_launches(hist, fused):
-    """The set mixer runs twice per QMIX update (online with its backward,
-    target without): 4 seed queries over the stored agents, D 32, its
-    backward fused (``fused``: the caller's expectation, 64 stored agents)
-    or in three passes (1024); each async completion aggregates through
-    ``layer_agg``."""
-    u = hist["qmix"]["updates"]
-    return {"layer_agg": hist["n_aggregations"], "flash_attention": 2 * u,
-            "flash_attention_bwd": u,
-            "flash_attention_bwd_three_pass": 0 if fused else u,
-            "flash_attention_bwd_fused": u if fused else 0, "rmsnorm": 0}
+def _set_mixer_attention(updates, agents):
+    """The set mixer's attention launches in ``updates`` QMIX updates: the
+    mixer runs twice an update (online with its backward, target
+    without), 4 seed queries over the stored agents, D 32, every launch on
+    ``attention_route``'s route for that shape."""
+    import importlib
+    mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    fwd, bwd, _ = attention_routes(mod, 4, agents, 32, 1)
+    want = {"flash_attention": 2 * updates, "flash_attention_bwd": updates}
+    for r in ("split", "tiled"):
+        want[f"flash_attention_fwd_{r}"] = 2 * updates if r == fwd else 0
+    for r in ("short", "fused", "three_pass"):
+        want[f"flash_attention_bwd_{r}"] = updates if r == bwd else 0
+    return want
+
+
+def _set_mixer_launches(hist):
+    """A set-mixer run's launches: :func:`_set_mixer_attention` over its
+    QMIX updates and stored agents; each async completion aggregates
+    through ``layer_agg``."""
+    return dict(_set_mixer_attention(hist["qmix"]["updates"],
+                                     hist["qmix"]["replay_agents"]),
+                layer_agg=hist["n_aggregations"], rmsnorm=0)
 
 
 def _update_wall(n_agents, T, stored):
@@ -1789,13 +1930,18 @@ def _update_wall(n_agents, T, stored):
 def phase_fig6():
     """``[fig6 n1024]``: the slice's path, through ``run_simulation`` on
     the card.  ``flash_attention`` launches exactly twice per QMIX update
-    and its three-pass backward once, ``layer_agg`` once per completion;
+    and its backward once, all on the short-query route (the one
+    ``attention_route`` gives 1024 agents), ``layer_agg`` once per
+    completion;
     the QMIX update count is the reference's formula at the episode's end
     (``engine.py:1540-1541``).  Returns the launches."""
     from repro_torch.fl import FLConfig
     cfg = FLConfig(**FIG6_CFG)
     hist, launches = _drive("fig6 n1024", cfg, "batched",
-                            lambda h: _set_mixer_launches(h, fused=False))
+                            _set_mixer_launches)
+    if launches["flash_attention_fwd_split"] != launches["flash_attention"]:
+        raise AssertionError("[fig6 n1024] the set mixer's attention left "
+                             f"the short route: {launches}")
     _print_async("fig6 n1024", hist)
     q = hist["qmix"]
     vrounds = hist["terminated"]["vrounds"]
@@ -1860,12 +2006,11 @@ def _marl_train_row(n, mixer_mode, iters, seed=0, agent_budget=4096):
         if i >= 13:
             times.append(time.perf_counter() - t0)
     steps = 13 + iters
-    want = ({"flash_attention": 2 * steps,
-             "flash_attention_bwd_three_pass": steps}
-            if mixer_mode == "set" else
+    want = (_set_mixer_attention(steps, buf.N) if mixer_mode == "set" else
             {"flash_attention": 0, "flash_attention_bwd": 0})
     wrong = {key: (LAUNCHES[key], v) for key, v in want.items()
              if LAUNCHES[key] != v}
+    launches = {key: LAUNCHES[key] for key in want}
     if wrong:
         raise AssertionError(f"[marl train] n={n} {mixer_mode} launches "
                              f"(counted, expected): {wrong}")
@@ -1875,7 +2020,7 @@ def _marl_train_row(n, mixer_mode, iters, seed=0, agent_budget=4096):
                train_step_min_s=min(times), replay_fill_s=fill_s,
                replay_mb=buf.nbytes / 1e6, loss_first=losses[0],
                loss_last=losses[-1], loss_decreased=losses[-1] < losses[0],
-               state_dim=sel.learner.cfg.state_dim)
+               state_dim=sel.learner.cfg.state_dim, launches=launches)
     print(f"[marl train] {mixer_mode:4s} n={n:7d} stored agents "
           f"{row['agents_stored']} B {row['batch']}: train step median "
           f"{row['train_step_s'] * 1e3:.2f} ms (min "
@@ -2173,8 +2318,8 @@ def phase_checkpoint_reference():
     and energy at rtol 1e-4).  Then the set-mixer async arm of ``[fleet scale
     reference]`` on the card, killed inside its episode and resumed:
     its QMIX update after the resume launches ``flash_attention`` twice
-    (online, target) and its fused backward once per update (64 stored
-    agents)."""
+    (online, target) and its backward once per update, on the route
+    ``attention_route`` gives its 64 stored agents."""
     import tempfile
     import numpy as np
     import torch
@@ -2228,19 +2373,19 @@ def phase_checkpoint_reference():
                    async_task_budget=12)
 
     def after_resume(h, st):
-        return dict(_set_mixer_launches(h, fused=True),
+        return dict(_set_mixer_launches(h),
                     layer_agg=h["n_aggregations"] - st["state"]["version"])
     with _cudnn_deterministic(), tempfile.TemporaryDirectory() as d:
         ref, _ = _drive("checkpoint reference set mixer uninterrupted", cfg,
                         "batched",
-                        lambda h: _set_mixer_launches(h, fused=True))
+                        _set_mixer_launches)
         res, saved, cost = _kill_and_resume(
             "checkpoint reference set mixer", cfg, d, after_resume)
         _hold_resumed("checkpoint reference set mixer", cfg, ref, res)
     u = res["qmix"]["updates"]
     want = after_resume(res, saved)
-    route = ("fused" if want["flash_attention_bwd_fused"] else
-             "three-pass")
+    route = next((r for r in ("short", "fused", "three_pass")
+                  if want[f"flash_attention_bwd_{r}"]), "no")
     print(f"[checkpoint reference] set mixer async n=300: killed at "
           f"virtual round {cost['step']} ({saved['state']['version']} "
           f"aggregations, replay episodes {saved['buffer']['size']}), "
@@ -2251,6 +2396,20 @@ def phase_checkpoint_reference():
     if u < 1 or res["qmix"]["mixer_mode"] != "set":
         raise AssertionError("[checkpoint reference] no set-mixer QMIX "
                              "update after the resume")
+
+
+def _attention_route_launches(record, launches, into=None):
+    """An attention record's launches by route (into ``into``, else the
+    record): every forward route, or every backward route."""
+    into = record if into is None else into
+    if "fwd_route" in record:
+        into["route_launches"] = {
+            k: launches[f"flash_attention_fwd_{k}"] for k in ("split",
+                                                              "tiled")}
+    if "bwd_route" in record:
+        into["route_launches"] = {
+            k: launches[f"flash_attention_bwd_{k}"]
+            for k in ("short", "fused", "three_pass")}
 
 
 def main() -> int:
@@ -2281,10 +2440,7 @@ def main() -> int:
     cfg, launches = phase_transformer()
     for r in records[1:]:
         r["launches"] = launches[r["name"]]
-        if "bwd_route" in r:
-            r["route_launches"] = {
-                k: launches[f"flash_attention_bwd_{k}"]
-                for k in ("fused", "three_pass")}
+        _attention_route_launches(r, launches)
         if "rmsnorm_route" in r:
             r["route_launches"] = {
                 k: launches[f"{r['name']}_{k}"] for k in ("vec", "general")}
@@ -2296,6 +2452,7 @@ def main() -> int:
     launches = phase_transformer_perclient()
     for r in records[1:]:
         r["per_client"]["launches"] = launches[r["name"]]
+        _attention_route_launches(r, launches, r["per_client"])
         if "rmsnorm_route" in r:
             r["per_client"]["route_launches"] = {
                 k: launches[f"{r['name']}_{k}"] for k in ("vec", "general")}
@@ -2329,12 +2486,14 @@ def main() -> int:
     phase_energy_reference()
     phase_energy_grid()
     launches = phase_fig6()
+    rows = phase_marl_train()
+    # the n = 1M shape's launches: [marl train]'s n = 1M row
+    million = next(r["launches"] for r in rows if r["n"] == 1_048_576)
     for r in set_mixer:
-        r["launches"] = launches[r["name"]]
-        r["route_launches"] = {k: launches[f"flash_attention_bwd_{k}"]
-                               for k in ("fused", "three_pass")}
+        counts = launches if r["path"].startswith("fig6") else million
+        r["launches"] = counts[r["name"]]
+        _attention_route_launches(r, counts)
     records += set_mixer
-    phase_marl_train()
     phase_fleet_scale_reference()
     t0 = time.perf_counter()
     phase_checkpoint()

@@ -1,7 +1,9 @@
-"""Flash attention: the hand-written Hopper kernels (``csrc/``: a
-pipelined persistent forward, a one-launch fused backward for short
-sequences and a three-pass backward for long ones), their plain PyTorch
-version and the wrappers.
+"""Flash attention: the hand-written Hopper kernels (``csrc/``: the tiled
+route's pipelined persistent forward, one-launch fused backward for short
+sequences and three-pass backward for long ones; the short-query route's
+split-Sk forward and backward for Sq <= 8 over long key sets), their plain
+PyTorch version, the CPU emulation of the short-query route's order of
+sums and the wrappers.
 
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/flash_attention.py``
@@ -26,26 +28,51 @@ CUDA tensors they run an ``autograd.Function`` whose forward launches the
 forward kernel (which also writes the row log-sum-exp) and whose backward
 launches the fused or the three-pass backward, chosen by shape alone
 (:func:`fused_backward`), or raises; nothing falls back.
+:func:`attention_route` picks the route of both directions from the
+shape: ``short`` (``fwd_split.cu``, ``bwd_short.cu``: blocks split the
+keys, an integer ticket per row set lets the last block of each combine
+the splits in a fixed order) for a few query rows over a long key set,
+else ``tiled``.  ``LAUNCHES`` counts each forward under
+``flash_attention_fwd_split`` or ``_fwd_tiled`` and each backward under
+``flash_attention_bwd_short``, ``_fused`` or ``_three_pass``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import LAUNCHES, build
 
 SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / f
-                for f in ("fwd.cu", "bwd_fused.cu", "bwd_three_pass.cu"))
+                for f in ("fwd.cu", "bwd_fused.cu", "bwd_three_pass.cu",
+                          "fwd_split.cu", "bwd_short.cu"))
 MASKED = -1e30          # the TPU kernel's NEG_INF
 MAX_D = 128             # the kernels' largest register layout
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the short-query route's constants (``csrc/short.cuh``): the most query
+#: rows a head, the most rows of a GQA group (group x Sq padded to 4 or
+#: 8), the warps of a block, each owning 32 x 32 / DM keys (DM: D rounded
+#: up to 32, 64 or 128)
+SHORT_MAX_SQ = 8
+SHORT_MAX_ROWS = 32
+SHORT_WARPS = 4
+#: the shortest key set the short route takes: from 64 keys on it beats
+#: the tiled route on the card at Sq 1, 4 and 8, forward and forward plus
+#: backward, at the set mixer's BH 208 and 12 (PERF.md, PR 20:
+#: ``scripts/attention_routes.py``); below, the tiled kernels' one block
+#: a head is the shorter path
+SHORT_MIN_SK = 64
 _LIB = None
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)
 _TAIL = [_S] + [_I] * 8 + [_F, _I, _P]
+_SPLIT_TAIL = [_S] + [_I] * 8 + [_F, _I, _I, _P]
 
 
 def load_library():
@@ -57,8 +84,41 @@ def load_library():
             "flash_attention_fwd_launch": [_P] * 5 + _TAIL,
             "flash_attention_bwd_fused_launch": [_P] * 9 + _TAIL,
             "flash_attention_bwd_fused_fits": [_I] * 3,
-            "flash_attention_bwd_launch": [_P] * 10 + _TAIL})
+            "flash_attention_bwd_launch": [_P] * 10 + _TAIL,
+            "flash_attention_fwd_split_launch": [_P] * 7 + _SPLIT_TAIL,
+            "flash_attention_bwd_short_launch": [_P] * 11 + _SPLIT_TAIL})
     return _LIB
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def attention_route(Sq: int, Sk: int, D: int, group: int
+                    ) -> Tuple[str, int]:
+    """The route of a problem of Sq query rows a head over Sk keys at
+    head dimension D, with ``group`` query heads a KV head, and the
+    short route's split (keys a block; 0 on the tiled route).
+
+    ``short`` where Sq <= ``SHORT_MAX_SQ``, the group's rows padded to 4
+    or 8 a head are at most ``SHORT_MAX_ROWS``, D <= ``MAX_D`` and Sk >=
+    ``SHORT_MIN_SK``; its split is :func:`short_split`'s (128 keys at D <=
+    32, 64 at D <= 64, 32 at D <= 128), the one value the kernels take.
+    Else ``tiled``, whose backward is fused or three passes
+    (:func:`fused_backward`)."""
+    padded = 4 if Sq <= 4 else 8
+    if Sq <= SHORT_MAX_SQ and group * padded <= SHORT_MAX_ROWS and \
+            D <= MAX_D and Sk >= SHORT_MIN_SK:
+        return "short", short_split(D)
+    return "tiled", 0
+
+
+def short_split(D: int) -> int:
+    """The short route's split at head dimension D <= ``MAX_D``: the keys
+    of a block, ``SHORT_WARPS`` warps of 32 x 32 / DM keys each (DM: D
+    rounded up to 32, 64 or 128)."""
+    dm = 32 if D <= 32 else 64 if D <= 64 else 128
+    return SHORT_WARPS * 32 * 32 // dm
 
 
 def fused_backward(Sq: int, Sk: int, D: int) -> bool:
@@ -90,6 +150,140 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None], s, s.new_tensor(MASKED))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def _visible(Sq: int, Sk: int, causal: bool, window: int, device):
+    """[Sq, Sk]: whether query position q sees key position k."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    vis = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        vis &= k_pos <= q_pos
+    if window:
+        vis &= k_pos > q_pos - window
+    return vis
+
+
+def _merge_in_order(m, l, acc):
+    """Softmax partials (m, l [..., n]; acc [..., n, D]) merged over n in
+    index order against their common maximum, as the kernel merges its
+    warps."""
+    mx = m.amax(-1)
+    wt = torch.exp(m - mx[..., None])
+    lt = torch.zeros_like(mx)
+    at = torch.zeros_like(acc[..., 0, :])
+    for i in range(m.shape[-1]):
+        lt = lt + l[..., i] * wt[..., i]
+        at = at + acc[..., i, :] * wt[..., i, None]
+    return mx, lt, at
+
+
+def _merge_online(m, l, acc):
+    """The same merge online, as the kernel's last block merges the
+    splits: a running maximum rescales the running sums."""
+    mx = torch.full_like(m[..., 0], MASKED)
+    lt = torch.zeros_like(mx)
+    at = torch.zeros_like(acc[..., 0, :])
+    for i in range(m.shape[-1]):
+        mn = torch.maximum(mx, m[..., i])
+        a, wt = torch.exp(mx - mn), torch.exp(m[..., i] - mn)
+        lt = lt * a + l[..., i] * wt
+        at = at * a[..., None] + acc[..., i, :] * wt[..., None]
+        mx = mn
+    return mx, lt, at
+
+
+def _sum_in_order(x, dim):
+    """x summed over ``dim`` one index after the other."""
+    out = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        out = out + x.select(dim, i)
+    return out
+
+
+def attention_split_blocked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, split: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The short-query forward kernel's arithmetic in its order, in torch:
+    (o, lse) for q [BH, Sq, D] and k, v [BHkv, Sk, D], as ``split``
+    (:func:`attention_route`) launches it.
+
+    Block s of a head holds keys s * split .. s * split + split - 1, its
+    ``SHORT_WARPS`` warps one tile of split / ``SHORT_WARPS`` keys each.
+    A warp's partial is its tile's row maximum m (keys past Sk left out,
+    -1e30 the floor), l = the sum of p = exp(s - m) and acc = P V; the
+    warps' partials merge in warp order into the block's, against their
+    common maximum, and the blocks' in split order, online (a running
+    maximum rescales the running sums); then o = acc / max(l, 1e-30) and
+    lse = m + log(l)."""
+    BH, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    group = BH // BHkv
+    W, kt, S = SHORT_WARPS, split // SHORT_WARPS, _cdiv(Sk, split)
+    n = S * split
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = F.pad(v.float().repeat_interleave(group, dim=0), (0, 0, 0, n - Sk))
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kf) * scale
+    s = torch.where(_visible(Sq, Sk, causal, window, q.device), s,
+                    s.new_tensor(MASKED))
+    s = F.pad(s, (0, n - Sk), value=MASKED).reshape(BH, Sq, S, W, kt)
+    valid = (torch.arange(n, device=q.device) < Sk).reshape(S, W, kt)
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), s.new_tensor(0.0))
+    acc = torch.einsum("bqswk,bswkd->bqswd", p, vf.reshape(BH, S, W, kt, D))
+    m, l, acc = _merge_online(*_merge_in_order(m, p.sum(-1), acc))
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.to(q.dtype), m + torch.log(l)
+
+
+def attention_split_blocked_bwd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                do: torch.Tensor, lse: torch.Tensor, *,
+                                causal: bool = True, window: int = 0,
+                                split: int) -> Tuple[torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]:
+    """The short-query backward kernel's arithmetic in its order, in
+    torch: (dq, dk, dv) for the forward's o and lse [BH, Sq] and the
+    cotangent do, as ``split`` launches it.
+
+    With q scaled by 1/sqrt(D) first, delta = rowsum(dO * O), p =
+    exp(s - lse) on the keys a row sees (1/Sk on every key for a row that
+    sees none), dS = p (dP - delta) on the keys it sees: dV and dK sum the
+    group's heads in head order; dQ sums each warp's tile, the warps in
+    warp order, the splits in split order, then scales by 1/sqrt(D)."""
+    BH, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    group = BH // BHkv
+    W, kt, S = SHORT_WARPS, split // SHORT_WARPS, _cdiv(Sk, split)
+    n = S * split
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    qs, dof = q.float() * scale, do.float()
+    delta = (dof * o.float()).sum(-1)
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", qs, kf)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    vis = _visible(Sq, Sk, causal, window, q.device)
+    zero = s.new_tensor(0.0)
+    p = torch.where(vis, torch.exp(s - lse[..., None]), zero)
+    p = torch.where(vis.any(-1)[:, None], p,
+                    s.new_tensor(1.0) / s.new_tensor(float(Sk)))
+    ds = torch.where(vis, p * (dp - delta[..., None]), zero)
+
+    def by_head(x):
+        return x.reshape(BHkv, group, *x.shape[1:])
+    dv = _sum_in_order(torch.einsum("bgqk,bgqd->bgkd", by_head(p),
+                                    by_head(dof)), 1)
+    dk = _sum_in_order(torch.einsum("bgqk,bgqd->bgkd", by_head(ds),
+                                    by_head(qs)), 1)
+    dsp = F.pad(ds, (0, n - Sk)).reshape(BH, Sq, S, W, kt)
+    kp = F.pad(kf, (0, 0, 0, n - Sk)).reshape(BH, S, W, kt, D)
+    dq = torch.einsum("bqswk,bswkd->bqswd", dsp, kp)
+    dq = _sum_in_order(_sum_in_order(dq, 3), 2) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_plain_model(q: torch.Tensor, k: torch.Tensor,
@@ -152,28 +346,68 @@ def _args(q, k, tensors, causal, window):
             DTYPES[q.dtype])
 
 
+def _tickets(device, n: int) -> torch.Tensor:
+    """The short route's tickets (one per row set) on ``device`` and its
+    current stream: zeros once, put back to zero by every launch."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def _route(q, k):
+    B, Sq, Hq, D = q.shape
+    return attention_route(Sq, k.shape[1], D, Hq // k.shape[2])
+
+
 def _forward(q, k, v, o, causal, window):
-    """Launch the forward kernel on q, k, v into o; returns lse
-    [B * Hq, Sq]."""
+    """Launch the forward kernel of the shape's route on q, k, v into o;
+    returns lse [B * Hq, Sq].  Counts under ``flash_attention`` and the
+    route, ``flash_attention_fwd_split`` or ``_fwd_tiled``."""
     lib = load_library()[0]
-    B, Sq, Hq, _ = q.shape
+    B, Sq, Hq, D = q.shape
     lse = torch.empty((B * Hq, Sq), dtype=torch.float32, device=q.device)
-    build.launch(lib.flash_attention_fwd_launch, q.device, q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 *_args(q, k, (q, k, v, o), causal, window))
+    tail = _args(q, k, (q, k, v, o), causal, window)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, lse)]
+    route, split = _route(q, k)
+    if route == "short":
+        part = torch.empty((B * Hq * _cdiv(k.shape[1], split) * Sq
+                            * (D + 2),), dtype=torch.float32,
+                           device=q.device)
+        build.launch(lib.flash_attention_fwd_split_launch, q.device, *ptrs,
+                     part.data_ptr(), _tickets(q.device, B * Hq).data_ptr(),
+                     *tail, split)
+        LAUNCHES["flash_attention_fwd_split"] += 1
+    else:
+        build.launch(lib.flash_attention_fwd_launch, q.device, *ptrs, *tail)
+        LAUNCHES["flash_attention_fwd_tiled"] += 1
     LAUNCHES["flash_attention"] += 1
     return lse
 
 
 def _backward(q, k, v, o, do, lse, dq, dk, dv, causal, window):
-    """Launch the backward kernels into dq, dk, dv: the fused one where
-    the shape fits it, else the three passes.  Each launch also counts
-    under its route, ``flash_attention_bwd_fused`` or ``_three_pass``."""
+    """Launch the backward kernels of the shape's route into dq, dk, dv:
+    on the short route its one launch; on the tiled route the fused one
+    where the shape fits it, else the three passes.  Each launch also
+    counts under its route, ``flash_attention_bwd_short``, ``_fused`` or
+    ``_three_pass``."""
     lib = load_library()[0]
     tail = _args(q, k, (q, k, v, o, do, dq, dk, dv), causal, window)
     ptrs = [t.data_ptr() for t in (q, k, v, o, do)]
     outs = [t.data_ptr() for t in (dq, dk, dv)]
-    if fused_backward(q.shape[1], k.shape[1], q.shape[3]):
+    route, split = _route(q, k)
+    if route == "short":
+        B, Sq, Hq, D = q.shape
+        part = torch.empty((B * Hq * _cdiv(k.shape[1], split) * Sq * D,),
+                           dtype=torch.float32, device=q.device)
+        build.launch(lib.flash_attention_bwd_short_launch, q.device, *ptrs,
+                     lse.data_ptr(), *outs, part.data_ptr(),
+                     _tickets(q.device, B * k.shape[2]).data_ptr(), *tail,
+                     split)
+        LAUNCHES["flash_attention_bwd_short"] += 1
+    elif fused_backward(q.shape[1], k.shape[1], q.shape[3]):
         build.launch(lib.flash_attention_bwd_fused_launch, q.device, *ptrs,
                      lse.data_ptr(), *outs, *tail)
         LAUNCHES["flash_attention_bwd_fused"] += 1

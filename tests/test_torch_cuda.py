@@ -14,7 +14,11 @@ einsum's); ``rmsnorm`` and ``flash_attention`` 2e-5 in float32 (the JAX
 sweep's), 2e-2 in bfloat16, forward and backward (the backward's oracle
 is autograd through the plain version).  The ``rmsnorm`` backward is also
 held against its CPU emulation (``rmsnorm_bwd_blocked``, the kernel's
-order of sums) at 1e-6, and against itself bitwise.
+order of sums) at 1e-6, and against itself bitwise; so are
+``flash_attention``'s short-query kernels (``attention_split_blocked``
+and ``attention_split_blocked_bwd``), forward and backward (1e-2 in
+bfloat16, where the two may round an output to either side of a
+bfloat16 tie).
 """
 import importlib
 
@@ -23,15 +27,17 @@ import torch
 
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import build as kbuild
-from repro_torch.kernels.flash_attention import (attention_plain,
-                                                 attention_plain_model,
-                                                 flash_attention,
-                                                 flash_attention_bhsd,
-                                                 fused_backward)
+from repro_torch.kernels.flash_attention import (
+    attention_plain, attention_plain_model, attention_route,
+    attention_split_blocked, attention_split_blocked_bwd, flash_attention,
+    flash_attention_bhsd, fused_backward)
 from repro_torch.kernels.layer_agg import layer_agg, layer_agg_plain
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_blocked,
                                          rmsnorm_op, rmsnorm_plain,
                                          rmsnorm_route)
+
+fa_mod = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention")
 
 torch.set_num_threads(1)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -378,6 +384,180 @@ def test_backward_route_depends_on_shape_alone(cuda, Sq, Sk, D, fused):
     assert fused_backward(Sq, Sk, D) is fused
 
 
+# the short-query route (fwd_split.cu, bwd_short.cu): (BH, BHkv, Sq, Sk, D,
+# causal, window).  The set mixer's shapes (BH 208 with Sk 1024 and 300;
+# BH 12 with Sk 4096), then the edges: Sq 1 and 8; Sk one below, at and
+# one above a split of 128 keys (D 32); GQA 4:1 and 8:1; D 64 and 128
+# (splits of 64 and 32 keys); causal rows whose splits past the first are
+# all masked; window rows that see no key (the plain mean of v); D 20 off
+# the 16-byte copies
+SHORT = [(208, 208, 4, 1024, 32, False, 0), (208, 208, 4, 300, 32, False, 0),
+         (12, 12, 4, 4096, 32, False, 0), (16, 16, 1, 1000, 32, False, 0),
+         (16, 16, 8, 129, 32, False, 0), (16, 16, 4, 127, 32, False, 0),
+         (16, 16, 4, 128, 32, False, 0), (16, 4, 4, 300, 32, False, 0),
+         (16, 2, 3, 257, 64, True, 0), (8, 8, 8, 200, 128, True, 0),
+         (8, 2, 8, 33, 128, False, 0), (8, 8, 8, 300, 32, True, 4),
+         (6, 3, 8, 5, 16, True, 2), (6, 6, 7, 3, 32, False, 2),
+         (4, 4, 5, 150, 20, False, 0)]
+SHORT_IDS = ["set-mixer", "set-mixer-ragged", "set-mixer-1M", "sq1",
+             "sq8-split+1", "split-1", "split", "gqa4", "gqa8-causal-d64",
+             "causal-d128", "gqa4-d128", "causal-window", "keyless-causal",
+             "keyless-window", "d20"]
+
+
+@pytest.fixture
+def short_route(monkeypatch):
+    """Every shape within the short route's row limits takes it, whatever
+    its Sk (the cases with rows that see no key, Sk < 8, and the GQA D 128
+    case, Sk 33, are below ``SHORT_MIN_SK``)."""
+    monkeypatch.setattr(fa_mod, "SHORT_MIN_SK", 1)
+
+
+def _short_launch(q, k, v, do, causal, window):
+    """The short route's forward and backward launched directly on [BH, S,
+    D] tensors (their model-layout views, as flash_attention_bhsd hands
+    them over): o, lse, dq, dk, dv."""
+    BH, BHkv = q.shape[0], k.shape[0]
+
+    def model(t, heads):
+        return t.unflatten(0, (BHkv, heads)).transpose(1, 2)
+    qm, km, vm, dom = (model(q, BH // BHkv), model(k, 1), model(v, 1),
+                       model(do, BH // BHkv))
+    om, dqm, dkm, dvm = (torch.empty_like(t) for t in (qm, qm, km, vm))
+    lse = fa_mod._forward(qm, km, vm, om, causal, window)
+    fa_mod._backward(qm, km, vm, om, dom, lse, dqm, dkm, dvm, causal,
+                     window)
+
+    def bhsd(t):
+        return t.transpose(1, 2).flatten(0, 1)
+    return [bhsd(om), lse] + [bhsd(t) for t in (dqm, dkm, dvm)]
+
+
+def _short_inputs(case, dtype, dev):
+    BH, BHkv, Sq, Sk, D, causal, window = case
+    q, k, v, do = (t.detach() for t in _leaves(
+        [(BH, Sq, D), (BHkv, Sk, D), (BHkv, Sk, D), (BH, Sq, D)], dtype,
+        "cpu", seed=BH + Sq + Sk + D))
+    if D == 32:                     # the set mixer's slot -1
+        q[..., -1] = 32 ** 0.5
+        k[..., -1] = torch.randn((BHkv, Sk), generator=torch.Generator()
+                                 .manual_seed(Sk)).to(dtype)
+    return [t.to(dev) for t in (q, k, v, do)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SHORT, ids=SHORT_IDS)
+def test_short_route_matches_blocked_emulation(cuda, short_route, case,
+                                               dtype):
+    """Each launch counts under its route; o, lse, dq, dk and dv equal the
+    CPU emulation of the kernels' order of sums at 1e-6 of the largest
+    magnitude (rows that see no key: lse -1e30 on both), and the plain
+    version at the kernels' tolerance."""
+    BH, BHkv, Sq, Sk, D, causal, window = case
+    route, split = attention_route(Sq, Sk, D, BH // BHkv)
+    assert route == "short"
+    q, k, v, do = _short_inputs(case, dtype, cuda)
+    before = dict(LAUNCHES)
+    got = _short_launch(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    for key in ("flash_attention_fwd_split", "flash_attention_bwd_short"):
+        assert LAUNCHES[key] == before[key] + 1
+    cpu = [t.cpu() for t in (q, k, v)]
+    o, lse = attention_split_blocked(*cpu, causal=causal, window=window,
+                                     split=split)
+    emu = [o, lse, *attention_split_blocked_bwd(
+        *cpu, got[0].cpu(), do.cpu(), got[1].cpu(), causal=causal,
+        window=window, split=split)]
+    seen = lse > -1e29
+    assert torch.equal(got[1].cpu()[~seen], lse[~seen])
+    assert _rel_err(got[1].cpu()[seen], lse[seen]) <= 1e-6
+    for a, b in zip(got[:1] + got[2:], emu[:1] + emu[2:]):
+        assert torch.isfinite(a.float()).all()
+        assert _rel_err(a.cpu(), b) <= (1e-6 if dtype == torch.float32
+                                        else 1e-2)
+    ins = [t.detach().clone().requires_grad_() for t in cpu]
+    ref = attention_plain(*ins, causal=causal, window=window)
+    refs = [ref, *torch.autograd.grad(ref, ins, do.cpu())]
+    for a, b in zip(got[:1] + got[2:], refs):
+        assert _rel_err(a.cpu(), b) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SHORT[0], SHORT[2], SHORT[8], SHORT[12]],
+                         ids=["set-mixer", "set-mixer-1M", "gqa8-causal-d64",
+                              "keyless-causal"])
+def test_short_route_is_deterministic(cuda, short_route, case):
+    """No float atomics: two launches give the same bits in o, lse, dq,
+    dk and dv (the tickets are back at zero after each)."""
+    q, k, v, do = _short_inputs(case, torch.float32, cuda)
+    runs = [_short_launch(q, k, v, do, *case[5:]) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert not fa_mod._tickets(cuda, 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,group,route", [
+    (4, 1024, 32, 1, "short"), (4, 4096, 32, 1, "short"),
+    (8, 300, 128, 4, "short"), (32, 32, 32, 1, "tiled"),
+    (9, 1024, 32, 1, "tiled"), (8, 1024, 32, 5, "tiled")])
+def test_short_route_depends_on_shape_alone(cuda, Sq, Sk, D, group, route):
+    """The set mixer's shapes take the short route, the transformer's
+    (Sq 32) never; the kernels take the route's split and no other."""
+    assert attention_route(Sq, Sk, D, group)[0] == route
+    lib = fa_mod.load_library()[0]
+    q, k, v = (torch.zeros(s, device=cuda) for s in
+               ((1, 4, 1, 32), (1, 256, 1, 32), (1, 256, 1, 32)))
+    o = torch.empty_like(q)
+    lse = torch.empty((1, 4), device=cuda)
+    part = torch.empty((4 * 1024,), device=cuda)
+    tail = fa_mod._args(q, k, (q, k, v, o), False, 0)
+    split = attention_route(4, 256, 32, 1)[1]
+    for bad in (split // 2, split * 2, 0):
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            kbuild.launch(lib.flash_attention_fwd_split_launch, cuda,
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), lse.data_ptr(), part.data_ptr(),
+                          fa_mod._tickets(cuda, 1).data_ptr(), *tail, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["contiguous", "transpose", "offset-slice"])
+def test_short_route_on_model_layout_views(cuda, how, monkeypatch):
+    """The short kernels receive the caller's tensors (their data
+    pointers) in the model layout, strided or off the 16-byte grid."""
+    seen = {}
+
+    def recording(fn, device, *args):
+        seen[fn.__name__] = args
+        return launch(fn, device, *args)
+    launch = kbuild.launch
+    monkeypatch.setattr(kbuild, "launch", recording)
+    B, Sq, Sk, Hq, Hkv, D = 3, 4, 300, 4, 2, 32
+    q, k, v = (_model_view(s, how, cuda, seed=i).requires_grad_()
+               for i, s in enumerate(((B, Sq, Hq, D), (B, Sk, Hkv, D),
+                                      (B, Sk, Hkv, D))))
+    out = flash_attention(q, k, v, causal=False)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)
+                    ).to(cuda)
+    got = torch.autograd.grad(out, [q, k, v], w)
+    torch.cuda.synchronize()
+    assert list(seen["flash_attention_fwd_split_launch"][:4]) == [
+        t.data_ptr() for t in (q, k, v, out)]
+    args = seen["flash_attention_bwd_short_launch"]
+    assert list(args[:4]) + list(args[6:9]) == [
+        t.data_ptr() for t in (q, k, v, out, *got)]
+    ref_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = attention_plain_model(*ref_in, causal=False)
+    ref = torch.autograd.grad(ref_out, ref_in, w)
+    assert _rel_err(out, ref_out) <= TOL[torch.float32]
+    for g_, r in zip(got, ref):
+        assert _rel_err(g_, r) <= TOL[torch.float32]
+
+
 def _rmsnorm_call(dev):
     x, s = _leaves([(2, 3, 64), (2, 64)], torch.float32, dev, seed=0)
     return rmsnorm(x, s)
@@ -608,8 +788,8 @@ def _set_mixer_qkv(BH, N, dev):
 @pytest.mark.parametrize("BH,N", SET_MIXER)
 def test_set_mixer_attention_matches_plain(cuda, BH, N):
     """``attention_reduce`` on the card launches the non-causal kernel
-    once forward and once backward (three passes past Sk 64), and agrees
-    with the plain version at 2e-5."""
+    once forward and once backward on the route ``attention_route``
+    gives, and agrees with the plain version at 2e-5."""
     from repro_torch.core.marl.networks import attention_reduce
     q, k, v = _set_mixer_qkv(BH, N, cuda)
     before = dict(LAUNCHES)
@@ -617,11 +797,14 @@ def test_set_mixer_attention_matches_plain(cuda, BH, N):
                      lambda a, b, c: attention_plain(a, b, c, causal=False),
                      [q, k, v], seed=N)
     torch.cuda.synchronize()
-    route = "fused" if fused_backward(4, N, 32) else "three_pass"
-    assert route == ("fused" if N <= 64 else "three_pass")
+    route, _ = attention_route(4, N, 32, 1)
+    assert route == ("short" if N >= fa_mod.SHORT_MIN_SK else "tiled")
+    fwd, bwd = (("fwd_split", "bwd_short") if route == "short" else
+                ("fwd_tiled", "bwd_fused" if fused_backward(4, N, 32)
+                 else "bwd_three_pass"))
     assert LAUNCHES["flash_attention"] == before["flash_attention"] + 1
-    assert LAUNCHES[f"flash_attention_bwd_{route}"] == \
-        before[f"flash_attention_bwd_{route}"] + 1
+    for key in (f"flash_attention_{fwd}", f"flash_attention_{bwd}"):
+        assert LAUNCHES[key] == before[key] + 1
     for got, ref in pairs:
         assert torch.isfinite(got).all()
         assert _rel_err(got, ref) <= TOL[torch.float32]
@@ -662,8 +845,10 @@ def test_set_mixer_on_the_card_matches_the_cpu(cuda, N, monkeypatch):
     card = run(cuda)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == before["flash_attention"] + 1
-    assert LAUNCHES["flash_attention_bwd_three_pass"] == \
-        before["flash_attention_bwd_three_pass"] + 1
+    assert LAUNCHES["flash_attention_fwd_split"] == \
+        before["flash_attention_fwd_split"] + 1
+    assert LAUNCHES["flash_attention_bwd_short"] == \
+        before["flash_attention_bwd_short"] + 1
     for a, b in zip(card, cpu):
         assert _rel_err(a.cpu(), b) <= 1e-4
 
@@ -672,9 +857,9 @@ def test_set_mixer_on_the_card_matches_the_cpu(cuda, N, monkeypatch):
 def test_set_mode_qmix_update_on_the_card(cuda):
     """One set-mode QMIX update from a sampled-agent batch (B 1, T 208,
     1024 stored agents): two forward launches (online and target mixer),
-    one three-pass backward; td_loss as the CPU's at 1e-4, the updated
-    params at rtol 1e-4 and an atol of 2 lr (the key bias's gradient is
-    float32 noise, which AdamW steps by up to lr)."""
+    one backward, all on the short-query route; td_loss as the CPU's at
+    1e-4, the updated params at rtol 1e-4 and an atol of 2 lr (the key
+    bias's gradient is float32 noise, which AdamW steps by up to lr)."""
     import numpy as np
     from repro_torch.core.marl.qmix import QmixConfig, QmixLearner
     from repro_torch.tree import tree_leaves
@@ -694,8 +879,10 @@ def test_set_mode_qmix_update_on_the_card(cuda):
     before = dict(LAUNCHES)
     mg = card.update(batch)
     assert LAUNCHES["flash_attention"] == before["flash_attention"] + 2
-    assert LAUNCHES["flash_attention_bwd_three_pass"] == \
-        before["flash_attention_bwd_three_pass"] + 1
+    assert LAUNCHES["flash_attention_fwd_split"] == \
+        before["flash_attention_fwd_split"] + 2
+    assert LAUNCHES["flash_attention_bwd_short"] == \
+        before["flash_attention_bwd_short"] + 1
     assert abs(mg["td_loss"] - mc["td_loss"]) <= 1e-4 * abs(mc["td_loss"])
     for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
