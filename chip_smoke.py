@@ -50,8 +50,9 @@ its own lines; any failure raises and exits non-zero:
 6. the paper's own fleet (``benchmarks/common.py``'s harness: 40
    devices, 10%, 5 local epochs, full-width ResNet-18 on 32x32), which
    ``"auto"`` runs on the per-client executor: DR-FL + MARL for 3 rounds
-   (``[paper fleet]``), ``FLConfig()`` as it stands (``[defaults]``), then
-   every other arm of Table 1 / Fig. 5 for 2 rounds (``[table1]``); HeteroFL and ScaleFL on the bucketed executor at
+   (``[paper fleet]``), ``FLConfig()`` as it stands but for 10 of its 30
+   rounds (``[defaults]``), then every other arm of Table 1 / Fig. 5 for
+   1 round (``[table1]``); HeteroFL and ScaleFL on the bucketed executor at
    64 devices (``[baselines bucketed]``); the transformer on the
    per-client executor, its kernel launches counted exactly from the
    clients' schedules (``[transformer perclient]``); one per-client
@@ -107,7 +108,21 @@ its own lines; any failure raises and exits non-zero:
    resumed on the CPU and the reverse, against the uninterrupted CPU run;
    the 300-device set-mixer async run killed and resumed on the card,
    its ``flash_attention`` launches after the resume counted);
-12. print the card's name and power limit, the kernels' JSON line and,
+12. the public API (``repro_torch.fl``'s typed ``SimulationSpec``, the
+   family registry, ``FLEnv``; the phases after ``[spec]`` run right
+   after step 3's main path): ``[spec]``, run first, before the script
+   touches the card (each config the reference's spec rejects raises its
+   message from ``run_simulation`` and CUDA stays uninitialised; the main
+   path's config round-trips through the spec exactly); ``[mlp]``, the
+   ``mlp`` family at full width (d 256, 32x32), 64 devices at 50%, sync
+   DR-FL + MARL, bucketed, ``layer_agg`` once a round, then ``layer_agg``
+   held against its plain version and timed at that path's shape and
+   ``[mlp profile]``; ``[mlp async]``, README.md's Public API example at
+   full width (one ``layer_agg`` launch per completion); ``[mlp
+   reference]``, a small bucketed run on the card against the CPU; and
+   ``[env]``, ``FLEnv`` at 1024 devices on the card against the CPU, both
+   reward clocks;
+13. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -872,7 +887,8 @@ def phase_kernels():
 
 
 def _drive(tag, cfg, executor, expect):
-    """One ``run_simulation`` on the card with the launch counts reset
+    """One ``run_simulation`` of ``cfg`` (a flat config or a typed
+    ``SimulationSpec``) on the card with the launch counts reset
     just before and read just after; prints per-round lines and checks
     what every run must show: the ``executor`` it should take, finite
     accuracy, energy and reward, and the exact launch counts that
@@ -880,7 +896,7 @@ def _drive(tag, cfg, executor, expect):
     (hist, launches)."""
     import numpy as np
     import torch
-    from repro_torch.fl import run_simulation
+    from repro_torch.fl import ensure_flat_config, run_simulation
     from repro_torch.fl import batch as fl_batch
     from repro_torch.kernels import LAUNCHES, reset_launches
     torch.cuda.reset_peak_memory_stats()
@@ -891,6 +907,7 @@ def _drive(tag, cfg, executor, expect):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    cfg = ensure_flat_config(cfg)     # a typed spec's flat config
     for t in range(len(hist["acc"])):
         print(f"[{tag}] round {t}: acc={np.round(hist['acc'][t], 4).tolist()}"
               f" energy={hist['energy'][t]:.1f} J reward="
@@ -1087,19 +1104,21 @@ def phase_paper_fleet():
 
 
 def phase_defaults():
-    """``FLConfig()`` as it stands (40 devices, 30 rounds, the CNN at width
-    0.25 on 16x16, DR-FL + MARL): the per-client executor, no
-    ``layer_agg``."""
+    """``FLConfig()`` as it stands (40 devices, the CNN at width 0.25 on
+    16x16, DR-FL + MARL) but for its depth, 10 of its 30 rounds (the
+    script's time): the per-client executor, no ``layer_agg``."""
     from repro_torch.fl import FLConfig
-    hist, _ = _drive("defaults", FLConfig(), "perclient", _no_layer_agg)
+    hist, _ = _drive("defaults", FLConfig(n_rounds=10), "perclient",
+                     _no_layer_agg)
     print(f"[defaults] {len(hist['acc'])} rounds, final accuracy per exit "
           f"{[round(float(a), 4) for a in hist['final_acc']]}, warm round "
           f"wall {hist['wall_clock'][-1]:.3f} s")
 
 
 def phase_table1():
-    """Every other arm of Table 1 / Fig. 5 on the paper's fleet, 2 rounds
-    each: best accuracy per exit and the warm round's wall.  HeteroFL and
+    """Every other arm of Table 1 / Fig. 5 on the paper's fleet, 1 round
+    each (the script's time): best accuracy per exit and the round's
+    wall.  HeteroFL and
     ScaleFL run at energy_scale 0.01: at the harness's 0.6 every fresh
     battery affords the full model (a round costs under 2% of one), so
     greedy would give every client the full width whatever the seed; at
@@ -1108,16 +1127,16 @@ def phase_table1():
     for method, selector in (("drfl", "greedy"), ("heterofl", "greedy"),
                              ("scalefl", "greedy"), ("drfl", "random"),
                              ("drfl", "static")):
-        kw = dict(PAPER_CFG, n_rounds=2, method=method, selector=selector)
+        kw = dict(PAPER_CFG, n_rounds=1, method=method, selector=selector)
         if method != "drfl":
             kw["energy_scale"] = 0.01
         tag = f"table1 {method}/{selector}"
         hist, _ = _drive(tag, FLConfig(**kw), "perclient", _no_layer_agg)
         widths = [sorted(set(m)) for m in hist["model_choices"]]
         print(f"[{tag}] best accuracy per exit "
-              f"{[round(float(a), 4) for a in hist['best_acc']]}, warm "
-              f"round wall {hist['wall_clock'][-1]:.3f} s, submodels per "
-              f"round {widths}")
+              f"{[round(float(a), 4) for a in hist['best_acc']]}, round "
+              f"wall {hist['wall_clock'][-1]:.3f} s, submodels per round "
+              f"{widths}")
         if method != "drfl" and max(len(w) for w in widths) < 2:
             raise AssertionError(f"[{tag}] no round trained two widths")
 
@@ -2398,6 +2417,195 @@ def phase_checkpoint_reference():
                              "update after the resume")
 
 
+#: the reference's messages for the configs its SimulationSpec rejects
+#: (src/repro/fl/spec.py:203-223, :184-189, :99-100) and the port used to
+#: run or refuse with another message
+SPEC_REJECTS = (
+    (dict(participation=0.0), "participation must be in (0, 1]"),
+    (dict(task_deadline_factor=1.0),
+     "resilience.task_deadline_factor must be > 1 (a deadline at or before "
+     "the task's own completion would reap live work)"),
+    (dict(alpha=0.0), "alpha must be > 0"),
+    (dict(fault_crashes=1, fault_horizon=100.0),
+     "fault injection rides the async event timeline: fault_* counts need "
+     "engine.mode='async'"),
+    (dict(model_family="resnet9000"),
+     "model.family='resnet9000' is not one of cnn, mlp, transformer"))
+#: the small runs held on the card against the CPU (``[... reference]``)
+REFERENCE_CFG = dict(n_devices=64, n_rounds=3, hw=8, n_train=1280,
+                     local_epochs=1)
+#: the mlp family at the width its cost model is calibrated at (d 256,
+#: 32x32 inputs): 64 devices at 50%, the sync engine, "auto" (bucketed)
+MLP_CFG = dict(n_devices=64, n_rounds=3, participation=0.5, n_train=6400,
+               seed=0)
+
+
+def phase_spec():
+    """Run before the script touches the card: each config the reference's
+    ``SimulationSpec`` rejects raises its ``ValueError``, message for
+    message, from ``run_simulation`` on the default device, and CUDA is
+    still not initialised after all of them; the main path's and
+    ``[mlp]``'s configs round-trip through the typed spec exactly."""
+    import torch
+    from repro_torch.fl import FLConfig, SimulationSpec, run_simulation
+    base = dict(n_rounds=3, participation=0.1, **MAIN_CFG)
+    for change, want in SPEC_REJECTS:
+        try:
+            run_simulation(FLConfig(**dict(base, **change)))
+        except ValueError as e:
+            got = str(e)
+        else:
+            raise AssertionError(f"[spec] {change} ran")
+        print(f"[spec] {change}: ValueError {got!r}")
+        if got != want:
+            raise AssertionError(f"[spec] {change}: not the reference's "
+                                 f"message {want!r}")
+    print(f"[spec] CUDA initialised after the rejected configs: "
+          f"{torch.cuda.is_initialized()}")
+    if torch.cuda.is_initialized():
+        raise AssertionError("[spec] a rejected config reached the card")
+    main = FLConfig(**base)
+    spec = _mlp_spec()
+    trips = (SimulationSpec.from_flat(main).to_flat() == main,
+             SimulationSpec.from_flat(spec.to_flat()) == spec)
+    print(f"[spec] from_flat(main path).to_flat() == main path: {trips[0]}; "
+          f"[mlp]'s spec round-trips: {trips[1]}")
+    if not all(trips):
+        raise AssertionError("[spec] the round trip is not exact")
+
+
+def _mlp_spec():
+    from repro_torch.fl import ModelSpec, SimulationSpec
+    return SimulationSpec(**MLP_CFG, model=ModelSpec(family="mlp",
+                                                     width_mult=1.0, hw=32))
+
+
+def phase_mlp():
+    """The ``mlp`` family at full width through ``run_simulation`` of a
+    typed ``SimulationSpec``: DR-FL + MARL, sync, bucketed, its stacked
+    rows through ``layer_agg`` once a round.  Returns (flat config,
+    launches, the last round's layer_agg N and R)."""
+    from repro_torch.fl.batch import _next_pow2
+    from repro_torch.models.family import get_family
+    spec = _mlp_spec()
+    hist, launches = _drive("mlp", spec, "batched", _one_per_round)
+    cfg = spec.to_flat()
+    per_round = [sorted(set(m)) for m in hist["model_choices"]]
+    counts = [sum(_next_pow2(r.count(m)) for m in set(r))
+              for r in hist["model_choices"]]
+    fam = get_family("mlp")
+    R = fam.stack_template(fam.param_shapes(10, 1.0, 32)).n_rows
+    print(f"[mlp] warm round wall {hist['wall_clock'][-1]:.3f} s; buckets "
+          f"(submodels) per round {per_round}; layer_agg N per round "
+          f"{counts}, R {R}; layer_agg launches {launches['layer_agg']} in "
+          f"{len(hist['acc'])} rounds")
+    if hist["qmix"]["updates"] < 1:
+        raise AssertionError("[mlp] no QMIX update ran")
+    return cfg, launches, counts[-1], R
+
+
+def phase_mlp_kernel(N, R, launches):
+    """``layer_agg`` at the ``mlp`` bucketed path's shape (N rows of the
+    last round's buckets, R from ``stack_template``) against its plain
+    version; its record, with the ``[mlp]`` run's launches."""
+    import torch
+    from repro_torch.kernels.layer_agg import layer_agg, layer_agg_plain
+    U, M, w = _agg_inputs(N, R, 1024, seed=N + R)
+    got = layer_agg(U, M, w)
+    torch.cuda.synchronize()
+    ref = layer_agg_plain(U, M, w)
+    err = (got - ref).abs().max().item()
+    scale = max(ref.abs().max().item(), 1.0)
+    print(f"[kernel] layer_agg mlp path N={N} R={R} D=1024: max_abs_err="
+          f"{err:.3e} (limit {REL_TOL * scale:.3e})")
+    if err > REL_TOL * scale:
+        raise AssertionError("layer_agg disagrees with its plain version at "
+                             "the mlp path's shape")
+    record = _layer_agg_record(U, M, w, err, scale)
+    record["path"] = "mlp"
+    record["launches"] = launches
+    return record
+
+
+def phase_mlp_async():
+    """README.md's Public API example at full width: the ``mlp`` family,
+    greedy, the async engine, 64 devices at 20%, 3 virtual rounds; one
+    ``layer_agg`` launch per completion."""
+    from repro_torch.fl import EngineSpec, MarlSpec, ModelSpec, SimulationSpec
+    spec = SimulationSpec(
+        n_devices=64, n_rounds=3, participation=0.2, method="drfl",
+        model=ModelSpec(family="mlp", width_mult=1.0, hw=32),
+        marl=MarlSpec(selector="greedy"),
+        engine=EngineSpec(mode="async"))
+    hist, launches = _drive("mlp async", spec, "batched", _one_per_round)
+    _print_async("mlp async", hist)
+    if hist["n_tasks"] != 3 * 13:
+        raise AssertionError(f"[mlp async] {hist['n_tasks']} tasks of 39")
+    return launches
+
+
+def phase_env():
+    """``FLEnv`` on the card against the CPU: both reward clocks, 1024
+    devices, 50 steps of seeded numpy actions; dropouts, alive counts and
+    ``done`` equal, rewards and energies at rtol 1e-9; steps per second
+    on each device."""
+    import numpy as np
+    import torch
+    from repro_torch.fl import FLEnv, FLEnvConfig
+    for mode in ("sync", "async"):
+        cfg = FLEnvConfig.for_family("cnn", n_devices=1024, n_rounds=50,
+                                     seed=0, mode=mode)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            env = FLEnv(cfg, device=dev)
+            rng = np.random.default_rng(0)
+            out = []
+            t0 = time.perf_counter()
+            for _ in range(cfg.n_rounds):
+                _, r, done, info = env.step(
+                    rng.integers(0, cfg.n_models + 1, cfg.n_devices))
+                out.append((r, done, info))
+                if done:
+                    break
+            runs[dev] = (out, len(out) / (time.perf_counter() - t0))
+        (g, g_rate), (c, c_rate) = runs["cuda"], runs["cpu"]
+        same = [(a[1], a[2]["alive"], a[2]["dropouts"]) for a in g] == \
+            [(b[1], b[2]["alive"], b[2]["dropouts"]) for b in c]
+        rel = max(max(abs(a[0] - b[0]) / max(abs(b[0]), 1e-300),
+                      abs(a[2]["energy"] - b[2]["energy"]) / b[2]["energy"])
+                  for a, b in zip(g, c))
+        print(f"[env] {mode}, 1024 devices, {len(g)} steps: dropouts "
+              f"{sum(a[2]['dropouts'] for a in g)}, alive at the end "
+              f"{g[-1][2]['alive']}, done {g[-1][1]}; dropouts, alive and "
+              f"done equal: {same}; max relative reward/energy diff "
+              f"{rel:.3e} (limit 1e-9); steps per second: card "
+              f"{g_rate:.1f}, CPU {c_rate:.1f}")
+        if not same or rel > 1e-9:
+            raise AssertionError(f"[env] {mode}: card and CPU disagree")
+    torch.cuda.synchronize()
+
+
+def phase_public_api():
+    """``[mlp]`` with ``layer_agg``'s record at its shape, ``[mlp
+    profile]``, ``[mlp async]``, ``[mlp reference]`` and ``[env]``;
+    returns the record."""
+    from repro_torch.fl import FLConfig
+    t0 = time.perf_counter()
+    cfg, launches, N, R = phase_mlp()
+    record = phase_mlp_kernel(N, R, launches["layer_agg"])
+    phase_profile(cfg, "mlp profile")
+    record["async_launches"] = phase_mlp_async()["layer_agg"]
+    # seed 10: the greedy fresh policy trains the deepest submodel every
+    # round and two buckets in round 1 (seed 1 picks nobody in round 0)
+    phase_reference("mlp reference", FLConfig(
+        participation=0.5, width_mult=0.125, model_family="mlp", seed=10,
+        **REFERENCE_CFG))
+    phase_env()
+    print(f"[mlp] the public API phases took {time.perf_counter() - t0:.1f}"
+          " s")
+    return record
+
+
 def _attention_route_launches(record, launches, into=None):
     """An attention record's launches by route (into ``into``, else the
     record): every forward route, or every backward route."""
@@ -2424,6 +2632,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401  (sets the float32 precision flags)
+    phase_spec()
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
     from repro_torch.fl import FLConfig
@@ -2436,6 +2645,11 @@ def main() -> int:
         if "per_client" in r:
             r["per_client"]["floor_ms"] = floor
     records[0]["launches"] = phase_main_path()["layer_agg"]
+    # early: timed late in the run, the profiler read layer_agg at the mlp
+    # path's shape below its bytes bound on the H100 (0.0701 and 0.0956
+    # device ms against 0.1428), so that record is taken here
+    mlp_record = phase_public_api()
+    mlp_record["floor_ms"] = floor
     phase_profile(phase_all_submodels())
     cfg, launches = phase_transformer()
     for r in records[1:]:
@@ -2467,16 +2681,15 @@ def main() -> int:
     for r in records[1:]:
         r["async_launches"] = launches[r["name"]]
     phase_async_faults()
-    small = dict(n_devices=64, n_rounds=3, hw=8, n_train=1280,
-                 local_epochs=1)
     phase_reference("reference", FLConfig(participation=0.1,
-                                          width_mult=0.125, seed=1, **small))
+                                          width_mult=0.125, seed=1,
+                                          **REFERENCE_CFG))
     # seed 10: the greedy fresh policy trains the deepest submodel every
     # round and two buckets in rounds 1 and 2 (seed 1 trains submodel 0
     # only, after an empty first round)
     phase_reference("transformer reference", FLConfig(
         participation=0.5, width_mult=0.25, model_family="transformer",
-        seed=10, **small))
+        seed=10, **REFERENCE_CFG))
     for arm in PERCLIENT_REFERENCE_ARMS:
         phase_reference(f"reference perclient {arm['method']}", FLConfig(
             **dict(PERCLIENT_REFERENCE, **arm)))
@@ -2501,6 +2714,7 @@ def main() -> int:
     phase_checkpoint_reference()
     print(f"[checkpoint] the three checkpoint phases took "
           f"{time.perf_counter() - t0:.1f} s")
+    records.append(mlp_record)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

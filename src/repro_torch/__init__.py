@@ -6,8 +6,11 @@ imports neither ``jax`` nor anything of ``repro``.  Parameters are nested
 dicts of tensors in the JAX tree layout, with convolution kernels stored
 OIHW (see :mod:`repro_torch.convert`).
 
-Entry point: :func:`repro_torch.fl.run_simulation` (runs on ``"cuda"``
-unless the caller passes ``device="cpu"``).
+Entry points, in :mod:`repro_torch.fl` (which exports every public name
+of ``repro.fl``): :func:`~repro_torch.fl.run_simulation`, on a flat
+``FLConfig`` or a typed ``SimulationSpec``, and the gym-style
+:class:`~repro_torch.fl.FLEnv`; both run on ``"cuda"`` unless the caller
+passes ``device="cpu"``.
 """
 import torch
 

@@ -5,8 +5,9 @@ JAX shapes everywhere except convolution kernels, which PyTorch wants
 OIHW where JAX stores HWIO.  Every 4-D leaf of a CNN tree is a conv
 kernel; nothing else is transposed.  Images keep NHWC at every public
 function (``repro_torch.models.cnn.apply_all_exits`` changes layout
-inside), so data arrays need no conversion.  QMIX and transformer trees
-(dense ``w`` [d_in, d_out] used as ``x @ w``) convert leaf for leaf.
+inside), so data arrays need no conversion.  QMIX, transformer and mlp
+trees (dense ``w`` [d_in, d_out] used as ``x @ w``) convert leaf for
+leaf.
 """
 from __future__ import annotations
 
@@ -54,9 +55,9 @@ def cnn_params_to_jax_layout(tree, *, stacked: bool = False):
 
 def params_from_jax(tree, device="cpu"):
     """Any JAX tree with no conv kernels, leaf for leaf: QMIX
-    ``params``/``target``, and the transformer family's params, flat or
-    participant-stacked (its dense ``w`` are [d_in, d_out] in both
-    packages)."""
+    ``params``/``target``, and the transformer and mlp families' params,
+    flat or participant-stacked (their dense ``w`` are [d_in, d_out] in
+    both packages)."""
     return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
                                            device=device),
                     _as_python_tree(tree))

@@ -86,15 +86,17 @@ class FleetState:
 
 def make_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
                      data_sizes: Optional[List[int]] = None, *,
-                     device="cuda") -> FleetState:
+                     device="cuda", dtype=torch.float32) -> FleetState:
     """Same draws as the JAX ``make_fleet_state`` (numpy float64 profiles),
-    rounded to float32 tensors on ``device``."""
+    as ``dtype`` tensors on ``device``: float32, the engines' precision,
+    or float64, the reference's numpy backend (``backend="numpy"``, what
+    :class:`repro_torch.fl.environment.FLEnv` runs on)."""
     from repro_torch.core.energy import POWER_MODES
     device = resolve_device(device)
     devs = make_fleet(n, seed, tier_probs, data_sizes)
 
     def f32(vals):
-        return torch.tensor(np.asarray(vals, np.float64), dtype=torch.float32,
+        return torch.tensor(np.asarray(vals, np.float64), dtype=dtype,
                             device=device)
 
     mults = [POWER_MODES[d.mode] for d in devs]
@@ -111,7 +113,7 @@ def make_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
         mode_power=f32([m[1] for m in mults]),
         alive=torch.tensor([d.alive for d in devs], dtype=torch.bool,
                            device=device),
-        busy_until=torch.zeros((n,), dtype=torch.float32, device=device),
+        busy_until=torch.zeros((n,), dtype=dtype, device=device),
         tiers=tuple(d.profile.tier for d in devs),
         modes=tuple(d.mode for d in devs))
 
@@ -149,8 +151,10 @@ def sample_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
         busy_until=torch.zeros((n,), dtype=torch.float32, device=device))
 
 
-def _f32(fleet: FleetState, vals) -> torch.Tensor:
-    return torch.as_tensor(vals, dtype=torch.float32,
+def _like(fleet: FleetState, vals) -> torch.Tensor:
+    """``vals`` in the fleet's float dtype (float32 but for the float64
+    fleets of :func:`make_fleet_state`), on its device."""
+    return torch.as_tensor(vals, dtype=fleet.remaining.dtype,
                            device=fleet.remaining.device)
 
 
@@ -160,8 +164,8 @@ def fleet_cost_matrix(fleet: FleetState, model_sizes, model_fractions,
     """(t_tra, t_com, e_tra, e_com), each [n, M], in the JAX expression
     order.  ``batch_size`` does not enter Eq. 5 (kept for signature
     parity with the reference)."""
-    sizes = _f32(fleet, model_sizes)
-    fracs = torch.clamp_min(_f32(fleet, model_fractions), 1e-6)
+    sizes = _like(fleet, model_sizes)
+    fracs = torch.clamp_min(_like(fleet, model_fractions), 1e-6)
     eff = (fleet.compute * fleet.mode_compute)[:, None] / fracs[None, :]
     t_tra = (fleet.data_size * local_epochs)[:, None] / eff
     t_com = 2.0 * sizes[None, :] / fleet.bandwidth[:, None]
@@ -184,7 +188,7 @@ def fleet_affordability(fleet: FleetState, model_sizes, model_fractions,
     e_need = e_tra + e_com
     afford = (e_need < fleet.remaining[:, None]) & fleet.alive[:, None]
     if budget_left is not None:
-        afford = afford & (e_need <= _f32(fleet, budget_left))
+        afford = afford & (e_need <= _like(fleet, budget_left))
     abstain = torch.ones((len(fleet), 1), dtype=torch.bool,
                          device=afford.device)
     return torch.cat([afford, abstain], dim=1)
@@ -231,7 +235,7 @@ def fleet_connect(fleet: FleetState, start: int, energy_scale: float = 1.0,
         remaining=torch.where(joins, fleet.battery * energy_scale,
                               fleet.remaining),
         alive=fleet.alive | joins,
-        busy_until=torch.where(joins, _f32(fleet, now), fleet.busy_until))
+        busy_until=torch.where(joins, _like(fleet, now), fleet.busy_until))
 
 
 def fleet_disconnect(fleet: FleetState, start: int) -> FleetState:
@@ -255,7 +259,7 @@ def fleet_set_busy(fleet: FleetState, indices, until) -> FleetState:
     busy = fleet.busy_until.clone()
     idx = torch.as_tensor(np.asarray(indices, np.int64),
                           device=busy.device)
-    busy[idx] = _f32(fleet, np.asarray(until, np.float64))
+    busy[idx] = _like(fleet, np.asarray(until, np.float64))
     return fleet.replace(busy_until=busy)
 
 
@@ -315,24 +319,32 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
-def _exact_sum(x: torch.Tensor, dim=None) -> torch.Tensor:
-    """A float32 fleet sum taken in float64 (exact for the fleet's
-    energies, counts and fractions, whatever the order of the adds) and
-    rounded once."""
+def _exact_sum(x: torch.Tensor, dtype: torch.dtype,
+               dim=None) -> torch.Tensor:
+    """A fleet sum taken in float64 and rounded once to ``dtype``: exact
+    for a float32 fleet's energies, counts and fractions, whatever the
+    order of the adds."""
     x = x.double()
-    return (x.sum() if dim is None else x.sum(dim=dim)).float()
+    return (x.sum() if dim is None else x.sum(dim=dim)).to(dtype)
+
+
+def _np_float(t: torch.Tensor):
+    """The numpy scalar type of ``t``'s float dtype: the reference's
+    scalars are rounded to it (float32 on the engines' fleets, float64 on
+    the numpy backend's)."""
+    return np.float64 if t.dtype == torch.float64 else np.float32
 
 
 def _histogram(values: torch.Tensor, weights: torch.Tensor, lo: float,
                hi: float, n_bins: int) -> torch.Tensor:
     """Weighted counts of ``values`` over ``n_bins`` equal bins of [lo,
-    hi): bin ``trunc((v - lo) / (hi - lo) * n_bins)`` in float32, clipped
-    (``fleet.py:460-472``; ``hi - lo`` is rounded to float32 first, as the
-    reference's weak-typed scalar)."""
-    scaled = true_div(values - lo, float(np.float32(hi - lo))) * n_bins
+    hi): bin ``trunc((v - lo) / (hi - lo) * n_bins)`` in the values'
+    dtype, clipped (``fleet.py:460-472``; ``hi - lo`` is rounded to that
+    dtype first, as the reference's weak-typed scalar)."""
+    scaled = true_div(values - lo, float(_np_float(values)(hi - lo))) * n_bins
     idx = torch.clamp(scaled.to(torch.int32), 0, n_bins - 1)
     onehot = idx[:, None] == torch.arange(n_bins, device=idx.device)
-    return _exact_sum(onehot * weights[:, None], dim=0)
+    return _exact_sum(onehot * weights[:, None], weights.dtype, dim=0)
 
 
 def fleet_summary(fleet: FleetState, model_sizes, model_fractions,
@@ -350,13 +362,17 @@ def fleet_summary(fleet: FleetState, model_sizes, model_fractions,
       fraction and data size (/ 1000) of the alive devices, ``t /
       n_rounds``.
 
+    Computed in the fleet's dtype and rounded to float32 at the end, as
+    the reference on either backend (a float64 fleet is the numpy one's).
     ``afford``, an [n, M+1] action mask the caller already holds (the
     selector's, under a budget the budget-masked one), saves pricing the
     fleet twice."""
     n = len(fleet)
-    inv_n = float(np.float32(1.0 / float(n)))
-    alive = fleet.alive.to(fleet.remaining.dtype)
-    n_alive = torch.clamp_min(_exact_sum(alive), 1.0)
+    dt = fleet.remaining.dtype
+    np_dt = _np_float(fleet.remaining)
+    inv_n = float(np_dt(1.0 / float(n)))
+    alive = fleet.alive.to(dt)
+    n_alive = torch.clamp_min(_exact_sum(alive, dt), 1.0)
     batt_frac = fleet.remaining / fleet.battery
     hist_b = _histogram(batt_frac, alive, 0.0, 1.0 + 1e-9, n_bins) * inv_n
     eff = true_div(fleet.compute * fleet.mode_compute, 500.0)
@@ -364,15 +380,14 @@ def fleet_summary(fleet: FleetState, model_sizes, model_fractions,
     if afford is None:
         afford = fleet_affordability(fleet, model_sizes, model_fractions,
                                      local_epochs, batch_size)
-    afford_frac = _exact_sum(afford[:, :-1], dim=0) * inv_n
-    t = np.float32(round_idx) / np.float32(max(int(n_rounds), 1))
+    afford_frac = _exact_sum(afford[:, :-1], dt, dim=0) * inv_n
+    t = np_dt(round_idx) / np_dt(max(int(n_rounds), 1))
     totals = torch.stack([
-        _exact_sum(fleet.remaining) / _exact_sum(fleet.battery),
-        _exact_sum(alive) * inv_n,
-        _exact_sum(batt_frac * alive) / n_alive,
-        true_div(_exact_sum(fleet.data_size * alive) / n_alive, 1000.0),
-        torch.full((), float(t), dtype=torch.float32,
-                   device=alive.device),
+        _exact_sum(fleet.remaining, dt) / _exact_sum(fleet.battery, dt),
+        _exact_sum(alive, dt) * inv_n,
+        _exact_sum(batt_frac * alive, dt) / n_alive,
+        true_div(_exact_sum(fleet.data_size * alive, dt) / n_alive, 1000.0),
+        torch.full((), float(t), dtype=dt, device=alive.device),
     ])
     return torch.cat([hist_b, hist_c, afford_frac, totals]).float()
 

@@ -224,7 +224,8 @@ def fleet_obs(fleet: FleetState, round_idx: int,
               n_rounds: int) -> torch.Tensor:
     """[n, OBS_DIM] float32 on the fleet's device: Eq. 9's [L_n, C_n, E_n,
     t] plus liveness, with the reference's precisions (data size divided
-    in float64, the rest in float32)."""
+    in float64, the rest in the fleet's dtype: float32, or float64 on a
+    float64 fleet, as the reference's numpy backend, then rounded)."""
     t = round_idx / max(n_rounds, 1)
     return torch.stack([
         (fleet.data_size.double() / 1000.0).float(),
@@ -233,7 +234,7 @@ def fleet_obs(fleet: FleetState, round_idx: int,
         torch.full((len(fleet),), t, dtype=torch.float32,
                    device=fleet.remaining.device),
         fleet.alive.float(),
-    ], dim=1)
+    ], dim=1).float()
 
 
 def fleet_obs_batch(fleet: FleetState, round_idx,

@@ -113,7 +113,7 @@ from repro_torch.fl import batch as fl_batch
 from repro_torch.fl import server as fl_server
 from repro_torch.fl.client import client_update_seed
 from repro_torch.fl.faults import FaultPlan, poison_payload
-from repro_torch.models.family import LayerwiseFamily, get_family
+from repro_torch.models.family import ModelFamily, get_family
 from repro_torch.tree import tree_map
 
 
@@ -146,23 +146,20 @@ def uses_marl(cfg) -> bool:
 def check_supported(cfg) -> None:
     """Refuse, up front, every configuration outside this port's slices:
     the sync and async engines, with hot-plug and (async) fault plans;
-    DR-FL, HeteroFL and ScaleFL with any of the four selectors; the
-    ``cnn`` and ``transformer`` families (a family that lacks the method
-    raises the reference's ``ValueError``); either client executor; either
-    QMIX state and mixer at every fleet size; every energy scenario (an
-    unknown profile name raises the reference's ``ValueError``);
-    checkpoints and resume on both engines."""
+    DR-FL, HeteroFL and ScaleFL with any of the four selectors; every
+    registered family (``cnn``, ``mlp``, ``transformer`` and any a user
+    registers; an unknown name, or a family that lacks the method, raises
+    the reference's ``ValueError``); either client executor; either QMIX
+    state and mixer at every fleet size; every energy scenario (an unknown
+    profile name raises the reference's ``ValueError``); checkpoints and
+    resume on both engines.  A fleet mesh (``fleet_mesh`` > 1) raises
+    ``NotImplementedError``.  ``run_simulation`` validates the config
+    through :func:`repro_torch.fl.spec.ensure_flat_config` first."""
     if cfg.engine_mode not in ("sync", "async"):
         raise ValueError(f"unknown engine_mode {cfg.engine_mode!r} "
                          "(expected 'sync' or 'async')")
-    checks = [
-        (cfg.model_family not in ("cnn", "transformer"),
-         f"model_family={cfg.model_family!r}", "other families"),
-        (cfg.fleet_mesh not in (0, 1), "fleet_mesh", "fleet sharding"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise not_ported(what, item)
+    if cfg.fleet_mesh not in (0, 1):
+        raise not_ported("fleet_mesh", "fleet sharding")
     family = get_family(cfg.model_family)
     if not family.supports(cfg.method):
         raise family.unsupported(cfg.method)
@@ -200,7 +197,7 @@ class World:
     sizes: tuple
     fractions: tuple
     n_total: int
-    family: LayerwiseFamily
+    family: ModelFamily
     device: torch.device
     scenario: EnergyScenario
 

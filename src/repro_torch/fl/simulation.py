@@ -1,21 +1,27 @@
 """DR-FL federated simulation — port of ``repro.fl.simulation``.
 
 :class:`FLConfig` keeps every field and default of the JAX config, so a
-config carries across packages.  The port runs the sync and async engines
-(hot-plug on both, seeded fault plans on the async one) with every arm of
-the paper's Table 1 and Fig. 5: DR-FL with the ``marl``, ``greedy``,
-``random`` or ``static`` selector, and HeteroFL/ScaleFL (always greedy), on
-the ``cnn`` family (the ``transformer`` family: DR-FL), with either client
-executor, under every energy scenario of the reference (charge and
-availability profiles, the global joule budget: the ``charge_*``,
-``availability_*`` and ``global_budget_j`` fields, resolved by
+config carries across packages; :func:`run_simulation` takes it or a
+typed :class:`repro_torch.fl.spec.SimulationSpec` and validates either
+through :func:`repro_torch.fl.spec.ensure_flat_config` first, with the
+reference's messages, before any device work.  The port runs the sync
+and async engines (hot-plug on both, seeded fault plans on the async one)
+with every arm of the paper's Table 1 and Fig. 5: DR-FL with the
+``marl``, ``greedy``, ``random`` or ``static`` selector, and
+HeteroFL/ScaleFL (always greedy), on every registered family (``cnn``,
+the one with all three methods; ``mlp`` and ``transformer``, DR-FL; and
+any family a user registers), with either client executor, under every
+energy scenario of the reference (charge and availability profiles, the
+global joule budget: the ``charge_*``, ``availability_*`` and
+``global_budget_j`` fields, resolved by
 :func:`repro_torch.energy.scenario_from_config`), and MARL at every fleet
 size (``state_mode`` and ``mixer_mode``: above 256 devices ``"auto"``
 takes the factored state and the set mixer, whose replay stores at most
 ``marl_agent_budget`` agents), with engine checkpoints and resume
 (``checkpoint_dir``, ``checkpoint_every``, ``checkpoint_keep``,
-``resume``; a sync checkpoint of the JAX package resumes here too); every
-other setting raises ``NotImplementedError`` naming its ROADMAP item.
+``resume``; a sync checkpoint of the JAX package resumes here too).  A
+fleet mesh (``fleet_mesh`` > 1) and an async JAX checkpoint raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -177,10 +183,12 @@ def load_resume_state(cfg: FLConfig):
     return state, meta
 
 
-def run_simulation(cfg: FLConfig, verbose: bool = False, *,
+def run_simulation(cfg, verbose: bool = False, *,
                    device="cuda", halt_after_saves: int = 0) -> Dict:
-    """Run the FL simulation on ``device`` (the card unless the caller
-    asks for ``"cpu"``; no silent fallback).  With DR-FL + MARL and
+    """Run the FL simulation of ``cfg`` (an :class:`FLConfig` or a
+    :class:`repro_torch.fl.spec.SimulationSpec`, validated first) on
+    ``device`` (the card unless the caller asks for ``"cpu"``; no silent
+    fallback).  With DR-FL + MARL and
     ``marl_episodes > 1`` the earlier episodes pre-train the QMIX policy
     (fresh fleet and model each episode, persistent learner and replay)
     and the LAST episode is returned; every other arm runs one episode and
@@ -194,6 +202,9 @@ def run_simulation(cfg: FLConfig, verbose: bool = False, *,
     history and weights equal an uninterrupted run's bit for bit.
     ``halt_after_saves=N`` (> 0) simulates a crash: ``CheckpointHalt``
     right after the N-th save of this call."""
+    # imported here: the spec module imports this one for FLConfig
+    from repro_torch.fl.spec import ensure_flat_config
+    cfg = ensure_flat_config(cfg)
     dev = resolve_device(device)
     check_supported(cfg)
     resume_state = resume_meta = None

@@ -164,31 +164,80 @@ def _visible(Sq: int, Sk: int, causal: bool, window: int, device):
     return vis
 
 
+def _fma(a, b, c):
+    """fmaf(a, b, c) on float32 tensors: a * b + c in float64 (the product
+    is exact there) rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _dot_in_order(x, y):
+    """sum_i x[..., i] y[..., i] (x and y broadcast against each other) as
+    the kernels chain it: fmaf over i in index order from 0.  In the
+    emulation's place ``torch.einsum`` would leave the order of sums and
+    the fusing to the host's BLAS kernel, which differ between CPUs."""
+    out = x[..., 0] * y[..., 0]
+    for i in range(1, x.shape[-1]):
+        out = _fma(x[..., i], y[..., i], out)
+    return out
+
+
+def _lanes_per_key(D: int) -> int:
+    """The short route's CPK: lanes sharing a key, DM / 32 (DM: D rounded
+    up to 32, 64 or 128)."""
+    return 128 // short_split(D)
+
+
+def _lane_dots(x, y, D: int):
+    """The kernels' dot product over the head dimension: CPK lanes share a
+    key, lane c chaining the columns of its 4-column chunks c, c + CPK, c
+    + 2 CPK, .. (``short.cuh``), then the lanes' sums added as
+    ``key_sum``'s butterfly adds them ((0 + 1) + (2 + 3))."""
+    cpk = _lanes_per_key(D)
+    parts = []
+    for c in range(cpk):
+        cols = [col for u in range(c, 32 * cpk // 4, cpk)
+                for col in range(4 * u, 4 * u + 4) if col < D]
+        parts.append(_dot_in_order(x[..., cols], y[..., cols]))
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _warp_sum(x):
+    """x [..., 32] summed as ``warp_sum``'s butterfly sums a warp's lanes
+    (offsets 16, 8, 4, 2, 1): the value lane 0 ends with."""
+    lanes = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ off]
+    return x[..., 0]
+
+
 def _merge_in_order(m, l, acc):
     """Softmax partials (m, l [..., n]; acc [..., n, D]) merged over n in
     index order against their common maximum, as the kernel merges its
-    warps."""
+    warps (``lb += l * wt`` and ``ab += acc * wt``, each one fmaf)."""
     mx = m.amax(-1)
     wt = torch.exp(m - mx[..., None])
     lt = torch.zeros_like(mx)
     at = torch.zeros_like(acc[..., 0, :])
     for i in range(m.shape[-1]):
-        lt = lt + l[..., i] * wt[..., i]
-        at = at + acc[..., i, :] * wt[..., i, None]
+        lt = _fma(l[..., i], wt[..., i], lt)
+        at = _fma(acc[..., i, :], wt[..., i, None], at)
     return mx, lt, at
 
 
 def _merge_online(m, l, acc):
     """The same merge online, as the kernel's last block merges the
-    splits: a running maximum rescales the running sums."""
+    splits: a running maximum rescales the running sums (``lt * a + l *
+    wt``, the first product fused into the sum)."""
     mx = torch.full_like(m[..., 0], MASKED)
     lt = torch.zeros_like(mx)
     at = torch.zeros_like(acc[..., 0, :])
     for i in range(m.shape[-1]):
         mn = torch.maximum(mx, m[..., i])
         a, wt = torch.exp(mx - mn), torch.exp(m[..., i] - mn)
-        lt = lt * a + l[..., i] * wt
-        at = at * a[..., None] + acc[..., i, :] * wt[..., None]
+        lt = _fma(lt, a, l[..., i] * wt)
+        at = _fma(at, a[..., None], acc[..., i, :] * wt[..., None])
         mx = mn
     return mx, lt, at
 
@@ -211,12 +260,15 @@ def attention_split_blocked(q: torch.Tensor, k: torch.Tensor,
 
     Block s of a head holds keys s * split .. s * split + split - 1, its
     ``SHORT_WARPS`` warps one tile of split / ``SHORT_WARPS`` keys each.
-    A warp's partial is its tile's row maximum m (keys past Sk left out,
-    -1e30 the floor), l = the sum of p = exp(s - m) and acc = P V; the
-    warps' partials merge in warp order into the block's, against their
-    common maximum, and the blocks' in split order, online (a running
-    maximum rescales the running sums); then o = acc / max(l, 1e-30) and
-    lse = m + log(l)."""
+    A score is the lanes' chained products (:func:`_lane_dots`) times
+    1/sqrt(D).  A warp's partial is its tile's row maximum m (keys past Sk
+    left out, -1e30 the floor), l = the sum of p = exp(s - m) in key order
+    and acc = P V chained in key order; the warps' partials merge in warp
+    order into the block's, against their common maximum, and the blocks'
+    in split order, online (a running maximum rescales the running sums);
+    then o = acc / max(l, 1e-30) and lse = m + log(l).  Every product
+    chain is fmaf in the kernel's order (:func:`_fma`), so the emulation
+    gives the same bits on every host."""
     BH, Sq, D = q.shape
     BHkv, Sk, _ = k.shape
     group = BH // BHkv
@@ -225,15 +277,18 @@ def attention_split_blocked(q: torch.Tensor, k: torch.Tensor,
     scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
     kf = k.float().repeat_interleave(group, dim=0)
     vf = F.pad(v.float().repeat_interleave(group, dim=0), (0, 0, 0, n - Sk))
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kf) * scale
+    s = _lane_dots(q.float()[:, :, None], kf[:, None], D) * scale
     s = torch.where(_visible(Sq, Sk, causal, window, q.device), s,
                     s.new_tensor(MASKED))
     s = F.pad(s, (0, n - Sk), value=MASKED).reshape(BH, Sq, S, W, kt)
     valid = (torch.arange(n, device=q.device) < Sk).reshape(S, W, kt)
     m = s.amax(-1)
     p = torch.where(valid, torch.exp(s - m[..., None]), s.new_tensor(0.0))
-    acc = torch.einsum("bqswk,bswkd->bqswd", p, vf.reshape(BH, S, W, kt, D))
-    m, l, acc = _merge_online(*_merge_in_order(m, p.sum(-1), acc))
+    # acc[b, q, s, w, d] = sum_k p[b, q, s, w, k] v[b, s, w, k, d]
+    acc = _dot_in_order(p[..., None, :], vf.reshape(BH, S, W, kt, D)
+                        .transpose(-1, -2)[:, None])
+    m, l, acc = _merge_online(*_merge_in_order(m, _sum_in_order(p, -1),
+                                               acc))
     o = acc / l.clamp_min(1e-30)[..., None]
     return o.to(q.dtype), m + torch.log(l)
 
@@ -249,23 +304,31 @@ def attention_split_blocked_bwd(q: torch.Tensor, k: torch.Tensor,
     torch: (dq, dk, dv) for the forward's o and lse [BH, Sq] and the
     cotangent do, as ``split`` launches it.
 
-    With q scaled by 1/sqrt(D) first, delta = rowsum(dO * O), p =
-    exp(s - lse) on the keys a row sees (1/Sk on every key for a row that
-    sees none), dS = p (dP - delta) on the keys it sees: dV and dK sum the
-    group's heads in head order; dQ sums each warp's tile, the warps in
-    warp order, the splits in split order, then scales by 1/sqrt(D)."""
+    With q scaled by 1/sqrt(D) first, delta = rowsum(dO * O) (each lane's
+    columns chained, the lanes summed as ``warp_sum``), p = exp(s - lse)
+    on the keys a row sees (1/Sk on every key for a row that sees none),
+    dS = p (dP - delta) on the keys it sees (s and dP as the forward's
+    scores): dV and dK chain the group's heads and rows in order; dQ
+    chains each warp's tile, sums the warps in warp order and the splits
+    in split order, then scales by 1/sqrt(D).  Every product chain is
+    fmaf in the kernel's order (:func:`_fma`)."""
     BH, Sq, D = q.shape
     BHkv, Sk, _ = k.shape
     group = BH // BHkv
     W, kt, S = SHORT_WARPS, split // SHORT_WARPS, _cdiv(Sk, split)
     n = S * split
+    cpk = _lanes_per_key(D)
     scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
     qs, dof = q.float() * scale, do.float()
-    delta = (dof * o.float()).sum(-1)
+    # lane l chains columns l, l + 32, ..; the lanes then meet by butterfly
+    po = F.pad(o.float(), (0, 32 * cpk - D)).unflatten(-1, (cpk, 32))
+    pg = F.pad(dof, (0, 32 * cpk - D)).unflatten(-1, (cpk, 32))
+    delta = _warp_sum(_dot_in_order(po.transpose(-1, -2),
+                                    pg.transpose(-1, -2)))
     kf = k.float().repeat_interleave(group, dim=0)
     vf = v.float().repeat_interleave(group, dim=0)
-    s = torch.einsum("bqd,bkd->bqk", qs, kf)
-    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    s = _lane_dots(qs[:, :, None], kf[:, None], D)
+    dp = _lane_dots(dof[:, :, None], vf[:, None], D)
     vis = _visible(Sq, Sk, causal, window, q.device)
     zero = s.new_tensor(0.0)
     p = torch.where(vis, torch.exp(s - lse[..., None]), zero)
@@ -273,15 +336,16 @@ def attention_split_blocked_bwd(q: torch.Tensor, k: torch.Tensor,
                     s.new_tensor(1.0) / s.new_tensor(float(Sk)))
     ds = torch.where(vis, p * (dp - delta[..., None]), zero)
 
-    def by_head(x):
-        return x.reshape(BHkv, group, *x.shape[1:])
-    dv = _sum_in_order(torch.einsum("bgqk,bgqd->bgkd", by_head(p),
-                                    by_head(dof)), 1)
-    dk = _sum_in_order(torch.einsum("bgqk,bgqd->bgkd", by_head(ds),
-                                    by_head(qs)), 1)
+    def over_rows(a, b):
+        """[BHkv, k, d]: a[h, q, k] b[h, q, d] chained over the group's
+        heads and their rows, in order."""
+        a = a.reshape(BHkv, group * Sq, Sk).transpose(1, 2)
+        b = b.reshape(BHkv, group * Sq, D).transpose(1, 2)
+        return _dot_in_order(a[:, :, None], b[:, None])
+    dv, dk = over_rows(p, dof), over_rows(ds, qs)
     dsp = F.pad(ds, (0, n - Sk)).reshape(BH, Sq, S, W, kt)
     kp = F.pad(kf, (0, 0, 0, n - Sk)).reshape(BH, S, W, kt, D)
-    dq = torch.einsum("bqswk,bswkd->bqswd", dsp, kp)
+    dq = _dot_in_order(dsp[..., None, :], kp.transpose(-1, -2)[:, None])
     dq = _sum_in_order(_sum_in_order(dq, 3), 2) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

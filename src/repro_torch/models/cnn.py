@@ -178,7 +178,8 @@ class CnnFamily(LayerwiseFamily):
         # parameters do not depend on the image size
         return init(gen, num_classes, width_mult=width_mult)
 
-    def param_shapes(self, num_classes: int = 10, width_mult: float = 1.0):
+    def param_shapes(self, num_classes: int = 10, width_mult: float = 1.0,
+                     hw: int = 32):
         return param_shapes(num_classes, width_mult=width_mult)
 
     def num_submodels(self) -> int:

@@ -1,15 +1,23 @@
-"""Layer-wise model families and their registry — port of
-``repro.models.family`` (``LayerwiseFamily``, ``family.py:229-460``).
+"""The model-family protocol, its layer-wise implementation and the
+registry — port of ``repro.models.family``.
 
-Parameters follow the canonical layer-wise layout ``{"stem": tree,
-"stages": [stage_0, ...], "exits": [exit_0, ...]}``; submodel m trains
-stem + stages[:m+1] + exits[:m+1].  Aggregation groups are stem + each
-stage + each exit, flattened for the stacked ``layer_agg`` path in
-``tree_leaves`` order (sorted dict keys, as ``jax.tree.leaves``).
-
-Ported: the ``cnn`` family (:mod:`repro_torch.models.cnn`, the one with
-the HeteroFL/ScaleFL width slices) and the ``transformer`` family
-(:mod:`repro_torch.models.transformer_family`).
+* :class:`ModelFamily` (``family.py:97-227``): the surface the FL stack
+  reads, so ``repro_torch.fl`` and ``repro_torch.core.aggregation`` never
+  import a concrete architecture.
+* :class:`LayerwiseFamily` (``family.py:229-460``): all of it for
+  parameters in the canonical layer-wise layout ``{"stem": tree,
+  "stages": [stage_0, ...], "exits": [exit_0, ...]}``; submodel m trains
+  stem + stages[:m+1] + exits[:m+1].  Aggregation groups are stem + each
+  stage + each exit, flattened for the stacked ``layer_agg`` path in
+  ``tree_leaves`` order (sorted dict keys, as ``jax.tree.leaves``).
+  Subclasses supply ``init`` (from a ``torch.Generator``),
+  ``apply_all_exits``, ``num_submodels`` and ``flops_per_sample``.
+* the registry (``family.py:464-509``): :func:`register_family`,
+  :func:`known_families`, :func:`get_family` and :func:`resolve_family`.
+  The builtins, registered at import: ``cnn`` (:mod:`repro_torch.models.cnn`,
+  the one with the HeteroFL/ScaleFL width slices), ``mlp``
+  (:mod:`repro_torch.models.mlp`) and ``transformer``
+  (:mod:`repro_torch.models.transformer_family`).
 
 Client training has two forms: the bucket programs of
 :mod:`repro_torch.fl.batch` (every participant of a submodel at once) and
@@ -18,7 +26,7 @@ one client's SGD loop, the per-client executor's (``family.py:275-437``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,31 +47,119 @@ def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - tgt, dim=-1)
 
 
-class LayerwiseFamily:
-    """Generic machinery over the canonical layer-wise tree; subclasses
-    supply ``init``, ``apply_all_exits``, ``num_submodels``,
-    ``param_shapes`` and ``flops_per_sample`` (and, with
-    ``stacked_forward``, ``apply_all_exits_stacked``, which
-    ``stacked_loss_fn`` differentiates)."""
+class ModelFamily:
+    """What the FL stack reads from a model.  Families are registered
+    singletons: they own their mask, template and cost caches."""
 
-    name = "abstract"
+    #: registry key / display name
+    name: str = "abstract"
+    #: FL methods (client-update kinds) this family can train
+    supported_methods: Tuple[str, ...] = ()
     #: image size the paper-scale energy model is calibrated at
-    ref_hw = 32
-    #: the bucket program's route.  False: ``vmap`` over participants of
-    #: ``grad`` of the one-participant loss.  True: the family's forward
-    #: takes the participant axis written out (``apply_all_exits_stacked``
-    #: on trees with leaves [P, ...] and batches [P, B, ...]) and plain
-    #: autograd differentiates it, as kernels bound through ctypes need:
-    #: ``torch.func`` transforms cannot see inside them.
-    stacked_forward = False
-    supported_methods = ("drfl",)
+    ref_hw: int = 32
+    #: the bucket program's route (:mod:`repro_torch.fl.batch`).  False:
+    #: ``vmap`` over participants of ``grad`` of the one-participant loss.
+    #: True: the family's forward takes the participant axis written out
+    #: (``apply_all_exits_stacked`` on trees with leaves [P, ...] and
+    #: batches [P, B, ...]) and plain autograd differentiates it, as
+    #: kernels bound through ctypes need: ``torch.func`` transforms cannot
+    #: see inside them.
+    stacked_forward: bool = False
 
-    def __init__(self):
-        # masks depend only on the tree's shapes, its device and
-        # (model_idx, scale); their 0-d leaves are never written
-        self._mask_cache: dict = {}
-        self._template_cache: dict = {}
-        self._cost_cache: dict = {}
+    # -- model surface ---------------------------------------------------
+    def init(self, gen: torch.Generator, num_classes: int = 10,
+             width_mult: float = 1.0, hw: int = 32):
+        raise NotImplementedError
+
+    def num_submodels(self) -> int:
+        raise NotImplementedError
+
+    def apply_all_exits(self, params, x):
+        """Logits from every exit held by ``params`` (truncated trees ok)."""
+        raise NotImplementedError
+
+    def flops_per_sample(self, model_idx: int, image_hw: int = 32,
+                         width_mult: float = 1.0) -> float:
+        """Analytic forward FLOPs for Model_{idx+1} (energy-model input)."""
+        raise NotImplementedError
+
+    def param_shapes(self, num_classes: int = 10, width_mult: float = 1.0,
+                     hw: int = 32):
+        """The parameter tree as meta tensors (shapes and dtypes, no
+        storage).  Default: one ``init`` at seed 0; families that can
+        build the tree without drawing weights override it."""
+        return tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            self.init(torch.Generator().manual_seed(0), num_classes,
+                      width_mult=width_mult, hw=hw))
+
+    # -- data surface ------------------------------------------------------
+    def make_dataset(self, n: int, num_classes: int = 10, hw: int = 32,
+                     noise: float = 1.0, seed: int = 0):
+        """The training corpus ``(x, y)`` (numpy; rows are samples, ``y``
+        the class).  Default: the synthetic image set, ``x [n, hw, hw, 3]``
+        float32 (``family.py:128-138``); token families override it."""
+        from repro_torch.data.synthetic import synthetic_image_dataset
+        return synthetic_image_dataset(n, num_classes, hw=hw, noise=noise,
+                                       seed=seed)
+
+    # -- submodel structure, aggregation layout, training, cost ----------
+    def submodel_tree(self, tree, model_idx: int):
+        raise NotImplementedError
+
+    def submodel_params(self, method: str, global_params, model_idx: int):
+        raise NotImplementedError
+
+    def submodel_size_bytes(self, params, model_idx: int) -> int:
+        raise NotImplementedError
+
+    def update_mask(self, global_params, model_idx: int, scale: float = 1.0):
+        raise NotImplementedError
+
+    def stack_groups(self, params) -> List:
+        raise NotImplementedError
+
+    def held_groups(self, global_params, model_idx: int) -> List[bool]:
+        raise NotImplementedError
+
+    def unstack_groups(self, global_params, groups: List):
+        raise NotImplementedError
+
+    def stack_template(self, global_params, seg: int = 1024):
+        raise NotImplementedError
+
+    def loss_fn(self, method: str) -> Callable:
+        raise NotImplementedError
+
+    def client_update(self, method: str, global_params, model_idx: int,
+                      x, y, *, epochs: int = 5, batch: int = 32,
+                      lr: float = 0.05, seed: int = 0):
+        raise NotImplementedError
+
+    def cost_model(self, num_classes: int = 10
+                   ) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+        """(submodel bytes, FLOP fractions) at paper scale (width 1.0,
+        ``ref_hw`` images): what the Eq. 5/7 energy accounting charges."""
+        raise NotImplementedError
+
+    # -- factored MARL state ----------------------------------------------
+    def state_summary_width(self, n_bins: Optional[int] = None) -> int:
+        """Width of this family's factored QMIX state
+        (:func:`repro_torch.core.fleet.summary_width` over its submodel
+        count), whatever the fleet's size."""
+        from repro_torch.core import fleet as core_fleet
+        bins = core_fleet.SUMMARY_BINS if n_bins is None else n_bins
+        return core_fleet.summary_width(self.num_submodels(), bins)
+
+    def fleet_summary(self, fleet, round_idx=0, n_rounds: int = 1, *,
+                      num_classes: int = 10, local_epochs: int = 5,
+                      batch_size: int = 32):
+        """:func:`repro_torch.core.fleet.fleet_summary` priced with this
+        family's paper-scale cost model."""
+        from repro_torch.core import fleet as core_fleet
+        sizes, fractions = self.cost_model(num_classes)
+        return core_fleet.fleet_summary(fleet, sizes, fractions, round_idx,
+                                        n_rounds, local_epochs, batch_size)
 
     def supports(self, method: str) -> bool:
         return method in self.supported_methods
@@ -73,15 +169,25 @@ class LayerwiseFamily:
         return ValueError(f"family {self.name!r} does not support method "
                           f"{method!r} (supported: {self.supported_methods})")
 
-    # -- data -------------------------------------------------------------
-    def make_dataset(self, n: int, num_classes: int = 10, hw: int = 32,
-                     noise: float = 1.0, seed: int = 0):
-        """The training corpus ``(x, y)`` (numpy; rows are samples, ``y``
-        the class).  Default: the synthetic image set, ``x [n, hw, hw, 3]``
-        float32 (``family.py:128-138``); token families override it."""
-        from repro_torch.data.synthetic import synthetic_image_dataset
-        return synthetic_image_dataset(n, num_classes, hw=hw, noise=noise,
-                                       seed=seed)
+    def __repr__(self):
+        return f"<ModelFamily {self.name!r}>"
+
+
+class LayerwiseFamily(ModelFamily):
+    """Generic machinery over the canonical layer-wise tree; subclasses
+    supply ``init``, ``apply_all_exits``, ``num_submodels`` and
+    ``flops_per_sample`` (and, with ``stacked_forward``,
+    ``apply_all_exits_stacked``, which ``stacked_loss_fn``
+    differentiates)."""
+
+    supported_methods = ("drfl",)
+
+    def __init__(self):
+        # masks depend only on the tree's shapes, its device and
+        # (model_idx, scale); their 0-d leaves are never written
+        self._mask_cache: dict = {}
+        self._template_cache: dict = {}
+        self._cost_cache: dict = {}
 
     # -- submodel structure ----------------------------------------------
     def submodel_tree(self, tree, model_idx: int):
@@ -269,7 +375,8 @@ class LayerwiseFamily:
         key = int(num_classes)
         if key not in self._cost_cache:
             M = self.num_submodels()
-            ref = self.param_shapes(num_classes, width_mult=1.0)
+            ref = self.param_shapes(num_classes, width_mult=1.0,
+                                    hw=self.ref_hw)
             sizes = tuple(
                 sum(l.numel() * l.element_size()
                     for l in tree_leaves(self._size_tree(ref, m)))
@@ -281,29 +388,48 @@ class LayerwiseFamily:
         return self._cost_cache[key]
 
 
-_REGISTRY: Dict[str, LayerwiseFamily] = {}
+_REGISTRY: Dict[str, ModelFamily] = {}
 _DEFAULT = "cnn"
+_BUILTINS_LOADED = False
 
 
-def register_family(family: LayerwiseFamily) -> LayerwiseFamily:
-    _REGISTRY[family.name] = family
+def register_family(family: ModelFamily,
+                    name: Optional[str] = None) -> ModelFamily:
+    """Register a family singleton under ``name`` (default: its name)."""
+    _REGISTRY[name or family.name] = family
     return family
 
 
-def get_family(name: Optional[str] = None) -> LayerwiseFamily:
-    # importing a family's module registers it
-    from repro_torch.models import cnn, transformer_family  # noqa: F401
+def _ensure_builtins():
+    global _BUILTINS_LOADED
+    if _BUILTINS_LOADED:
+        return
+    _BUILTINS_LOADED = True
+    # the builtins register themselves at import
+    from repro_torch.models import cnn, mlp, transformer_family  # noqa: F401
+
+
+def known_families() -> Tuple[str, ...]:
+    _ensure_builtins()
+    return tuple(sorted(_REGISTRY))
+
+
+def get_family(name: Optional[str] = None) -> ModelFamily:
+    _ensure_builtins()
     key = name or _DEFAULT
-    if key not in _REGISTRY:
-        raise NotImplementedError(
-            f"model family {key!r} is not ported (ROADMAP Queue 1, "
-            "'other families'); ported: " + ", ".join(sorted(_REGISTRY)))
-    return _REGISTRY[key]
+    try:
+        return _REGISTRY[key]
+    except KeyError:
+        raise ValueError(
+            f"unknown model family {key!r} "
+            f"(registered: {', '.join(sorted(_REGISTRY))})") from None
 
 
-def resolve_family(family=None) -> LayerwiseFamily:
+def resolve_family(family=None) -> ModelFamily:
+    """None -> the default family; str -> registry lookup; a
+    :class:`ModelFamily` passes through."""
     if family is None or isinstance(family, str):
         return get_family(family)
-    if isinstance(family, LayerwiseFamily):
+    if isinstance(family, ModelFamily):
         return family
-    raise TypeError(f"expected a family, its name or None, got {family!r}")
+    raise TypeError(f"expected ModelFamily, name or None, got {family!r}")

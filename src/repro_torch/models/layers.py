@@ -1,6 +1,6 @@
-"""Dense, MLP, GRU, embedding, RMSNorm-init, RoPE and GELU-MLP primitives
-— port of the parts of ``repro.models.layers`` that the MARL agents and the
-transformer family use.
+"""Dense, MLP, GRU, embedding, RMSNorm-init, LayerNorm, RoPE and GELU-MLP
+primitives — port of the parts of ``repro.models.layers`` that the MARL
+agents and the ``transformer`` and ``mlp`` families use.
 
 Parameters are plain dicts of tensors with the JAX names and shapes
 (``w`` is ``[d_in, d_out]`` and applies as ``x @ w``), so converted JAX
@@ -61,6 +61,21 @@ def rmsnorm_init(d: int):
     return {"scale": torch.ones((d,))}
 
 
+def layernorm_init(d: int):
+    return {"scale": torch.ones((d,)), "bias": torch.zeros((d,))}
+
+
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's expression (``layers.py:104-109``), written out:
+    float32 mean, the biased variance of ``x - mean``, ``rsqrt``; ATen's
+    fused ``layer_norm`` sums in another order."""
+    xf = x.float()
+    centered = xf - xf.mean(dim=-1, keepdim=True)
+    var = (centered * centered).mean(dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
                             / head_dim))
@@ -84,6 +99,13 @@ def gelu_mlp_init(gen: torch.Generator, d: int, f: int):
     """With biases, the reference's default (``layers.py:368``)."""
     return {"w_in": dense_bias_init(gen, d, f),
             "w_out": dense_bias_init(gen, f, d, scale=1.0 / math.sqrt(f))}
+
+
+def gelu_mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """``w_out(gelu(w_in(x)))``; ``jax.nn.gelu`` is the tanh approximation
+    by default (``layers.py:374-375``)."""
+    return dense_apply(p["w_out"], F.gelu(dense_apply(p["w_in"], x),
+                                          approximate="tanh"))
 
 
 def stacked_gelu_mlp_apply(p, x: torch.Tensor) -> torch.Tensor:

@@ -85,14 +85,6 @@ def init(gen: torch.Generator, num_classes: int = 10,
     return params
 
 
-def param_shapes(num_classes: int = 10, width_mult: float = 1.0):
-    """The same tree of meta tensors: shapes and dtypes, no storage."""
-    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                          device="meta"),
-                    init(torch.Generator().manual_seed(0), num_classes,
-                         width_mult))
-
-
 def _rmsnorm(p, h):
     """rmsnorm over the trailing dim of h [P, ..., d], one scale row per
     participant."""
@@ -168,9 +160,6 @@ class TransformerFamily(LayerwiseFamily):
              width_mult: float = 1.0, hw: int = 32):
         # rotary positions: the parameters do not depend on the length
         return init(gen, num_classes, width_mult)
-
-    def param_shapes(self, num_classes: int = 10, width_mult: float = 1.0):
-        return param_shapes(num_classes, width_mult)
 
     def num_submodels(self) -> int:
         return N_BLOCKS

@@ -928,3 +928,73 @@ def test_bucketed_kill_and_resume_on_the_card_is_bitwise(cuda, tmp_path,
         assert a == b, key
     for a, b in zip(tree_leaves(ref["params"]), tree_leaves(res["params"])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_mlp_bucketed_run_matches_the_cpu(cuda, mode):
+    """The ``mlp`` family's bucketed DR-FL + MARL run (ε 0), given as a
+    typed ``SimulationSpec``, on the card and on the CPU: the same picks
+    and model choices, one ``layer_agg`` launch per aggregation on the
+    card, weights at the live tests' rtol 1e-4, atol 1e-5.  The async run
+    keeps to one virtual round, 16 tasks: SGD drift in float32 passes
+    1e-4 on longer chains of single-client aggregations."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.fl import EngineSpec, ModelSpec, SimulationSpec
+    from repro_torch.fl.engine import RoundEngine
+    from repro_torch.fl.simulation import _make_buffer, _make_selector
+    from repro_torch.kernels import reset_launches
+    from repro_torch.tree import tree_leaves
+    cfg = SimulationSpec(
+        n_devices=64, n_rounds=3 if mode == "sync" else 1,
+        participation=0.25, n_train=1280, seed=10,
+        model=ModelSpec(family="mlp", width_mult=0.125, hw=8,
+                        local_epochs=1, batch_size=16),
+        engine=EngineSpec(mode=mode)).to_flat()
+    hists = {}
+    for dev in ("cuda", "cpu"):
+        sel = _make_selector(cfg, 4, device=dev)
+        sel.learner.cfg = dataclasses.replace(sel.learner.cfg, eps_start=0.0,
+                                              eps_end=0.0)
+        sel.reset_episode()
+        reset_launches()
+        hists[dev] = RoundEngine(cfg, sel, _make_buffer(cfg),
+                                 device=dev).run()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["layer_agg"] == hists[dev]["n_aggregations"] >= 1
+    card, cpu = hists["cuda"], hists["cpu"]
+    assert card["executor"] == "batched"
+    assert card["participants"] == cpu["participants"]
+    assert card["model_choices"] == cpu["model_choices"]
+    for a, b in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_env_on_the_card_matches_the_cpu(cuda, mode):
+    """``FLEnv`` (a float64 fleet) on the card against the CPU over 50
+    seeded steps at 1024 devices: dropouts, alive counts and ``done``
+    equal, rewards and energies at rtol 1e-9, observations equal."""
+    import numpy as np
+    from repro_torch.fl import FLEnv, FLEnvConfig
+    cfg = FLEnvConfig.for_family("mlp", n_devices=1024, n_rounds=50,
+                                 seed=0, mode=mode)
+    card, cpu = FLEnv(cfg), FLEnv(cfg, device="cpu")
+    assert card.fleet.remaining.is_cuda
+    rng = np.random.default_rng(0)
+    for _ in range(50):
+        a = rng.integers(0, cfg.n_models + 1, cfg.n_devices)
+        go, gr, gd, gi = card.step(a)
+        co, cr, cd, ci = cpu.step(a)
+        assert (gd, gi["alive"], gi["dropouts"]) == \
+            (cd, ci["alive"], ci["dropouts"])
+        np.testing.assert_allclose(gr, cr, rtol=1e-9)
+        np.testing.assert_allclose(gi["energy"], ci["energy"], rtol=1e-9)
+        np.testing.assert_allclose(go.cpu().numpy(), co.numpy(), rtol=1e-6,
+                                   atol=0)
+        if cd:
+            break

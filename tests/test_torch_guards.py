@@ -2,7 +2,8 @@
 nothing of the JAX package; its entry points run on the card unless the
 caller asks for the CPU, with no fallback; every setting outside the
 ported slices raises ``NotImplementedError`` naming its ROADMAP item,
-and every setting a slice ported runs."""
+every setting the reference rejects raises its ``ValueError``, and every
+setting a slice ported runs."""
 import dataclasses
 import os
 import re
@@ -19,7 +20,8 @@ from repro_torch.fl.engine import check_supported
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "drfl_e2e_torch.py"]
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s]|$)",
                        re.M)
 
@@ -66,18 +68,25 @@ ASYNC = dict(engine_mode="async")
 @pytest.mark.parametrize("change,item", [
     (dict(fault_corrupts=1, fault_horizon=100.0), ValueError),
     (dict(fleet_mesh=2), "fleet sharding"),
-    (dict(model_family="mlp"), "other families"),
+    (dict(model_family="resnet9000"), ValueError),
     (dict(engine_mode="sync", fault_crashes=1, fault_horizon=100.0),
      ValueError),
 ])
 def test_unported_settings_raise(change, item):
     """Every setting outside the port raises ``NotImplementedError`` naming
-    its ROADMAP item, on either engine; a fault plan on the sync engine
-    raises the reference's ``ValueError`` (faults need the timeline)."""
+    its ROADMAP item, on either engine; a setting the reference rejects (a
+    fault plan on the sync engine: faults need the timeline; a family
+    nobody registered) raises the reference's ``ValueError``, message for
+    message, before any device work."""
     cfg = dataclasses.replace(FLConfig(**BASE), **change)
     if item is ValueError:
-        with pytest.raises(ValueError, match="engine_mode='async'"):
+        from repro.fl.simulation import FLConfig as JaxFLConfig
+        from repro.fl.spec import ensure_flat_config as jax_ensure
+        with pytest.raises(ValueError) as ref:
+            jax_ensure(JaxFLConfig(**dataclasses.asdict(cfg)))
+        with pytest.raises(ValueError) as got:
             run_simulation(cfg, device="cpu")
+        assert str(got.value) == str(ref.value)
         return
     with pytest.raises(NotImplementedError, match=item):
         run_simulation(cfg, device="cpu")
