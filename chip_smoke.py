@@ -122,7 +122,24 @@ its own lines; any failure raises and exits non-zero:
    reference]``, a small bucketed run on the card against the CPU; and
    ``[env]``, ``FLEnv`` at 1024 devices on the card against the CPU, both
    reward clocks;
-13. print the card's name and power limit, the kernels' JSON line and,
+13. DR-FL's last engine gaps: ``[lm examples]``, the LM examples'
+   twins (``examples/train_lm_torch.py --local`` for 2 rounds at full
+   width, d 128, sequences of 32, on the card and on the CPU: per-round
+   losses and weights at ``[reference]``'s tolerances; then
+   ``examples/serve_lm_torch.py`` decoding 16 tokens from exits 0 and M-1
+   of the card's ``--ckpt``, the CPU's tokens; ``rmsnorm`` and
+   ``flash_attention`` launches counted, ms per token);
+   ``[checkpoint from jax async]``, the committed async JAX checkpoint
+   (``tests/data/jax_async_ckpt/``: the ``mlp`` family, bucketed, greedy,
+   killed after its first virtual round's save with two ``delta1`` rows
+   in flight) resumed through ``resume_state_from_jax`` on the card and
+   on the CPU: picks, model choices and task log equal to the record of
+   the uninterrupted JAX run beside it, card and CPU weights at ``[async
+   reference]``'s tolerances, ``layer_agg`` once per completion after the
+   resume; ``[fleet mesh]``, in a one-rank NCCL group the selection step
+   on a fleet placed on the ``("fleet",)`` mesh against the plain step,
+   and ``fleet_mesh=-1``/``2`` leaving the fleet unsharded;
+14. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2606,6 +2623,248 @@ def phase_public_api():
     return record
 
 
+def _example(name):
+    """One of ``examples/`` as a module (the examples are scripts, not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, SRC.parent / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: the LM examples at full width: d 128, 4 heads, 4 blocks, windows of 32
+LM_ARGS = ["--local", "--rounds", "2", "--width", "1.0", "--seq", "32"]
+LM_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+              "flash_attention_bwd")
+
+
+def phase_lm_examples():
+    """``[lm examples]``: ``train_lm_torch --local`` on the card and on
+    the CPU from one init (per-round losses at rtol 1e-4, exit accuracies
+    within one validation sample, weights at ``[reference]``'s rtol 1e-4,
+    atol 1e-5), then ``serve_lm_torch`` decoding the card's ``--ckpt`` on
+    the card and on the CPU (the same tokens).  The kernels' launches are
+    reset before each card run and read after it; each must have run."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+    train, serve = _example("train_lm_torch"), _example("serve_lm_torch")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f"{tmp}/lm.msgpack"
+        reset_launches()
+        t1 = time.perf_counter()
+        gp, rounds = train.main(LM_ARGS + ["--device", "cuda", "--ckpt", ck])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        train_launches = {k: LAUNCHES[k] for k in LM_KERNELS}
+        cpu_gp, cpu_rounds = train.main(LM_ARGS + ["--device", "cpu"])
+        n_val = max(64, 1200 // 10)
+        loss_ok = all(np.allclose(g["losses"], c["losses"], rtol=1e-4)
+                      for g, c in zip(rounds, cpu_rounds))
+        acc = max(float(np.max(np.abs(g["accs"] - c["accs"])))
+                  for g, c in zip(rounds, cpu_rounds))
+        pairs = [(a.cpu(), b) for a, b in zip(tree_leaves(gp),
+                                              tree_leaves(cpu_gp))]
+        w_diff = max(float((a - b).abs().max()) for a, b in pairs)
+        w_ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+                   for a, b in pairs)
+        serve_args = ["--ckpt", ck, "--seq", "32", "--width", "1.0",
+                      "--gen", "16", "--exit", "0"]
+        reset_launches()
+        card = serve.main(serve_args + ["--device", "cuda"])
+        decode_launches = {k: LAUNCHES[k] for k in LM_KERNELS}
+        cpu = serve.main(serve_args + ["--device", "cpu"])
+    print(f"[lm examples] train_lm_torch --local, 2 rounds at d 128, seq "
+          f"32: card {train_s:.2f} s; losses per round "
+          f"{[np.round(r['losses'], 4).tolist() for r in rounds]}, equal to"
+          f" the CPU's at rtol 1e-4: {loss_ok}; max exit accuracy diff "
+          f"{acc:.4f} (limit {1 / n_val:.4f}); max weight diff {w_diff:.3e}"
+          f" (allclose at rtol 1e-4, atol 1e-5: {w_ok}); launches "
+          f"{train_launches}")
+    for m in sorted(card):
+        print(f"[lm examples] serve_lm_torch exit {m}: card tokens "
+              f"{card[m][0]}, {card[m][1]:.2f} ms/token (CPU "
+              f"{cpu[m][1]:.2f}); equal to the CPU's: "
+              f"{card[m][0] == cpu[m][0]}")
+    print(f"[lm examples] decode launches {decode_launches}; the phase "
+          f"took {time.perf_counter() - t0:.1f} s")
+    if not loss_ok or acc > 1.0 / n_val + 1e-6 or not w_ok:
+        raise AssertionError("[lm examples] card and CPU training disagree")
+    if any(card[m][0] != cpu[m][0] for m in card) or sorted(card) != [0, 3]:
+        raise AssertionError("[lm examples] card and CPU decode differently")
+    idle = [k for k in LM_KERNELS if not train_launches[k]] + [
+        k for k in ("rmsnorm", "flash_attention") if not decode_launches[k]]
+    if idle:
+        raise AssertionError(f"[lm examples] kernels never launched: {idle}")
+
+
+#: the committed async JAX checkpoint (DR-FL greedy, bucketed, the mlp
+#: family at n 8) and the record of its uninterrupted JAX run beside it
+#: (scripts/make_jax_async_checkpoint.py)
+JAX_ASYNC_CKPT = SRC.parent / "tests" / "data" / "jax_async_ckpt"
+
+
+def phase_checkpoint_from_jax_async():
+    """``[checkpoint from jax async]``: the committed async JAX checkpoint
+    (killed after its first virtual round's save, two bucketed ``delta1``
+    rows in flight in the JAX layout) resumed by ``run_simulation(resume=
+    True)`` through ``resume_state_from_jax``, on the card and on the CPU.
+    Both resumed runs must equal the record of the uninterrupted JAX run
+    (picks, model choices, staleness and task log, times at rtol 1e-4;
+    accuracies within one validation sample); the card and the CPU runs
+    agree at ``[async reference]``'s tolerances (mean accuracy 0.06,
+    weights atol 6e-3); ``layer_agg`` launches once per aggregation after
+    the resume."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import EngineCheckpointer
+    from repro_torch.fl import FLConfig, run_simulation
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+    record = json.loads((JAX_ASYNC_CKPT / "record.json").read_text())
+    t0 = time.perf_counter()
+    hists = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        saved, _ = EngineCheckpointer(str(JAX_ASYNC_CKPT)).load()
+        for dev in ("cuda", "cpu"):
+            shutil.copytree(JAX_ASYNC_CKPT, f"{tmp}/{dev}")
+            cfg = FLConfig(**record["config"], checkpoint_dir=f"{tmp}/{dev}",
+                           resume=True)
+            reset_launches()
+            hists[dev] = run_simulation(cfg, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = LAUNCHES["layer_agg"]
+    g, c = hists["cuda"], hists["cpu"]
+    after = len(g["staleness"]) - len(saved["hist"]["staleness"])
+    in_flight = sum(1 for t in saved["tasks"].values()
+                    if t.get("delta1") is not None)
+    n_val = max(64, int(0.04 * record["config"]["n_train"]))
+
+    def matches(h):
+        if any(h[k] != record[k] for k in (
+                "participants", "model_choices", "staleness", "n_tasks")):
+            return False
+        if np.max(np.abs(np.subtract(h["acc_mean"], record["acc_mean"]))
+                  ) > 1.0 / n_val + 1e-6:
+            return False
+        for got, ref in zip(h["task_log"] + [h["terminated"]],
+                            record["task_log"] + [record["terminated"]]):
+            for k, v in ref.items():
+                if (not np.isclose(got[k], v, rtol=1e-4, atol=0)
+                        if isinstance(v, float) else got[k] != v):
+                    return False
+        return len(h["task_log"]) == len(record["task_log"])
+    w_diff = max(float((a.cpu() - b).abs().max()) for a, b in
+                 zip(tree_leaves(g["params"]), tree_leaves(c["params"])))
+    acc = float(np.max(np.abs(np.subtract(g["acc_mean"], c["acc_mean"]))))
+    cf = record["config"]
+    print(f"[checkpoint from jax async] the JAX package's checkpoint "
+          f"({cf['model_family']}, {cf['client_executor']}, greedy, n="
+          f"{cf['n_devices']}; virtual round {saved['state']['vround']}, "
+          f"{in_flight} delta rows in flight) resumed on the card: "
+          f"{len(g['task_log'])} tasks, equal to the JAX record: card "
+          f"{matches(g)}, CPU {matches(c)}; layer_agg {launches} launches "
+          f"for {after} aggregations after the resume; card vs CPU max mean"
+          f" accuracy diff {acc:.4f} (limit 0.06), max weight diff "
+          f"{w_diff:.3e} (limit 6e-3); {time.perf_counter() - t0:.1f} s")
+    if not (matches(g) and matches(c)):
+        raise AssertionError("[checkpoint from jax async] the resumed runs "
+                             "differ from the JAX record")
+    if launches != after or after < 1 or not in_flight:
+        raise AssertionError(f"[checkpoint from jax async] layer_agg "
+                             f"{launches} launches for {after} aggregations")
+    if acc > 0.06 or w_diff > 6e-3:
+        raise AssertionError("[checkpoint from jax async] card and CPU "
+                             "resumes disagree")
+
+
+def phase_fleet_mesh():
+    """``[fleet mesh]``: one card is one rank.  Inside a one-rank NCCL
+    group, ``dual_selection_energy_step`` at n 1024 on a fleet and hidden
+    state placed on the ``("fleet",)`` mesh (``DTensor``s, ``Shard(0)``:
+    the summary's ``all_reduce`` and the top-k's ``all_gather`` go through
+    NCCL) against the plain step on the card: picks and actions equal,
+    the rest at the reference's step tolerances (rtol 1e-5, atol 1e-6);
+    ``maybe_shard_fleet`` with ``fleet_mesh=-1`` and ``2`` returns the
+    fleet itself, and the engine takes either (it never shards: its
+    ``fleet_mesh`` is a no-op on one rank and refused above one)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.core.fleet import make_fleet_state
+    from repro_torch.core.selection import (MarlSelector,
+                                            dual_selection_energy_step)
+    from repro_torch.device import to_host
+    from repro_torch.fl import FLConfig
+    from repro_torch.fl.engine import check_supported
+    from repro_torch.sharding.fleet import (fleet_mesh, maybe_shard_fleet,
+                                            shard_agent_array, shard_fleet)
+    t0 = time.perf_counter()
+    n, k = 1024, 64
+    sizes, fracs = (2.8e6, 8.4e6, 22.5e6, 44.8e6), (0.11, 0.3, 0.72, 1.0)
+    sel = MarlSelector(n, len(sizes), n_rounds=5, seed=0,
+                       state_mode="factored", mixer_mode="set",
+                       device="cuda")
+    fleet = make_fleet_state(n, seed=2, device="cuda")
+    rng = np.random.default_rng(0)
+    hidden = torch.tensor(rng.normal(size=tuple(sel.hidden.shape)),
+                          dtype=torch.float32, device="cuda")
+    kw = dict(round_idx=2, n_rounds=5, budget_left=2000.0)
+    plain = dual_selection_energy_step(sel.learner.params["agent"], hidden,
+                                       fleet, sizes, fracs, k, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            for n_shards in (-1, 2):
+                check_supported(FLConfig(fleet_mesh=n_shards))
+                if maybe_shard_fleet(fleet, n_shards) is not fleet:
+                    raise AssertionError(f"[fleet mesh] fleet_mesh="
+                                         f"{n_shards} sharded on one rank")
+            mesh = fleet_mesh()
+            with implicit_replication():
+                meshed = dual_selection_energy_step(
+                    sel.learner.params["agent"],
+                    shard_agent_array(hidden, mesh), shard_fleet(fleet, mesh),
+                    sizes, fracs, k, **kw)
+                f1, h1, p1, a1, s1 = to_host(
+                    plain[0].remaining, *plain[1:])
+                f2, h2, p2, a2, s2 = to_host(
+                    meshed[0].remaining, *meshed[1:])
+        finally:
+            dist.destroy_process_group()
+    diffs = {name: float(np.max(np.abs(x.astype(np.float64) - y)))
+             for name, x, y in (("remaining", f2, f1), ("hidden", h2, h1),
+                                ("summary", s2, s1))}
+    same = (np.array_equal(p2, p1) and np.array_equal(a2, a1)
+            and np.allclose(f2, f1, rtol=1e-6, atol=0)
+            and all(np.allclose(x, y, rtol=1e-5, atol=1e-6)
+                    for x, y in ((h2, h1), (s2, s1))))
+    print(f"[fleet mesh] one-rank NCCL group, dual_selection_energy_step n="
+          f"{n} k={k} on the one-rank mesh vs plain on the card: "
+          f"{int(p1.sum())} picks, picks and actions equal "
+          f"{np.array_equal(p2, p1) and np.array_equal(a2, a1)}, max diffs "
+          + ", ".join(f"{k_} {v:.3e}" for k_, v in diffs.items())
+          + f"; fleet_mesh=-1/2 leave the fleet unsharded; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("[fleet mesh] the meshed step differs")
+    print("[fleet mesh] the sharded step over several cards (torchrun "
+          "--nproc-per-node k, NCCL) is not run on this one-card machine; "
+          "tests/test_torch_shard.py runs it on 4 gloo ranks on the CPU")
+
+
 def _attention_route_launches(record, launches, into=None):
     """An attention record's launches by route (into ``into``, else the
     record): every forward route, or every backward route."""
@@ -2713,6 +2972,12 @@ def main() -> int:
     phase_checkpoint_async()
     phase_checkpoint_reference()
     print(f"[checkpoint] the three checkpoint phases took "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_lm_examples()
+    phase_checkpoint_from_jax_async()
+    phase_fleet_mesh()
+    print(f"[engine gaps] the three phases took "
           f"{time.perf_counter() - t0:.1f} s")
     records.append(mlp_record)
     smi = subprocess.run(

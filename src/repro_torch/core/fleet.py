@@ -30,6 +30,20 @@ CUDA division by a host scalar multiplies by the reciprocal, which can
 move a value across a bin edge), and every fleet sum is taken exactly in
 float64 and rounded once, so the card and the CPU give the same bits and
 the JAX package's float32 sums agree to their own rounding.
+
+A fleet sharded over a ``torch.distributed`` mesh
+(:mod:`repro_torch.sharding.fleet`: every field a ``DTensor``, rows
+split over the ranks) runs through the same functions, inside the
+caller's ``torch.distributed.tensor.experimental.implicit_replication()``
+(a plain tensor met on the way, which every rank holds whole, is taken as
+replicated): the elementwise ops on each rank's rows, and the two
+reductions of the selection step with their collectives written out,
+each rank's rows never gathered: :func:`fleet_summary` adds every rank's
+float64 sums with ONE ``all_reduce`` of ``summary_width`` values before
+its one rounding, so its bits are the unsharded summary's;
+:func:`fleet_topk_mask` takes each rank's top k, gathers the k (value,
+index) candidates of every rank with one ``all_gather`` and merges them
+with the same tie rule.
 """
 from __future__ import annotations
 
@@ -38,6 +52,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.energy import BATTERY_JOULES, DEVICE_TIERS, make_fleet
 from repro_torch.device import resolve_device, to_host
@@ -151,6 +167,23 @@ def sample_fleet_state(n: int, seed: int = 0, tier_probs=(0.4, 0.3, 0.3),
         busy_until=torch.zeros((n,), dtype=torch.float32, device=device))
 
 
+def _rows(t: DTensor):
+    """(this rank's rows, the global index of its first row, the group to
+    reduce over or None) of a fleet ``DTensor``: a replicated one holds
+    every row and needs no collective."""
+    local = t.to_local()
+    if not isinstance(t.placements[0], Shard):
+        return local, 0, None
+    mesh = t.device_mesh
+    return local, mesh.get_local_rank() * local.shape[0], mesh.get_group()
+
+
+def _like_rows(ref: DTensor, local: torch.Tensor) -> DTensor:
+    """``local``, this rank's rows, as a ``DTensor`` placed as ``ref``."""
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False)
+
+
 def _like(fleet: FleetState, vals) -> torch.Tensor:
     """``vals`` in the fleet's float dtype (float32 but for the float64
     fleets of :func:`make_fleet_state`), on its device."""
@@ -209,8 +242,10 @@ def fleet_charge(fleet: FleetState, e_need: torch.Tensor,
 
 
 def fleet_total_remaining(fleet: FleetState) -> float:
-    """Eq. 6 fleet energy ledger as a host float (one sync)."""
-    return float(fleet.remaining.sum())
+    """Eq. 6 fleet energy ledger as a host float (one sync; a sharded
+    fleet's ranks' sums added by :func:`~repro_torch.device.to_host`'s
+    gather: ``float`` of a sharded sum would read this rank's alone)."""
+    return float(to_host(fleet.remaining.sum())[0])
 
 
 def _index_mask(fleet: FleetState, indices) -> torch.Tensor:
@@ -290,7 +325,12 @@ def fleet_topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
     """[n] bool mask of the k highest ``scores``; ties go to the lower
     index (a stable descending sort: ``torch.topk`` keeps no tie order,
     ``jax.lax.top_k`` and the host selectors' stable argsort do).  ``-inf``
-    scores are never selected."""
+    scores are never selected.  Sharded scores (a ``DTensor``): each
+    rank's top k, one ``all_gather`` of every rank's k (value, global
+    index) candidates, the same stable sort over them in rank order (so
+    ties still go to the lower index), each rank marking its own rows."""
+    if isinstance(scores, DTensor):
+        return _topk_mask_sharded(scores, k)
     n = int(scores.shape[0])
     k = max(0, min(int(k), n))
     mask = torch.zeros((n,), dtype=torch.bool, device=scores.device)
@@ -298,6 +338,28 @@ def fleet_topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
         idx = torch.sort(scores, descending=True, stable=True).indices[:k]
         mask[idx] = True
     return mask & torch.isfinite(scores)
+
+
+def _topk_mask_sharded(scores: DTensor, k: int) -> DTensor:
+    local, off, group = _rows(scores)
+    if group is None:                      # replicated: every row is here
+        return _like_rows(scores, fleet_topk_mask(local, k))
+    k = max(0, min(int(k), int(scores.shape[0])))
+    kl = min(k, local.shape[0])
+    top = torch.sort(local, descending=True, stable=True)
+    # float64 holds a float32 score and an index below 2^53 exactly
+    cand = torch.stack([top.values[:kl].double(),
+                        (top.indices[:kl] + off).double()], dim=1)
+    gathered = [torch.empty_like(cand)
+                for _ in range(dist.get_world_size(group))]
+    dist.all_gather(gathered, cand, group=group)
+    cand = torch.cat(gathered)             # rank order: index order
+    order = torch.sort(cand[:, 0], descending=True, stable=True).indices
+    picked = cand[order[:k], 1].long() - off
+    picked = picked[(picked >= 0) & (picked < local.shape[0])]
+    mask = torch.zeros(local.shape, dtype=torch.bool, device=local.device)
+    mask[picked] = True
+    return _like_rows(scores, mask & torch.isfinite(local))
 
 
 #: histogram resolution of the factored summary (per-feature bin count)
@@ -319,15 +381,6 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
-def _exact_sum(x: torch.Tensor, dtype: torch.dtype,
-               dim=None) -> torch.Tensor:
-    """A fleet sum taken in float64 and rounded once to ``dtype``: exact
-    for a float32 fleet's energies, counts and fractions, whatever the
-    order of the adds."""
-    x = x.double()
-    return (x.sum() if dim is None else x.sum(dim=dim)).to(dtype)
-
-
 def _np_float(t: torch.Tensor):
     """The numpy scalar type of ``t``'s float dtype: the reference's
     scalars are rounded to it (float32 on the engines' fleets, float64 on
@@ -337,14 +390,15 @@ def _np_float(t: torch.Tensor):
 
 def _histogram(values: torch.Tensor, weights: torch.Tensor, lo: float,
                hi: float, n_bins: int) -> torch.Tensor:
-    """Weighted counts of ``values`` over ``n_bins`` equal bins of [lo,
-    hi): bin ``trunc((v - lo) / (hi - lo) * n_bins)`` in the values'
-    dtype, clipped (``fleet.py:460-472``; ``hi - lo`` is rounded to that
-    dtype first, as the reference's weak-typed scalar)."""
+    """The weights of ``values`` over ``n_bins`` equal bins of [lo, hi),
+    summed in float64 and not yet rounded: bin ``trunc((v - lo) / (hi -
+    lo) * n_bins)`` in the values' dtype, clipped (``fleet.py:460-472``;
+    ``hi - lo`` is rounded to that dtype first, as the reference's
+    weak-typed scalar)."""
     scaled = true_div(values - lo, float(_np_float(values)(hi - lo))) * n_bins
     idx = torch.clamp(scaled.to(torch.int32), 0, n_bins - 1)
     onehot = idx[:, None] == torch.arange(n_bins, device=idx.device)
-    return _exact_sum(onehot * weights[:, None], weights.dtype, dim=0)
+    return (onehot * weights[:, None]).double().sum(dim=0)
 
 
 def fleet_summary(fleet: FleetState, model_sizes, model_fractions,
@@ -366,30 +420,49 @@ def fleet_summary(fleet: FleetState, model_sizes, model_fractions,
     the reference on either backend (a float64 fleet is the numpy one's).
     ``afford``, an [n, M+1] action mask the caller already holds (the
     selector's, under a budget the budget-masked one), saves pricing the
-    fleet twice."""
+    fleet twice.  Every fleet sum is taken in float64 (exact for a float32
+    fleet's energies, counts and fractions, whatever the order of the
+    adds) and rounded once.  On a sharded fleet each rank sums its own
+    rows and one ``all_reduce`` adds the float64 sums before that
+    rounding: the same bits, and every rank gets the whole vector."""
     n = len(fleet)
+    if afford is None:
+        afford = fleet_affordability(fleet, model_sizes, model_fractions,
+                                     local_epochs, batch_size)
+    group = None
+    if isinstance(fleet.remaining, DTensor):
+        group = _rows(fleet.remaining)[2]
+        fleet = fleet.replace(**{f: getattr(fleet, f).to_local() for f in (
+            "compute", "battery", "remaining", "data_size", "mode_compute",
+            "alive")})
+        afford = afford.to_local()
     dt = fleet.remaining.dtype
     np_dt = _np_float(fleet.remaining)
     inv_n = float(np_dt(1.0 / float(n)))
     alive = fleet.alive.to(dt)
-    n_alive = torch.clamp_min(_exact_sum(alive, dt), 1.0)
     batt_frac = fleet.remaining / fleet.battery
-    hist_b = _histogram(batt_frac, alive, 0.0, 1.0 + 1e-9, n_bins) * inv_n
     eff = true_div(fleet.compute * fleet.mode_compute, 500.0)
-    hist_c = _histogram(eff, alive, 0.0, 2.0, n_bins) * inv_n
-    if afford is None:
-        afford = fleet_affordability(fleet, model_sizes, model_fractions,
-                                     local_epochs, batch_size)
-    afford_frac = _exact_sum(afford[:, :-1], dt, dim=0) * inv_n
+    sums = torch.cat([
+        _histogram(batt_frac, alive, 0.0, 1.0 + 1e-9, n_bins),
+        _histogram(eff, alive, 0.0, 2.0, n_bins),
+        afford[:, :-1].double().sum(dim=0),
+        torch.stack([x.double().sum() for x in (
+            fleet.remaining, fleet.battery, alive, batt_frac * alive,
+            fleet.data_size * alive)])])
+    if group is not None:
+        dist.all_reduce(sums, group=group)
+    sums = sums.to(dt)                       # the one rounding
+    hist_b, hist_c, afford_sum, rest = torch.split(
+        sums, [n_bins, n_bins, afford.shape[1] - 1, 5])
+    rem, batt, n_live, frac_live, data_live = rest
+    n_alive = torch.clamp_min(n_live, 1.0)
     t = np_dt(round_idx) / np_dt(max(int(n_rounds), 1))
     totals = torch.stack([
-        _exact_sum(fleet.remaining, dt) / _exact_sum(fleet.battery, dt),
-        _exact_sum(alive, dt) * inv_n,
-        _exact_sum(batt_frac * alive, dt) / n_alive,
-        true_div(_exact_sum(fleet.data_size * alive, dt) / n_alive, 1000.0),
-        torch.full((), float(t), dtype=dt, device=alive.device),
-    ])
-    return torch.cat([hist_b, hist_c, afford_frac, totals]).float()
+        rem / batt, n_live * inv_n, frac_live / n_alive,
+        true_div(data_live / n_alive, 1000.0),
+        torch.full((), float(t), dtype=dt, device=sums.device)])
+    return torch.cat([hist_b * inv_n, hist_c * inv_n, afford_sum * inv_n,
+                      totals]).float()
 
 
 # Array fields :func:`fleet_summary` does not read directly, as the

@@ -270,7 +270,11 @@ def dual_selection_energy_step(agent_params, hidden, fleet: FleetState,
     liveness, and ``charge_profile`` harvests ``charge_dt`` sim-seconds
     after the charge (midpoint rate, alive devices, capped at ``battery *
     energy_scale``).  Returns ``(new_fleet, new_hidden, participants[n]
-    bool, actions[n], summary)``."""
+    bool, actions[n], summary)``.  On a sharded fleet and hidden state
+    (:mod:`repro_torch.sharding.fleet`, inside the caller's
+    ``implicit_replication()``) every rank steps its own rows; the
+    collectives are the top-k's one ``all_gather`` and the summary's one
+    ``all_reduce``, and every rank gets the whole summary."""
     M = len(model_sizes)
     obs = fleet_obs_batch(fleet, round_idx, n_rounds)
     q, h = agent_step(agent_params, obs, hidden)               # [n, M+1]

@@ -1,11 +1,14 @@
 """Device resolution, the batched device-to-host pull and the
-checkpointable state of a ``torch.Generator``."""
+checkpointable state of a ``torch.Generator``; :func:`to_host` also
+gathers a ``DTensor`` (a field of a fleet sharded over a
+``torch.distributed`` mesh, :mod:`repro_torch.sharding.fleet`)."""
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def resolve_device(device) -> torch.device:
@@ -24,7 +27,12 @@ def resolve_device(device) -> torch.device:
 
 def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
     """One batched pull: every copy is queued before the single wait, so a
-    call costs one host sync however many tensors it brings back."""
+    call costs one host sync however many tensors it brings back.  A
+    ``DTensor`` (a sharded fleet's field) is gathered first, with one
+    collective each (``full_tensor``): the one place where host code reads
+    a sharded fleet whole, so every rank must make the same calls."""
+    tensors = [t.full_tensor() if isinstance(t, DTensor) else t
+               for t in tensors]
     outs = [t.detach().to("cpu", non_blocking=True) for t in tensors]
     for dev in {t.device for t in tensors if t.is_cuda}:
         torch.cuda.current_stream(dev).synchronize()

@@ -92,6 +92,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.checkpoint.engine import (CheckpointHalt,
@@ -127,12 +128,6 @@ def _span(phase: Dict[str, float], name: str):
     phase[name] = phase.get(name, 0.0) + time.perf_counter() - t0
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1, "
-        f"'{item}')")
-
-
 #: the selectors ``FLConfig.selector`` names (``simulation._make_selector``)
 SELECTORS = ("marl", "greedy", "random", "static")
 
@@ -152,14 +147,18 @@ def check_supported(cfg) -> None:
     the reference's ``ValueError``); either client executor; either QMIX
     state and mixer at every fleet size; every energy scenario (an unknown
     profile name raises the reference's ``ValueError``); checkpoints and
-    resume on both engines.  A fleet mesh (``fleet_mesh`` > 1) raises
-    ``NotImplementedError``.  ``run_simulation`` validates the config
+    resume on both engines; ``fleet_mesh``, a no-op with no
+    ``torch.distributed`` group or a group of one rank, as the reference's
+    below two devices.  Above one rank it raises ``ValueError``: every
+    rank would run the whole engine, client training and QMIX updates
+    included, for one result, so the engine runs unsharded, one per
+    process (the selection step shards by itself:
+    :mod:`repro_torch.sharding.fleet`).  No setting the reference accepts
+    raises ``NotImplementedError``.  ``run_simulation`` validates the config
     through :func:`repro_torch.fl.spec.ensure_flat_config` first."""
     if cfg.engine_mode not in ("sync", "async"):
         raise ValueError(f"unknown engine_mode {cfg.engine_mode!r} "
                          "(expected 'sync' or 'async')")
-    if cfg.fleet_mesh not in (0, 1):
-        raise not_ported("fleet_mesh", "fleet sharding")
     family = get_family(cfg.model_family)
     if not family.supports(cfg.method):
         raise family.unsupported(cfg.method)
@@ -168,6 +167,13 @@ def check_supported(cfg) -> None:
         raise ValueError(f"unknown selector {cfg.selector!r} (expected one "
                          f"of {SELECTORS})")
     resolve_client_executor(cfg)
+    if (cfg.fleet_mesh not in (0, 1) and dist.is_available()
+            and dist.is_initialized() and dist.get_world_size() > 1):
+        raise ValueError(
+            f"fleet_mesh={cfg.fleet_mesh} under a group of "
+            f"{dist.get_world_size()} ranks: the engine runs unsharded, one "
+            "per process (fleet_mesh 0 or 1, or no group); shard the "
+            "selection step itself with repro_torch.sharding.fleet")
     if uses_marl(cfg):
         n_agents = cfg.n_devices + cfg.hotplug_n
         resolve_state_mode(cfg.state_mode, n_agents)  # an unknown name

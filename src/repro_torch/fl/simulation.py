@@ -19,9 +19,10 @@ size (``state_mode`` and ``mixer_mode``: above 256 devices ``"auto"``
 takes the factored state and the set mixer, whose replay stores at most
 ``marl_agent_budget`` agents), with engine checkpoints and resume
 (``checkpoint_dir``, ``checkpoint_every``, ``checkpoint_keep``,
-``resume``; a sync checkpoint of the JAX package resumes here too).  A
-fleet mesh (``fleet_mesh`` > 1) and an async JAX checkpoint raise
-``NotImplementedError`` naming their ROADMAP item.
+``resume``; a checkpoint of the JAX package, sync or async, resumes
+here too), and the fleet mesh (``fleet_mesh``: the fleet sharded over the
+ranks of an initialised ``torch.distributed`` group,
+:mod:`repro_torch.sharding.fleet`; a no-op below two ranks).
 """
 from __future__ import annotations
 
@@ -196,7 +197,7 @@ def run_simulation(cfg, verbose: bool = False, *,
 
     With ``cfg.checkpoint_dir`` and ``cfg.checkpoint_every`` the engine
     saves the whole run state on that cadence; with ``cfg.resume`` the
-    latest checkpoint (this port's, or a sync one of the JAX package) is
+    latest checkpoint (this port's, or one of the JAX package's) is
     loaded (:func:`load_resume_state`), the episodes before its own are
     skipped, and its episode continues without ``reset_episode``: the
     history and weights equal an uninterrupted run's bit for bit.

@@ -12,7 +12,9 @@ Arms, at the live tests' size (``torch_live.BASE``: n 8, width 0.125, 8x8,
 MARL with ε = 0 on both sides (the JAX act key has no torch counterpart),
 whose QMIX update after the resume starts from the carried learner and
 replay; and the transformer family's DR-FL, whose blocks run ``rmsnorm``
-(its plain version on the CPU) after the resume.
+(its plain version on the CPU) after the resume.  An async JAX checkpoint
+is carried too (``tests/test_torch_checkpoint_async*.py``); a manifest of
+any other mode raises ``ValueError``.
 """
 import dataclasses
 
@@ -75,10 +77,13 @@ def test_jax_checkpoint_resumes_in_the_port(arm, tmp_path):
         assert th["qmix"]["updates"] == jsel.learner.updates >= 1
 
 
-def test_async_jax_checkpoint_is_not_carried():
+def test_unknown_jax_checkpoint_mode_raises():
+    """Both engine modes are carried (the async arms are in
+    ``tests/test_torch_checkpoint_async*.py``); any other mode raises."""
     cfg = tsim.FLConfig(**dict(BASE, engine_mode="async"))
-    with pytest.raises(NotImplementedError, match="checkpoints from JAX"):
-        resume_state_from_jax({"mode": "async"}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        resume_state_from_jax({"mode": "async"},
-                              dataclasses.replace(cfg, engine_mode="sync"))
+    for mode in ("pipelined", None):
+        with pytest.raises(ValueError, match="unknown engine_mode"):
+            resume_state_from_jax({"mode": mode}, cfg)
+        with pytest.raises(ValueError, match="expected 'sync' or 'async'"):
+            resume_state_from_jax({"mode": mode},
+                                  dataclasses.replace(cfg, engine_mode="sync"))

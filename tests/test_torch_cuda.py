@@ -998,3 +998,26 @@ def test_env_on_the_card_matches_the_cpu(cuda, mode):
                                    atol=0)
         if cd:
             break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["none", "nccl-1"])
+def test_fleet_mesh_on_one_card_is_a_noop(cuda, group, tmp_path):
+    """One card is one rank: with no process group, and inside a one-rank
+    NCCL group, ``maybe_shard_fleet`` returns the fleet itself for every
+    ``fleet_mesh`` (the reference's no-op below two devices)."""
+    import torch.distributed as dist
+    from repro_torch.core.fleet import make_fleet_state
+    from repro_torch.sharding.fleet import is_sharded, maybe_shard_fleet
+    fleet = make_fleet_state(64, seed=0, device=cuda)
+    if group == "nccl-1":
+        dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+    try:
+        for n_shards in (0, 1, -1, 2):
+            out = maybe_shard_fleet(fleet, n_shards)
+            assert out is fleet and not is_sharded(out)
+    finally:
+        if group == "nccl-1":
+            dist.destroy_process_group()

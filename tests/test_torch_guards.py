@@ -1,9 +1,9 @@
 """Guards of the port's boundaries: it imports with jax absent and imports
 nothing of the JAX package; its entry points run on the card unless the
-caller asks for the CPU, with no fallback; every setting outside the
-ported slices raises ``NotImplementedError`` naming its ROADMAP item,
-every setting the reference rejects raises its ``ValueError``, and every
-setting a slice ported runs."""
+caller asks for the CPU, with no fallback; every setting the reference
+rejects raises its ``ValueError``, and every setting a slice ported runs
+(since the fleet mesh, every setting the reference accepts: none raises
+``NotImplementedError``)."""
 import dataclasses
 import os
 import re
@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core.selection import resolve_mixer_mode
 from repro_torch.fl import FLConfig, run_simulation
 from repro_torch.fl.engine import check_supported
 
@@ -21,7 +22,9 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "drfl_e2e_torch.py"]
+    ROOT / "examples" / "drfl_e2e_torch.py",
+    ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py"]
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s]|$)",
                        re.M)
 
@@ -67,17 +70,16 @@ ASYNC = dict(engine_mode="async")
 
 @pytest.mark.parametrize("change,item", [
     (dict(fault_corrupts=1, fault_horizon=100.0), ValueError),
-    (dict(fleet_mesh=2), "fleet sharding"),
     (dict(model_family="resnet9000"), ValueError),
     (dict(engine_mode="sync", fault_crashes=1, fault_horizon=100.0),
      ValueError),
 ])
 def test_unported_settings_raise(change, item):
-    """Every setting outside the port raises ``NotImplementedError`` naming
-    its ROADMAP item, on either engine; a setting the reference rejects (a
-    fault plan on the sync engine: faults need the timeline; a family
-    nobody registered) raises the reference's ``ValueError``, message for
-    message, before any device work."""
+    """A setting the reference rejects (a fault plan on the sync engine:
+    faults need the timeline; a family nobody registered) raises the
+    reference's ``ValueError``, message for message, before any device
+    work.  No setting the reference accepts is outside the port any more
+    (the fleet mesh, the last, runs: below)."""
     cfg = dataclasses.replace(FLConfig(**BASE), **change)
     if item is ValueError:
         from repro.fl.simulation import FLConfig as JaxFLConfig
@@ -105,17 +107,20 @@ CHECKPOINTS = dict(checkpoint_dir="ckpt", checkpoint_every=1)
     dict(n_devices=40), dict(client_executor="perclient"),
     dict(method="heterofl"), dict(selector="greedy"),
     dict(mixer_mode="set"), FLEET_SCALE, dict(ASYNC, mixer_mode="set"),
-    dict(ASYNC, **FLEET_SCALE), CHECKPOINTS, dict(ASYNC, **CHECKPOINTS)],
+    dict(ASYNC, **FLEET_SCALE), CHECKPOINTS, dict(ASYNC, **CHECKPOINTS),
+    dict(fleet_mesh=2), dict(ASYNC, fleet_mesh=-1)],
     ids=["n_devices=40", "perclient", "heterofl", "greedy", "mixer_mode=set",
          "n_devices=300", "async-mixer_mode=set", "async-n_devices=300",
-         "checkpoints", "async-checkpoints"])
+         "checkpoints", "async-checkpoints", "fleet_mesh=2",
+         "async-fleet_mesh=-1"])
 def test_formerly_unported_settings_run(change, tmp_path):
     """The per-client executor, the baseline arms, the other selectors,
     MARL at fleet scale (the set mixer; above 256 devices the factored
-    state too) and checkpoints are ported: these settings, once refused,
-    run on the CPU, a sync round aggregating once, an async run at most
-    once a task and its QMIX learner trained at the episode's end; a
-    checkpointed run leaves its manifest."""
+    state too), checkpoints and the fleet mesh (a no-op with no process
+    group, as the reference on one device) are ported: these settings,
+    once refused, run on the CPU, a sync round aggregating once, an async
+    run at most once a task and its QMIX learner trained at the episode's
+    end; a checkpointed run leaves its manifest."""
     kw = dict(BASE, n_devices=8, n_train=400, participation=0.5,
               local_epochs=1)
     kw.update(change)
@@ -134,8 +139,8 @@ def test_formerly_unported_settings_run(change, tmp_path):
     else:
         # a device without samples completes its task with no delta
         assert 1 <= hist["n_aggregations"] <= hist["n_tasks"]
-        assert hist["qmix"]["mixer_mode"] == (
-            "flat" if cfg.checkpoint_dir else "set")
+        assert hist["qmix"]["mixer_mode"] == resolve_mixer_mode(
+            cfg.mixer_mode, cfg.n_devices)
         assert hist["qmix"]["updates"] >= 1
 
 

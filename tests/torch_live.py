@@ -2,8 +2,9 @@
 port's run to the JAX package's: the shared body of the parametrised
 live-run tests in ``tests/test_torch_perclient.py``,
 ``tests/test_torch_baselines.py``, ``tests/test_torch_async.py``,
-``tests/test_torch_faults.py``, ``tests/test_torch_energy_live.py`` and
-``tests/test_torch_fleet_scale_live.py`` (one arm per case, split over
+``tests/test_torch_faults.py``, ``tests/test_torch_energy_live.py``,
+``tests/test_torch_fleet_scale_live.py`` and the three
+``tests/test_torch_checkpoint_async*.py`` (one arm per case, split over
 files so that the suite's per-file workers share the cost).
 
 Both runs go through ``RoundEngine(cfg, selector, buffer).run()`` with
@@ -30,9 +31,11 @@ equal; ``spent``, ``overrun`` and ``limit`` at TOL).
 import dataclasses
 
 import jax
+import pytest
 import numpy as np
 import torch
 
+from repro.checkpoint import CheckpointHalt as JaxCheckpointHalt
 from repro.fl import simulation as jsim
 from repro.fl.engine import RoundEngine as JaxRoundEngine
 from repro.models.family import get_family as jax_get_family
@@ -293,3 +296,47 @@ def assert_async_runs_agree(kw, jh, th, jsel, tsel, executor):
         _assert_records_equal(th["faults"][key], jh["faults"][key], key)
     assert th["faults"]["n_reaped"] == jh["faults"]["n_reaped"]
     _assert_final_state_agree(kw, jh, th, jsel, tsel, replay=True)
+
+
+def _jax_async_run(cfg, halt=None):
+    """One JAX engine run from a fresh selector (and buffer), ε = 0."""
+    sel, buf = jsim._make_selector(cfg, 4), None
+    if cfg.selector == "marl":
+        buf = jsim._make_buffer(cfg)
+        _eps_zero(sel)
+        sel.reset_episode()
+    return JaxRoundEngine(cfg, sel, buf, halt_counter=halt).run(), sel, buf
+
+
+def assert_async_jax_checkpoint_resumes(kw, tmp_path, via_simulation):
+    """A JAX async run of ``kw`` killed right after its first virtual
+    round's save, carried into the port and resumed there on the CPU
+    (``via_simulation``: through ``run_simulation(resume=True)``, which
+    finds the JAX manifest by itself; else through ``load_resume_state``
+    and the engine), held to the JAX package's uninterrupted run by
+    :func:`assert_async_runs_agree`.  Returns both histories."""
+    jh, jsel, jbuf = _jax_async_run(jsim.FLConfig(**kw))
+    ck = dict(kw, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1)
+    with pytest.raises(JaxCheckpointHalt):
+        _jax_async_run(jsim.FLConfig(**ck), halt={"remaining": 1})
+    tcfg = tsim.FLConfig(**ck, resume=True)
+    tsel = tbuf = None
+    if via_simulation:
+        th = tsim.run_simulation(tcfg, device="cpu")
+    else:
+        state, meta = tsim.load_resume_state(tcfg)
+        assert meta["format"] == "drfl-engine" and state["mode"] == "async"
+        assert state["state"]["vround"] == 1 and state["tasks"]
+        tsel = tsim._make_selector(tcfg, 4, device="cpu")
+        if tcfg.selector == "marl":
+            _eps_zero(tsel)
+            tbuf = tsim._make_buffer(tcfg)
+        th = RoundEngine(tcfg, tsel, tbuf, device="cpu",
+                         resume_state=state).run()
+    if tbuf is not None:      # for _assert_qmix_replays_reference
+        jh["_buffer"], th["_buffer"] = jbuf, tbuf
+        th["_qmix_init"] = params_from_jax(
+            jsim._make_selector(jsim.FLConfig(**kw), 4).learner.params)
+    assert th["phase_s"][0] == {} and th["phase_s"][-1]
+    assert_async_runs_agree(kw, jh, th, jsel, tsel, kw["client_executor"])
+    return jh, th
