@@ -50,7 +50,7 @@ its own lines; any failure raises and exits non-zero:
 6. the paper's own fleet (``benchmarks/common.py``'s harness: 40
    devices, 10%, 5 local epochs, full-width ResNet-18 on 32x32), which
    ``"auto"`` runs on the per-client executor: DR-FL + MARL for 3 rounds
-   (``[paper fleet]``), ``FLConfig()`` as it stands but for 10 of its 30
+   (``[paper fleet]``), ``FLConfig()`` as it stands but for 3 of its 30
    rounds (``[defaults]``), then every other arm of Table 1 / Fig. 5 for
    1 round (``[table1]``); HeteroFL and ScaleFL on the bucketed executor at
    64 devices (``[baselines bucketed]``); the transformer on the
@@ -66,7 +66,8 @@ its own lines; any failure raises and exits non-zero:
    virtual rounds), its HeteroFL arm (``[async heterofl]``), the
    transformer path (``[async transformer]``: every kernel's launch count
    exact from the dispatch ticks' buckets) and seeded faults with
-   deadline reaping and quarantine (``[async faults]``);
+   deadline reaping and quarantine (``[async faults]``, 5 rounds' sim
+   time);
 8. check small runs on the card against the same runs on the CPU (plain
    versions): each family on the bucketed executor, and the CNN's DR-FL
    greedy, HeteroFL and ScaleFL arms on the per-client executor;
@@ -83,8 +84,9 @@ its own lines; any failure raises and exits non-zero:
    under a diurnal wave and a budget (``[energy async]``), every scenario
    on both engines and both executors at the tests' size on the card
    against the CPU (``[energy reference]``), and
-   ``benchmarks/energy_bench.py``'s n = 256 grid, 4 scenarios x 4
-   selectors (``[energy grid]``, no JSON written);
+   ``benchmarks/energy_bench.py``'s n = 256 grid, 4 scenarios x 3
+   fixed selectors and MARL under solar and the budget (``[energy
+   grid]``, no JSON written);
 10. MARL at fleet scale (the factored QMIX state, the set/attention
    mixer on the non-causal ``flash_attention``, sampled-agent replay):
    Fig. 6's 1024-device row at full width on the async engine
@@ -139,7 +141,23 @@ its own lines; any failure raises and exits non-zero:
    resume; ``[fleet mesh]``, in a one-rank NCCL group the selection step
    on a fleet placed on the ``("fleet",)`` mesh against the plain step,
    and ``fleet_mesh=-1``/``2`` leaving the fleet unsharded;
-14. print the card's name and power limit, the kernels' JSON line and,
+14. the LM substrate's dense decoder (``repro_torch.launch``) at full
+   width, bf16, random weights from seed 0: ``[lm serve]``, the
+   reference serve main's run through ``SlotServer`` on phi3-mini-3.8b
+   (32 layers, d 3072, 32 heads of 96, vocab 32064; 4 slots, 8 requests,
+   decode attention plain torch as in the reference), ms a decode step;
+   ``[lm prefill]``, ``build_prefill_step`` with ``use_pallas`` on
+   phi3-mini and minitron-8b (GQA 32:8, D 128) at B 4 x S 2048 and on
+   phi3-mini with a 1024-key window at B 2 x S 4096, one tiled
+   ``flash_attention`` forward a layer, the logits held against the plain
+   route; ``[lm train]``, ``build_train_step`` on phi3-mini at B 2 x S
+   1024 (full remat, the in-place AdamW), 2 steps, the launches by route
+   and the peak memory; ``[lm reference]``, phi3-mini's widths at 2
+   layers in float32, card against CPU (served tokens, prefill logits,
+   losses); then the attention kernel at those four bf16 shapes against
+   its plain version, timed beside SDPA, its bound on the bf16
+   tensor-core peak;
+15. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -147,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -155,6 +174,11 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 off tensor cores
+#: H100 SXM data sheet, bf16 dense on the tensor cores: the least time of
+#: bf16 work, whatever units a kernel runs it on
+BF16_FLOPS_PER_S = 989e12
+PEAKS = {FP32_FLOPS_PER_S: "float32 off the tensor cores, 67 TFLOP/s",
+         BF16_FLOPS_PER_S: "bf16 dense tensor cores, 989 TFLOP/s"}
 REL_TOL = 1e-5
 #: rmsnorm and flash_attention, relative to the largest magnitude: the JAX
 #: sweep's tolerances (tests/test_kernels.py)
@@ -291,7 +315,7 @@ def _fwd_bwd_errors(fn, plain, inputs, dout):
     return [e[0] for e in errs], [e[1] for e in errs]
 
 
-def _grad_times(fn, inputs, dout):
+def _grad_times(fn, inputs, dout, iters=20):
     """:func:`_times` of the backward alone, taken the same way for the
     kernel, the plain version and the library call: gradients of one
     retained graph of fn, through autograd again and again."""
@@ -299,30 +323,35 @@ def _grad_times(fn, inputs, dout):
     ins = [t.detach().clone().requires_grad_() for t in inputs]
     out = fn(*ins)
     return _times(lambda: torch.autograd.grad(out, ins, dout,
-                                              retain_graph=True))
+                                              retain_graph=True), iters)
 
 
-def _fwd_bwd_times(fn, inputs, dout):
+def _fwd_bwd_times(fn, inputs, dout, iters=20):
     """:func:`_times` of one forward and its backward."""
     import torch
     ins = [t.detach().clone().requires_grad_() for t in inputs]
-    return _times(lambda: torch.autograd.grad(fn(*ins), ins, dout))
+    return _times(lambda: torch.autograd.grad(fn(*ins), ins, dout), iters)
 
 
 def _record(name, source, replaces, abs_err, rel_err, times, n_bytes,
-            n_ops):
+            n_ops, flops_per_s=FP32_FLOPS_PER_S):
     """A kernel's entry of the kernels line; times: (device ms, call ms)
-    of the kernel, the plain version and the library call."""
+    of the kernel, the plain version and the library call; the bound's
+    operations over ``flops_per_s``, the peak of their type (named under
+    ``peak`` where it is not float32's)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = n_ops / flops_per_s * 1e3
     (ms, call), (plain, plain_call), (lib, lib_call) = times
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None, "max_abs_err": abs_err,
-            "max_rel_err": rel_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib, "call_ms": call, "plain_call_ms": plain_call,
-            "library_call_ms": lib_call}
+    record = {"name": name, "route": "cuda", "source": source,
+              "replaces": replaces, "launches": None,
+              "max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms,
+              "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "library_ms": lib, "call_ms": call,
+              "plain_call_ms": plain_call, "library_call_ms": lib_call}
+    if flops_per_s != FP32_FLOPS_PER_S:
+        record["peak"] = PEAKS[flops_per_s]
+    return record
 
 
 def _print_record(r, library, where="the path's shape"):
@@ -334,19 +363,21 @@ def _print_record(r, library, where="the path's shape"):
 
 
 def _timed_records(names, source, replaces, errs, fns, dout, costs,
-                   library, where="the path's shape"):
+                   library, where="the path's shape",
+                   flops_per_s=FP32_FLOPS_PER_S, iters=20):
     """The records of a kernel's forward and backward at a path's shape
     (``where``).  fns: (function, inputs) of the kernel's wrapper, the
     plain version and the library call; errs: (absolute, relative) errors
-    of the forward and of the backward; costs: (bytes, flops) of each."""
-    fwd = [_times(lambda f=f, i=i: f(*[t.detach() for t in i]))
+    of the forward and of the backward; costs: (bytes, flops) of each,
+    the flops at ``flops_per_s``; each time over ``iters`` calls."""
+    fwd = [_times(lambda f=f, i=i: f(*[t.detach() for t in i]), iters)
            for f, i in fns]
-    bwd = [_grad_times(f, i, dout) for f, i in fns]
-    records = [_record(n, source, replaces, *e, t, *c)
+    bwd = [_grad_times(f, i, dout, iters) for f, i in fns]
+    records = [_record(n, source, replaces, *e, t, *c, flops_per_s)
                for n, e, t, c in zip(names, errs, (fwd, bwd), costs)]
     for r in records:
         _print_record(r, library, where)
-    both = [_fwd_bwd_times(f, i, dout) for f, i in fns]
+    both = [_fwd_bwd_times(f, i, dout, iters) for f, i in fns]
     print(f"[kernel] {names[0]} forward+backward at {where}, "
           "device ms (call ms): " + ", ".join(
               f"{who} {dev:.4f} ({call:.4f})" for who, (dev, call)
@@ -1122,10 +1153,10 @@ def phase_paper_fleet():
 
 def phase_defaults():
     """``FLConfig()`` as it stands (40 devices, the CNN at width 0.25 on
-    16x16, DR-FL + MARL) but for its depth, 10 of its 30 rounds (the
+    16x16, DR-FL + MARL) but for its depth, 3 of its 30 rounds (the
     script's time): the per-client executor, no ``layer_agg``."""
     from repro_torch.fl import FLConfig
-    hist, _ = _drive("defaults", FLConfig(n_rounds=10), "perclient",
+    hist, _ = _drive("defaults", FLConfig(n_rounds=3), "perclient",
                      _no_layer_agg)
     print(f"[defaults] {len(hist['acc'])} rounds, final accuracy per exit "
           f"{[round(float(a), 4) for a in hist['final_acc']]}, warm round "
@@ -1552,7 +1583,8 @@ def phase_async_faults():
     import torch
     from repro_torch.fl import FLConfig, run_simulation
     from repro_torch.tree import tree_leaves
-    base = dict(n_devices=64, n_rounds=10, selector="greedy",
+    # 5 rounds: the script's time
+    base = dict(n_devices=64, n_rounds=5, selector="greedy",
                 client_executor="batched", seed=0)
     horizon = run_simulation(FLConfig(**base))["sim_time_total"]
     cfg = FLConfig(**base, engine_mode="async", async_time_horizon=horizon,
@@ -1657,6 +1689,9 @@ GRID_SCENARIOS = {
                           charge_period=GRID_DAY,
                           global_budget_j=18.0 * 8 * GRID_ROUNDS)}
 GRID_SELECTORS = ("marl", "greedy", "random", "static")
+#: the scenarios whose MARL cell the grid runs (the script's time): the
+#: two its claims read
+GRID_MARL_SCENARIOS = ("solar", "global_budget")
 
 
 def _gate_check(tag, cfg, hist):
@@ -1841,7 +1876,8 @@ def _bench_energy_rows(n):
 
 def phase_energy_grid(n=GRID_N):
     """``benchmarks/energy_bench.py``'s cells at n on the card: 4
-    scenarios x 4 selectors, 8 rounds, MARL pre-trained for 3 episodes
+    scenarios x the 3 fixed selectors, and MARL under the scenarios of
+    ``GRID_MARL_SCENARIOS``; 8 rounds, MARL pre-trained for 3 episodes
     (above 256 devices on the factored state and the set mixer); each
     row's fields as the bench prints them (no JSON is written).  The
     non-MARL cells are held to ``BENCH_energy.json``: survivors and
@@ -1854,6 +1890,8 @@ def phase_energy_grid(n=GRID_N):
     t_grid = time.perf_counter()
     for scenario, kw in GRID_SCENARIOS.items():
         for selector in GRID_SELECTORS:
+            if selector == "marl" and scenario not in GRID_MARL_SCENARIOS:
+                continue
             cfg = FLConfig(n_devices=n, n_rounds=GRID_ROUNDS,
                            participation=8 / n, n_train=3 * n,
                            local_epochs=1, method="drfl", selector=selector,
@@ -2865,6 +2903,384 @@ def phase_fleet_mesh():
           "tests/test_torch_shard.py runs it on 4 gloo ranks on the CPU")
 
 
+#: ``[lm substrate]``: the dense decoder at full width in bf16.
+#: phi3-mini-3.8b: 32 layers, d 3072, 32 heads of 96, d_ff 8192, vocab
+#: 32064; minitron-8b: d 4096, 32 query heads over 8 KV heads of 128,
+#: d_ff 16384, vocab 256000
+LM_ARCH = "phi3-mini-3.8b"
+#: the reference serve main's defaults: slots, requests, prompt, max-new
+LM_SERVE = (4, 8, 12, 8)
+#: ``[lm prefill]``: (label, arch, B, S, window); the window row stands
+#: in for adapt_for_shape's long-context SWA (window 8192 at 512k tokens)
+LM_PREFILL = (("phi3-mini", "phi3-mini-3.8b", 4, 2048, 0),
+              ("minitron-8b", "minitron-8b", 4, 2048, 0),
+              ("phi3-mini SWA 1024", "phi3-mini-3.8b", 2, 4096, 1024))
+#: ``[lm train]``: B, S, steps
+LM_TRAIN = (2, 1024, 2)
+#: the attention kernel at the LM paths' shapes: (label, B, S, Hq, Hkv,
+#: D, window); all bf16 and causal
+LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
+                ("minitron-8b prefill", 4, 2048, 32, 8, 128, 0),
+                ("phi3-mini train", 2, 1024, 32, 32, 96, 0),
+                ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024))
+LM_ROUTES = ("flash_attention_fwd_tiled", "flash_attention_fwd_split",
+             "flash_attention_bwd_fused", "flash_attention_bwd_three_pass",
+             "flash_attention_bwd_short")
+
+
+def _synced_wall(fn):
+    """(fn's result, its seconds of wall) with the card idle on both
+    sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve():
+    """``[lm serve]``: the reference serve main's run (4 slots, 8 requests
+    of 12 prompt tokens, 8 new each, a cache of 56) through ``SlotServer``
+    on phi3-mini at full width and depth, bf16, random weights from seed
+    0; then 8 more decode steps of the warm server timed alone.  Decode
+    attention is plain torch, as in the reference: no kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import SlotServer, serve
+    slots, requests, prompt, new = LM_SERVE
+    cfg = get_config(LM_ARCH)
+    srv, init_s = _synced_wall(lambda: SlotServer(
+        cfg, slots, (prompt + new + 8) * 2, device="cuda"))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt)
+               for _ in range(requests)]
+    reset_launches()
+    outs, steps, secs = serve(srv, prompts, new, verbose=False)
+    launched = sum(LAUNCHES.values())
+    _, warm = _synced_wall(lambda: [srv.step() for _ in range(8)])
+    served = [t for o in outs for t in o]
+    print(f"[lm serve] SlotServer {LM_ARCH} at full width ({cfg.num_layers} "
+          f"layers, d {cfg.d_model}, {cfg.num_heads} heads of {cfg.hd}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}), init {init_s:.2f} s: "
+          f"{len(outs)}/{requests} requests, {len(served)} tokens served in"
+          f" {steps} decode steps, {secs:.2f} s ({secs / steps * 1e3:.2f} "
+          f"ms a step, the first included); warm {warm / 8 * 1e3:.2f} ms a "
+          f"step; kernel launches {launched} (decode attention is plain "
+          f"torch); first outputs {outs[:2]}")
+    if len(outs) != requests or len(served) != requests * new or \
+            not all(0 <= t < cfg.vocab_size for t in served):
+        raise AssertionError("[lm serve] the server did not serve every "
+                             "request")
+    if launched:
+        raise AssertionError("[lm serve] the decode launched a kernel")
+    del srv
+    _free_card()
+
+
+def phase_lm_prefill():
+    """``[lm prefill]``: ``build_prefill_step`` with ``use_pallas=True`` at
+    full width and depth, bf16: phi3-mini and minitron-8b at B 4 x S
+    2048, and phi3-mini with a 1024-key window at B 2 x S 4096.  Each
+    launches the tiled forward once a layer.  Its last-position logits are
+    held against the same step with ``use_pallas=False`` (the plain
+    ``gqa_attend``) on the same params upcast to float32, where the two
+    routes must agree at the float32 kernel tolerance; in bf16 both
+    routes are held against that float32 forward, and the kernel route
+    must be as close to it as the plain route, within a quarter: 32 bf16
+    layers of random weights put either bf16 route about 2e-2 from the
+    float32 forward (PERF.md, §6), so the two bf16 routes' distance
+    from each other is printed, not held.  Returns the launches by
+    label."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.tree import tree_map
+    launches = {}
+    for label, arch, B, S, window in LM_PREFILL:
+        cfg = dataclasses.replace(get_config(arch), window=window)
+        steps = {(dt, pallas): build_prefill_step(
+            dataclasses.replace(cfg, dtype=dt),
+            TrainConfig(use_pallas=pallas))[1]
+            for dt in ("bfloat16", "float32") for pallas in (True, False)}
+        model = build_prefill_step(cfg)[0]
+        params, init_s = _synced_wall(lambda: model.init(
+            torch.Generator("cuda").manual_seed(0)))
+        toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+        batch = {"tokens": torch.from_numpy(toks).cuda()}
+        reset_launches()
+        got, first_s = _synced_wall(
+            lambda: steps["bfloat16", True](params, batch))
+        launches[label] = {k: LAUNCHES[k] for k in LM_ROUTES}
+        _, kernel_s = _synced_wall(
+            lambda: steps["bfloat16", True](params, batch))
+        ref, plain_s = _synced_wall(
+            lambda: steps["bfloat16", False](params, batch))
+        p32 = tree_map(lambda t: t.float(), params)
+        f32 = {pallas: steps["float32", pallas](p32, batch)
+               for pallas in (True, False)}
+        del p32
+        err = {name: _errors(a, b)[1] for name, a, b in (
+            ("bf16 kernel vs plain", got, ref),
+            ("bf16 kernel vs f32", got, f32[False]),
+            ("bf16 plain vs f32", ref, f32[False]),
+            ("f32 kernel vs plain", f32[True], f32[False]))}
+        finite = bool(torch.isfinite(got).all())
+        print(f"[lm prefill] {label} ({arch}, {cfg.num_layers} layers, d "
+              f"{cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+              f"{cfg.hd}, window {window}) B {B} x S {S} bf16: init "
+              f"{init_s:.2f} s; kernel route {first_s:.3f} s first, "
+              f"{kernel_s:.3f} s warm; plain route {plain_s:.3f} s; launches"
+              f" {launches[label]}; logits {tuple(got.shape)} finite "
+              f"{finite}; rel errs " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in err.items())
+              + f" (limits: f32 kernel vs plain "
+              f"{KERNEL_TOL['float32']:.0e}; bf16 kernel vs f32 at most "
+              f"1.25x bf16 plain vs f32)")
+        if not finite or tuple(got.shape) != (B, 1, cfg.vocab_size) or \
+                err["f32 kernel vs plain"] > KERNEL_TOL["float32"] or \
+                err["bf16 kernel vs f32"] > 1.25 * err["bf16 plain vs f32"]:
+            raise AssertionError(f"[lm prefill] {label}: the kernel route "
+                                 "disagrees with the plain route")
+        if launches[label]["flash_attention_fwd_tiled"] != cfg.num_layers \
+                or sum(launches[label].values()) != cfg.num_layers:
+            raise AssertionError(f"[lm prefill] {label}: expected "
+                                 f"{cfg.num_layers} tiled forward launches")
+        del params, got, ref, f32
+        _free_card()
+    return launches
+
+
+def phase_lm_train():
+    """``[lm train]``: ``build_train_step`` on phi3-mini at full width and
+    depth, bf16, B 2 x S 1024, ``remat="full"``, ``use_pallas=True``, 2
+    steps of the in-place AdamW on ``lm_batches`` (the trainer's data).
+    Each step launches the forward twice a layer (the forward and the
+    remat recompute) and the backward once; the peak of
+    ``torch.cuda.max_memory_allocated``.  Returns the launches."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import fused_backward
+    from repro_torch.launch.steps import build_train_step, make_train_state
+    from repro_torch.tree import tree_leaves
+    B, S, steps = LM_TRAIN
+    cfg = get_config(LM_ARCH)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=10,
+                       total_steps=steps, remat="full", loss_chunk=min(512, S),
+                       use_pallas=True)
+    model, train_step = build_train_step(cfg, tcfg)
+    state = make_train_state(model, torch.Generator("cuda").manual_seed(0),
+                             tcfg)
+    it = lm_batches(synthetic_lm_dataset(max(S * B * 4, 100_000),
+                                         cfg.vocab_size, seed=0), B, S, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        (_, m), secs = _synced_wall(lambda: train_step(state, batch))
+        rows.append((float(m["loss"]), float(m["grad_norm"]), secs))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: LAUNCHES[k] for k in LM_ROUTES}
+    route = "fused" if fused_backward(S, S, cfg.hd) else "three_pass"
+    L = cfg.num_layers
+    print(f"[lm train] {LM_ARCH} at full width and depth ({L} layers, "
+          f"{sum(t.numel() for t in tree_leaves(state['params'])) / 1e9:.3f} B "
+          f"params, {cfg.dtype}), B {B} x S {S}, remat full, use_pallas: "
+          + "; ".join(f"step {i}: loss {l:.4f}, grad norm {g:.4f}, "
+                      f"{s:.3f} s" for i, (l, g, s) in enumerate(rows))
+          + f"; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+          f" GiB on the card); launches {launches}; the backward's route "
+          f"at S {S}, D {cfg.hd}: {route}")
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in rows):
+        raise AssertionError("[lm train] a non-finite loss or grad norm")
+    if launches["flash_attention_fwd_tiled"] != 2 * L * steps or \
+            launches[f"flash_attention_bwd_{route}"] != L * steps or \
+            sum(launches.values()) != 3 * L * steps:
+        raise AssertionError(f"[lm train] launches {launches}: expected "
+                             f"{2 * L * steps} forward and {L * steps} "
+                             f"{route} backward")
+    del state
+    _free_card()
+    return launches
+
+
+def phase_lm_reference():
+    """``[lm reference]``: phi3-mini's widths at 2 layers in float32, the
+    card against the CPU on the same params (the CPU server's, from seed
+    0, copied to the card): the slot server's greedy tokens (2 slots, 3
+    requests of 4 tokens, 4 new) equal; the prefill step's logits (B 2 x
+    S 64, ``use_pallas``: the kernel on the card, its plain version on
+    the CPU) and 2 train steps' losses and grad norms (the same,
+    ``remat="full"``, two batches) at rtol 1e-4 (the logits atol 1e-5)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import SlotServer, serve
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_train_step)
+    from repro_torch.optim.optimizers import adamw_init
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=2,
+                              dtype="float32")
+    _, prefill = build_prefill_step(cfg, TrainConfig(use_pallas=True))
+    _, train_step = build_train_step(cfg, TrainConfig(
+        learning_rate=1e-4, warmup_steps=1, total_steps=2, remat="full",
+        loss_chunk=32, use_pallas=True))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=4) for _ in range(3)]
+    toks = [rng.integers(0, cfg.vocab_size, (2, 65)) for _ in range(2)]
+    servers = {"cpu": SlotServer(cfg, 2, 32, device="cpu")}
+    params = servers["cpu"].params
+    servers["cuda"] = SlotServer(cfg, 2, 32, device="cuda")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        srv = servers.pop(dev)
+        srv.params = tree_map(lambda t: t.to(dev, copy=True), params)
+        srv.cache = srv.model.decode_init(srv.params, srv.slots, srv.max_len)
+        outs, _, _ = serve(srv, prompts, 4, verbose=False)
+        del srv
+        batches = [{"tokens": torch.from_numpy(t[:, :-1]).to(dev),
+                    "labels": torch.from_numpy(t[:, 1:]).to(dev)}
+                   for t in toks]
+        reset_launches()
+        logits = prefill(p, batches[0]).cpu()
+        state = {"params": p, "opt": adamw_init(p)}
+        metrics = [train_step(state, b)[1] for b in batches]
+        got[dev] = (outs, logits,
+                    [(float(m["loss"]), float(m["grad_norm"]))
+                     for m in metrics], dict(LAUNCHES))
+        del p, state
+    (g_out, g_log, g_loss, g_launch), (c_out, c_log, c_loss, _) = \
+        got["cuda"], got["cpu"]
+    log_ok = torch.allclose(g_log, c_log, rtol=1e-4, atol=1e-5)
+    loss_ok = np.allclose(g_loss, c_loss, rtol=1e-4, atol=0)
+    print(f"[lm reference] {LM_ARCH}'s widths at 2 layers, float32, card vs "
+          f"CPU: served tokens equal {g_out == c_out} ({g_out}); prefill "
+          f"logits max diff {float((g_log - c_log).abs().max()):.3e} "
+          f"(allclose at rtol 1e-4, atol 1e-5: {log_ok}); (loss, grad "
+          f"norm) card {g_loss} CPU {c_loss} (rtol 1e-4: {loss_ok}); card "
+          f"launches { {k: g_launch[k] for k in LM_ROUTES if g_launch[k]} };"
+          f" {time.perf_counter() - t0:.1f} s")
+    if g_out != c_out or not log_ok or not loss_ok:
+        raise AssertionError("[lm reference] the card and the CPU disagree")
+    # the prefill's 2 forwards, then per train step 2 forwards (the remat
+    # recompute) and 2 backwards
+    if g_launch["flash_attention_fwd_tiled"] != 2 + 2 * 2 * 2 or \
+            g_launch["flash_attention_bwd"] != 2 * 2:
+        raise AssertionError("[lm reference] the card's prefill and train "
+                             "steps did not launch the kernel")
+    _free_card()
+
+
+def phase_lm_kernels():
+    """The attention kernel at the LM paths' four bf16 shapes (model
+    layout [B, S, H, D], causal): forward and backward held against the
+    plain version at 2e-2, then timed beside it and beside SDPA
+    (``is_causal``, ``enable_gqa`` for minitron's 4 query heads a KV
+    head; the window row through an explicit window mask, SDPA having no
+    window), 5 calls each; the bound on the bf16 dense tensor-core peak.
+    Returns the records; their launches come from the path runs
+    (:func:`_lm_kernel_launches`).  Run early: late in the script the
+    profiler has read these shapes short and then not at all."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    tol = KERNEL_TOL["bfloat16"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    records = []
+    for label, B, S, Hq, Hkv, D, window in LM_ATTENTION:
+        q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
+                   .bfloat16().requires_grad_() for h in (Hq, Hkv, Hkv))
+        do = torch.randn((B, S, Hq, D), generator=g, device="cuda").bfloat16()
+        mask = None
+        if window:
+            mask = mod._visible(S, S, True, window, "cuda")
+
+        def fn(a, b, c):
+            return mod.flash_attention(a, b, c, causal=True, window=window)
+
+        def plain(a, b, c):
+            return mod.attention_plain_model(a, b, c, causal=True,
+                                             window=window)
+
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(
+                a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                attn_mask=mask, is_causal=mask is None,
+                enable_gqa=Hq != Hkv).transpose(1, 2)
+        abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
+        fwd_route, route, _ = attention_routes(mod, S, S, D, Hq // Hkv)
+        print(f"[kernel] flash_attention {label} B={B} S={S} Hq={Hq} "
+              f"Hkv={Hkv} D={D} window={window} bfloat16 (forward "
+              f"{fwd_route}, backward {route}): rel err o {errs[0]:.2e}, dq"
+              f" {errs[1]:.2e}, dk {errs[2]:.2e}, dv {errs[3]:.2e} (limit "
+              f"{tol:.0e}); abs err o {abs_errs[0]:.2e}, grads "
+              f"{max(abs_errs[1:]):.2e}")
+        if max(errs) > tol:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {label}")
+        pairs = _attention_pairs(B * Hq, S, S, True, window)
+        nq, nk = B * Hq * S * D, B * Hkv * S * D
+        rec = _timed_records(
+            ("flash_attention", "flash_attention_bwd"),
+            ATTENTION_SOURCES[fwd_route],
+            "src/repro/kernels/flash_attention/flash_attention.py:67",
+            [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
+            [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
+            # bf16 q, k, v, o (dO, dq, dk, dv) and float32 lse; the same
+            # products per kept pair as the float32 rows
+            [(2 * (2 * nq + 2 * nk) + 4 * B * Hq * S, 4 * D * pairs),
+             (2 * (4 * nq + 4 * nk) + 4 * B * Hq * S, 10 * D * pairs)],
+            "SDPA" + (" window mask" if window else " is_causal"), label,
+            flops_per_s=BF16_FLOPS_PER_S, iters=5)
+        rec[0]["fwd_route"], rec[1]["bwd_route"] = fwd_route, route
+        rec[1]["source"] = ATTENTION_SOURCES[route]
+        for r in rec:
+            r["shape"] = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
+                          f"window={window} bfloat16")
+            r["path"] = f"lm {label}"
+        records += rec
+        del q, k, v, do, mask
+        _free_card()
+    return records
+
+
+def _lm_kernel_launches(records, prefill_launches, train_launches):
+    """The LM kernel records' launches: each shape's path run's, forward
+    and backward, and by route."""
+    runs = {"lm phi3-mini prefill": prefill_launches["phi3-mini"],
+            "lm minitron-8b prefill": prefill_launches["minitron-8b"],
+            "lm phi3-mini train": train_launches,
+            "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"]}
+    for r in records:
+        counts = runs[r["path"]]
+        _attention_route_launches(r, counts)
+        r["launches"] = sum(r["route_launches"].values())
+
+
 def _attention_route_launches(record, launches, into=None):
     """An attention record's launches by route (into ``into``, else the
     record): every forward route, or every backward route."""
@@ -2897,9 +3313,17 @@ def main() -> int:
     from repro_torch.fl import FLConfig
     phase_build()
     floor = phase_floor()
+    t_start = time.perf_counter()
+
+    def lap(tag):
+        print(f"[time] {tag}: {time.perf_counter() - t_start:.1f} s since "
+              "the build")
     attention, set_mixer = phase_attention()
+    # early, as the mlp record below: late in the run the profiler read
+    # these shapes short, then not at all
+    lm_records = phase_lm_kernels()
     records = [phase_kernels()] + phase_rmsnorm() + attention
-    for r in records + set_mixer:
+    for r in records + set_mixer + lm_records:
         r["floor_ms"] = floor
         if "per_client" in r:
             r["per_client"]["floor_ms"] = floor
@@ -2907,8 +3331,10 @@ def main() -> int:
     # early: timed late in the run, the profiler read layer_agg at the mlp
     # path's shape below its bytes bound on the H100 (0.0701 and 0.0956
     # device ms against 0.1428), so that record is taken here
+    lap("the kernels and the main path")
     mlp_record = phase_public_api()
     mlp_record["floor_ms"] = floor
+    lap("the public API")
     phase_profile(phase_all_submodels())
     cfg, launches = phase_transformer()
     for r in records[1:]:
@@ -2918,6 +3344,7 @@ def main() -> int:
             r["route_launches"] = {
                 k: launches[f"{r['name']}_{k}"] for k in ("vec", "general")}
     phase_profile(cfg, "transformer profile")
+    lap("every submodel and the transformer path, profiled")
     phase_paper_fleet()
     phase_defaults()
     phase_table1()
@@ -2931,6 +3358,7 @@ def main() -> int:
                 k: launches[f"{r['name']}_{k}"] for k in ("vec", "general")}
     phase_from_list()
     phase_executors()
+    lap("the paper's fleet")
     cfg, launches = phase_async()
     records[0]["async_launches"] = launches["layer_agg"]
     records[0]["async"]["launches"] = launches["layer_agg"]
@@ -2940,6 +3368,7 @@ def main() -> int:
     for r in records[1:]:
         r["async_launches"] = launches[r["name"]]
     phase_async_faults()
+    lap("the async engine")
     phase_reference("reference", FLConfig(participation=0.1,
                                           width_mult=0.125, seed=1,
                                           **REFERENCE_CFG))
@@ -2953,10 +3382,12 @@ def main() -> int:
         phase_reference(f"reference perclient {arm['method']}", FLConfig(
             **dict(PERCLIENT_REFERENCE, **arm)))
     phase_async_reference()
+    lap("card against CPU")
     records[0]["energy_launches"] = phase_energy()
     records[0]["energy_async_launches"] = phase_energy_async()
     phase_energy_reference()
     phase_energy_grid()
+    lap("the energy scenarios")
     launches = phase_fig6()
     rows = phase_marl_train()
     # the n = 1M shape's launches: [marl train]'s n = 1M row
@@ -2967,6 +3398,7 @@ def main() -> int:
         _attention_route_launches(r, counts)
     records += set_mixer
     phase_fleet_scale_reference()
+    lap("MARL at fleet scale")
     t0 = time.perf_counter()
     phase_checkpoint()
     phase_checkpoint_async()
@@ -2979,7 +3411,17 @@ def main() -> int:
     phase_fleet_mesh()
     print(f"[engine gaps] the three phases took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_lm_serve()
+    prefill_launches = phase_lm_prefill()
+    train_launches = phase_lm_train()
+    phase_lm_reference()
+    _lm_kernel_launches(lm_records, prefill_launches, train_launches)
+    print(f"[lm substrate] the four phases took "
+          f"{time.perf_counter() - t0:.1f} s")
+    lap("all phases")
     records.append(mlp_record)
+    records += lm_records
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,0 +1,11 @@
+"""Phi-3-mini-3.8B — RoPE SwiGLU GQA dense decoder [arXiv:2404.14219]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b", family="dense",
+    num_layers=32, d_model=3072, num_heads=32, num_kv_heads=32,
+    d_ff=8192, vocab_size=32064,
+    head_dim=96,
+    exit_points=(8, 16, 24, 32),
+    source="arXiv:2404.14219",
+)

@@ -63,6 +63,21 @@ def params_from_jax(tree, device="cpu"):
                     _as_python_tree(tree))
 
 
+def lm_params_from_jax(tree, device="cpu"):
+    """The JAX package's LM params (``repro.models.transformer``: the
+    stacked ``[L, ...]`` blocks, the embedding, an untied ``unembed`` or
+    none where it is tied), given as numpy arrays, leaf for leaf with
+    their dtypes: float32 stays float32, and a bfloat16 leaf (numpy's
+    ``ml_dtypes`` type) goes through float32, which holds every bfloat16
+    value exactly, into a bfloat16 tensor."""
+    def leaf(a):
+        a = np.asarray(a)
+        bf16 = a.dtype.name == "bfloat16"
+        t = torch.tensor(a.astype(np.float32) if bf16 else a, device=device)
+        return t.to(torch.bfloat16) if bf16 else t
+    return tree_map(leaf, _as_python_tree(tree))
+
+
 def _as_python_tree(tree):
     """Plain dicts/lists: JAX may hand back tuples or other mappings."""
     if isinstance(tree, dict) or hasattr(tree, "items"):

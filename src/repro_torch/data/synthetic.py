@@ -84,3 +84,14 @@ def synthetic_token_dataset(n: int, vocab: int = 10, seq_len: int = 16,
         flip = rng.random(x.shape) < min(0.5, 0.05 * float(noise))
         x = np.where(flip, rng.integers(0, vocab, x.shape), x)
     return x.astype(np.int32), y
+
+
+def lm_batches(tokens: np.ndarray, batch: int, seq_len: int, seed: int = 0):
+    """Infinite iterator of {'tokens','labels'} windows."""
+    rng = np.random.default_rng(seed)
+    n = len(tokens) - seq_len - 1
+    while True:
+        idx = rng.integers(0, n, size=batch)
+        tok = np.stack([tokens[i:i + seq_len] for i in idx])
+        lab = np.stack([tokens[i + 1:i + seq_len + 1] for i in idx])
+        yield {"tokens": tok, "labels": lab}

@@ -1,0 +1,208 @@
+"""Dense decoder-only transformer with stacked block params — port of
+``repro.models.transformer`` (the dense family: yi-34b, phi3-mini,
+minitron, command-r).
+
+The blocks keep the reference's STACKED layout: every block leaf carries
+a leading ``[L]`` axis (the reference makes it with ``jax.vmap`` over
+per-layer keys, ``transformer.py:62-63``), and :func:`apply` walks the
+blocks' views (``torch.unbind``) in a loop where the reference runs
+``lax.scan``.
+
+DR-FL integration: ``apply`` takes ``layer_mask``, ``[L]`` or ``[L, B]``,
+multiplying every block's residual delta, so a depth-prefix submodel
+(paper §4.2) is ``mask = [1]*k + [0]*(L-k)``.
+
+Remat (``transformer.py:78-84``): ``"full"`` recomputes each block in the
+backward (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves
+the block's matrix products and recomputes the rest (a selective-
+checkpoint policy), ``"none"`` saves everything.  The numbers are the
+same under each.  The MoE blocks (``num_experts > 0``) wait for
+``models/moe.py`` (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.models import layers as L
+
+#: the ops whose outputs ``remat="dots"`` keeps (the reference's
+#: ``dots_with_no_batch_dims_saveable``: the matrix products)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dt(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _no_moe(cfg):
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks (num_experts={cfg.num_experts}) wait "
+            "for models/moe.py, which the port has not ported yet (ROADMAP "
+            "Queue 1)")
+
+
+def block_init(gen: torch.Generator, cfg, dtype, *, lead=()):
+    """One pre-norm block's params (``lead=(L,)``: the stack of L)."""
+    _no_moe(cfg)
+    dev = gen.device
+    return {
+        "attn_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype, device=dev,
+                                    lead=lead),
+        "attn": L.attention_init(gen, cfg, dtype, lead=lead),
+        "mlp_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype, device=dev,
+                                   lead=lead),
+        "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                             bias=cfg.mlp_bias, lead=lead),
+    }
+
+
+def block_apply(p, cfg, x, positions, gate, *, window=None,
+                use_pallas=False, attn_chunk=0, cache=None):
+    """One pre-norm residual block.  Returns (x, cache, aux_loss)."""
+    window = cfg.window if window is None else window
+    h = L.rmsnorm_apply(p["attn_norm"], x, cfg.norm_eps)
+    a, cache = L.attention_apply(
+        p["attn"], cfg, h, positions, causal=True, window=window,
+        cache=cache, use_pallas=use_pallas, attn_chunk=attn_chunk,
+        norm_eps=cfg.norm_eps)
+    x = x + gate * a
+    h = L.rmsnorm_apply(p["mlp_norm"], x, cfg.norm_eps)
+    x = x + gate * L.swiglu_apply(p["mlp"], h)
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init(gen: torch.Generator, cfg):
+    """The model's params on ``gen``'s device, in ``cfg.dtype``."""
+    _no_moe(cfg)
+    dtype = _dt(cfg)
+    params = {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype),
+        "blocks": block_init(gen, cfg, dtype, lead=(cfg.num_layers,)),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype,
+                                     device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         dtype=dtype)
+    return params
+
+
+def unembed_matrix(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"]["emb"].T
+    return params["unembed"]["w"]
+
+
+def _unstack(blocks, n: int):
+    """The n blocks' views of the stacked params, by ``torch.unbind``:
+    its backward stacks the blocks' gradients once, where indexing each
+    block would pad each gradient to the whole stack."""
+    layers = [{} for _ in range(n)]
+    for k, v in blocks.items():
+        for layer, part in zip(layers, _unstack(v, n) if isinstance(v, dict)
+                               else torch.unbind(v)):
+            layer[k] = part
+    return layers
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, mode):
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    if mode == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"unknown remat mode {mode!r}")
+
+
+def _gates(cfg, layer_mask, device):
+    return (torch.ones((cfg.num_layers,), dtype=torch.float32, device=device)
+            if layer_mask is None else layer_mask.float())
+
+
+def apply(params, cfg, tokens, *, layer_mask=None, window=None,
+          use_pallas=False, attn_chunk=0, remat="full"):
+    """tokens: [B, S] int -> (hidden [B, S, d], aux_loss scalar).
+
+    ``layer_mask`` is ``[L]`` (one submodel for the whole batch) or
+    ``[L, B]`` (per-example depth-prefix gates).  Final logits are not
+    computed here: the train step takes a sequence-chunked cross-entropy.
+    """
+    B, S = tokens.shape
+    x = params["embed"]["emb"][tokens]
+    positions = torch.arange(S, device=x.device)
+    mask = _gates(cfg, layer_mask, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, bp, gate):
+        g = gate if gate.dim() == 0 else gate[:, None, None]   # [B]->[B,1,1]
+        x, _, a = block_apply(bp, cfg, x, positions, g.to(x.dtype),
+                              window=window, use_pallas=use_pallas,
+                              attn_chunk=attn_chunk)
+        return x, a
+
+    body = _remat_wrap(body, remat)
+    for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
+        x, a = body(x, bp, mask[i])
+        aux = aux + mask[i].mean() * a
+    return L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def logits_fn(params, cfg, hidden):
+    return (hidden @ unembed_matrix(params, cfg)).float()
+
+
+# ---------------------------------------------------------------------------
+# decode (serve_step)
+# ---------------------------------------------------------------------------
+
+
+def decode_cache_len(cfg, seq_len: int) -> int:
+    """SWA models keep a ring-sized window cache; full attention keeps all."""
+    return min(seq_len, cfg.window) if cfg.window else seq_len
+
+
+def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
+    """The decode cache on the params' device: ``k``, ``v`` [L, B, clen,
+    Hkv, hd] and ``pos`` [L] (int32), written in place by
+    :func:`decode_step`."""
+    w = cfg.window if window is None else window
+    clen = min(seq_len, w) if w else seq_len
+    dev = params["embed"]["emb"].device
+    shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=_dt(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dt(cfg), device=dev),
+            "pos": torch.zeros((cfg.num_layers,), dtype=torch.int32,
+                               device=dev)}
+
+
+@torch.no_grad()
+def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
+                window=None):
+    """tokens: [B, 1]; pos: the absolute position (an int or a 0-d
+    tensor).  Returns (logits [B, 1, V], cache), the cache updated in
+    place."""
+    x = params["embed"]["emb"][tokens]
+    mask = _gates(cfg, layer_mask, x.device)
+    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
+                 if isinstance(pos, int) else pos.reshape(1))
+    for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
+        c = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]}
+        x, _, _ = block_apply(bp, cfg, x, positions, mask[i].to(x.dtype),
+                              window=window, cache=c)
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x), cache

@@ -1021,3 +1021,39 @@ def test_fleet_mesh_on_one_card_is_a_noop(cuda, group, tmp_path):
     finally:
         if group == "nccl-1":
             dist.destroy_process_group()
+
+
+# the LM substrate's shapes, bf16, causal, model layout [B, S, H, D]: (B,
+# S, Hq, Hkv, D, window): phi3-mini's prefill (D 96 in the 128 layout),
+# minitron-8b's (GQA 4), phi3-mini's train step (the three-pass backward)
+# and a 1024-key window at S 4096
+LM_ATTN = {"phi3-mini prefill": (4, 2048, 32, 32, 96, 0),
+           "minitron-8b prefill": (4, 2048, 32, 8, 128, 0),
+           "phi3-mini train": (2, 1024, 32, 32, 96, 0),
+           "phi3-mini SWA 1024": (2, 4096, 32, 32, 96, 1024)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LM_ATTN))
+def test_flash_attention_at_the_lm_shapes_matches_plain(cuda, case):
+    """The model-layout wrapper, as the LM's ``attention_apply`` calls it
+    under ``use_pallas``: forward and backward against the plain version
+    at the bf16 tolerance, one tiled forward and one backward launch."""
+    B, S, Hq, Hkv, D, window = LM_ATTN[case]
+    q, k, v = _leaves([(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)],
+                      torch.bfloat16, cuda, seed=S + D)
+    before = dict(LAUNCHES)
+    pairs = _fwd_bwd(
+        lambda a, b, c: flash_attention(a, b, c, causal=True, window=window),
+        lambda a, b, c: attention_plain_model(a, b, c, causal=True,
+                                              window=window),
+        [q, k, v], seed=D)
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert torch.isfinite(got.float()).all()
+        assert _rel_err(got, ref) <= TOL[torch.bfloat16]
+    route = "fused" if fused_backward(S, S, D) else "three_pass"
+    assert LAUNCHES["flash_attention_fwd_tiled"] == \
+        before["flash_attention_fwd_tiled"] + 1
+    assert LAUNCHES[f"flash_attention_bwd_{route}"] == \
+        before[f"flash_attention_bwd_{route}"] + 1

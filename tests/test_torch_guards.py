@@ -181,3 +181,30 @@ def test_flconfig_fields_and_defaults_equal_the_jax_config():
     ours = {f.name: f.default for f in dataclasses.fields(FLConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxFLConfig)}
     assert ours == theirs
+
+
+@pytest.mark.parametrize("entry", ["serve", "train"])
+def test_lm_launchers_default_to_cuda_and_never_fall_back(entry):
+    """``repro_torch.launch.serve`` and ``.train`` run on the card unless
+    ``--device cpu`` is passed; without a card their default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from repro_torch.launch import serve, train
+    main = {"serve": serve.main, "train": train.main}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "phi3-mini-3.8b", "--smoke", "--steps", "1"]
+             if entry == "train" else ["--smoke"])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b",
+                                  "xlstm-1.3b", "zamba2-1.2b",
+                                  "llama-3.2-vision-11b", "whisper-medium"])
+def test_unported_lm_families_raise_not_implemented(arch):
+    """The LM families the port has not ported (MoE, SSM/xLSTM, the
+    hybrid, the VLM, enc-dec) are refused by ``build`` before any work,
+    naming the queue that holds them; the dense family builds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        build(get_config(arch))
+    assert build(get_config("phi3-mini-3.8b")).cfg.family == "dense"

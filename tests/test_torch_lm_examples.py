@@ -106,12 +106,20 @@ def _jax_tokens(monkeypatch, argv):
     return out
 
 
-@pytest.mark.parametrize("exit_idx", [1, 2])
-def test_jax_checkpoint_decodes_alike(monkeypatch, tmp_path, exit_idx):
-    """Exits {0, 1, 3} and {0, 2, 3}: every exit of the model."""
-    ck = str(tmp_path / "jax.msgpack")
+@pytest.fixture(scope="module")
+def jax_checkpoint(tmp_path_factory):
+    """A ``--ckpt`` of the JAX ``train_lm --local`` after 2 rounds, written
+    once for every case that decodes it."""
+    ck = str(tmp_path_factory.mktemp("jax_ckpt") / "jax.msgpack")
     jtrain.main(["--local", "--rounds", "2", "--ckpt", ck])
-    argv = ["--ckpt", ck, "--exit", str(exit_idx)]
+    return ck
+
+
+@pytest.mark.parametrize("exit_idx", [1, 2])
+def test_jax_checkpoint_decodes_alike(monkeypatch, jax_checkpoint,
+                                      exit_idx):
+    """Exits {0, 1, 3} and {0, 2, 3}: every exit of the model."""
+    argv = ["--ckpt", jax_checkpoint, "--exit", str(exit_idx)]
     ref = _jax_tokens(monkeypatch, argv)
     got = tserve.main(argv + ["--device", "cpu"])
     assert sorted(got) == sorted(ref) == sorted({0, exit_idx, 3})
