@@ -19,10 +19,13 @@ its own lines; any failure raises and exits non-zero:
    (``library_ms``) by device time (``torch.profiler``) and by call time
    (CUDA events, the host's cost included), beside the roofline bound;
    attention's route (short: the split-Sk forward and the short-query
-   backward; tiled: the pipelined forward and the fused or three-pass
-   backward) is printed for every shape, the short route's kernels are
-   run twice (bitwise equal) and held against their CPU emulation
-   (``attention_split_blocked``, the kernels' order of sums) at 1e-6, and
+   backward; wgmma: bf16 causal on the tensor cores, TMA loads; tiled:
+   the pipelined forward and the fused or three-pass backward) is
+   printed for every shape, the short route's kernels are run twice
+   (bitwise equal) and held against their CPU emulation
+   (``attention_split_blocked``, the kernels' order of sums) at 1e-6, the
+   wgmma route's twice (bitwise equal) and against their emulation of
+   its rounding (``attention_wgmma_blocked``) at 1e-2, and
    the model-layout call, the one the transformer path makes, is checked
    and timed at the path's shape beside SDPA on the same layout;
    attention is also timed at the set mixer's shapes of step 10
@@ -148,15 +151,16 @@ its own lines; any failure raises and exits non-zero:
    decode attention plain torch as in the reference), ms a decode step;
    ``[lm prefill]``, ``build_prefill_step`` with ``use_pallas`` on
    phi3-mini and minitron-8b (GQA 32:8, D 128) at B 4 x S 2048 and on
-   phi3-mini with a 1024-key window at B 2 x S 4096, one tiled
+   phi3-mini with a 1024-key window at B 2 x S 4096, one wgmma
    ``flash_attention`` forward a layer, the logits held against the plain
    route; ``[lm train]``, ``build_train_step`` on phi3-mini at B 2 x S
-   1024 (full remat, the in-place AdamW), 2 steps, the launches by route
-   and the peak memory; ``[lm reference]``, phi3-mini's widths at 2
-   layers in float32, card against CPU (served tokens, prefill logits,
-   losses); then the attention kernel at those four bf16 shapes against
-   its plain version, timed beside SDPA, its bound on the bf16
-   tensor-core peak;
+   1024 (full remat, the in-place AdamW), 2 steps, every launch on the
+   wgmma route, and the peak memory; ``[lm reference]``, phi3-mini's
+   widths at 2 layers in float32 (the tiled route), card against CPU
+   (served tokens, prefill logits, losses); then the attention kernel at
+   those four bf16 shapes against its plain version, its backward twice
+   (bitwise equal), timed beside SDPA, its route and its bound on the
+   bf16 tensor-core peak printed beside its times;
 15. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
@@ -572,28 +576,49 @@ def _attention_pairs(BH, Sq, Sk, causal, window) -> int:
     return BH * total
 
 
-def attention_routes(mod, Sq, Sk, D, group):
-    """(forward route, backward route, split) of a shape: ``split`` and
-    ``short`` on the short-query route, else ``tiled`` and ``fused`` or
-    ``three_pass`` (a checkout without the short route: always tiled)."""
-    route, split = (mod.attention_route(Sq, Sk, D, group)
-                    if hasattr(mod, "attention_route") else ("tiled", 0))
+def attention_routes(mod, Sq, Sk, D, group, dtype="float32", causal=True,
+                     window=0):
+    """(forward route, backward route, split) of a shape with contiguous
+    tensors: ``split`` and ``short`` on the short-query route, ``wgmma``
+    and ``wgmma`` on the bf16 tensor-core route, else ``tiled`` and
+    ``fused`` or ``three_pass`` (a checkout without the short route:
+    always tiled; one whose ``attention_route`` takes no dtype: no wgmma
+    route)."""
+    import inspect
+    import torch
+    route, split = "tiled", 0
+    if hasattr(mod, "attention_route"):
+        if "dtype" in inspect.signature(mod.attention_route).parameters:
+            route, split = mod.attention_route(
+                Sq, Sk, D, group, getattr(torch, dtype), causal=causal,
+                window=window)
+        else:
+            route, split = mod.attention_route(Sq, Sk, D, group)
     if route == "short":
         return "split", "short", split
+    if route == "wgmma":
+        return "wgmma", "wgmma", 0
     return ("tiled", "fused" if mod.fused_backward(Sq, Sk, D)
             else "three_pass", 0)
 
 
+#: each attention kernel's source, by direction and route (the launch
+#: counter's suffix)
 ATTENTION_SOURCES = {
     r: f"src/repro_torch/kernels/flash_attention/csrc/{f}" for r, f in (
-        ("split", "fwd_split.cu"), ("tiled", "fwd.cu"),
-        ("short", "bwd_short.cu"), ("fused", "bwd_fused.cu"),
-        ("three_pass", "bwd_three_pass.cu"))}
+        ("fwd_split", "fwd_split.cu"), ("fwd_tiled", "fwd.cu"),
+        ("fwd_wgmma", "fwd_wgmma.cu"), ("bwd_short", "bwd_short.cu"),
+        ("bwd_fused", "bwd_fused.cu"), ("bwd_three_pass",
+                                        "bwd_three_pass.cu"),
+        ("bwd_wgmma", "bwd_wgmma.cu"))}
+#: the forward and the backward routes, as the launch counters name them
+FWD_ROUTES = ("split", "tiled", "wgmma")
+BWD_ROUTES = ("short", "fused", "three_pass", "wgmma")
 
 
-def _short_launch(mod, q, k, v, do, causal, window):
-    """The short route's forward and backward launched directly on [BH, S,
-    D] tensors, through their model-layout views as
+def _route_launch(mod, q, k, v, do, causal, window):
+    """The shape's route's forward and backward launched directly on [BH,
+    S, D] tensors, through their model-layout views as
     ``flash_attention_bhsd`` hands them over: (o, lse, dq, dk, dv)."""
     import torch
     BH, BHkv = q.shape[0], k.shape[0]
@@ -624,7 +649,7 @@ def _attention_short_check(mod, label, q, k, v, do, causal, window, split):
     least = mod.SHORT_MIN_SK
     mod.SHORT_MIN_SK = 1
     try:
-        runs = [_short_launch(mod, q, k, v, do, causal, window)
+        runs = [_route_launch(mod, q, k, v, do, causal, window)
                 for _ in range(2)]
     finally:
         mod.SHORT_MIN_SK = least
@@ -661,6 +686,39 @@ def _attention_short_check(mod, label, q, k, v, do, causal, window, split):
                              "emulation")
 
 
+def _attention_wgmma_check(mod, label, q, k, v, do, window):
+    """The wgmma route's kernels called twice on the same bf16 inputs
+    [BH, S, D]: bitwise equal in o, lse, dq, dk and dv; and, at the edge
+    shapes (BH Sq Sk at most 2^24), against their CPU emulation of the
+    route's rounding (``attention_wgmma_blocked``) at 1e-2 of the largest
+    magnitude (lse at 1e-5): the tensor cores sum in their own order."""
+    import torch
+    q, k, v = (t.detach() for t in (q, k, v))
+    runs = [_route_launch(mod, q, k, v, do, True, window) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    emu_err = None
+    if q.shape[0] * q.shape[1] * k.shape[1] <= 2 ** 24:
+        got = [t.cpu() for t in runs[0]]
+        cpu = [t.cpu() for t in (q, k, v)]
+        o, lse = mod.attention_wgmma_blocked(*cpu, causal=True, window=window)
+        emu = [o, *mod.attention_wgmma_blocked_bwd(
+            *cpu, got[0], do.cpu(), got[1], causal=True, window=window)]
+        emu_err = max(_errors(a, b)[1] for a, b in zip(got[:1] + got[2:],
+                                                       emu))
+        lse_err = _errors(got[1], lse)[1]
+    print(f"[kernel] flash_attention {label}: wgmma route; two launches "
+          f"bitwise equal: {same}" + (
+              "" if emu_err is None else
+              f"; against the emulation rel err o/grads {emu_err:.2e} "
+              f"(limit 1e-02), lse {lse_err:.2e} (limit 1e-05)"))
+    if not same or (emu_err is not None and (emu_err > 1e-2 or
+                                             lse_err > 1e-5)):
+        raise AssertionError(f"flash_attention's wgmma route at {label} is "
+                             "not deterministic or disagrees with its "
+                             "emulation")
+
+
 def _attention_case(mod, g, shape, where=None):
     """One of :func:`phase_attention`'s shapes, ``(label, BH, BHkv, Sq,
     Sk, D, causal, window, dtype)``: the kernel's forward and backward held
@@ -689,7 +747,8 @@ def _attention_case(mod, g, shape, where=None):
         return mod.attention_plain(a, b, c, causal=causal,
                                    window=window)
     abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
-    fwd_route, route, split = attention_routes(mod, Sq, Sk, D, BH // BHkv)
+    fwd_route, route, split = attention_routes(mod, Sq, Sk, D, BH // BHkv,
+                                               dt, causal, window)
     print(f"[kernel] flash_attention {label} BH={BH} BHkv={BHkv} "
           f"Sq={Sq} Sk={Sk} D={D} causal={causal} window={window} {dt}"
           f" (forward {fwd_route}, backward {route}):"
@@ -703,6 +762,8 @@ def _attention_case(mod, g, shape, where=None):
     if route == "short" or label.startswith("short"):
         _attention_short_check(mod, label, q, k, v, do, causal, window,
                                split or mod.short_split(D))
+    if route == "wgmma":
+        _attention_wgmma_check(mod, label, q, k, v, do, window)
     if where is None:
         return None
 
@@ -713,7 +774,7 @@ def _attention_case(mod, g, shape, where=None):
     nq, nk = BH * Sq * D, BHkv * Sk * D
     rec = _timed_records(
         ("flash_attention", "flash_attention_bwd"),
-        ATTENTION_SOURCES[fwd_route],
+        ATTENTION_SOURCES["fwd_" + fwd_route],
         "src/repro/kernels/flash_attention/flash_attention.py:67",
         [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
         [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
@@ -724,7 +785,7 @@ def _attention_case(mod, g, shape, where=None):
          (4 * (4 * nq + 4 * nk + BH * Sq), 10 * D * pairs)],
         "SDPA is_causal" if causal else "SDPA", where)
     rec[0]["fwd_route"], rec[1]["bwd_route"] = fwd_route, route
-    rec[1]["source"] = ATTENTION_SOURCES[route]
+    rec[1]["source"] = ATTENTION_SOURCES["bwd_" + route]
     for r in rec:
         r["shape"] = (f"BH={BH} S={Sq} D={D} causal {dt}" if causal else
                       f"BH={BH} Sq={Sq} Sk={Sk} D={D} non-causal {dt}")
@@ -799,7 +860,18 @@ def phase_attention():
               ("short set mixer bf16", 208, 208, 4, 1024, 32, False, 0,
                "bfloat16"),
               ("short GQA 4:1 bf16 D128", 8, 2, 8, 33, 128, False, 0,
-               "bfloat16")]
+               "bfloat16"),
+              # the wgmma route's edges (bf16, causal): Sq and Sk off the
+              # 64-row tiles, Sq != Sk, GQA 4:1 at D 128, a window that
+              # crosses the 128-key tiles at D 96, D 16 (one TMA box of 64
+              # columns, 48 of them zeros)
+              ("wgmma GQA 4:1 D128", 8, 2, 130, 130, 128, True, 0,
+               "bfloat16"),
+              ("wgmma window D96", 8, 8, 300, 300, 96, True, 100,
+               "bfloat16"),
+              ("wgmma Sq != Sk D64", 4, 2, 200, 136, 64, True, 0,
+               "bfloat16"),
+              ("wgmma D16", 4, 4, 96, 96, 16, True, 0, "bfloat16")]
     timed = {"path": "the bucketed path's shape",
              "per-client path": "the per-client shape",
              "set mixer path": "the set mixer's path shape",
@@ -2923,9 +2995,8 @@ LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("minitron-8b prefill", 4, 2048, 32, 8, 128, 0),
                 ("phi3-mini train", 2, 1024, 32, 32, 96, 0),
                 ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024))
-LM_ROUTES = ("flash_attention_fwd_tiled", "flash_attention_fwd_split",
-             "flash_attention_bwd_fused", "flash_attention_bwd_three_pass",
-             "flash_attention_bwd_short")
+LM_ROUTES = tuple(f"flash_attention_fwd_{r}" for r in FWD_ROUTES) + tuple(
+    f"flash_attention_bwd_{r}" for r in BWD_ROUTES)
 
 
 def _synced_wall(fn):
@@ -2991,8 +3062,9 @@ def phase_lm_prefill():
     """``[lm prefill]``: ``build_prefill_step`` with ``use_pallas=True`` at
     full width and depth, bf16: phi3-mini and minitron-8b at B 4 x S
     2048, and phi3-mini with a 1024-key window at B 2 x S 4096.  Each
-    launches the tiled forward once a layer.  Its last-position logits are
-    held against the same step with ``use_pallas=False`` (the plain
+    launches the wgmma forward once a layer and no other route.  Its
+    last-position logits are held against the same step with
+    ``use_pallas=False`` (the plain
     ``gqa_attend``) on the same params upcast to float32, where the two
     routes must agree at the float32 kernel tolerance; in bf16 both
     routes are held against that float32 forward, and the kernel route
@@ -3054,10 +3126,10 @@ def phase_lm_prefill():
                 err["bf16 kernel vs f32"] > 1.25 * err["bf16 plain vs f32"]:
             raise AssertionError(f"[lm prefill] {label}: the kernel route "
                                  "disagrees with the plain route")
-        if launches[label]["flash_attention_fwd_tiled"] != cfg.num_layers \
+        if launches[label]["flash_attention_fwd_wgmma"] != cfg.num_layers \
                 or sum(launches[label].values()) != cfg.num_layers:
             raise AssertionError(f"[lm prefill] {label}: expected "
-                                 f"{cfg.num_layers} tiled forward launches")
+                                 f"{cfg.num_layers} wgmma forward launches")
         del params, got, ref, f32
         _free_card()
     return launches
@@ -3068,13 +3140,13 @@ def phase_lm_train():
     depth, bf16, B 2 x S 1024, ``remat="full"``, ``use_pallas=True``, 2
     steps of the in-place AdamW on ``lm_batches`` (the trainer's data).
     Each step launches the forward twice a layer (the forward and the
-    remat recompute) and the backward once; the peak of
-    ``torch.cuda.max_memory_allocated``.  Returns the launches."""
+    remat recompute) and the backward once, all on the wgmma route; the
+    peak of ``torch.cuda.max_memory_allocated``.  Returns the launches."""
+    import importlib
     import torch
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels.flash_attention import fused_backward
     from repro_torch.launch.steps import build_train_step, make_train_state
     from repro_torch.tree import tree_leaves
     B, S, steps = LM_TRAIN
@@ -3097,7 +3169,10 @@ def phase_lm_train():
         rows.append((float(m["loss"]), float(m["grad_norm"]), secs))
     peak = torch.cuda.max_memory_allocated()
     launches = {k: LAUNCHES[k] for k in LM_ROUTES}
-    route = "fused" if fused_backward(S, S, cfg.hd) else "three_pass"
+    fwd_route, route, _ = attention_routes(
+        importlib.import_module(
+            "repro_torch.kernels.flash_attention.flash_attention"),
+        S, S, cfg.hd, cfg.num_heads // cfg.num_kv_heads, "bfloat16")
     L = cfg.num_layers
     print(f"[lm train] {LM_ARCH} at full width and depth ({L} layers, "
           f"{sum(t.numel() for t in tree_leaves(state['params'])) / 1e9:.3f} B "
@@ -3106,16 +3181,17 @@ def phase_lm_train():
                       f"{s:.3f} s" for i, (l, g, s) in enumerate(rows))
           + f"; peak memory {peak / 2 ** 30:.2f} GiB "
           f"({torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
-          f" GiB on the card); launches {launches}; the backward's route "
-          f"at S {S}, D {cfg.hd}: {route}")
+          f" GiB on the card); launches {launches}; the routes at S {S}, "
+          f"D {cfg.hd}: forward {fwd_route}, backward {route}")
     if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in rows):
         raise AssertionError("[lm train] a non-finite loss or grad norm")
-    if launches["flash_attention_fwd_tiled"] != 2 * L * steps or \
-            launches[f"flash_attention_bwd_{route}"] != L * steps or \
+    if (fwd_route, route) != ("wgmma", "wgmma") or \
+            launches["flash_attention_fwd_wgmma"] != 2 * L * steps or \
+            launches["flash_attention_bwd_wgmma"] != L * steps or \
             sum(launches.values()) != 3 * L * steps:
         raise AssertionError(f"[lm train] launches {launches}: expected "
-                             f"{2 * L * steps} forward and {L * steps} "
-                             f"{route} backward")
+                             f"{2 * L * steps} wgmma forward and "
+                             f"{L * steps} wgmma backward")
     del state
     _free_card()
     return launches
@@ -3199,10 +3275,14 @@ def phase_lm_kernels():
     plain version at 2e-2, then timed beside it and beside SDPA
     (``is_causal``, ``enable_gqa`` for minitron's 4 query heads a KV
     head; the window row through an explicit window mask, SDPA having no
-    window), 5 calls each; the bound on the bf16 dense tensor-core peak.
-    Returns the records; their launches come from the path runs
-    (:func:`_lm_kernel_launches`).  Run early: late in the script the
-    profiler has read these shapes short and then not at all."""
+    window), 5 calls each; the bound on the bf16 dense tensor-core peak;
+    each shape's route printed beside its times; on the wgmma route two
+    backward launches held bitwise equal.  Uses only the module's
+    wrappers, routes and plain version, so ``scripts/attention_ab.py``
+    times earlier designs with it.  Returns the records; their launches
+    come from the path runs (:func:`_lm_kernel_launches`).  Run early:
+    late in the script the profiler has read these shapes short and then
+    not at all."""
     import importlib
     import torch
     import torch.nn.functional as F
@@ -3232,7 +3312,8 @@ def phase_lm_kernels():
                 attn_mask=mask, is_causal=mask is None,
                 enable_gqa=Hq != Hkv).transpose(1, 2)
         abs_errs, errs = _fwd_bwd_errors(fn, plain, [q, k, v], do)
-        fwd_route, route, _ = attention_routes(mod, S, S, D, Hq // Hkv)
+        fwd_route, route, _ = attention_routes(mod, S, S, D, Hq // Hkv,
+                                               "bfloat16", True, window)
         print(f"[kernel] flash_attention {label} B={B} S={S} Hq={Hq} "
               f"Hkv={Hkv} D={D} window={window} bfloat16 (forward "
               f"{fwd_route}, backward {route}): rel err o {errs[0]:.2e}, dq"
@@ -3242,11 +3323,15 @@ def phase_lm_kernels():
         if max(errs) > tol:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {label}")
+        if route == "wgmma":
+            _attention_wgmma_check(mod, label, *(
+                t.detach().transpose(1, 2).flatten(0, 1)
+                for t in (q, k, v, do)), window)
         pairs = _attention_pairs(B * Hq, S, S, True, window)
         nq, nk = B * Hq * S * D, B * Hkv * S * D
         rec = _timed_records(
             ("flash_attention", "flash_attention_bwd"),
-            ATTENTION_SOURCES[fwd_route],
+            ATTENTION_SOURCES["fwd_" + fwd_route],
             "src/repro/kernels/flash_attention/flash_attention.py:67",
             [(abs_errs[0], errs[0]), (max(abs_errs[1:]), max(errs[1:]))],
             [(f, [q, k, v]) for f in (fn, plain, sdpa)], do,
@@ -3257,11 +3342,16 @@ def phase_lm_kernels():
             "SDPA" + (" window mask" if window else " is_causal"), label,
             flops_per_s=BF16_FLOPS_PER_S, iters=5)
         rec[0]["fwd_route"], rec[1]["bwd_route"] = fwd_route, route
-        rec[1]["source"] = ATTENTION_SOURCES[route]
-        for r in rec:
+        rec[1]["source"] = ATTENTION_SOURCES["bwd_" + route]
+        for r, how in zip(rec, (fwd_route, route)):
             r["shape"] = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
                           f"window={window} bfloat16")
             r["path"] = f"lm {label}"
+            print(f"[kernel] {r['name']} {label}: route {how}, device ms "
+                  f"{r['ms']:.4f}, {100 * r['bound_ms'] / r['ms']:.1f}% of "
+                  f"the bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+                  f"plain {r['plain_ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms")
         records += rec
         del q, k, v, do, mask
         _free_card()
@@ -3287,12 +3377,12 @@ def _attention_route_launches(record, launches, into=None):
     into = record if into is None else into
     if "fwd_route" in record:
         into["route_launches"] = {
-            k: launches[f"flash_attention_fwd_{k}"] for k in ("split",
-                                                              "tiled")}
+            k: launches.get(f"flash_attention_fwd_{k}", 0)
+            for k in FWD_ROUTES}
     if "bwd_route" in record:
         into["route_launches"] = {
-            k: launches[f"flash_attention_bwd_{k}"]
-            for k in ("short", "fused", "three_pass")}
+            k: launches.get(f"flash_attention_bwd_{k}", 0)
+            for k in BWD_ROUTES}
 
 
 def main() -> int:

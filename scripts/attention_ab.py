@@ -11,10 +11,13 @@ phases: the kernel build, the model-layout ``flash_attention`` call at
 the transformer path's shape (checked, then timed beside SDPA), the set
 mixer's shapes of ``[fig6 n1024]`` (BH 208, Sq 4, Sk 1024) and of
 ``[marl train]``'s n = 1M row (BH 12, Sq 4, Sk 4096), each checked and
-timed forward and backward beside SDPA, and one warm round of the
-transformer path under ``torch.profiler`` (our kernels' and ATen's
-elementwise launches).  Every output line carries the
-checkout's label (its position and root).  Needs one NVIDIA card and
+timed forward and backward beside SDPA, the LM substrate's four bf16
+shapes (phi3-mini's and minitron-8b's prefill, phi3-mini's train step,
+the 1024-key window; ``phase_lm_kernels``: each checked, timed forward
+and backward beside the plain version and SDPA, its route printed), and
+one warm round of the transformer path under ``torch.profiler`` (our
+kernels' and ATen's elementwise launches).  Every output line carries
+the checkout's label (its position and root).  Needs one NVIDIA card and
 ``nvcc``; imports neither jax nor the JAX package.
 """
 from __future__ import annotations
@@ -36,6 +39,9 @@ def one(root: Path) -> None:
     import repro_torch  # noqa: F401  (sets the float32 precision flags)
     from repro_torch.fl import FLConfig, run_simulation
     import torch
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
     cs.phase_build()
     mod = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
@@ -47,6 +53,7 @@ def one(root: Path) -> None:
             (("set mixer bench", 12, 12, 4, 4096, 32, False, 0, "float32"),
              "the set mixer's n = 1M shape")):
         cs._attention_case(mod, g, shape, where)
+    cs.phase_lm_kernels()
     cfg = FLConfig(**dict(cs.TRANSFORMER_CFG, n_rounds=1))
     run_simulation(cfg)                        # warm
     cs.phase_profile(cfg, "round")

@@ -1,9 +1,11 @@
 """Flash attention: the hand-written Hopper kernels (``csrc/``: the tiled
 route's pipelined persistent forward, one-launch fused backward for short
 sequences and three-pass backward for long ones; the short-query route's
-split-Sk forward and backward for Sq <= 8 over long key sets), their plain
-PyTorch version, the CPU emulation of the short-query route's order of
-sums and the wrappers.
+split-Sk forward and backward for Sq <= 8 over long key sets; the wgmma
+route's TMA and tensor-core forward and backward for bf16 causal
+attention), their plain PyTorch version, the CPU emulations of the
+short-query route's order of sums and of the wgmma route's rounding, and
+the wrappers.
 
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/flash_attention.py``
@@ -25,16 +27,21 @@ allocates o, dq, dk and dv like their inputs: nothing is copied.
 :func:`flash_attention_bhsd` is a view of its tensors in that layout.
 Both wrappers take the plain version only for tensors on the CPU.  For
 CUDA tensors they run an ``autograd.Function`` whose forward launches the
-forward kernel (which also writes the row log-sum-exp) and whose backward
-launches the fused or the three-pass backward, chosen by shape alone
-(:func:`fused_backward`), or raises; nothing falls back.
+route's forward kernel (which also writes the row log-sum-exp) and whose
+backward launches the route's backward (on the tiled route the fused or
+the three-pass one, chosen by shape alone, :func:`fused_backward`), or
+raises; nothing falls back.
 :func:`attention_route` picks the route of both directions from the
-shape: ``short`` (``fwd_split.cu``, ``bwd_short.cu``: blocks split the
-keys, an integer ticket per row set lets the last block of each combine
-the splits in a fixed order) for a few query rows over a long key set,
-else ``tiled``.  ``LAUNCHES`` counts each forward under
-``flash_attention_fwd_split`` or ``_fwd_tiled`` and each backward under
-``flash_attention_bwd_short``, ``_fused`` or ``_three_pass``.
+shape, the dtype and the layout: ``short`` (``fwd_split.cu``,
+``bwd_short.cu``: blocks split the keys, an integer ticket per row set
+lets the last block of each combine the splits in a fixed order) for a
+few query rows over a long key set; ``wgmma`` (``fwd_wgmma.cu``,
+``bwd_wgmma.cu``: TMA loads, wgmma products on bf16 operands with
+float32 accumulators, a deterministic two-launch backward) for bf16
+causal attention at the LM's shapes; else ``tiled``.  ``LAUNCHES``
+counts each forward under ``flash_attention_fwd_split``, ``_fwd_wgmma``
+or ``_fwd_tiled`` and each backward under ``flash_attention_bwd_short``,
+``_wgmma``, ``_fused`` or ``_three_pass``.
 """
 from __future__ import annotations
 
@@ -50,7 +57,8 @@ from repro_torch.kernels import LAUNCHES, build
 
 SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / f
                 for f in ("fwd.cu", "bwd_fused.cu", "bwd_three_pass.cu",
-                          "fwd_split.cu", "bwd_short.cu"))
+                          "fwd_split.cu", "bwd_short.cu", "fwd_wgmma.cu",
+                          "bwd_wgmma.cu"))
 MASKED = -1e30          # the TPU kernel's NEG_INF
 MAX_D = 128             # the kernels' largest register layout
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -67,6 +75,14 @@ SHORT_WARPS = 4
 #: ``scripts/attention_routes.py``); below, the tiled kernels' one block
 #: a head is the shorter path
 SHORT_MIN_SK = 64
+#: the wgmma route's constants (``csrc/fwd_wgmma.cu``, ``bwd_wgmma.cu``):
+#: the fewest query rows it takes (one warpgroup's 64 rows), the keys of
+#: a forward tile (the online softmax rescales once a tile, so the
+#: emulation rounds P against the same running maximum) and the rows of
+#: one record of the backward's row statistics
+WGMMA_MIN_SQ = 64
+WGMMA_KT = 128
+WGMMA_ROWS = 64
 _LIB = None
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -86,7 +102,9 @@ def load_library():
             "flash_attention_bwd_fused_fits": [_I] * 3,
             "flash_attention_bwd_launch": [_P] * 10 + _TAIL,
             "flash_attention_fwd_split_launch": [_P] * 7 + _SPLIT_TAIL,
-            "flash_attention_bwd_short_launch": [_P] * 11 + _SPLIT_TAIL})
+            "flash_attention_bwd_short_launch": [_P] * 11 + _SPLIT_TAIL,
+            "flash_attention_fwd_wgmma_launch": [_P] * 5 + _TAIL,
+            "flash_attention_bwd_wgmma_launch": [_P] * 10 + _TAIL})
     return _LIB
 
 
@@ -94,23 +112,49 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def attention_route(Sq: int, Sk: int, D: int, group: int
-                    ) -> Tuple[str, int]:
+def attention_route(Sq: int, Sk: int, D: int, group: int,
+                    dtype: torch.dtype = torch.float32, *,
+                    causal: bool = True, window: int = 0,
+                    aligned: bool = True) -> Tuple[str, int]:
     """The route of a problem of Sq query rows a head over Sk keys at
-    head dimension D, with ``group`` query heads a KV head, and the
-    short route's split (keys a block; 0 on the tiled route).
+    head dimension D, with ``group`` query heads a KV head, in ``dtype``
+    under the mask (``causal``, ``window``), its tensors on TMA's 16-byte
+    grid or not (``aligned``, :func:`tma_aligned`), and the short route's
+    split (keys a block; 0 on the other routes).
 
     ``short`` where Sq <= ``SHORT_MAX_SQ``, the group's rows padded to 4
     or 8 a head are at most ``SHORT_MAX_ROWS``, D <= ``MAX_D`` and Sk >=
     ``SHORT_MIN_SK``; its split is :func:`short_split`'s (128 keys at D <=
     32, 64 at D <= 64, 32 at D <= 128), the one value the kernels take.
-    Else ``tiled``, whose backward is fused or three passes
-    (:func:`fused_backward`)."""
+    ``wgmma`` where the dtype is bf16, the mask causal, D a multiple of 16
+    up to ``MAX_D``, Sq >= ``WGMMA_MIN_SQ``, every row sees a key (a
+    window leaves the last rows none where Sq - window >= Sk) and the
+    tensors are aligned.  Else ``tiled``, whose backward is fused or three
+    passes (:func:`fused_backward`)."""
     padded = 4 if Sq <= 4 else 8
     if Sq <= SHORT_MAX_SQ and group * padded <= SHORT_MAX_ROWS and \
             D <= MAX_D and Sk >= SHORT_MIN_SK:
         return "short", short_split(D)
+    if dtype == torch.bfloat16 and causal and D % 16 == 0 and \
+            D <= MAX_D and Sq >= WGMMA_MIN_SQ and aligned and \
+            not (window and Sq - window >= Sk):
+        return "wgmma", 0
     return "tiled", 0
+
+
+def tma_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether [B, S, H, D] tensors (D contiguous) sit on TMA's 16-byte
+    grid: each base address and each batch, head and position stride (in
+    bytes, positive) a multiple of 16, and a row of D elements too (the
+    condition of ``csrc/wgmma.cuh``'s ``takes``)."""
+    for t in tensors:
+        esize = t.element_size()
+        if t.data_ptr() % 16 or (t.shape[-1] * esize) % 16:
+            return False
+        for d in (0, 1, 2):
+            if t.stride(d) <= 0 or (t.stride(d) * esize) % 16:
+                return False
+    return True
 
 
 def short_split(D: int) -> int:
@@ -350,6 +394,101 @@ def attention_split_blocked_bwd(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _exact_bmm(a, b):
+    """a @ b over the last two dims, summed in float64 and rounded once to
+    float32: the emulation of a tensor-core product with a float32
+    accumulator, whose order of sums it leaves out (the host's BLAS order
+    can then move no float32 bit)."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def _bf16(x):
+    """x rounded to bf16, back in float32: P and dS as the wgmma route
+    feeds them to its second products."""
+    return x.to(torch.bfloat16).float()
+
+
+def attention_wgmma_blocked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wgmma route's forward arithmetic in torch: (o, lse) for bf16 q
+    [BH, Sq, D] and k, v [BHkv, Sk, D], as ``fwd_wgmma.cu`` rounds it.
+
+    S = q k^T in float32 (the bf16 products summed exactly), masked
+    scores -inf; over key tiles of ``WGMMA_KT`` keys from key 0, the
+    running maximum m of S scale log2(e) (0 stands in for a row's -inf),
+    p = exp2(S scale log2(e) - m), l = l alpha + rowsum(p) in float32, and
+    acc = acc alpha + bf16(p) v: P is rounded to bf16 once, against the
+    running maximum of its tile.  Then o = acc / max(l, 1e-30), lse = (m +
+    log2(l)) ln 2.  A row that sees no key is outside the route."""
+    BH, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    group = BH // BHkv
+    sl2 = torch.tensor(1.0 / math.sqrt(D) * math.log2(math.e),
+                       dtype=torch.float32)
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    s = _exact_bmm(q.float(), kf.transpose(1, 2))
+    s = torch.where(_visible(Sq, Sk, causal, window, q.device), s,
+                    s.new_tensor(-math.inf))
+    m = torch.full((BH, Sq), -math.inf)
+    l = torch.zeros((BH, Sq))
+    acc = torch.zeros((BH, Sq, D))
+    for n0 in range(0, Sk, WGMMA_KT):
+        st = s[..., n0:n0 + WGMMA_KT]
+        mn = torch.maximum(m, st.amax(-1) * sl2)
+        mu = torch.where(mn == -math.inf, torch.zeros_like(mn), mn)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(st * sl2 - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _exact_bmm(_bf16(p),
+                                                  vf[:, n0:n0 + WGMMA_KT])
+        m = mn
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.to(q.dtype), (m + torch.log2(l)) * math.log(2.0)
+
+
+def attention_wgmma_blocked_bwd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                do: torch.Tensor, lse: torch.Tensor, *,
+                                causal: bool = True, window: int = 0
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The wgmma route's backward arithmetic in torch: (dq, dk, dv) for
+    the forward's o and lse and the cotangent do, as ``bwd_wgmma.cu``
+    rounds it.
+
+    delta = rowsum(dO o) in float32; P = exp2(S scale log2(e) - lse
+    log2(e)) on the keys a row sees, else 0, rounded to bf16; dP = dO
+    v^T; dS = P (dP - delta) rounded to bf16; then dv = P^T dO, dk =
+    scale dS^T q (both summed over the group's heads) and dq = scale dS k:
+    P and dS are rounded to bf16 once, everything else is float32."""
+    BH, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    group = BH // BHkv
+    scale = 1.0 / math.sqrt(D)
+    log2e = math.log2(math.e)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    s = _exact_bmm(qf, kf.transpose(1, 2))
+    p = torch.exp2(s * torch.tensor(scale * log2e, dtype=torch.float32)
+                   - (lse * log2e)[..., None])
+    p = torch.where(_visible(Sq, Sk, causal, window, q.device), p,
+                    p.new_tensor(0.0))
+    p = _bf16(p)
+    delta = (dof.double() * o.double()).sum(-1).float()
+    ds = _bf16(p * (_exact_bmm(dof, vf.transpose(1, 2)) - delta[..., None]))
+    dq = _exact_bmm(ds, kf) * scale
+
+    def over_group(x):
+        return x.reshape(BHkv, group, Sk, D).double().sum(1).float()
+    dv = over_group(_exact_bmm(p.transpose(1, 2), dof))
+    dk = over_group(_exact_bmm(ds.transpose(1, 2), qf)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_plain_model(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
@@ -421,21 +560,32 @@ def _tickets(device, n: int) -> torch.Tensor:
     return t
 
 
-def _route(q, k):
+def _route(q, k, v, causal, window):
     B, Sq, Hq, D = q.shape
-    return attention_route(Sq, k.shape[1], D, Hq // k.shape[2])
+    return attention_route(Sq, k.shape[1], D, Hq // k.shape[2], q.dtype,
+                           causal=causal, window=window,
+                           aligned=tma_aligned(q, k, v))
+
+
+def _wgmma_rows_see_keys(q, k, window):
+    """The wgmma kernels leave out the -1e30 of a row that sees no key:
+    :func:`attention_route` keeps such problems off the route."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    assert not (window and Sq - window >= Sk), \
+        f"wgmma route: a row sees no key (Sq {Sq}, Sk {Sk}, window {window})"
 
 
 def _forward(q, k, v, o, causal, window):
     """Launch the forward kernel of the shape's route on q, k, v into o;
     returns lse [B * Hq, Sq].  Counts under ``flash_attention`` and the
-    route, ``flash_attention_fwd_split`` or ``_fwd_tiled``."""
+    route, ``flash_attention_fwd_split``, ``_fwd_wgmma`` or
+    ``_fwd_tiled``."""
     lib = load_library()[0]
     B, Sq, Hq, D = q.shape
     lse = torch.empty((B * Hq, Sq), dtype=torch.float32, device=q.device)
     tail = _args(q, k, (q, k, v, o), causal, window)
     ptrs = [t.data_ptr() for t in (q, k, v, o, lse)]
-    route, split = _route(q, k)
+    route, split = _route(q, k, v, causal, window)
     if route == "short":
         part = torch.empty((B * Hq * _cdiv(k.shape[1], split) * Sq
                             * (D + 2),), dtype=torch.float32,
@@ -444,6 +594,11 @@ def _forward(q, k, v, o, causal, window):
                      part.data_ptr(), _tickets(q.device, B * Hq).data_ptr(),
                      *tail, split)
         LAUNCHES["flash_attention_fwd_split"] += 1
+    elif route == "wgmma":
+        _wgmma_rows_see_keys(q, k, window)
+        build.launch(lib.flash_attention_fwd_wgmma_launch, q.device, *ptrs,
+                     *tail)
+        LAUNCHES["flash_attention_fwd_wgmma"] += 1
     else:
         build.launch(lib.flash_attention_fwd_launch, q.device, *ptrs, *tail)
         LAUNCHES["flash_attention_fwd_tiled"] += 1
@@ -453,15 +608,19 @@ def _forward(q, k, v, o, causal, window):
 
 def _backward(q, k, v, o, do, lse, dq, dk, dv, causal, window):
     """Launch the backward kernels of the shape's route into dq, dk, dv:
-    on the short route its one launch; on the tiled route the fused one
+    on the short route its one launch; on the wgmma route its two (dq
+    with the row statistics, then dk and dv), dO first copied onto the
+    16-byte grid where it is off it; on the tiled route the fused one
     where the shape fits it, else the three passes.  Each launch also
-    counts under its route, ``flash_attention_bwd_short``, ``_fused`` or
-    ``_three_pass``."""
+    counts under its route, ``flash_attention_bwd_short``, ``_wgmma``,
+    ``_fused`` or ``_three_pass``."""
     lib = load_library()[0]
+    route, split = _route(q, k, v, causal, window)
+    if route == "wgmma" and not tma_aligned(do):
+        do = do.contiguous()
     tail = _args(q, k, (q, k, v, o, do, dq, dk, dv), causal, window)
     ptrs = [t.data_ptr() for t in (q, k, v, o, do)]
     outs = [t.data_ptr() for t in (dq, dk, dv)]
-    route, split = _route(q, k)
     if route == "short":
         B, Sq, Hq, D = q.shape
         part = torch.empty((B * Hq * _cdiv(k.shape[1], split) * Sq * D,),
@@ -471,6 +630,15 @@ def _backward(q, k, v, o, do, lse, dq, dk, dv, causal, window):
                      _tickets(q.device, B * k.shape[2]).data_ptr(), *tail,
                      split)
         LAUNCHES["flash_attention_bwd_short"] += 1
+    elif route == "wgmma":
+        _wgmma_rows_see_keys(q, k, window)
+        B, Sq, Hq, _ = q.shape
+        rows = _cdiv(Sq, WGMMA_ROWS) * WGMMA_ROWS
+        stats = torch.empty((B * Hq * 2 * rows,), dtype=torch.float32,
+                            device=q.device)
+        build.launch(lib.flash_attention_bwd_wgmma_launch, q.device, *ptrs,
+                     lse.data_ptr(), stats.data_ptr(), *outs, *tail)
+        LAUNCHES["flash_attention_bwd_wgmma"] += 1
     elif fused_backward(q.shape[1], k.shape[1], q.shape[3]):
         build.launch(lib.flash_attention_bwd_fused_launch, q.device, *ptrs,
                      lse.data_ptr(), *outs, *tail)

@@ -18,7 +18,11 @@ order of sums) at 1e-6, and against itself bitwise; so are
 ``flash_attention``'s short-query kernels (``attention_split_blocked``
 and ``attention_split_blocked_bwd``), forward and backward (1e-2 in
 bfloat16, where the two may round an output to either side of a
-bfloat16 tie).
+bfloat16 tie).  The wgmma route's kernels (bf16, causal) are held against
+the plain version at 2e-2 and against their CPU emulation of the route's
+rounding (``attention_wgmma_blocked`` and ``_bwd``) at 1e-2: the
+tensor cores sum in their own order, and a P or dS that lands on the
+other side of a bf16 rounding moves an output by about its spacing.
 """
 import importlib
 
@@ -29,7 +33,8 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.flash_attention import (
     attention_plain, attention_plain_model, attention_route,
-    attention_split_blocked, attention_split_blocked_bwd, flash_attention,
+    attention_split_blocked, attention_split_blocked_bwd,
+    attention_wgmma_blocked, attention_wgmma_blocked_bwd, flash_attention,
     flash_attention_bhsd, fused_backward)
 from repro_torch.kernels.layer_agg import layer_agg, layer_agg_plain
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_blocked,
@@ -1024,9 +1029,9 @@ def test_fleet_mesh_on_one_card_is_a_noop(cuda, group, tmp_path):
 
 
 # the LM substrate's shapes, bf16, causal, model layout [B, S, H, D]: (B,
-# S, Hq, Hkv, D, window): phi3-mini's prefill (D 96 in the 128 layout),
-# minitron-8b's (GQA 4), phi3-mini's train step (the three-pass backward)
-# and a 1024-key window at S 4096
+# S, Hq, Hkv, D, window): phi3-mini's prefill (D 96, two TMA boxes of 64
+# columns), minitron-8b's (GQA 4, D 128), phi3-mini's train step and a
+# 1024-key window at S 4096; all on the wgmma route
 LM_ATTN = {"phi3-mini prefill": (4, 2048, 32, 32, 96, 0),
            "minitron-8b prefill": (4, 2048, 32, 8, 128, 0),
            "phi3-mini train": (2, 1024, 32, 32, 96, 0),
@@ -1038,7 +1043,8 @@ LM_ATTN = {"phi3-mini prefill": (4, 2048, 32, 32, 96, 0),
 def test_flash_attention_at_the_lm_shapes_matches_plain(cuda, case):
     """The model-layout wrapper, as the LM's ``attention_apply`` calls it
     under ``use_pallas``: forward and backward against the plain version
-    at the bf16 tolerance, one tiled forward and one backward launch."""
+    at the bf16 tolerance, one wgmma forward and one wgmma backward launch
+    and no other route's."""
     B, S, Hq, Hkv, D, window = LM_ATTN[case]
     q, k, v = _leaves([(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)],
                       torch.bfloat16, cuda, seed=S + D)
@@ -1052,8 +1058,144 @@ def test_flash_attention_at_the_lm_shapes_matches_plain(cuda, case):
     for got, ref in pairs:
         assert torch.isfinite(got.float()).all()
         assert _rel_err(got, ref) <= TOL[torch.bfloat16]
-    route = "fused" if fused_backward(S, S, D) else "three_pass"
-    assert LAUNCHES["flash_attention_fwd_tiled"] == \
-        before["flash_attention_fwd_tiled"] + 1
-    assert LAUNCHES[f"flash_attention_bwd_{route}"] == \
-        before[f"flash_attention_bwd_{route}"] + 1
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+             if LAUNCHES[key] != before[key]}
+    assert moved == {"flash_attention": 1, "flash_attention_fwd_wgmma": 1,
+                     "flash_attention_bwd": 1, "flash_attention_bwd_wgmma": 1}
+
+
+# the wgmma route's edges, bf16, causal, model layout: (B, Sq, Sk, Hq, Hkv,
+# D, window, layout): Sq and Sk off the 64-row tiles (and Sq != Sk); a
+# window that crosses the 128-key tiles; GQA 4; D 16, 64, 96 and 128; q,
+# k and v as strided views of one fused [B, S, 3, H, D] tensor
+WGMMA = [(2, 200, 200, 8, 2, 64, 0, "dense"),
+         (1, 200, 136, 4, 2, 64, 0, "dense"),
+         (2, 300, 300, 4, 4, 96, 100, "dense"),
+         (1, 130, 130, 8, 2, 128, 0, "dense"),
+         (2, 96, 96, 2, 2, 16, 0, "dense"),
+         (2, 256, 256, 4, 4, 96, 0, "fused"),
+         (1, 192, 192, 4, 4, 128, 48, "fused")]
+WGMMA_IDS = ["gqa4-d64-ragged", "sq-ne-sk", "window-d96", "gqa4-d128",
+             "d16", "fused-qkv-d96", "fused-qkv-d128-window"]
+
+
+def _wgmma_inputs(case, dev):
+    """q, k, v and dO of a WGMMA case on ``dev``, bf16 leaves."""
+    B, Sq, Sk, Hq, Hkv, D, window, layout = case
+    g = torch.Generator().manual_seed(Sq + Sk + D)
+    if layout == "fused":
+        qkv = torch.randn((B, Sq, 3, Hq, D), generator=g).to(
+            dev, torch.bfloat16).requires_grad_()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        leaves = [qkv]
+    else:
+        q, k, v = _leaves([(B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)],
+                          torch.bfloat16, dev, seed=Sq + Sk + D)
+        leaves = [q, k, v]
+    do = torch.randn((B, Sq, Hq, D), generator=g).to(dev, torch.bfloat16)
+    return q, k, v, do, leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA, ids=WGMMA_IDS)
+def test_wgmma_route_matches_plain_and_emulation(cuda, case):
+    """The route's kernels through the model-layout wrapper: forward and
+    backward against the plain version at 2e-2 (for the fused tensor, the
+    gradient of the fused leaf), and o, lse, dq, dk, dv against the CPU
+    emulation at 1e-2; each direction counted once under its route."""
+    B, Sq, Sk, Hq, Hkv, D, window, layout = case
+    q, k, v, do, leaves = _wgmma_inputs(case, cuda)
+    route = fa_mod._route(q, k, v, True, window)[0]
+    assert route == "wgmma"
+    before = dict(LAUNCHES)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd_wgmma"] == \
+        before["flash_attention_fwd_wgmma"] + 1
+    assert LAUNCHES["flash_attention_bwd_wgmma"] == \
+        before["flash_attention_bwd_wgmma"] + 1
+    ref_in = [t.detach().clone().requires_grad_() for t in leaves]
+    rq, rk, rv = ((ref_in[0][:, :, i] for i in range(3))
+                  if layout == "fused" else ref_in)
+    ref_out = attention_plain_model(rq, rk, rv, causal=True, window=window)
+    ref = torch.autograd.grad(ref_out, ref_in, do)
+    assert _rel_err(out, ref_out) <= TOL[torch.bfloat16]
+    for g_, r in zip(got, ref):
+        assert torch.isfinite(g_.float()).all()
+        assert _rel_err(g_, r) <= TOL[torch.bfloat16]
+
+    # the kernels against the emulation, on the heads-first layout
+    def bhsd(t):
+        return t.detach().transpose(1, 2).flatten(0, 1).cpu()
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o = torch.empty_like(qd)
+    lse = fa_mod._forward(qd, kd, vd, o, True, window)
+    grads = [torch.empty_like(t) for t in (qd, kd, vd)]
+    fa_mod._backward(qd, kd, vd, o, do, lse, *grads, True, window)
+    torch.cuda.synchronize()
+    eo, e_lse = attention_wgmma_blocked(bhsd(qd), bhsd(kd), bhsd(vd),
+                                       causal=True, window=window)
+    emu = attention_wgmma_blocked_bwd(bhsd(qd), bhsd(kd), bhsd(vd), bhsd(o),
+                                      bhsd(do), lse.cpu(), causal=True,
+                                      window=window)
+    assert _rel_err(lse.cpu(), e_lse) <= 1e-5
+    for a, b in zip([o, *grads], [eo, *emu]):
+        assert _rel_err(bhsd(a), b) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [LM_ATTN["phi3-mini train"], WGMMA[2],
+                                  WGMMA[3]],
+                         ids=["phi3-mini-train", "window-d96", "gqa4-d128"])
+def test_wgmma_backward_is_deterministic(cuda, case):
+    """No atomics: two backward launches give the same bits in dq, dk and
+    dv (GQA heads and query tiles summed in one fixed order)."""
+    if len(case) == 6:
+        B, S, Hq, Hkv, D, window = case
+        case = (B, S, S, Hq, Hkv, D, window, "dense")
+    q, k, v, do, _ = _wgmma_inputs(case, cuda)
+    q, k, v = (t.detach() for t in (q, k, v))
+    window = case[6]
+    o = torch.empty_like(q)
+    lse = fa_mod._forward(q, k, v, o, True, window)
+    runs = []
+    for _ in range(2):
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        fa_mod._backward(q, k, v, o, do, lse, *grads, True, window)
+        runs.append(grads)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wgmma_route_refuses_what_it_does_not_take(cuda):
+    """The entry points refuse (cudaErrorInvalidValue) a problem outside
+    the route instead of computing it: float32, non-causal, D 72, Sq 32,
+    a window that leaves rows no key, a view off TMA's grid."""
+    lib = fa_mod.load_library()[0]
+
+    def call(q, k, causal=True, window=0, dtype=1):
+        o = torch.empty_like(q)
+        lse = torch.empty((q.shape[0] * q.shape[2], q.shape[1]),
+                          device=cuda)
+        tail = list(fa_mod._args(q, k, (q, k, k, o), causal, window))
+        tail[-1] = dtype
+        kbuild.launch(lib.flash_attention_fwd_wgmma_launch, cuda,
+                      q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(),
+                      lse.data_ptr(), *tail)
+
+    def t(S, D, dtype=torch.bfloat16):
+        return torch.zeros((1, S, 2, D), device=cuda, dtype=dtype)
+    call(t(128, 64), t(128, 64))                    # taken
+    torch.cuda.synchronize()
+    flat = torch.zeros((128 * 2 * 64 + 1,), device=cuda,
+                       dtype=torch.bfloat16)[1:].view(1, 128, 2, 64)
+    for args in ((t(128, 64, torch.float32), t(128, 64, torch.float32),
+                  True, 0, 0),
+                 (t(128, 64), t(128, 64), False), (t(128, 72), t(128, 72)),
+                 (t(32, 64), t(32, 64)), (t(128, 64), t(64, 64), True, 64),
+                 (flat, t(128, 64))):
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            call(*args)
