@@ -220,11 +220,17 @@ OWN_KERNELS = ("layer_agg", "rmsnorm", "fa_")
 
 def _device_spans(prof):
     """(start, end, name) of every device activity of a torch.profiler
-    trace, in µs, each once (an activity reported twice counts once)."""
+    trace, in µs from the trace's start, each once (an activity reported
+    twice counts once).  Read from the profiler's raw results, as
+    ``prof.events()`` reads them but without building its event tree over
+    every host op, which took up to 40 s a trace on the H100 machine."""
     from torch.autograd import DeviceType
-    return sorted({(e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA})
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    return sorted({((e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3,
+                    e.name()) for e in res.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.is_hidden_event()})
 
 
 def _times(fn, iters: int = 20, warmup: int = 3):
@@ -2994,9 +3000,21 @@ LM_TRAIN = (2, 1024, 2)
 LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("minitron-8b prefill", 4, 2048, 32, 8, 128, 0),
                 ("phi3-mini train", 2, 1024, 32, 32, 96, 0),
-                ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024))
+                ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024),
+                ("zamba2 prefill", 4, 2048, 32, 32, 64, 0),
+                ("zamba2 train", 2, 1024, 32, 32, 64, 0))
 LM_ROUTES = tuple(f"flash_attention_fwd_{r}" for r in FWD_ROUTES) + tuple(
     f"flash_attention_bwd_{r}" for r in BWD_ROUTES)
+#: the sub-quadratic families at full width and depth in bf16:
+#: xlstm-1.3b (48 blocks, 24 mLSTM and 24 sLSTM, d 2048, 4 heads, the
+#: mLSTM's P 1024) and zamba2-1.2b (38 Mamba2 blocks, d 2048, P 64, H 64,
+#: N 64; one shared attention block of 32 heads of 64 at 6 sites)
+LM_SUBQ = {"xlstm": "xlstm-1.3b", "zamba2": "zamba2-1.2b"}
+#: ``[lm <family> prefill]``: B, S (xLSTM's shorter: its sLSTM time loop
+#: is eager launches at every position)
+LM_SUBQ_PREFILL = {"xlstm": (4, 1024), "zamba2": (4, 2048)}
+#: ``[lm <family> train]``: B, S, steps
+LM_SUBQ_TRAIN = {"xlstm": (2, 256, 2), "zamba2": (2, 1024, 2)}
 
 
 def _synced_wall(fn):
@@ -3017,19 +3035,24 @@ def _free_card():
     torch.cuda.empty_cache()
 
 
-def phase_lm_serve():
+def phase_lm_serve(arch=LM_ARCH, tag="lm serve"):
     """``[lm serve]``: the reference serve main's run (4 slots, 8 requests
     of 12 prompt tokens, 8 new each, a cache of 56) through ``SlotServer``
     on phi3-mini at full width and depth, bf16, random weights from seed
     0; then 8 more decode steps of the warm server timed alone.  Decode
-    attention is plain torch, as in the reference: no kernel launches."""
+    attention is plain torch, as in the reference: no kernel launches.
+    ``[lm xlstm serve]`` and ``[lm zamba2 serve]`` run the same on the
+    sub-quadratic families (xLSTM has no attention; zamba2's decode
+    attention at its 6 sites is plain torch): a refilled slot carries on
+    from its previous occupant's state, as in the reference."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.serve import SlotServer, serve
     slots, requests, prompt, new = LM_SERVE
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     srv, init_s = _synced_wall(lambda: SlotServer(
         cfg, slots, (prompt + new + 8) * 2, device="cuda"))
     rng = np.random.default_rng(0)
@@ -3040,20 +3063,28 @@ def phase_lm_serve():
     launched = sum(LAUNCHES.values())
     _, warm = _synced_wall(lambda: [srv.step() for _ in range(8)])
     served = [t for o in outs for t in o]
-    print(f"[lm serve] SlotServer {LM_ARCH} at full width ({cfg.num_layers} "
-          f"layers, d {cfg.d_model}, {cfg.num_heads} heads of {cfg.hd}, "
-          f"vocab {cfg.vocab_size}, {cfg.dtype}), init {init_s:.2f} s: "
+    shape = {"ssm": f"{cfg.num_layers} blocks, d {cfg.d_model}, "
+                    f"{cfg.num_heads} heads",
+             "mamba-hybrid": f"{cfg.num_layers} Mamba2 blocks, d "
+                             f"{cfg.d_model}, a shared block of "
+                             f"{cfg.num_heads} heads of {cfg.hd}"}.get(
+        cfg.family, f"{cfg.num_layers} layers, d {cfg.d_model}, "
+                    f"{cfg.num_heads} heads of {cfg.hd}")
+    print(f"[{tag}] SlotServer {arch} at full width ({shape}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}), init {init_s:.2f} s: "
           f"{len(outs)}/{requests} requests, {len(served)} tokens served in"
           f" {steps} decode steps, {secs:.2f} s ({secs / steps * 1e3:.2f} "
           f"ms a step, the first included); warm {warm / 8 * 1e3:.2f} ms a "
           f"step; kernel launches {launched} (decode attention is plain "
-          f"torch); first outputs {outs[:2]}")
+          f"torch); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; first "
+          f"outputs {outs[:2]}")
     if len(outs) != requests or len(served) != requests * new or \
             not all(0 <= t < cfg.vocab_size for t in served):
-        raise AssertionError("[lm serve] the server did not serve every "
+        raise AssertionError(f"[{tag}] the server did not serve every "
                              "request")
     if launched:
-        raise AssertionError("[lm serve] the decode launched a kernel")
+        raise AssertionError(f"[{tag}] the decode launched a kernel")
     del srv
     _free_card()
 
@@ -3062,76 +3093,132 @@ def phase_lm_prefill():
     """``[lm prefill]``: ``build_prefill_step`` with ``use_pallas=True`` at
     full width and depth, bf16: phi3-mini and minitron-8b at B 4 x S
     2048, and phi3-mini with a 1024-key window at B 2 x S 4096.  Each
-    launches the wgmma forward once a layer and no other route.  Its
-    last-position logits are held against the same step with
-    ``use_pallas=False`` (the plain
-    ``gqa_attend``) on the same params upcast to float32, where the two
-    routes must agree at the float32 kernel tolerance; in bf16 both
+    launches the wgmma forward once a layer and no other route
+    (:func:`_lm_prefill_row`).  Returns the launches by label."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return {label: _lm_prefill_row(
+        "lm prefill", label,
+        dataclasses.replace(get_config(arch), window=window), B, S,
+        get_config(arch).num_layers)
+        for label, arch, B, S, window in LM_PREFILL}
+
+
+def phase_lm_subq_prefill(family):
+    """``[lm xlstm prefill]`` (B 4 x S 1024) and ``[lm zamba2 prefill]``
+    (B 4 x S 2048): the same run and checks as ``[lm prefill]`` at full
+    width and depth.  zamba2 launches the wgmma forward once at each of
+    its 6 attention sites and nothing else; xLSTM launches no kernel, and
+    its sLSTM time loops' share of the warm run is printed.  Returns the
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import num_attn_sites
+    B, S = LM_SUBQ_PREFILL[family]
+    cfg = get_config(LM_SUBQ[family])
+    return _lm_prefill_row(f"lm {family} prefill", family, cfg, B, S,
+                           num_attn_sites(cfg) if family == "zamba2" else 0)
+
+
+class _SlstmClock:
+    """Within ``with``: the wall of every sLSTM block (the time loop and
+    its projections), the card synchronised on both sides of each."""
+
+    def __init__(self):
+        from repro_torch.models import xlstm
+        self.mod, self.seconds, self.calls = xlstm, 0.0, 0
+
+    def __enter__(self):
+        import torch
+        inner = self.orig = self.mod.slstm_apply
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        self.mod.slstm_apply = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.slstm_apply = self.orig
+
+
+def _lm_prefill_row(tag, label, cfg, B, S, n_wgmma):
+    """One prefill run: ``build_prefill_step`` with ``use_pallas=True`` on
+    random bf16 weights from seed 0, first and warm; its last-position
+    logits held against the same step with ``use_pallas=False`` (the
+    plain ``gqa_attend``) on the same params upcast to float32, where the
+    two routes must agree at the float32 kernel tolerance; in bf16 both
     routes are held against that float32 forward, and the kernel route
     must be as close to it as the plain route, within a quarter: 32 bf16
     layers of random weights put either bf16 route about 2e-2 from the
-    float32 forward (PERF.md, §6), so the two bf16 routes' distance
-    from each other is printed, not held.  Returns the launches by
-    label."""
+    float32 forward (PERF.md, §6), so the two bf16 routes' distance from
+    each other is printed, not held.  ``n_wgmma`` wgmma forwards, and no
+    other route's launch.  Returns the launches."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.tree import tree_map
-    launches = {}
-    for label, arch, B, S, window in LM_PREFILL:
-        cfg = dataclasses.replace(get_config(arch), window=window)
-        steps = {(dt, pallas): build_prefill_step(
-            dataclasses.replace(cfg, dtype=dt),
-            TrainConfig(use_pallas=pallas))[1]
-            for dt in ("bfloat16", "float32") for pallas in (True, False)}
-        model = build_prefill_step(cfg)[0]
-        params, init_s = _synced_wall(lambda: model.init(
-            torch.Generator("cuda").manual_seed(0)))
-        toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
-        batch = {"tokens": torch.from_numpy(toks).cuda()}
-        reset_launches()
-        got, first_s = _synced_wall(
-            lambda: steps["bfloat16", True](params, batch))
-        launches[label] = {k: LAUNCHES[k] for k in LM_ROUTES}
+    steps = {(dt, pallas): build_prefill_step(
+        dataclasses.replace(cfg, dtype=dt),
+        TrainConfig(use_pallas=pallas))[1]
+        for dt in ("bfloat16", "float32") for pallas in (True, False)}
+    model = build_prefill_step(cfg)[0]
+    params, init_s = _synced_wall(lambda: model.init(
+        torch.Generator("cuda").manual_seed(0)))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    reset_launches()
+    got, first_s = _synced_wall(
+        lambda: steps["bfloat16", True](params, batch))
+    launches = {k: LAUNCHES[k] for k in LM_ROUTES}
+    with _SlstmClock() as slstm:
         _, kernel_s = _synced_wall(
             lambda: steps["bfloat16", True](params, batch))
-        ref, plain_s = _synced_wall(
-            lambda: steps["bfloat16", False](params, batch))
-        p32 = tree_map(lambda t: t.float(), params)
-        f32 = {pallas: steps["float32", pallas](p32, batch)
-               for pallas in (True, False)}
-        del p32
-        err = {name: _errors(a, b)[1] for name, a, b in (
-            ("bf16 kernel vs plain", got, ref),
-            ("bf16 kernel vs f32", got, f32[False]),
-            ("bf16 plain vs f32", ref, f32[False]),
-            ("f32 kernel vs plain", f32[True], f32[False]))}
-        finite = bool(torch.isfinite(got).all())
-        print(f"[lm prefill] {label} ({arch}, {cfg.num_layers} layers, d "
-              f"{cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
-              f"{cfg.hd}, window {window}) B {B} x S {S} bf16: init "
-              f"{init_s:.2f} s; kernel route {first_s:.3f} s first, "
-              f"{kernel_s:.3f} s warm; plain route {plain_s:.3f} s; launches"
-              f" {launches[label]}; logits {tuple(got.shape)} finite "
-              f"{finite}; rel errs " + ", ".join(
-                  f"{k} {v:.3e}" for k, v in err.items())
-              + f" (limits: f32 kernel vs plain "
-              f"{KERNEL_TOL['float32']:.0e}; bf16 kernel vs f32 at most "
-              f"1.25x bf16 plain vs f32)")
-        if not finite or tuple(got.shape) != (B, 1, cfg.vocab_size) or \
-                err["f32 kernel vs plain"] > KERNEL_TOL["float32"] or \
-                err["bf16 kernel vs f32"] > 1.25 * err["bf16 plain vs f32"]:
-            raise AssertionError(f"[lm prefill] {label}: the kernel route "
-                                 "disagrees with the plain route")
-        if launches[label]["flash_attention_fwd_wgmma"] != cfg.num_layers \
-                or sum(launches[label].values()) != cfg.num_layers:
-            raise AssertionError(f"[lm prefill] {label}: expected "
-                                 f"{cfg.num_layers} wgmma forward launches")
-        del params, got, ref, f32
-        _free_card()
+    ref, plain_s = _synced_wall(
+        lambda: steps["bfloat16", False](params, batch))
+    p32 = tree_map(lambda t: t.float(), params)
+    f32 = {pallas: steps["float32", pallas](p32, batch)
+           for pallas in (True, False)}
+    del p32
+    err = {name: _errors(a, b)[1] for name, a, b in (
+        ("bf16 kernel vs plain", got, ref),
+        ("bf16 kernel vs f32", got, f32[False]),
+        ("bf16 plain vs f32", ref, f32[False]),
+        ("f32 kernel vs plain", f32[True], f32[False]))}
+    finite = bool(torch.isfinite(got).all())
+    share = (f"; the sLSTM blocks {slstm.seconds:.3f} s of the warm run "
+             f"({100 * slstm.seconds / kernel_s:.1f}%, {slstm.calls} "
+             f"blocks)" if slstm.calls else "")
+    print(f"[{tag}] {label} ({cfg.name}, {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+          f"{cfg.hd}, window {cfg.window}) B {B} x S {S} bf16: init "
+          f"{init_s:.2f} s; kernel route {first_s:.3f} s first, "
+          f"{kernel_s:.3f} s warm; plain route {plain_s:.3f} s; launches"
+          f" {launches}; logits {tuple(got.shape)} finite "
+          f"{finite}; rel errs " + ", ".join(
+              f"{k} {v:.3e}" for k, v in err.items())
+          + f" (limits: f32 kernel vs plain "
+          f"{KERNEL_TOL['float32']:.0e}; bf16 kernel vs f32 at most "
+          f"1.25x bf16 plain vs f32){share}")
+    if not finite or tuple(got.shape) != (B, 1, cfg.vocab_size) or \
+            err["f32 kernel vs plain"] > KERNEL_TOL["float32"] or \
+            err["bf16 kernel vs f32"] > 1.25 * err["bf16 plain vs f32"]:
+        raise AssertionError(f"[{tag}] {label}: the kernel route "
+                             "disagrees with the plain route")
+    if launches["flash_attention_fwd_wgmma"] != n_wgmma or \
+            sum(launches.values()) != n_wgmma:
+        raise AssertionError(f"[{tag}] {label}: launches {launches}, "
+                             f"expected {n_wgmma} wgmma forwards and no "
+                             "other")
+    del params, got, ref, f32
+    _free_card()
     return launches
 
 
@@ -3140,17 +3227,53 @@ def phase_lm_train():
     depth, bf16, B 2 x S 1024, ``remat="full"``, ``use_pallas=True``, 2
     steps of the in-place AdamW on ``lm_batches`` (the trainer's data).
     Each step launches the forward twice a layer (the forward and the
-    remat recompute) and the backward once, all on the wgmma route; the
-    peak of ``torch.cuda.max_memory_allocated``.  Returns the launches."""
+    remat recompute) and the backward once, all on the wgmma route
+    (:func:`_lm_train`).  Returns the launches."""
     import importlib
+    from repro_torch.configs import get_config
+    B, S, steps = LM_TRAIN
+    cfg = get_config(LM_ARCH)
+    L = cfg.num_layers
+    fwd_route, route, _ = attention_routes(
+        importlib.import_module(
+            "repro_torch.kernels.flash_attention.flash_attention"),
+        S, S, cfg.hd, cfg.num_heads // cfg.num_kv_heads, "bfloat16")
+    if (fwd_route, route) != ("wgmma", "wgmma"):
+        raise AssertionError(f"[lm train] the routes at S {S}, D {cfg.hd}: "
+                             f"forward {fwd_route}, backward {route}")
+    return _lm_train("lm train", cfg, B, S, steps, 2 * L * steps,
+                     L * steps, f"; the routes at S {S}, D {cfg.hd}: "
+                     f"forward {fwd_route}, backward {route}")
+
+
+def phase_lm_subq_train(family):
+    """``[lm xlstm train]`` (B 2 x S 256) and ``[lm zamba2 train]`` (B 2 x
+    S 1024): 2 steps at full width and depth as ``[lm train]``.  zamba2
+    recomputes only its Mamba blocks, so each step launches one wgmma
+    forward and one wgmma backward at each of its 6 attention sites;
+    xLSTM launches none, and its sLSTM blocks' share of the steps (their
+    forward and remat recompute) is printed.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import num_attn_sites
+    B, S, steps = LM_SUBQ_TRAIN[family]
+    cfg = get_config(LM_SUBQ[family])
+    n = num_attn_sites(cfg) * steps if family == "zamba2" else 0
+    return _lm_train(f"lm {family} train", cfg, B, S, steps, n, n)
+
+
+def _lm_train(tag, cfg, B, S, steps, n_fwd, n_bwd, note=""):
+    """``steps`` train steps of ``cfg`` on the card, ``remat="full"``,
+    ``use_pallas=True``, the in-place AdamW on ``lm_batches``: each
+    step's loss, grad norm and seconds, the peak of
+    ``torch.cuda.max_memory_allocated``, and ``n_fwd`` wgmma forwards and
+    ``n_bwd`` wgmma backwards in all, no other route's.  Returns the
+    launches."""
     import torch
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
     from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.steps import build_train_step, make_train_state
     from repro_torch.tree import tree_leaves
-    B, S, steps = LM_TRAIN
-    cfg = get_config(LM_ARCH)
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=10,
                        total_steps=steps, remat="full", loss_chunk=min(512, S),
                        use_pallas=True)
@@ -3165,33 +3288,33 @@ def phase_lm_train():
     rows = []
     for _ in range(steps):
         batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
-        (_, m), secs = _synced_wall(lambda: train_step(state, batch))
-        rows.append((float(m["loss"]), float(m["grad_norm"]), secs))
+        with _SlstmClock() as slstm:
+            (_, m), secs = _synced_wall(lambda: train_step(state, batch))
+        rows.append((float(m["loss"]), float(m["grad_norm"]), secs,
+                     slstm.seconds))
     peak = torch.cuda.max_memory_allocated()
     launches = {k: LAUNCHES[k] for k in LM_ROUTES}
-    fwd_route, route, _ = attention_routes(
-        importlib.import_module(
-            "repro_torch.kernels.flash_attention.flash_attention"),
-        S, S, cfg.hd, cfg.num_heads // cfg.num_kv_heads, "bfloat16")
-    L = cfg.num_layers
-    print(f"[lm train] {LM_ARCH} at full width and depth ({L} layers, "
+    share = "; ".join(f"step {i}: the sLSTM blocks {t:.3f} s "
+                      f"({100 * t / s:.1f}%)"
+                      for i, (_, _, s, t) in enumerate(rows) if t)
+    print(f"[{tag}] {cfg.name} at full width and depth ({cfg.num_layers} "
+          f"layers, "
           f"{sum(t.numel() for t in tree_leaves(state['params'])) / 1e9:.3f} B "
           f"params, {cfg.dtype}), B {B} x S {S}, remat full, use_pallas: "
           + "; ".join(f"step {i}: loss {l:.4f}, grad norm {g:.4f}, "
-                      f"{s:.3f} s" for i, (l, g, s) in enumerate(rows))
+                      f"{s:.3f} s" for i, (l, g, s, _) in enumerate(rows))
           + f"; peak memory {peak / 2 ** 30:.2f} GiB "
           f"({torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
-          f" GiB on the card); launches {launches}; the routes at S {S}, "
-          f"D {cfg.hd}: forward {fwd_route}, backward {route}")
-    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in rows):
-        raise AssertionError("[lm train] a non-finite loss or grad norm")
-    if (fwd_route, route) != ("wgmma", "wgmma") or \
-            launches["flash_attention_fwd_wgmma"] != 2 * L * steps or \
-            launches["flash_attention_bwd_wgmma"] != L * steps or \
-            sum(launches.values()) != 3 * L * steps:
-        raise AssertionError(f"[lm train] launches {launches}: expected "
-                             f"{2 * L * steps} wgmma forward and "
-                             f"{L * steps} wgmma backward")
+          f" GiB on the card); launches {launches}{note}"
+          + (f"; {share} (forward and remat recompute)" if share else ""))
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _, _ in rows):
+        raise AssertionError(f"[{tag}] a non-finite loss or grad norm")
+    if launches["flash_attention_fwd_wgmma"] != n_fwd or \
+            launches["flash_attention_bwd_wgmma"] != n_bwd or \
+            sum(launches.values()) != n_fwd + n_bwd:
+        raise AssertionError(f"[{tag}] launches {launches}: expected "
+                             f"{n_fwd} wgmma forward and {n_bwd} wgmma "
+                             "backward")
     del state
     _free_card()
     return launches
@@ -3199,16 +3322,47 @@ def phase_lm_train():
 
 def phase_lm_reference():
     """``[lm reference]``: phi3-mini's widths at 2 layers in float32, the
-    card against the CPU on the same params (the CPU server's, from seed
-    0, copied to the card): the slot server's greedy tokens (2 slots, 3
-    requests of 4 tokens, 4 new) equal; the prefill step's logits (B 2 x
-    S 64, ``use_pallas``: the kernel on the card, its plain version on
-    the CPU) and 2 train steps' losses and grad norms (the same,
-    ``remat="full"``, two batches) at rtol 1e-4 (the logits atol 1e-5)."""
+    card against the CPU (:func:`_lm_reference`); on the card the prefill
+    launches the tiled forward once a layer, and each train step twice a
+    layer (the remat recompute) and the backward once."""
     import dataclasses
+    from repro_torch.configs import get_config
+    _lm_reference("lm reference", dataclasses.replace(
+        get_config(LM_ARCH), num_layers=2, dtype="float32"), 2 + 2 * 2 * 2,
+        2 * 2)
+
+
+def phase_lm_subq_reference():
+    """``[lm sub-quadratic reference]``: xlstm-1.3b's and zamba2-1.2b's
+    widths at 2 layers in float32, card against CPU, as ``[lm
+    reference]``.  zamba2 keeps one attention site (``shared_attn_every``
+    2): the prefill launches the tiled forward once, each train step once
+    more and the backward once (the shared block is not recomputed);
+    xLSTM launches nothing."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    for family, arch in LM_SUBQ.items():
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                  shared_attn_every=2 * bool(
+                                      cfg.shared_attn_every))
+        n = family == "zamba2"
+        _lm_reference(f"lm sub-quadratic reference {family}", cfg,
+                      n + 2 * n, 2 * n)
+
+
+def _lm_reference(tag, cfg, n_fwd, n_bwd):
+    """``cfg`` (2 layers, float32) on the card against the CPU on the same
+    params (the CPU server's, from seed 0, copied to the card): the slot
+    server's greedy tokens (2 slots, 3 requests of 4 tokens, 4 new)
+    equal; the prefill step's logits (B 2 x S 64, ``use_pallas``: the
+    kernel on the card, its plain version on the CPU) and 2 train steps'
+    losses and grad norms (the same, ``remat="full"``, two batches) at
+    rtol 1e-4 (the logits atol 1e-5); ``n_fwd`` tiled forwards and
+    ``n_bwd`` backwards on the card."""
     import numpy as np
     import torch
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.serve import SlotServer, serve
     from repro_torch.launch.steps import (build_prefill_step,
@@ -3216,8 +3370,6 @@ def phase_lm_reference():
     from repro_torch.optim.optimizers import adamw_init
     from repro_torch.tree import tree_map
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=2,
-                              dtype="float32")
     _, prefill = build_prefill_step(cfg, TrainConfig(use_pallas=True))
     _, train_step = build_train_step(cfg, TrainConfig(
         learning_rate=1e-4, warmup_steps=1, total_steps=2, remat="full",
@@ -3251,7 +3403,7 @@ def phase_lm_reference():
         got["cuda"], got["cpu"]
     log_ok = torch.allclose(g_log, c_log, rtol=1e-4, atol=1e-5)
     loss_ok = np.allclose(g_loss, c_loss, rtol=1e-4, atol=0)
-    print(f"[lm reference] {LM_ARCH}'s widths at 2 layers, float32, card vs "
+    print(f"[{tag}] {cfg.name}'s widths at 2 layers, float32, card vs "
           f"CPU: served tokens equal {g_out == c_out} ({g_out}); prefill "
           f"logits max diff {float((g_log - c_log).abs().max()):.3e} "
           f"(allclose at rtol 1e-4, atol 1e-5: {log_ok}); (loss, grad "
@@ -3259,13 +3411,13 @@ def phase_lm_reference():
           f"launches { {k: g_launch[k] for k in LM_ROUTES if g_launch[k]} };"
           f" {time.perf_counter() - t0:.1f} s")
     if g_out != c_out or not log_ok or not loss_ok:
-        raise AssertionError("[lm reference] the card and the CPU disagree")
-    # the prefill's 2 forwards, then per train step 2 forwards (the remat
-    # recompute) and 2 backwards
-    if g_launch["flash_attention_fwd_tiled"] != 2 + 2 * 2 * 2 or \
-            g_launch["flash_attention_bwd"] != 2 * 2:
-        raise AssertionError("[lm reference] the card's prefill and train "
-                             "steps did not launch the kernel")
+        raise AssertionError(f"[{tag}] the card and the CPU disagree")
+    if g_launch["flash_attention_fwd_tiled"] != n_fwd or \
+            g_launch["flash_attention_bwd"] != n_bwd or \
+            sum(g_launch[k] for k in LM_ROUTES) != n_fwd + n_bwd:
+        raise AssertionError(f"[{tag}] the card's prefill and train steps "
+                             f"launched {g_launch}: expected {n_fwd} tiled "
+                             f"forwards and {n_bwd} backwards")
     _free_card()
 
 
@@ -3360,11 +3512,14 @@ def phase_lm_kernels():
 
 def _lm_kernel_launches(records, prefill_launches, train_launches):
     """The LM kernel records' launches: each shape's path run's, forward
-    and backward, and by route."""
+    and backward, and by route.  ``prefill_launches`` and
+    ``train_launches`` by label (zamba2's under ``"zamba2"``)."""
     runs = {"lm phi3-mini prefill": prefill_launches["phi3-mini"],
             "lm minitron-8b prefill": prefill_launches["minitron-8b"],
-            "lm phi3-mini train": train_launches,
-            "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"]}
+            "lm phi3-mini train": train_launches["phi3-mini"],
+            "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"],
+            "lm zamba2 prefill": prefill_launches["zamba2"],
+            "lm zamba2 train": train_launches["zamba2"]}
     for r in records:
         counts = runs[r["path"]]
         _attention_route_launches(r, counts)
@@ -3504,11 +3659,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lm_serve()
     prefill_launches = phase_lm_prefill()
-    train_launches = phase_lm_train()
+    train_launches = {"phi3-mini": phase_lm_train()}
     phase_lm_reference()
-    _lm_kernel_launches(lm_records, prefill_launches, train_launches)
     print(f"[lm substrate] the four phases took "
           f"{time.perf_counter() - t0:.1f} s")
+    for family, arch in LM_SUBQ.items():
+        t0 = time.perf_counter()
+        phase_lm_serve(arch, f"lm {family} serve")
+        prefill_launches[family] = phase_lm_subq_prefill(family)
+        train_launches[family] = phase_lm_subq_train(family)
+        print(f"[lm {family}] serve, prefill and train took "
+              f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_lm_subq_reference()
+    print(f"[lm sub-quadratic reference] took "
+          f"{time.perf_counter() - t0:.1f} s")
+    _lm_kernel_launches(lm_records, prefill_launches, train_launches)
     lap("all phases")
     records.append(mlp_record)
     records += lm_records

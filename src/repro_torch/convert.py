@@ -64,12 +64,17 @@ def params_from_jax(tree, device="cpu"):
 
 
 def lm_params_from_jax(tree, device="cpu"):
-    """The JAX package's LM params (``repro.models.transformer``: the
-    stacked ``[L, ...]`` blocks, the embedding, an untied ``unembed`` or
-    none where it is tied), given as numpy arrays, leaf for leaf with
-    their dtypes: float32 stays float32, and a bfloat16 leaf (numpy's
-    ``ml_dtypes`` type) goes through float32, which holds every bfloat16
-    value exactly, into a bfloat16 tensor."""
+    """The JAX package's LM params, given as numpy arrays, leaf for leaf
+    with their dtypes: ``repro.models.transformer``'s (the stacked ``[L,
+    ...]`` blocks, the embedding, an untied ``unembed`` or none where it
+    is tied), ``repro.models.xlstm``'s (the ``mlstm`` and ``slstm``
+    stacks ``[L/2, ...]``, their gate and recurrent leaves ``w_if``,
+    ``b_if``, ``r`` and ``b`` float32 in a bf16 model) and
+    ``repro.models.hybrid``'s (the ``mamba`` stack ``[L, ...]``, its
+    ``A_log``, ``dt_bias`` and ``D`` float32, and the unstacked
+    ``shared_attn`` block).  Float32 stays float32, and a bfloat16 leaf
+    (numpy's ``ml_dtypes`` type) goes through float32, which holds every
+    bfloat16 value exactly, into a bfloat16 tensor."""
     def leaf(a):
         a = np.asarray(a)
         bf16 = a.dtype.name == "bfloat16"

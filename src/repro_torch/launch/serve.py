@@ -12,9 +12,10 @@ tensor a step, as the reference does.
 
 The reference's demo simplifications are kept, so both packages serve
 the same tokens: all slots share one monotone position cursor (a
-refilled slot can still attend to the previous occupant's KV entries),
-and a slot past its prompt is fed token 0, not its last output (the
-reference never writes its ``tok`` buffer back).
+refilled slot can still attend to the previous occupant's KV entries,
+and on a recurrent family, xLSTM or the Mamba2 hybrid, carries on from
+its state), and a slot past its prompt is fed token 0, not its last
+output (the reference never writes its ``tok`` buffer back).
 """
 from __future__ import annotations
 

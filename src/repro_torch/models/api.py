@@ -10,10 +10,11 @@ Every family exposes the same surface:
     decode_init(params, batch, seq_len, **extras) -> cache
     decode_step(params, cache, tokens, pos, layer_mask=...) -> (logits, cache)
 
-The port builds the ``dense`` family.  The others (``moe``, ``ssm``,
-``mamba-hybrid``, ``vlm``, ``audio``) raise ``NotImplementedError`` until
-their modules are ported (ROADMAP Queue 1); an unknown family keeps the
-reference's ``ValueError``.
+The port builds the ``dense`` family (``models/transformer.py``),
+``ssm`` (``models/xlstm.py``) and ``mamba-hybrid`` (``models/hybrid.py``).
+The others (``moe``, ``vlm``, ``audio``) raise ``NotImplementedError``
+until their modules are ported (ROADMAP Queue 1); an unknown family keeps
+the reference's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -23,10 +24,13 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer, xlstm
 
 #: the reference's families that the port has not ported yet
-UNPORTED_FAMILIES = ("moe", "ssm", "mamba-hybrid", "vlm", "audio")
+UNPORTED_FAMILIES = ("moe", "vlm", "audio")
+
+#: the ported families' modules
+_MODULES = {"dense": transformer, "ssm": xlstm, "mamba-hybrid": hybrid}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +60,11 @@ def build(cfg: ModelConfig) -> Model:
     if fam in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"family {fam!r} ({cfg.name}) is not ported yet: the port builds "
-            "the dense family; the others follow in ROADMAP Queue 1")
-    if fam != "dense":
+            "the dense, ssm and mamba-hybrid families; the others follow in "
+            "ROADMAP Queue 1")
+    if fam not in _MODULES:
         raise ValueError(f"unknown family {fam!r}")
-    mod = transformer
+    mod = _MODULES[fam]
 
     def init(gen):
         return mod.init(gen, cfg)
@@ -78,4 +83,5 @@ def build(cfg: ModelConfig) -> Model:
 
     return Model(cfg=cfg, init=init, apply=apply, logits=logits,
                  decode_init=decode_init, decode_step=decode_step,
-                 sub_quadratic=cfg.window > 0)
+                 sub_quadratic=fam in ("ssm", "mamba-hybrid") or
+                 cfg.window > 0)

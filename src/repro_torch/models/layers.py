@@ -31,6 +31,14 @@ import torch
 import torch.nn.functional as F
 
 
+def _normal(gen: torch.Generator, shape, scale: float, dtype, lead=()):
+    """``layers.py:22``: N(0, scale^2) drawn in float32 and cast to
+    ``dtype``, with ``lead`` axes in front."""
+    w = torch.randn(tuple(lead) + tuple(shape), generator=gen,
+                    device=gen.device)
+    return (scale * w).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: Optional[float] = None, *, dtype=torch.float32,
                lead: Tuple[int, ...] = ()):

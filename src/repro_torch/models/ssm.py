@@ -1,0 +1,178 @@
+"""Mamba2 (SSD) block: a chunkwise-parallel scan for prefill and
+training, an O(1)-state recurrent step for decode — port of
+``repro.models.ssm``.
+
+State-space recurrence per head h (head dim P, state dim N, ngroups=1):
+    S_t = a_t * S_{t-1} + dt_t * B_t x_t^T          (S in R^{N x P})
+    y_t = C_t^T S_t + D * x_t
+with a_t = exp(-softplus(dt_raw) * exp(A_log)) in (0, 1).
+
+The chunkwise algorithm (``ssm.py:74-115``) evaluates the interactions
+within a chunk of ``cfg.ssm_chunk`` positions as a masked quadratic form
+and carries the state between chunks; the reference's ``lax.scan`` over
+chunks is a Python loop here.  Its three-operand ``einsum`` is two
+products.  Params are plain dicts of tensors with the reference's names
+and shapes; every function is ``nn``-free.  ``F.softplus`` returns x
+above its threshold of 20 where ``jax.nn.softplus`` computes
+``logaddexp(x, 0)``: the two differ there by under exp(-20), below
+float32's spacing at 20.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+CONV_K = 4  # causal depthwise conv kernel width
+
+
+def mamba_dims(cfg):
+    inner = cfg.ssm_expand * cfg.d_model
+    P = 64 if inner % 64 == 0 else inner // max(1, cfg.num_heads)
+    H = inner // P
+    N = cfg.ssm_state
+    return inner, H, P, N
+
+
+def mamba_init(gen: torch.Generator, cfg, dtype, *, lead=()):
+    """One Mamba2 block's params (``lead=(L,)``: the stack of L)."""
+    d = cfg.d_model
+    inner, H, P, N = mamba_dims(cfg)
+    conv_dim = inner + 2 * N
+    dev, lead = gen.device, tuple(lead)
+    s = 1.0 / math.sqrt(d)
+
+    def const(value, n):
+        return torch.full(lead + (n,), value, dtype=torch.float32, device=dev)
+    return {
+        "norm": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
+        "w_in": L._normal(gen, (d, 2 * inner + 2 * N + H), s, dtype, lead),
+        "conv_w": L._normal(gen, (conv_dim, CONV_K), 0.5, dtype, lead),
+        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=dev),
+        "A_log": const(0.0, H),
+        "dt_bias": const(-2.0, H),      # softplus(-2) ~ 0.13
+        "D": const(1.0, H),
+        "out_norm": L.rmsnorm_init(inner, dtype=dtype, device=dev, lead=lead),
+        "w_out": L._normal(gen, (inner, d), 1.0 / math.sqrt(inner), dtype,
+                           lead),
+    }
+
+
+def _causal_conv(x, w, b):
+    """x: [B, S, C]; depthwise causal conv, kernel CONV_K, summed in the
+    reference's order."""
+    pad = F.pad(x, (0, 0, CONV_K - 1, 0))
+    S = x.shape[1]
+    out = sum(pad[:, i:i + S, :] * w[:, i] for i in range(CONV_K))
+    return F.silu(out + b)
+
+
+def _split_in(p, cfg, x):
+    inner, H, P, N = mamba_dims(cfg)
+    h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+    zxbcdt = h @ p["w_in"]
+    z = zxbcdt[..., :inner]
+    xbc = zxbcdt[..., inner:inner + inner + 2 * N]
+    dt_raw = zxbcdt[..., -H:].float()
+    return z, xbc, dt_raw, (inner, H, P, N)
+
+
+def _gates(p, dt_raw):
+    dt = F.softplus(dt_raw + p["dt_bias"])                   # [B,S,H]
+    log_a = -dt * torch.exp(p["A_log"])                      # [B,S,H] <= 0
+    return dt, log_a
+
+
+def _ssd_chunk_scan(xh, Bm, Cm, dt, log_a, D, chunk, state=None):
+    """xh: [B, S, H, P]; Bm/Cm: [B, S, N]; dt/log_a: [B, S, H].
+
+    Returns y [B, S, H, P] and the final state [B, H, N, P], float32."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    assert S % Q == 0
+    xf, Bf, Cf = xh.float(), Bm.float(), Cm.float()
+    Sst = (torch.zeros((B, H, N, P), dtype=torch.float32, device=xh.device)
+           if state is None else state)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                device=xh.device))[None, :, :, None]
+    ys = []
+    for c in range(S // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        xc, Bc, Cc, dtc, lac = xf[:, sl], Bf[:, sl], Cf[:, sl], dt[:, sl], \
+            log_a[:, sl]
+        b = torch.cumsum(lac, dim=1)                          # [B,Q,H]
+        total = b[:, -1]                                      # [B,H]
+        # intra-chunk: scores[b,i,j,h] = (C_i . B_j) exp(b_i - b_j) dt_j
+        cb = torch.einsum("bin,bjn->bij", Cc, Bc)             # [B,Q,Q]
+        dec = b[:, :, None, :] - b[:, None, :, :]             # [B,Q,Q,H]
+        w = torch.where(tri, torch.exp(dec), 0.0) * dtc[:, None, :, :]
+        scores = cb[..., None] * w
+        y = torch.einsum("bijh,bjhp->bihp", scores, xc)       # [B,Q,H,P]
+        # inter-chunk: y_i += exp(b_i) C_i . S_prev
+        y = y + torch.exp(b)[..., None] * torch.einsum(
+            "bin,bhnp->bihp", Cc, Sst)
+        # the state at the chunk's end: the reference's "bjh,bjn,bjhp"
+        # as two products
+        wj = torch.exp(total[:, None] - b) * dtc              # [B,Q,H]
+        Sst = torch.exp(total)[..., None, None] * Sst + torch.einsum(
+            "bjn,bjhp->bhnp", Bc, wj[..., None] * xc)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) + D[None, None, :, None] * xf
+    return y, Sst
+
+
+def mamba_apply(p, cfg, x, state=None):
+    """x: [B, S, d] -> (delta [B, S, d], the final SSM state)."""
+    B, S, d = x.shape
+    z, xbc, dt_raw, (inner, H, P, N) = _split_in(p, cfg, x)
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xh = xbc[..., :inner].reshape(B, S, H, P)
+    Bm = xbc[..., inner:inner + N]
+    Cm = xbc[..., inner + N:]
+    dt, log_a = _gates(p, dt_raw)
+    y, Sf = _ssd_chunk_scan(xh, Bm, Cm, dt, log_a, p["D"], cfg.ssm_chunk,
+                            state)
+    y = y.reshape(B, S, inner).to(x.dtype)
+    y = L.rmsnorm_apply(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
+    return y @ p["w_out"], Sf
+
+
+def mamba_state_init(cfg, batch: int, device, *, lead=()):
+    """``ssm`` [B, H, N, P] and the conv history ``conv`` [B, K-1, C],
+    both float32 (``lead=(L,)``: one per layer)."""
+    inner, H, P, N = mamba_dims(cfg)
+    lead = tuple(lead)
+    return {
+        "ssm": torch.zeros(lead + (batch, H, N, P), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros(lead + (batch, CONV_K - 1, inner + 2 * N),
+                            dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(p, cfg, x, state):
+    """x: [B, 1, d]; one recurrent step.  Returns (delta, the new
+    state); ``state`` is not written."""
+    B = x.shape[0]
+    z, xbc, dt_raw, (inner, H, P, N) = _split_in(p, cfg, x)
+    # the conv over the carried history
+    hist = torch.cat([state["conv"], xbc.float()], dim=1)     # [B,K,C]
+    conv = sum(hist[:, i, :] * p["conv_w"][:, i].float()
+               for i in range(CONV_K))
+    conv = F.silu(conv + p["conv_b"].float())                 # [B,C]
+    xh = conv[:, :inner].reshape(B, H, P)
+    Bm = conv[:, inner:inner + N]
+    Cm = conv[:, inner + N:]
+    dt, log_a = _gates(p, dt_raw[:, 0])                       # [B,H]
+    a = torch.exp(log_a)
+    # the reference's "bh,bn,bhp->bhnp" as two products
+    Sst = a[..., None, None] * state["ssm"] + \
+        Bm[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
+    y = torch.einsum("bn,bhnp->bhp", Cm, Sst) + p["D"][None, :, None] * xh
+    y = y.reshape(B, 1, inner).to(x.dtype)
+    y = L.rmsnorm_apply(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
+    return y @ p["w_out"], {"ssm": Sst, "conv": hist[:, 1:]}

@@ -1,0 +1,363 @@
+"""xLSTM backbone (arXiv:2405.04517): alternating mLSTM / sLSTM blocks —
+port of ``repro.models.xlstm`` (the ``ssm`` family: xlstm-1.3b).
+
+* Even blocks: **mLSTM**, a per-head matrix memory ``C`` in R^{P x P}
+  with an exponential input gate and a sigmoid forget gate; the
+  chunkwise-parallel stabilised algorithm for prefill and training (a
+  Python loop over ``S / ssm_chunk`` chunks carrying ``(C, n, m)``, where
+  the reference runs ``lax.scan``), the O(1)-state recurrent step for
+  decode.  P is ``ssm_expand * d / H`` (1024 at xlstm-1.3b), not the
+  config's ``head_dim``.
+* Odd blocks: **sLSTM**, scalar memory with block-diagonal (per-head)
+  recurrent weights and an exponential-gating max-stabiliser; a Python
+  loop over time (the recurrence is not associative).
+
+The reference's three-operand ``einsum`` (the chunk's state update) is
+two products, so no ``[B, H, Q, P, P]`` tensor is made.  The reference's
+float32 upcasts are kept: the gate logits (``w_if``, float32), the sLSTM
+input product (``w_in`` upcast), its float32 ``r`` and ``b``, and every
+state.
+
+Params are the reference's tree, ``nn``-free: ``mlstm`` and ``slstm``
+stacks with a leading ``[L/2]`` axis.  The DR-FL ``layer_mask`` has
+length ``num_layers`` and is consumed pairwise; ``remat != "none"``
+recomputes each (mLSTM, sLSTM) pair in the backward (the reference's
+``jax.checkpoint`` of the pair, no policy, so ``"dots"`` is ``"full"``).
+The decode state is written in place; the reference's step counter
+``pos`` is not kept (nothing reads it).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models.layers import _normal
+from repro_torch.models.transformer import (_dt, _gates, _remat_wrap,
+                                            _unstack)
+
+#: the reference's stabiliser floor, the initial ``m``
+M_INIT = -1e30
+
+
+def _pair_gates(cfg, layer_mask, device):
+    """The ``[L]`` layer mask as ``[L/2, 2]``: (mLSTM, sLSTM) a pair."""
+    return _gates(cfg, layer_mask, device).reshape(cfg.num_layers // 2, 2)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_dims(cfg):
+    inner = cfg.ssm_expand * cfg.d_model
+    return inner, cfg.num_heads, inner // cfg.num_heads
+
+
+def mlstm_init(gen: torch.Generator, cfg, dtype, *, lead=()):
+    d = cfg.d_model
+    inner, H, _ = _mlstm_dims(cfg)
+    dev, lead = gen.device, tuple(lead)
+    s, si = 1.0 / math.sqrt(d), 1.0 / math.sqrt(inner)
+    b_if = torch.cat([torch.zeros((H,)), 3.0 * torch.ones((H,))]).to(dev)
+    return {
+        "norm": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
+        "w_up": _normal(gen, (d, 2 * inner), s, dtype, lead),   # u ++ z(gate)
+        "wq": _normal(gen, (inner, inner), si, dtype, lead),
+        "wk": _normal(gen, (inner, inner), si, dtype, lead),
+        "wv": _normal(gen, (inner, inner), si, dtype, lead),
+        "w_if": _normal(gen, (d, 2 * H), s, torch.float32, lead),  # i, f
+        "b_if": b_if.expand(lead + (2 * H,)).clone(),
+        "out_norm": L.rmsnorm_init(inner, dtype=dtype, device=dev, lead=lead),
+        "w_down": _normal(gen, (inner, d), si, dtype, lead),
+    }
+
+
+def _mlstm_chunk_scan(q, k, v, log_i, log_f, chunk, state=None):
+    """The stabilised chunkwise mLSTM (``xlstm.py:57-113``).
+
+    q, k, v: [B, H, S, P]; log_i, log_f: [B, H, S].  Returns y [B, H, S, P]
+    (float32) and the final (C [B,H,P,P], n [B,H,P], m [B,H])."""
+    B, H, S, P = q.shape
+    Q = min(chunk, S)
+    assert S % Q == 0, f"seq {S} not divisible by chunk {Q}"
+    dev = q.device
+    if state is None:
+        C = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev)
+        n = torch.zeros((B, H, P), dtype=torch.float32, device=dev)
+        m = torch.full((B, H), M_INIT, dtype=torch.float32, device=dev)
+    else:
+        C, n, m = state
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    scale = 1.0 / math.sqrt(P)
+    ys = []
+    for c in range(S // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        qb, kb, vb = (t[:, :, sl].float() for t in (q, k, v))
+        li, lf = log_i[..., sl], log_f[..., sl]
+        b = torch.cumsum(lf, dim=-1)                          # [B,H,Q]
+        total = b[..., -1]                                    # [B,H]
+        # the intra-chunk log weights a_ij = b_i - b_j + li_j (j <= i)
+        aij = b[..., :, None] - b[..., None, :] + li[..., None, :]
+        aij = torch.where(tri, aij, -math.inf)
+        inter_log = m[..., None] + b                          # [B,H,Q]
+        m_i = torch.maximum(inter_log, aij.amax(dim=-1))
+        m_i = torch.clamp_min(m_i, M_INIT)
+        w_intra = torch.exp(aij - m_i[..., None])             # [B,H,Q,Q]
+        w_inter = torch.exp(inter_log - m_i)                  # [B,H,Q]
+        qs = qb * scale
+        s_ij = (qs @ kb.transpose(-1, -2)) * w_intra
+        num = s_ij @ vb + w_inter[..., None] * (qs @ C)
+        den = s_ij.sum(dim=-1) + w_inter * (qs @ n[..., None])[..., 0]
+        ys.append(num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None])
+        # the state at the chunk's end; "bhj,bhjp,bhjq" as two products
+        lw = total[..., None] - b + li                        # [B,H,Q]
+        m_new = torch.maximum(m + total, lw.amax(dim=-1))
+        w_old = torch.exp(m + total - m_new)                  # [B,H]
+        kw = torch.exp(lw - m_new[..., None])[..., None] * kb  # [B,H,Q,P]
+        C = w_old[..., None, None] * C + kw.transpose(-1, -2) @ vb
+        n = w_old[..., None] * n + kw.sum(dim=-2)
+        m = m_new
+    return torch.cat(ys, dim=2), (C, n, m)
+
+
+def mlstm_step(q, k, v, log_i, log_f, state):
+    """One recurrent step (``xlstm.py:116-130``).  q, k, v: [B, H, P];
+    gates [B, H].  Returns y [B, H, P] and the new (C, n, m)."""
+    C, n, m = state
+    P = q.shape[-1]
+    q, k, v = q.float(), k.float(), v.float()
+    m_new = torch.maximum(log_f + m, log_i)
+    i_p = torch.exp(log_i - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    C = f_p[..., None, None] * C + \
+        i_p[..., None, None] * (k[..., :, None] * v[..., None, :])
+    n = f_p[..., None] * n + i_p[..., None] * k
+    qs = q * (1.0 / math.sqrt(P))
+    num = (qs[..., None, :] @ C)[..., 0, :]
+    den = (qs * n).sum(dim=-1)
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return y, (C, n, m_new)
+
+
+def _mlstm_pre(p, cfg, x):
+    """The shared projections.  x: [B, S, d] -> q, k, v [B, H, S, P], the
+    gate logs [B, H, S], the z gate."""
+    B, S, d = x.shape
+    inner, H, P = _mlstm_dims(cfg)
+    h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+    u, z = torch.chunk(h @ p["w_up"], 2, dim=-1)              # [B,S,inner]
+
+    def heads(w):
+        return (u @ w).reshape(B, S, H, P).transpose(1, 2)
+    q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+    gl = h.float() @ p["w_if"] + p["b_if"]                     # [B,S,2H]
+    i_raw, f_raw = torch.chunk(gl, 2, dim=-1)
+    log_i = i_raw.transpose(1, 2)                             # [B,H,S]
+    log_f = F.logsigmoid(f_raw).transpose(1, 2)
+    return q, k, v, log_i, log_f, z, (B, S, inner)
+
+
+def _mlstm_out(p, cfg, y, z, x):
+    y = L.rmsnorm_apply(p["out_norm"], y.to(x.dtype), cfg.norm_eps) * F.silu(z)
+    return y @ p["w_down"]
+
+
+def mlstm_apply(p, cfg, x, state=None):
+    q, k, v, log_i, log_f, z, (B, S, inner) = _mlstm_pre(p, cfg, x)
+    y, new_state = _mlstm_chunk_scan(q, k, v, log_i, log_f, cfg.ssm_chunk,
+                                     state)
+    y = y.transpose(1, 2).reshape(B, S, inner)
+    return _mlstm_out(p, cfg, y, z, x), new_state
+
+
+def mlstm_decode(p, cfg, x, state):
+    """x: [B, 1, d]."""
+    q, k, v, log_i, log_f, z, (B, S, inner) = _mlstm_pre(p, cfg, x)
+    y, new_state = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                              log_i[:, :, 0], log_f[:, :, 0], state)
+    return _mlstm_out(p, cfg, y.reshape(B, 1, inner), z, x), new_state
+
+
+def mlstm_state_init(cfg, batch: int, device, *, lead=()):
+    _, H, P = _mlstm_dims(cfg)
+    lead = tuple(lead)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(lead + (batch, H, P, P), **f32),
+            torch.zeros(lead + (batch, H, P), **f32),
+            torch.full(lead + (batch, H), M_INIT, **f32))
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_init(gen: torch.Generator, cfg, dtype, *, lead=()):
+    d, H = cfg.d_model, cfg.num_heads
+    P = d // H
+    f = max(1, int(d * 4 / 3) // 8 * 8)
+    dev, lead = gen.device, tuple(lead)
+    b = torch.cat([torch.zeros((2 * d,)), 3.0 * torch.ones((d,)),
+                   torch.zeros((d,))]).to(dev)
+    return {
+        "norm": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
+        "w_in": _normal(gen, (d, 4 * d), 1.0 / math.sqrt(d), dtype, lead),
+        "r": _normal(gen, (H, P, 4 * P), 1.0 / math.sqrt(P), torch.float32,
+                     lead),
+        "b": b.expand(lead + (4 * d,)).clone(),
+        "out_norm": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
+        "ffn": L.swiglu_init(gen, d, f, dtype, lead=lead),
+    }
+
+
+def _slstm_cell(gates_x, r, h, c, n, m, H, P):
+    """One sLSTM step (``xlstm.py:202-218``).  gates_x: [B, 4d] input
+    pre-activations; the state float32 [B, d] each.
+
+    The time loop launches this cell at every position, so it is written
+    in few launches: the per-head recurrent product and the input added in
+    one ``baddbmm`` over heads ([H, B, 4P] views of the reference's
+    ``[B, 4HP]`` layout; a gate is H/4 heads' columns, a view when H is 4),
+    ``log_f + m`` taken once, the products-and-sums as ``addcmul``."""
+    B = gates_x.shape[0]
+    pre = torch.baddbmm(gates_x.view(B, H, 4 * P).transpose(0, 1),
+                        h.view(B, H, P).transpose(0, 1), r)   # [H, B, 4P]
+    z_r, i_r, f_r, o_r = (g.transpose(0, 1).reshape(B, -1)
+                          for g in pre.chunk(4, dim=0))
+    lfm = F.logsigmoid(f_r) + m
+    m_new = torch.maximum(lfm, i_r)
+    i_p = torch.exp(i_r - m_new)
+    f_p = torch.exp(lfm - m_new)
+    c_new = torch.addcmul(f_p * c, i_p, torch.tanh(z_r))
+    n_new = torch.addcmul(i_p, f_p, n)
+    h_new = torch.sigmoid(o_r) * c_new / torch.clamp_min(n_new, 1.0)
+    return h_new, c_new, n_new, m_new
+
+
+def _slstm_gates(p, cfg, x):
+    hin = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+    return hin.float() @ p["w_in"].float() + p["b"]            # [B,S,4d]
+
+
+def _slstm_out(p, cfg, y, x):
+    y = L.rmsnorm_apply(p["out_norm"], y.to(x.dtype), cfg.norm_eps)
+    return L.swiglu_apply(p["ffn"], y)
+
+
+def slstm_apply(p, cfg, x, state=None):
+    B, S, d = x.shape
+    H = cfg.num_heads
+    gx = _slstm_gates(p, cfg, x)
+    h, c, n, m = slstm_state_init(cfg, B, x.device) if state is None \
+        else state
+    hs = []
+    for t in range(S):
+        h, c, n, m = _slstm_cell(gx[:, t], p["r"], h, c, n, m, H, d // H)
+        hs.append(h)
+    return _slstm_out(p, cfg, torch.stack(hs, dim=1), x), (h, c, n, m)
+
+
+def slstm_decode(p, cfg, x, state):
+    d = x.shape[-1]
+    gx = _slstm_gates(p, cfg, x)
+    h, c, n, m = _slstm_cell(gx[:, 0], p["r"], *state, cfg.num_heads,
+                             d // cfg.num_heads)
+    return _slstm_out(p, cfg, h[:, None, :], x), (h, c, n, m)
+
+
+def slstm_state_init(cfg, batch: int, device, *, lead=()):
+    shape = tuple(lead) + (batch, cfg.d_model)
+    z = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(shape, **z), torch.zeros(shape, **z),
+            torch.zeros(shape, **z), torch.full(shape, M_INIT, **z))
+
+
+# ---------------------------------------------------------------------------
+# the full model
+# ---------------------------------------------------------------------------
+
+
+def init(gen: torch.Generator, cfg):
+    """The model's params on ``gen``'s device, in ``cfg.dtype`` (the gate
+    and recurrent weights float32)."""
+    dtype = _dt(cfg)
+    assert cfg.num_layers % 2 == 0
+    lead = (cfg.num_layers // 2,)
+    return {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype),
+        "mlstm": mlstm_init(gen, cfg, dtype, lead=lead),
+        "slstm": slstm_init(gen, cfg, dtype, lead=lead),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype,
+                                     device=gen.device),
+        "unembed": L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                dtype=dtype),
+    }
+
+
+def unembed_matrix(params, cfg):
+    return params["unembed"]["w"]
+
+
+def apply(params, cfg, tokens, *, layer_mask=None, window=None,
+          use_pallas=False, attn_chunk=0, remat="full"):
+    """tokens: [B, S] int -> (hidden [B, S, d], aux_loss 0).  No
+    attention: ``window``, ``use_pallas`` and ``attn_chunk`` are taken for
+    the common signature and change nothing."""
+    x = params["embed"]["emb"][tokens]
+    npairs = cfg.num_layers // 2
+    mask = _pair_gates(cfg, layer_mask, x.device)
+
+    def body(x, mp, sp, gate):
+        dm, _ = mlstm_apply(mp, cfg, x)
+        x = x + gate[0].to(x.dtype) * dm
+        ds, _ = slstm_apply(sp, cfg, x)
+        return x + gate[1].to(x.dtype) * ds
+
+    body = _remat_wrap(body, "none" if remat == "none" else "full")
+    for i, (mp, sp) in enumerate(zip(_unstack(params["mlstm"], npairs),
+                                     _unstack(params["slstm"], npairs))):
+        x = body(x, mp, sp, mask[i])
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_fn(params, cfg, hidden):
+    return (hidden @ unembed_matrix(params, cfg)).float()
+
+
+def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
+    """The recurrent state on the params' device: ``mlstm`` (C, n, m) and
+    ``slstm`` (h, c, n, m), each stacked ``[L/2, B, ...]``, float32."""
+    dev = params["embed"]["emb"].device
+    lead = (cfg.num_layers // 2,)
+    return {"mlstm": mlstm_state_init(cfg, batch, dev, lead=lead),
+            "slstm": slstm_state_init(cfg, batch, dev, lead=lead)}
+
+
+def _write(stack, i, new):
+    for buf, t in zip(stack, new):
+        buf[i].copy_(t)
+
+
+@torch.no_grad()
+def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
+                window=None):
+    """tokens: [B, 1].  Returns (logits [B, 1, V], cache), the cache
+    updated in place."""
+    x = params["embed"]["emb"][tokens]
+    npairs = cfg.num_layers // 2
+    mask = _pair_gates(cfg, layer_mask, x.device)
+    for i, (mp, sp) in enumerate(zip(_unstack(params["mlstm"], npairs),
+                                     _unstack(params["slstm"], npairs))):
+        dm, ms = mlstm_decode(mp, cfg, x, [t[i] for t in cache["mlstm"]])
+        _write(cache["mlstm"], i, ms)
+        x = x + mask[i, 0].to(x.dtype) * dm
+        ds, ss = slstm_decode(sp, cfg, x, [t[i] for t in cache["slstm"]])
+        _write(cache["slstm"], i, ss)
+        x = x + mask[i, 1].to(x.dtype) * ds
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x), cache

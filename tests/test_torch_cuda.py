@@ -1199,3 +1199,45 @@ def test_wgmma_route_refuses_what_it_does_not_take(cuda):
                  (flat, t(128, 64))):
         with pytest.raises(RuntimeError, match="cudaError_t 1"):
             call(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
+def test_sub_quadratic_prefill_on_the_card_matches_the_plain_route(cuda,
+                                                                   arch):
+    """Each sub-quadratic family's prefill step at 2 layers and full
+    width, bf16, B 2 x S 1024, random weights from seed 0: the kernel
+    route's last-position logits against the ``use_pallas=False`` route's
+    at the bf16 tolerance.  zamba2 (``shared_attn_every`` 2, so its 2
+    Mamba blocks keep one attention site) launches one wgmma forward of
+    ``flash_attention`` at head dim 64 a site and no other route; xLSTM
+    launches no kernel."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.hybrid import num_attn_sites
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=2, shared_attn_every=(
+        2 if cfg.shared_attn_every else 0))
+    model, kernel = build_prefill_step(cfg, TrainConfig(use_pallas=True))
+    _, plain = build_prefill_step(cfg, TrainConfig(use_pallas=False))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 1024),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks.to(cuda)}
+    before = dict(LAUNCHES)
+    got = kernel(params, batch)
+    torch.cuda.synchronize()
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+             if LAUNCHES[key] != before[key]}
+    ref = plain(params, batch)
+    assert got.shape == (2, 1, cfg.vocab_size)
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= TOL[torch.bfloat16]
+    if cfg.family == "mamba-hybrid":
+        sites = num_attn_sites(cfg)
+        assert sites == 1 and cfg.hd == 64
+        assert moved == {"flash_attention": sites,
+                         "flash_attention_fwd_wgmma": sites}
+    else:
+        assert moved == {}

@@ -5,6 +5,7 @@ rejects raises its ``ValueError``, and every setting a slice ported runs
 (since the fleet mesh, every setting the reference accepts: none raises
 ``NotImplementedError``)."""
 import dataclasses
+import math
 import os
 import re
 import subprocess
@@ -197,14 +198,36 @@ def test_lm_launchers_default_to_cuda_and_never_fall_back(entry):
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b",
-                                  "xlstm-1.3b", "zamba2-1.2b",
                                   "llama-3.2-vision-11b", "whisper-medium"])
 def test_unported_lm_families_raise_not_implemented(arch):
-    """The LM families the port has not ported (MoE, SSM/xLSTM, the
-    hybrid, the VLM, enc-dec) are refused by ``build`` before any work,
-    naming the queue that holds them; the dense family builds."""
+    """The LM families the port has not ported (MoE, the VLM, enc-dec)
+    are refused by ``build`` before any work, naming the queue that holds
+    them; the dense family builds."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import build
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         build(get_config(arch))
     assert build(get_config("phi3-mini-3.8b")).cfg.family == "dense"
+
+
+@pytest.mark.parametrize("entry", ["serve", "train"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
+def test_sub_quadratic_families_build_and_launch_on_cpu(arch, entry):
+    """xlstm-1.3b (``ssm``) and zamba2-1.2b (``mamba-hybrid``) build, as
+    ``sub_quadratic`` models, and the serve and train mains run their
+    smoke configs on ``--device cpu``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models.api import build
+    model = build(get_config(arch))
+    assert model.sub_quadratic and model.cfg.name == arch
+    common = ["--arch", arch, "--smoke", "--device", "cpu"]
+    if entry == "serve":
+        out = serve.main(common + ["--slots", "2", "--requests", "3",
+                                   "--prompt-len", "4", "--max-new", "3"])
+        assert [len(o) for o in out["outputs"]] == [3, 3, 3]
+    else:
+        out = train.main(common + ["--steps", "2", "--batch", "2", "--seq",
+                                   "32"])
+        assert len(out["losses"]) == 2
+        assert all(math.isfinite(l) for l in out["losses"])

@@ -99,12 +99,12 @@ def test_adapt_for_shape_equals_jax(shape):
 
 @pytest.mark.parametrize("arch", ALL)
 def test_build_ports_the_dense_family(arch):
-    """dense builds in both packages with the same ``sub_quadratic``; the
-    unported families raise ``NotImplementedError`` naming the queue; a
-    family neither knows (the ResNet config's ``cnn``) raises the
-    reference's ``ValueError``."""
+    """The ported families (dense, ssm, mamba-hybrid) build in both
+    packages with the same ``sub_quadratic``; the unported families raise
+    ``NotImplementedError`` naming the queue; a family neither knows (the
+    ResNet config's ``cnn``) raises the reference's ``ValueError``."""
     cfg = tcfgs.get_smoke_config(arch)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "ssm", "mamba-hybrid"):
         assert build(cfg).sub_quadratic == \
             jax_build(jcfgs.get_smoke_config(arch)).sub_quadratic
     elif cfg.family in UNPORTED_FAMILIES:
