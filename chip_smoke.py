@@ -161,7 +161,22 @@ its own lines; any failure raises and exits non-zero:
    those four bf16 shapes against its plain version, its backward twice
    (bitwise equal), timed beside SDPA, its route and its bound on the
    bf16 tensor-core peak printed beside its times;
-15. print the card's name and power limit, the kernels' JSON line and,
+15. the sub-quadratic families (xlstm-1.3b, zamba2-1.2b) and the
+   cross-attention families (whisper-medium: 24 encoder and 24 decoder
+   layers over 1500 stub audio frames; llama-3.2-vision-11b: 8 groups of
+   4 self layers and a gated cross layer over 1601 stub image tokens),
+   each served (``[lm <family> serve]``), prefilled (``[lm <family>
+   prefill]``: one wgmma forward at each causal self-attention layer,
+   exactly, and nothing else) and trained for 2 steps (``[lm <family>
+   train]``: two wgmma forwards and one backward a causal layer a step;
+   xLSTM at 8 of its 48 blocks, the VLM at 10 of its 40 layers, the cut
+   printed), then ``[lm sub-quadratic reference]`` and ``[lm
+   cross-attention reference]`` (2-layer float32 configs, card against
+   CPU; the VLM's gates drawn nonzero); the attention kernel is also
+   timed at zamba2's two shapes, whisper's decoder (B 4, S 448, 16 heads
+   of 64) and the VLM's train step (B 2, S 1024, 32:8, D 128); each new
+   phase's seconds and the laps are printed;
+16. print the card's name and power limit, the kernels' JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -214,6 +229,9 @@ PAPER_CFG = dict(n_devices=40, participation=0.1, local_epochs=5,
 ASYNC_CFG = dict(PAPER_CFG, n_devices=64, n_train=9600, engine_mode="async",
                  async_eval_every=6, n_rounds=3)
 KERNELS = ("layer_agg", "rmsnorm", "flash_attention")
+#: the call times that stood in for a device time the profiler did not
+#: read (:func:`_times`)
+EVENT_TIMED = []
 #: our kernels' names in a profiler trace
 OWN_KERNELS = ("layer_agg", "rmsnorm", "fa_")
 
@@ -255,7 +273,9 @@ def _times(fn, iters: int = 20, warmup: int = 3):
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(stop) / iters
     # the profiler now and then reads back no device activity at all (one
-    # read in ~20 on the H100 machine); such a read is taken again
+    # read in ~20 on the H100 machine); such a read is taken again, and
+    # after 3 empty reads in a row (seen once in a whole run) the CUDA
+    # events' time stands in for the device time, counted and printed
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -263,11 +283,12 @@ def _times(fn, iters: int = 20, warmup: int = 3):
             torch.cuda.synchronize()
         spans = _device_spans(prof)
         if spans:
-            break
-    else:
-        raise AssertionError("torch.profiler saw no device activity in 3 "
-                             "reads: no device time can be measured")
-    return sum(e - s for s, e, _ in spans) / iters / 1e3, call_ms
+            return sum(e - s for s, e, _ in spans) / iters / 1e3, call_ms
+    EVENT_TIMED.append(call_ms)
+    print(f"[profiler] no device activity in 3 reads: device ms from CUDA "
+          f"events, {call_ms:.4f} ms ({len(EVENT_TIMED)} such timings so "
+          "far)")
+    return call_ms, call_ms
 
 
 def _agg_inputs(N, R, D, seed):
@@ -3002,7 +3023,9 @@ LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("phi3-mini train", 2, 1024, 32, 32, 96, 0),
                 ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024),
                 ("zamba2 prefill", 4, 2048, 32, 32, 64, 0),
-                ("zamba2 train", 2, 1024, 32, 32, 64, 0))
+                ("zamba2 train", 2, 1024, 32, 32, 64, 0),
+                ("whisper decoder", 4, 448, 16, 16, 64, 0),
+                ("vlm train", 2, 1024, 32, 8, 128, 0))
 LM_ROUTES = tuple(f"flash_attention_fwd_{r}" for r in FWD_ROUTES) + tuple(
     f"flash_attention_bwd_{r}" for r in BWD_ROUTES)
 #: the sub-quadratic families at full width and depth in bf16:
@@ -3013,8 +3036,22 @@ LM_SUBQ = {"xlstm": "xlstm-1.3b", "zamba2": "zamba2-1.2b"}
 #: ``[lm <family> prefill]``: B, S (xLSTM's shorter: its sLSTM time loop
 #: is eager launches at every position)
 LM_SUBQ_PREFILL = {"xlstm": (4, 1024), "zamba2": (4, 2048)}
-#: ``[lm <family> train]``: B, S, steps
-LM_SUBQ_TRAIN = {"xlstm": (2, 256, 2), "zamba2": (2, 1024, 2)}
+#: ``[lm <family> train]``: B, S, steps, blocks (None: full depth).
+#: xLSTM trains 8 of its 48 blocks (4 mLSTM + 4 sLSTM), to pay for the
+#: cross-attention phases (its full-depth steps: PERF.md, §5)
+LM_SUBQ_TRAIN = {"xlstm": (2, 256, 2, 8), "zamba2": (2, 1024, 2, None)}
+#: the cross-attention families at full width in bf16: whisper-medium (24
+#: encoder and 24 decoder layers, d 1024, 16 heads of 64, 1500 stub audio
+#: frames, biases) and llama-3.2-vision-11b (40 layers = 8 groups of 4
+#: self layers and a gated cross layer, d 4096, 32:8 heads of 128, 1601
+#: stub image tokens)
+LM_CROSS = {"whisper": "whisper-medium", "vlm": "llama-3.2-vision-11b"}
+#: ``[lm <family> prefill]``: B, S (whisper: its n_text_ctx, 448)
+LM_CROSS_PREFILL = {"whisper": (4, 448), "vlm": (4, 2048)}
+#: ``[lm <family> train]``: B, S, steps, layers (None: full depth).  The
+#: VLM trains 10 of its 40 layers (2 groups): at full depth its bf16
+#: params and grads and float32 moments, about 117 GB, pass the card
+LM_CROSS_TRAIN = {"whisper": (4, 448, 2, None), "vlm": (2, 1024, 2, 10)}
 
 
 def _synced_wall(fn):
@@ -3035,6 +3072,38 @@ def _free_card():
     torch.cuda.empty_cache()
 
 
+def _stub_extras(cfg, B, S, seed):
+    """The family's stub-frontend inputs (``image_embeds``,
+    ``audio_frames``) on the card, N(0, 1) in ``cfg.dtype`` from ``seed``;
+    empty for the other families."""
+    import torch
+    from repro_torch.models.api import extra_inputs
+    g = torch.Generator("cuda").manual_seed(seed)
+    return {k: torch.randn(shape, generator=g, device="cuda").to(dt)
+            for k, (shape, dt) in extra_inputs(cfg, B, S).items()}
+
+
+def _shape_note(cfg):
+    """A config's depth, widths and stub inputs, as a phase line names
+    them."""
+    if cfg.family == "ssm":
+        return f"{cfg.num_layers} blocks, d {cfg.d_model}, {cfg.num_heads} heads"
+    if cfg.family == "mamba-hybrid":
+        return (f"{cfg.num_layers} Mamba2 blocks, d {cfg.d_model}, a shared "
+                f"block of {cfg.num_heads} heads of {cfg.hd}")
+    heads = (f"d {cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+             f"{cfg.hd}")
+    if cfg.family == "audio":
+        return (f"{cfg.encoder_layers} encoder and {cfg.num_layers} decoder "
+                f"layers, {heads}, {cfg.num_audio_frames} stub frames")
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        return (f"{cfg.num_layers} layers in {cfg.num_layers // k} groups of "
+                f"{k - 1} self and 1 cross, {heads}, {cfg.num_image_tokens} "
+                "stub image tokens")
+    return f"{cfg.num_layers} layers, {heads}"
+
+
 def phase_lm_serve(arch=LM_ARCH, tag="lm serve"):
     """``[lm serve]``: the reference serve main's run (4 slots, 8 requests
     of 12 prompt tokens, 8 new each, a cache of 56) through ``SlotServer``
@@ -3044,7 +3113,11 @@ def phase_lm_serve(arch=LM_ARCH, tag="lm serve"):
     ``[lm xlstm serve]`` and ``[lm zamba2 serve]`` run the same on the
     sub-quadratic families (xLSTM has no attention; zamba2's decode
     attention at its 6 sites is plain torch): a refilled slot carries on
-    from its previous occupant's state, as in the reference."""
+    from its previous occupant's state, as in the reference.  ``[lm
+    whisper serve]`` and ``[lm vlm serve]`` on the cross-attention
+    families: the server draws its stub frames or image tokens, and
+    ``decode_init`` (whisper's 1500-frame encoder, the cross K/V) is timed
+    again warm."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3058,20 +3131,18 @@ def phase_lm_serve(arch=LM_ARCH, tag="lm serve"):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=prompt)
                for _ in range(requests)]
+    enc = ""
+    if srv.extras:
+        _, enc_s = _synced_wall(lambda: srv.model.decode_init(
+            srv.params, slots, srv.max_len, extras=srv.extras))
+        enc = f" (decode_init warm {enc_s:.3f} s)"
     reset_launches()
     outs, steps, secs = serve(srv, prompts, new, verbose=False)
     launched = sum(LAUNCHES.values())
     _, warm = _synced_wall(lambda: [srv.step() for _ in range(8)])
     served = [t for o in outs for t in o]
-    shape = {"ssm": f"{cfg.num_layers} blocks, d {cfg.d_model}, "
-                    f"{cfg.num_heads} heads",
-             "mamba-hybrid": f"{cfg.num_layers} Mamba2 blocks, d "
-                             f"{cfg.d_model}, a shared block of "
-                             f"{cfg.num_heads} heads of {cfg.hd}"}.get(
-        cfg.family, f"{cfg.num_layers} layers, d {cfg.d_model}, "
-                    f"{cfg.num_heads} heads of {cfg.hd}")
-    print(f"[{tag}] SlotServer {arch} at full width ({shape}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}), init {init_s:.2f} s: "
+    print(f"[{tag}] SlotServer {arch} at full width ({_shape_note(cfg)}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}), init {init_s:.2f} s{enc}: "
           f"{len(outs)}/{requests} requests, {len(served)} tokens served in"
           f" {steps} decode steps, {secs:.2f} s ({secs / steps * 1e3:.2f} "
           f"ms a step, the first included); warm {warm / 8 * 1e3:.2f} ms a "
@@ -3157,7 +3228,9 @@ def _lm_prefill_row(tag, label, cfg, B, S, n_wgmma):
     layers of random weights put either bf16 route about 2e-2 from the
     float32 forward (PERF.md, §6), so the two bf16 routes' distance from
     each other is printed, not held.  ``n_wgmma`` wgmma forwards, and no
-    other route's launch.  Returns the launches."""
+    other route's launch.  A cross-attention family's stub inputs ride
+    the batch (:func:`_stub_extras`, bf16, upcast by the float32 model).
+    Returns the launches."""
     import dataclasses
     import numpy as np
     import torch
@@ -3173,7 +3246,8 @@ def _lm_prefill_row(tag, label, cfg, B, S, n_wgmma):
     params, init_s = _synced_wall(lambda: model.init(
         torch.Generator("cuda").manual_seed(0)))
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
-    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    batch = {"tokens": torch.from_numpy(toks).cuda(),
+             **_stub_extras(cfg, B, S, seed=2)}
     reset_launches()
     got, first_s = _synced_wall(
         lambda: steps["bfloat16", True](params, batch))
@@ -3196,9 +3270,8 @@ def _lm_prefill_row(tag, label, cfg, B, S, n_wgmma):
     share = (f"; the sLSTM blocks {slstm.seconds:.3f} s of the warm run "
              f"({100 * slstm.seconds / kernel_s:.1f}%, {slstm.calls} "
              f"blocks)" if slstm.calls else "")
-    print(f"[{tag}] {label} ({cfg.name}, {cfg.num_layers} layers, d "
-          f"{cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
-          f"{cfg.hd}, window {cfg.window}) B {B} x S {S} bf16: init "
+    print(f"[{tag}] {label} ({cfg.name}, {_shape_note(cfg)}, window "
+          f"{cfg.window}) B {B} x S {S} bf16: init "
           f"{init_s:.2f} s; kernel route {first_s:.3f} s first, "
           f"{kernel_s:.3f} s warm; plain route {plain_s:.3f} s; launches"
           f" {launches}; logits {tuple(got.shape)} finite "
@@ -3247,24 +3320,77 @@ def phase_lm_train():
 
 
 def phase_lm_subq_train(family):
-    """``[lm xlstm train]`` (B 2 x S 256) and ``[lm zamba2 train]`` (B 2 x
-    S 1024): 2 steps at full width and depth as ``[lm train]``.  zamba2
-    recomputes only its Mamba blocks, so each step launches one wgmma
-    forward and one wgmma backward at each of its 6 attention sites;
-    xLSTM launches none, and its sLSTM blocks' share of the steps (their
-    forward and remat recompute) is printed.  Returns the launches."""
+    """``[lm xlstm train]`` (B 2 x S 256, 8 of its 48 blocks) and ``[lm
+    zamba2 train]`` (B 2 x S 1024, full depth): 2 steps at full width as
+    ``[lm train]``.  zamba2 recomputes only its Mamba blocks, so each step
+    launches one wgmma forward and one wgmma backward at each of its 6
+    attention sites; xLSTM launches none, and its sLSTM blocks' share of
+    the steps (their forward and remat recompute) is printed.  Returns
+    the launches."""
     from repro_torch.configs import get_config
     from repro_torch.models.hybrid import num_attn_sites
-    B, S, steps = LM_SUBQ_TRAIN[family]
-    cfg = get_config(LM_SUBQ[family])
+    B, S, steps, layers = LM_SUBQ_TRAIN[family]
+    cfg, depth = _cut_depth(get_config(LM_SUBQ[family]), layers)
     n = num_attn_sites(cfg) * steps if family == "zamba2" else 0
-    return _lm_train(f"lm {family} train", cfg, B, S, steps, n, n)
+    return _lm_train(f"lm {family} train", cfg, B, S, steps, n, n,
+                     depth=depth)
 
 
-def _lm_train(tag, cfg, B, S, steps, n_fwd, n_bwd, note=""):
+def _cut_depth(cfg, layers):
+    """(cfg at ``layers`` layers, the depth as the phase line names it);
+    ``None`` keeps the full depth."""
+    if layers is None:
+        return cfg, "depth"
+    return (dataclasses.replace(cfg, num_layers=layers),
+            f"depth cut to {layers} of {cfg.num_layers} layers")
+
+
+def phase_lm_cross_prefill(family):
+    """``[lm whisper prefill]`` (B 4 x S 448 decoder tokens over 1500
+    frames) and ``[lm vlm prefill]`` (B 4 x S 2048 over 1601 image
+    tokens): the same run and checks as ``[lm prefill]`` at full width and
+    depth.  Only causal self-attention takes the kernel: one wgmma forward
+    a decoder layer (whisper, 24) or a self layer (the VLM, 32); the
+    encoder and the cross-attention stay plain.  Returns the launches."""
+    from repro_torch.configs import get_config
+    B, S = LM_CROSS_PREFILL[family]
+    cfg = get_config(LM_CROSS[family])
+    return _lm_prefill_row(f"lm {family} prefill", family, cfg, B, S,
+                           _causal_layers(cfg))
+
+
+def _causal_layers(cfg):
+    """The layers whose causal self-attention launches ``flash_attention``
+    under ``use_pallas``: every decoder layer, or the VLM's self layers."""
+    from repro_torch.models.vlm import group_shape
+    if cfg.family == "vlm":
+        n_groups, n_self = group_shape(cfg)
+        return n_groups * n_self
+    return cfg.num_layers
+
+
+def phase_lm_cross_train(family):
+    """``[lm whisper train]`` (B 4 x S 448, full depth, about 0.8 B
+    params) and ``[lm vlm train]`` (B 2 x S 1024, 10 of its 40 layers: 2
+    groups): 2 steps at full width as ``[lm train]``, on random stub
+    inputs.  Any remat but ``none`` recomputes each encoder and decoder
+    layer (whisper) or each whole group (the VLM), so each step launches
+    two wgmma forwards (the forward and the recompute) and one wgmma
+    backward at each causal self-attention layer.  Returns the
+    launches."""
+    from repro_torch.configs import get_config
+    B, S, steps, layers = LM_CROSS_TRAIN[family]
+    cfg, depth = _cut_depth(get_config(LM_CROSS[family]), layers)
+    n = _causal_layers(cfg) * steps
+    return _lm_train(f"lm {family} train", cfg, B, S, steps, 2 * n, n,
+                     depth=depth)
+
+
+def _lm_train(tag, cfg, B, S, steps, n_fwd, n_bwd, note="", depth="depth"):
     """``steps`` train steps of ``cfg`` on the card, ``remat="full"``,
-    ``use_pallas=True``, the in-place AdamW on ``lm_batches``: each
-    step's loss, grad norm and seconds, the peak of
+    ``use_pallas=True``, the in-place AdamW on ``lm_batches`` (and a
+    cross-attention family's stub inputs, :func:`_stub_extras`, drawn
+    once): each step's loss, grad norm and seconds, the peak of
     ``torch.cuda.max_memory_allocated``, and ``n_fwd`` wgmma forwards and
     ``n_bwd`` wgmma backwards in all, no other route's.  Returns the
     launches."""
@@ -3282,12 +3408,14 @@ def _lm_train(tag, cfg, B, S, steps, n_fwd, n_bwd, note=""):
                              tcfg)
     it = lm_batches(synthetic_lm_dataset(max(S * B * 4, 100_000),
                                          cfg.vocab_size, seed=0), B, S, seed=0)
+    extras = _stub_extras(cfg, B, S, seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     rows = []
     for _ in range(steps):
         batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        batch.update(extras)
         with _SlstmClock() as slstm:
             (_, m), secs = _synced_wall(lambda: train_step(state, batch))
         rows.append((float(m["loss"]), float(m["grad_norm"]), secs,
@@ -3297,8 +3425,7 @@ def _lm_train(tag, cfg, B, S, steps, n_fwd, n_bwd, note=""):
     share = "; ".join(f"step {i}: the sLSTM blocks {t:.3f} s "
                       f"({100 * t / s:.1f}%)"
                       for i, (_, _, s, t) in enumerate(rows) if t)
-    print(f"[{tag}] {cfg.name} at full width and depth ({cfg.num_layers} "
-          f"layers, "
+    print(f"[{tag}] {cfg.name} at full width and {depth} ({_shape_note(cfg)}, "
           f"{sum(t.numel() for t in tree_leaves(state['params'])) / 1e9:.3f} B "
           f"params, {cfg.dtype}), B {B} x S {S}, remat full, use_pallas: "
           + "; ".join(f"step {i}: loss {l:.4f}, grad norm {g:.4f}, "
@@ -3315,7 +3442,7 @@ def _lm_train(tag, cfg, B, S, steps, n_fwd, n_bwd, note=""):
         raise AssertionError(f"[{tag}] launches {launches}: expected "
                              f"{n_fwd} wgmma forward and {n_bwd} wgmma "
                              "backward")
-    del state
+    del state, extras
     _free_card()
     return launches
 
@@ -3351,15 +3478,32 @@ def phase_lm_subq_reference():
                       n + 2 * n, 2 * n)
 
 
+def phase_lm_cross_reference():
+    """``[lm cross-attention reference]``: whisper-medium's and
+    llama-3.2-vision-11b's smoke configs (2 layers, d 256, 4 heads of 64,
+    float32; 32 frames, 16 image tokens) card against CPU, as ``[lm
+    reference]``, the VLM's gates drawn nonzero (at the init's zeros its
+    cross layer adds nothing).  Tiled forwards: whisper 2 a prefill (its
+    decoder layers) and 4 a train step, the VLM 1 and 2 (its one self
+    layer); one backward a causal layer a step."""
+    from repro_torch.configs import get_smoke_config
+    for family, arch in LM_CROSS.items():
+        cfg = get_smoke_config(arch)
+        n = _causal_layers(cfg)
+        _lm_reference(f"lm cross-attention reference {family}", cfg,
+                      n + 2 * 2 * n, 2 * n)
+
+
 def _lm_reference(tag, cfg, n_fwd, n_bwd):
     """``cfg`` (2 layers, float32) on the card against the CPU on the same
-    params (the CPU server's, from seed 0, copied to the card): the slot
-    server's greedy tokens (2 slots, 3 requests of 4 tokens, 4 new)
-    equal; the prefill step's logits (B 2 x S 64, ``use_pallas``: the
-    kernel on the card, its plain version on the CPU) and 2 train steps'
-    losses and grad norms (the same, ``remat="full"``, two batches) at
-    rtol 1e-4 (the logits atol 1e-5); ``n_fwd`` tiled forwards and
-    ``n_bwd`` backwards on the card."""
+    params (the CPU server's, from seed 0, copied to the card; a VLM's
+    gates drawn nonzero) and stub inputs (the CPU server's, and numpy
+    draws in the batches): the slot server's greedy tokens (2 slots, 3
+    requests of 4 tokens, 4 new) equal; the prefill step's logits (B 2 x
+    S 64, ``use_pallas``: the kernel on the card, its plain version on the
+    CPU) and 2 train steps' losses and grad norms (the same,
+    ``remat="full"``, two batches) at rtol 1e-4 (the logits atol 1e-5);
+    ``n_fwd`` tiled forwards and ``n_bwd`` backwards on the card."""
     import numpy as np
     import torch
     from repro_torch.configs import TrainConfig
@@ -3367,6 +3511,7 @@ def _lm_reference(tag, cfg, n_fwd, n_bwd):
     from repro_torch.launch.serve import SlotServer, serve
     from repro_torch.launch.steps import (build_prefill_step,
                                           build_train_step)
+    from repro_torch.models.api import extra_inputs
     from repro_torch.optim.optimizers import adamw_init
     from repro_torch.tree import tree_map
     t0 = time.perf_counter()
@@ -3377,20 +3522,32 @@ def _lm_reference(tag, cfg, n_fwd, n_bwd):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, size=4) for _ in range(3)]
     toks = [rng.integers(0, cfg.vocab_size, (2, 65)) for _ in range(2)]
+    stubs = [{k: rng.normal(size=shape).astype(np.float32)
+              for k, (shape, _) in extra_inputs(cfg, 2, 64).items()}
+             for _ in toks]
     servers = {"cpu": SlotServer(cfg, 2, 32, device="cpu")}
-    params = servers["cpu"].params
+    params, extras = servers["cpu"].params, servers["cpu"].extras
+    if "cross_blocks" in params:
+        g = torch.Generator().manual_seed(4)
+        for k in ("gate_attn", "gate_mlp"):
+            params["cross_blocks"][k] = torch.randn(
+                params["cross_blocks"][k].shape, generator=g)
     servers["cuda"] = SlotServer(cfg, 2, 32, device="cuda")
     got = {}
     for dev in ("cuda", "cpu"):
         p = tree_map(lambda t: t.to(dev, copy=True), params)
         srv = servers.pop(dev)
         srv.params = tree_map(lambda t: t.to(dev, copy=True), params)
-        srv.cache = srv.model.decode_init(srv.params, srv.slots, srv.max_len)
+        srv.cache = srv.model.decode_init(
+            srv.params, srv.slots, srv.max_len,
+            extras={k: v.to(dev) for k, v in extras.items()})
         outs, _, _ = serve(srv, prompts, 4, verbose=False)
         del srv
         batches = [{"tokens": torch.from_numpy(t[:, :-1]).to(dev),
-                    "labels": torch.from_numpy(t[:, 1:]).to(dev)}
-                   for t in toks]
+                    "labels": torch.from_numpy(t[:, 1:]).to(dev),
+                    **{k: torch.from_numpy(v).to(dev)
+                       for k, v in stub.items()}}
+                   for t, stub in zip(toks, stubs)]
         reset_launches()
         logits = prefill(p, batches[0]).cpu()
         state = {"params": p, "opt": adamw_init(p)}
@@ -3511,19 +3668,32 @@ def phase_lm_kernels():
 
 
 def _lm_kernel_launches(records, prefill_launches, train_launches):
-    """The LM kernel records' launches: each shape's path run's, forward
+    """The LM kernel records' launches: each shape's path runs', forward
     and backward, and by route.  ``prefill_launches`` and
-    ``train_launches`` by label (zamba2's under ``"zamba2"``)."""
+    ``train_launches`` by label (a family's under its name:
+    ``"zamba2"``, ``"whisper"``, ``"vlm"``)."""
     runs = {"lm phi3-mini prefill": prefill_launches["phi3-mini"],
-            "lm minitron-8b prefill": prefill_launches["minitron-8b"],
+            # the VLM's prefill shape is minitron-8b's: its launches too
+            "lm minitron-8b prefill": _summed(prefill_launches["minitron-8b"],
+                                              prefill_launches["vlm"]),
             "lm phi3-mini train": train_launches["phi3-mini"],
             "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"],
             "lm zamba2 prefill": prefill_launches["zamba2"],
-            "lm zamba2 train": train_launches["zamba2"]}
+            "lm zamba2 train": train_launches["zamba2"],
+            # whisper's prefill and train step share the decoder's shape
+            "lm whisper decoder": _summed(prefill_launches["whisper"],
+                                          train_launches["whisper"]),
+            "lm vlm train": train_launches["vlm"]}
     for r in records:
         counts = runs[r["path"]]
         _attention_route_launches(r, counts)
         r["launches"] = sum(r["route_launches"].values())
+
+
+def _summed(*counts):
+    """Launch counts added key by key."""
+    return {k: sum(c.get(k, 0) for c in counts)
+            for k in set().union(*counts)}
 
 
 def _attention_route_launches(record, launches, into=None):
@@ -3674,8 +3844,24 @@ def main() -> int:
     phase_lm_subq_reference()
     print(f"[lm sub-quadratic reference] took "
           f"{time.perf_counter() - t0:.1f} s")
+    lap("the sub-quadratic families")
+    for family, arch in LM_CROSS.items():
+        t0 = time.perf_counter()
+        _, secs = _synced_wall(lambda: phase_lm_serve(arch,
+                                                     f"lm {family} serve"))
+        prefill_launches[family], s_pre = _synced_wall(
+            lambda: phase_lm_cross_prefill(family))
+        train_launches[family], s_train = _synced_wall(
+            lambda: phase_lm_cross_train(family))
+        print(f"[lm {family}] serve {secs:.1f} s, prefill {s_pre:.1f} s, "
+              f"train {s_train:.1f} s: {time.perf_counter() - t0:.1f} s")
+    _, secs = _synced_wall(phase_lm_cross_reference)
+    print(f"[lm cross-attention reference] took {secs:.1f} s")
+    lap("the cross-attention families")
     _lm_kernel_launches(lm_records, prefill_launches, train_launches)
     lap("all phases")
+    print(f"[profiler] {len(EVENT_TIMED)} kernel timings took the CUDA "
+          "events' time for want of a profiler read")
     records.append(mlp_record)
     records += lm_records
     smi = subprocess.run(

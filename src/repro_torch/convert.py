@@ -72,7 +72,12 @@ def lm_params_from_jax(tree, device="cpu"):
     ``b_if``, ``r`` and ``b`` float32 in a bf16 model) and
     ``repro.models.hybrid``'s (the ``mamba`` stack ``[L, ...]``, its
     ``A_log``, ``dt_bias`` and ``D`` float32, and the unstacked
-    ``shared_attn`` block).  Float32 stays float32, and a bfloat16 leaf
+    ``shared_attn`` block), ``repro.models.encdec``'s (the ``encoder`` and
+    ``decoder`` stacks, their LayerNorm ``bias`` and attention biases) and
+    ``repro.models.vlm``'s (``self_blocks`` ``[G, n_self, ...]``,
+    ``cross_blocks`` ``[G, ...]`` with their float32 ``gate_attn`` and
+    ``gate_mlp``): the walk is generic, so every family's tree arrives
+    as it is.  Float32 stays float32, and a bfloat16 leaf
     (numpy's ``ml_dtypes`` type) goes through float32, which holds every
     bfloat16 value exactly, into a bfloat16 tensor."""
     def leaf(a):

@@ -15,7 +15,12 @@ the same tokens: all slots share one monotone position cursor (a
 refilled slot can still attend to the previous occupant's KV entries,
 and on a recurrent family, xLSTM or the Mamba2 hybrid, carries on from
 its state), and a slot past its prompt is fed token 0, not its last
-output (the reference never writes its ``tok`` buffer back).
+output (the reference never writes its ``tok`` buffer back).  A
+cross-attention family (the VLM, whisper) attends to stub frontend
+embeddings drawn once, N(0, 1) in ``cfg.dtype``, from the server's own
+generator after its params (``extras``; the reference's
+``jax.random.normal`` draws cannot be reproduced), given to
+``decode_init``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_serve_step
+from repro_torch.models.api import extra_inputs
 
 
 class SlotServer:
@@ -43,7 +49,12 @@ class SlotServer:
         self.model, self._step = build_serve_step(cfg)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = self.model.init(gen)
-        self.cache = self.model.decode_init(self.params, slots, max_len)
+        self.extras = {k: torch.randn(shp, generator=gen,
+                                      device=self.device).to(dt)
+                       for k, (shp, dt)
+                       in extra_inputs(cfg, slots, max_len).items()}
+        self.cache = self.model.decode_init(self.params, slots, max_len,
+                                            extras=self.extras)
         self.tok = np.zeros((slots, 1), np.int32)
         self.pos = 0
         self.active: List[Optional[dict]] = [None] * slots

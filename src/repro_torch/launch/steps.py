@@ -2,7 +2,10 @@
 ``repro.launch.steps`` for the families :func:`repro_torch.models.api.build`
 builds.
 
-The train step computes a sequence-chunked cross-entropy (never
+A batch carries ``tokens`` (and ``labels`` to train); its other entries
+are the family's stub-frontend inputs (``extra_inputs``), passed to the
+model as ``extras``.  The train step computes a sequence-chunked
+cross-entropy (never
 materialises the full ``[B, S, V]`` logits tensor), per-layer remat
 happens inside the model's ``apply``, and AdamW updates the state IN
 PLACE (:func:`repro_torch.optim.optimizers.adamw_update_`), the port's
@@ -73,8 +76,10 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                              tcfg.warmup_steps, tcfg.total_steps)
 
     def loss_fn(params, batch):
-        hidden, _ = model.apply(params, batch["tokens"], remat=tcfg.remat,
-                                use_pallas=tcfg.use_pallas,
+        extras = {k: batch[k] for k in batch
+                  if k not in ("tokens", "labels")}
+        hidden, _ = model.apply(params, batch["tokens"], extras,
+                                remat=tcfg.remat, use_pallas=tcfg.use_pallas,
                                 attn_chunk=tcfg.attn_chunk)
         return chunked_cross_entropy(hidden, _unembed(model, params),
                                      batch["labels"], tcfg.loss_chunk)
@@ -108,8 +113,9 @@ def build_prefill_step(cfg: ModelConfig, tcfg: Optional[TrainConfig] = None):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        hidden, _ = model.apply(params, batch["tokens"], remat="none",
-                                use_pallas=tcfg.use_pallas,
+        extras = {k: batch[k] for k in batch if k != "tokens"}
+        hidden, _ = model.apply(params, batch["tokens"], extras,
+                                remat="none", use_pallas=tcfg.use_pallas,
                                 attn_chunk=tcfg.attn_chunk)
         return model.logits(params, hidden[:, -1:, :])
 

@@ -10,6 +10,8 @@ updated in place (the reference donates it).  Checkpoints are the
 reference's files (``repro_torch.checkpoint``'s ``save_pytree``), so a
 run resumes from either package's ``--ckpt-dir``.  ``--mesh`` is refused:
 the production mesh waits for the sharding slice (ROADMAP Queue 1).
+The cross-attention families train on zero stub-frontend inputs, as in
+the reference.
 The reference's ``--fl-clients``/``--fl-agg-every`` are parsed there but
 drive nothing; the port leaves them out.
 """
@@ -28,6 +30,7 @@ from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (adapt_for_shape, build_train_step,
                                       make_train_state)
+from repro_torch.models.api import extra_inputs
 from repro_torch.tree import tree_leaves
 
 
@@ -95,12 +98,15 @@ def main(argv=None):
     toks = synthetic_lm_dataset(max(S * B * 4, 100_000), cfg.vocab_size,
                                 seed=0)
     it = lm_batches(toks, B, S, seed=0)
+    extras = {k: torch.zeros(shp, dtype=dt, device=device) for k, (shp, dt)
+              in extra_inputs(cfg, B, S).items()}
 
     history = []
     t0 = time.time()
     for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in next(it).items()}
+        batch.update(extras)
         state, metrics = train_step(state, batch)
         history.append(metrics)
         if step % 10 == 0 or step == args.steps - 1:

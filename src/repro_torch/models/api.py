@@ -11,10 +11,14 @@ Every family exposes the same surface:
     decode_step(params, cache, tokens, pos, layer_mask=...) -> (logits, cache)
 
 The port builds the ``dense`` family (``models/transformer.py``),
-``ssm`` (``models/xlstm.py``) and ``mamba-hybrid`` (``models/hybrid.py``).
-The others (``moe``, ``vlm``, ``audio``) raise ``NotImplementedError``
-until their modules are ported (ROADMAP Queue 1); an unknown family keeps
-the reference's ``ValueError``.
+``ssm`` (``models/xlstm.py``), ``mamba-hybrid`` (``models/hybrid.py``),
+``vlm`` (``models/vlm.py``) and ``audio`` (``models/encdec.py``).  The
+last two read their stub frontend's embeddings from ``extras``
+(``image_embeds``, ``audio_frames``; :func:`extra_inputs`): ``apply``
+raises ``KeyError`` without them, as the reference does, and
+``decode_init`` takes zeros.  ``moe`` raises ``NotImplementedError``
+until ``models/moe.py`` is ported with the mesh (ROADMAP Queue 1); an
+unknown family keeps the reference's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -24,13 +28,17 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, transformer, xlstm
+from repro_torch.models import encdec, hybrid, transformer, vlm, xlstm
 
 #: the reference's families that the port has not ported yet
-UNPORTED_FAMILIES = ("moe", "vlm", "audio")
+UNPORTED_FAMILIES = ("moe",)
 
 #: the ported families' modules
-_MODULES = {"dense": transformer, "ssm": xlstm, "mamba-hybrid": hybrid}
+_MODULES = {"dense": transformer, "ssm": xlstm, "mamba-hybrid": hybrid,
+            "vlm": vlm, "audio": encdec}
+
+#: the stub-frontend input each cross-attention family reads
+_EXTRA = {"vlm": "image_embeds", "audio": "audio_frames"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,22 +68,27 @@ def build(cfg: ModelConfig) -> Model:
     if fam in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"family {fam!r} ({cfg.name}) is not ported yet: the port builds "
-            "the dense, ssm and mamba-hybrid families; the others follow in "
-            "ROADMAP Queue 1")
+            "the dense, ssm, mamba-hybrid, vlm and audio families; moe "
+            "follows with the mesh in ROADMAP Queue 1")
     if fam not in _MODULES:
         raise ValueError(f"unknown family {fam!r}")
     mod = _MODULES[fam]
+    extra = _EXTRA.get(fam)
 
     def init(gen):
         return mod.init(gen, cfg)
 
     def apply(params, tokens, extras=None, **kw):
+        if extra:
+            return mod.apply(params, cfg, tokens, (extras or {})[extra], **kw)
         return mod.apply(params, cfg, tokens, **kw)
 
     def logits(params, hidden):
         return mod.logits_fn(params, cfg, hidden)
 
     def decode_init(params, batch, seq_len, extras=None, **kw):
+        if extra:
+            kw[extra] = (extras or {}).get(extra)
         return mod.decode_init(params, cfg, batch, seq_len, **kw)
 
     def decode_step(params, cache, tokens, pos, **kw):

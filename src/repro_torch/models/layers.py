@@ -89,8 +89,11 @@ def rmsnorm_init(d: int, *, dtype=torch.float32, device="cpu",
     return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
 
 
-def layernorm_init(d: int):
-    return {"scale": torch.ones((d,)), "bias": torch.zeros((d,))}
+def layernorm_init(d: int, *, dtype=torch.float32, device="cpu",
+                   lead: Tuple[int, ...] = ()):
+    """``layers.py:100``: unit scale, zero bias (``lead``: the stack)."""
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
 
 
 def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -123,10 +126,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def gelu_mlp_init(gen: torch.Generator, d: int, f: int):
-    """With biases, the reference's default (``layers.py:368``)."""
-    return {"w_in": dense_bias_init(gen, d, f),
-            "w_out": dense_bias_init(gen, f, d, scale=1.0 / math.sqrt(f))}
+def gelu_mlp_init(gen: torch.Generator, d: int, f: int, *,
+                  dtype=torch.float32, bias: bool = True,
+                  lead: Tuple[int, ...] = ()):
+    """With biases by default, as the reference (``layers.py:368``)."""
+    kw = dict(bias=bias, dtype=dtype, lead=lead)
+    return {"w_in": dense_bias_init(gen, d, f, **kw),
+            "w_out": dense_bias_init(gen, f, d, scale=1.0 / math.sqrt(f),
+                                     **kw)}
 
 
 def gelu_mlp_apply(p, x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,192 @@
+"""Llama-3.2-Vision-style VLM backbone (hf:meta-llama/Llama-3.2-11B-Vision)
+— port of ``repro.models.vlm`` (the ``vlm`` family:
+llama-3.2-vision-11b).
+
+40 decoder layers = 8 groups of (4 self-attention layers + 1 gated
+cross-attention layer), ``cross_attn_every`` 5.  The vision frontend (ViT
+and projector) is a stub, as in the reference: ``image_embeds`` arrive as
+precomputed patch embeddings ``[B, num_image_tokens, d_model]``.
+
+The self layers are the dense family's blocks (``transformer.block_init``
+and ``block_apply``), stacked ``[n_groups, n_self, ...]``; under
+``use_pallas`` each launches the hand-written ``flash_attention`` kernel,
+as the reference's launch its Pallas kernel (``vlm.py:93-95``).  The
+cross layers ``[n_groups, ...]``: RMSNorm, plain cross-attention to the
+image tokens (no RoPE), SwiGLU, each residual gated by ``tanh`` of a
+float32 scalar (``gate_attn``, ``gate_mlp``; zero at init, so a fresh
+model ignores the image, as the reference model does) cast to the
+activations' dtype.
+
+Remat (``vlm.py:104``): ``jax.checkpoint`` with no policy around a WHOLE
+group, so any mode but ``"none"`` recomputes the group's 4 self layers
+and its cross layer in the backward: a train step launches two
+``flash_attention`` forwards a self layer and one backward.
+
+Decode: self caches ``[n_groups, n_self, B, clen, Hkv, hd]`` written in
+place, and each group's cross K/V of the image tokens ``[n_groups, B,
+T_img, Hkv, hd]`` (``k_norm`` applied where ``qk_norm``), made once by
+:func:`decode_init`.  The reference's step counters that nothing reads
+are not kept.
+
+DR-FL: the layer mask ``[num_layers]`` is read as ``(n_groups, n_self +
+1)``: each group's self layers, then its cross layer.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def group_shape(cfg):
+    """(n_groups, self layers a group)."""
+    k = cfg.cross_attn_every
+    n_self_per_group = k - 1
+    n_groups = cfg.num_layers // k
+    assert n_groups * k == cfg.num_layers
+    return n_groups, n_self_per_group
+
+
+def cross_block_init(gen: torch.Generator, cfg, dtype, *, lead=()):
+    dev = gen.device
+    return {
+        "attn_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype, device=dev,
+                                    lead=lead),
+        "attn": L.attention_init(gen, cfg, dtype, lead=lead),
+        "mlp_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype, device=dev,
+                                   lead=lead),
+        "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead),
+        "gate_attn": torch.zeros(lead, dtype=torch.float32, device=dev),
+        "gate_mlp": torch.zeros(lead, dtype=torch.float32, device=dev),
+    }
+
+
+def cross_block_apply(p, cfg, x, img, gate, *, cache=None):
+    """The gated cross layer.  With ``cache`` (decode: the image tokens'
+    K/V), ``img`` only selects the cross-attention branch, which reads
+    the cache."""
+    h = L.rmsnorm_apply(p["attn_norm"], x, cfg.norm_eps)
+    a, _ = L.attention_apply(p["attn"], cfg, h,
+                             torch.arange(x.shape[1], device=x.device),
+                             causal=False, kv_src=img, cache=cache,
+                             norm_eps=cfg.norm_eps)
+    x = x + gate * torch.tanh(p["gate_attn"]).to(x.dtype) * a
+    h = L.rmsnorm_apply(p["mlp_norm"], x, cfg.norm_eps)
+    return x + gate * torch.tanh(p["gate_mlp"]).to(x.dtype) * \
+        L.swiglu_apply(p["mlp"], h)
+
+
+def init(gen: torch.Generator, cfg):
+    """The model's params on ``gen``'s device, in ``cfg.dtype`` (the cross
+    layers' gates float32)."""
+    dtype = T._dt(cfg)
+    n_groups, n_self = group_shape(cfg)
+    return {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype),
+        "self_blocks": T.block_init(gen, cfg, dtype, lead=(n_groups, n_self)),
+        "cross_blocks": cross_block_init(gen, cfg, dtype, lead=(n_groups,)),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype,
+                                     device=gen.device),
+        "unembed": L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                dtype=dtype),
+    }
+
+
+def unembed_matrix(params, cfg):
+    return params["unembed"]["w"]
+
+
+def _group_gates(cfg, layer_mask, device):
+    n_groups, n_self = group_shape(cfg)
+    return T._gates(cfg, layer_mask, device).reshape(n_groups, n_self + 1)
+
+
+def apply(params, cfg, tokens, image_embeds, *, layer_mask=None, window=None,
+          use_pallas=False, attn_chunk=0, remat="full"):
+    """tokens: [B, S]; image_embeds: [B, T_img, d] -> (hidden [B, S, d],
+    aux_loss 0)."""
+    x = params["embed"]["emb"][tokens]
+    img = image_embeds.to(x.dtype)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    n_groups, n_self = group_shape(cfg)
+    mask = _group_gates(cfg, layer_mask, x.device)
+
+    def group_body(x, img, sp, cp, gates):
+        for j, bp in enumerate(T._unstack(sp, n_self)):
+            x, _, _ = T.block_apply(bp, cfg, x, positions,
+                                    gates[j].to(x.dtype), window=window,
+                                    use_pallas=use_pallas,
+                                    attn_chunk=attn_chunk)
+        return cross_block_apply(cp, cfg, x, img, gates[n_self].to(x.dtype))
+
+    body = T._remat_wrap(group_body, "none" if remat == "none" else "full")
+    for sp, cp, gates in zip(T._unstack(params["self_blocks"], n_groups),
+                             T._unstack(params["cross_blocks"], n_groups),
+                             mask):
+        x = body(x, img, sp, cp, gates)
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_fn(params, cfg, hidden):
+    return (hidden @ unembed_matrix(params, cfg)).float()
+
+
+@torch.no_grad()
+def decode_init(params, cfg, batch: int, seq_len: int, *, window=None,
+                image_embeds=None):
+    """Self-attention KV caches and each group's static cross K/V, on the
+    params' device: ``self`` (``k``, ``v`` [G, n_self, B, clen, Hkv, hd],
+    ``pos`` [G, n_self] int32) and ``cross`` (``k``, ``v`` [G, B, T_img,
+    Hkv, hd]; zero image tokens when none are given)."""
+    w = cfg.window if window is None else window
+    clen = min(seq_len, w) if w else seq_len
+    dtype, dev = T._dt(cfg), params["embed"]["emb"].device
+    n_groups, n_self = group_shape(cfg)
+    Hkv, hd = cfg.num_kv_heads, cfg.hd
+    if image_embeds is None:
+        image_embeds = torch.zeros((batch, cfg.num_image_tokens, cfg.d_model),
+                                   dtype=dtype, device=dev)
+    img = image_embeds.to(dtype)
+    ks, vs = [], []
+    for cp in T._unstack(params["cross_blocks"], n_groups):
+        k = L.dense_apply(cp["attn"]["wk"], img).reshape(batch, -1, Hkv, hd)
+        if "k_norm" in cp["attn"]:
+            k = L.rmsnorm_apply(cp["attn"]["k_norm"], k, cfg.norm_eps)
+        ks.append(k)
+        vs.append(L.dense_apply(cp["attn"]["wv"], img).reshape(
+            batch, -1, Hkv, hd))
+    shape = (n_groups, n_self, batch, clen, Hkv, hd)
+    return {
+        "self": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev),
+                 "pos": torch.zeros((n_groups, n_self), dtype=torch.int32,
+                                    device=dev)},
+        "cross": {"k": torch.stack(ks), "v": torch.stack(vs)},
+    }
+
+
+@torch.no_grad()
+def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
+                window=None):
+    """tokens: [B, 1]; pos: the absolute position (an int or a 0-d
+    tensor).  Returns (logits [B, 1, V], cache), the self caches updated
+    in place."""
+    x = params["embed"]["emb"][tokens]
+    n_groups, n_self = group_shape(cfg)
+    mask = _group_gates(cfg, layer_mask, x.device)
+    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
+                 if isinstance(pos, int) else pos.reshape(1))
+    sc, cc = cache["self"], cache["cross"]
+    for g, (sp, cp) in enumerate(zip(
+            T._unstack(params["self_blocks"], n_groups),
+            T._unstack(params["cross_blocks"], n_groups))):
+        for j, bp in enumerate(T._unstack(sp, n_self)):
+            x, _, _ = T.block_apply(
+                bp, cfg, x, positions, mask[g, j].to(x.dtype), window=window,
+                cache={k: sc[k][g, j] for k in ("k", "v", "pos")})
+        x = cross_block_apply(cp, cfg, x, x, mask[g, n_self].to(x.dtype),
+                              cache={k: cc[k][g] for k in ("k", "v")})
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x), cache

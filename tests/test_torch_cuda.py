@@ -1067,16 +1067,20 @@ def test_flash_attention_at_the_lm_shapes_matches_plain(cuda, case):
 # the wgmma route's edges, bf16, causal, model layout: (B, Sq, Sk, Hq, Hkv,
 # D, window, layout): Sq and Sk off the 64-row tiles (and Sq != Sk); a
 # window that crosses the 128-key tiles; GQA 4; D 16, 64, 96 and 128; q,
-# k and v as strided views of one fused [B, S, 3, H, D] tensor
+# k and v as strided views of one fused [B, S, 3, H, D] tensor; and
+# whisper-medium's decoder self-attention (B 4, S 448 = 3.5 key tiles, 16
+# heads of 64), the exact shape its prefill and train step launch
 WGMMA = [(2, 200, 200, 8, 2, 64, 0, "dense"),
          (1, 200, 136, 4, 2, 64, 0, "dense"),
          (2, 300, 300, 4, 4, 96, 100, "dense"),
          (1, 130, 130, 8, 2, 128, 0, "dense"),
          (2, 96, 96, 2, 2, 16, 0, "dense"),
          (2, 256, 256, 4, 4, 96, 0, "fused"),
-         (1, 192, 192, 4, 4, 128, 48, "fused")]
+         (1, 192, 192, 4, 4, 128, 48, "fused"),
+         (4, 448, 448, 16, 16, 64, 0, "dense")]
 WGMMA_IDS = ["gqa4-d64-ragged", "sq-ne-sk", "window-d96", "gqa4-d128",
-             "d16", "fused-qkv-d96", "fused-qkv-d128-window"]
+             "d16", "fused-qkv-d96", "fused-qkv-d128-window",
+             "whisper-decoder"]
 
 
 def _wgmma_inputs(case, dev):
@@ -1146,8 +1150,9 @@ def test_wgmma_route_matches_plain_and_emulation(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [LM_ATTN["phi3-mini train"], WGMMA[2],
-                                  WGMMA[3]],
-                         ids=["phi3-mini-train", "window-d96", "gqa4-d128"])
+                                  WGMMA[3], WGMMA[7]],
+                         ids=["phi3-mini-train", "window-d96", "gqa4-d128",
+                              "whisper-decoder"])
 def test_wgmma_backward_is_deterministic(cuda, case):
     """No atomics: two backward launches give the same bits in dq, dk and
     dv (GQA heads and query tiles summed in one fixed order)."""
@@ -1241,3 +1246,49 @@ def test_sub_quadratic_prefill_on_the_card_matches_the_plain_route(cuda,
                          "flash_attention_fwd_wgmma": sites}
     else:
         assert moved == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_cross_attention_smoke_forward_on_the_card_matches_the_cpu(cuda,
+                                                                   arch):
+    """Each cross-attention family's smoke config (2 layers, d 256, 4
+    heads of 64, float32) on the card against the CPU on the same params
+    (drawn on the CPU; the VLM's gates drawn nonzero, so its cross layer
+    counts) and the same stub embeddings, B 2 x S 64, ``use_pallas``:
+    hidden states and logits at the float32 tolerance.  The card launches
+    the tiled forward once for each causal self-attention layer (whisper's
+    2 decoder layers, the VLM's 1 self layer) and nothing else: the
+    encoder's and the cross-attention stay plain."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build, extra_inputs
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = model.init(g)
+    if "cross_blocks" in params:
+        for k in ("gate_attn", "gate_mlp"):
+            params["cross_blocks"][k] = torch.randn(
+                params["cross_blocks"][k].shape, generator=g)
+    extras = {k: torch.randn(shape, generator=g)
+              for k, (shape, _) in extra_inputs(cfg, 2, 64).items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = dict(LAUNCHES)
+        with torch.no_grad():
+            h, _ = model.apply(p, toks.to(dev),
+                               {k: v.to(dev) for k, v in extras.items()},
+                               remat="none", use_pallas=True)
+            out[str(dev)] = (h.cpu(), model.logits(p, h).cpu())
+        torch.cuda.synchronize()
+        moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+                 if LAUNCHES[key] != before[key]}
+    n_self = 2 if cfg.family == "audio" else 1
+    assert moved == {"flash_attention": n_self,
+                     "flash_attention_fwd_tiled": n_self}
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= TOL[torch.float32]

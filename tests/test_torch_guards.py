@@ -197,17 +197,42 @@ def test_lm_launchers_default_to_cuda_and_never_fall_back(entry):
              if entry == "train" else ["--smoke"])
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b",
-                                  "llama-3.2-vision-11b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
 def test_unported_lm_families_raise_not_implemented(arch):
-    """The LM families the port has not ported (MoE, the VLM, enc-dec)
-    are refused by ``build`` before any work, naming the queue that holds
-    them; the dense family builds."""
+    """The LM family the port has not ported (MoE) is refused by
+    ``build`` before any work, naming the queue that holds it; the dense
+    family builds."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import build
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         build(get_config(arch))
     assert build(get_config("phi3-mini-3.8b")).cfg.family == "dense"
+
+
+@pytest.mark.parametrize("entry", ["serve", "train"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-medium"])
+def test_cross_attention_families_build_and_launch_on_cpu(arch, entry):
+    """llama-3.2-vision-11b (``vlm``) and whisper-medium (``audio``) build,
+    not as ``sub_quadratic`` models, and the serve and train mains run
+    their smoke configs on ``--device cpu``: the server attends to its
+    drawn stub embeddings, the trainer feeds zeros, as the reference's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models.api import build, extra_inputs
+    model = build(get_config(arch))
+    assert not model.sub_quadratic and model.cfg.name == arch
+    assert list(extra_inputs(model.cfg, 1, 1)) == [
+        {"vlm": "image_embeds", "audio": "audio_frames"}[model.cfg.family]]
+    common = ["--arch", arch, "--smoke", "--device", "cpu"]
+    if entry == "serve":
+        out = serve.main(common + ["--slots", "2", "--requests", "3",
+                                   "--prompt-len", "4", "--max-new", "3"])
+        assert [len(o) for o in out["outputs"]] == [3, 3, 3]
+    else:
+        out = train.main(common + ["--steps", "2", "--batch", "2", "--seq",
+                                   "32"])
+        assert len(out["losses"]) == 2
+        assert all(math.isfinite(l) for l in out["losses"])
 
 
 @pytest.mark.parametrize("entry", ["serve", "train"])

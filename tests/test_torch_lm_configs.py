@@ -2,8 +2,8 @@
 package's: every field of all eleven configs, their smoke variants and
 ``reduced`` with overrides, the registry and input shapes, the train
 config's defaults, the learning-rate schedules, ``adapt_for_shape``, and
-``build``'s answer for each family (the dense family builds; the
-families the port has not ported raise ``NotImplementedError``; an
+``build``'s answer for each family (the ported families build; the
+one the port has not ported, MoE, raises ``NotImplementedError``; an
 unknown one the reference's ``ValueError``).  Pure data, no model runs.
 """
 import dataclasses
@@ -99,12 +99,14 @@ def test_adapt_for_shape_equals_jax(shape):
 
 @pytest.mark.parametrize("arch", ALL)
 def test_build_ports_the_dense_family(arch):
-    """The ported families (dense, ssm, mamba-hybrid) build in both
-    packages with the same ``sub_quadratic``; the unported families raise
-    ``NotImplementedError`` naming the queue; a family neither knows (the
-    ResNet config's ``cnn``) raises the reference's ``ValueError``."""
+    """The ported families (dense, ssm, mamba-hybrid, vlm, audio) build
+    in both packages with the same ``sub_quadratic``; the unported family
+    (moe) raises ``NotImplementedError`` naming the queue; a family
+    neither knows (the ResNet config's ``cnn``) raises the reference's
+    ``ValueError``."""
+    assert UNPORTED_FAMILIES == ("moe",)
     cfg = tcfgs.get_smoke_config(arch)
-    if cfg.family in ("dense", "ssm", "mamba-hybrid"):
+    if cfg.family in ("dense", "ssm", "mamba-hybrid", "vlm", "audio"):
         assert build(cfg).sub_quadratic == \
             jax_build(jcfgs.get_smoke_config(arch)).sub_quadratic
     elif cfg.family in UNPORTED_FAMILIES:

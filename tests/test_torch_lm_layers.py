@@ -4,7 +4,8 @@ an offset and a cache length, per-row offsets and lengths, bfloat16),
 ``gqa_attend_chunked`` (and its fallback for lengths the chunk does not
 divide), ``attention_apply`` (full, windowed, the kernel route, with QK
 norms and biases, and cached decode with and without the ring buffer
-wrapping), ``rmsnorm_apply`` and ``swiglu_apply``.
+wrapping), ``rmsnorm_apply`` and ``swiglu_apply``; and the initialisers
+``layernorm_init`` and ``gelu_mlp_init`` that the enc-dec family stacks.
 
 GQA is exercised: the inputs have 4 query heads over 2 KV heads
 (``reduced(cfg, num_kv_heads=2)``; the smoke configs have Hkv = Hq).
@@ -190,3 +191,39 @@ def test_rmsnorm_and_swiglu_match_jax(dtype):
     jm = jax.tree.map(lambda a: jnp.asarray(a).astype(jd), mlp)
     tm = {k: {"w": torch.from_numpy(v["w"]).to(td)} for k, v in mlp.items()}
     _close(TL.swiglu_apply(tm, tx), JL.swiglu_apply(jm, jx), dtype)
+
+
+def test_layernorm_and_gelu_mlp_init_keep_their_old_tensors():
+    """The keywords the enc-dec stacks need (``dtype``, ``device``,
+    ``lead``, ``bias``) default to what the old signatures made, bit for
+    bit (the FL families' and the LM examples' params do not move): float32
+    ones and zeros on the CPU, and the same generator draws with zero
+    biases, in the JAX package's keys and shapes; ``lead`` stacks,
+    ``dtype`` casts the same draws, ``bias=False`` drops the biases."""
+    ln = TL.layernorm_init(8)
+    assert torch.equal(ln["scale"], torch.ones((8,)))
+    assert torch.equal(ln["bias"], torch.zeros((8,)))
+    assert {k: v.shape for k, v in JL.layernorm_init(8, jnp.float32).items()} \
+        == {k: tuple(v.shape) for k, v in ln.items()}
+    stacked = TL.layernorm_init(8, dtype=torch.bfloat16, lead=(3,))
+    assert stacked["bias"].shape == (3, 8)
+    assert stacked["scale"].dtype == torch.bfloat16
+
+    def gen():
+        return torch.Generator().manual_seed(5)
+    g = gen()
+    old = {"w_in": TL.dense_bias_init(g, 8, 16),
+           "w_out": TL.dense_bias_init(g, 16, 8, scale=0.25)}
+    new = TL.gelu_mlp_init(gen(), 8, 16)
+    ref = JL.gelu_mlp_init(jax.random.PRNGKey(0), 8, 16, jnp.float32)
+    for k in ("w_in", "w_out"):
+        assert sorted(new[k]) == sorted(old[k]) == sorted(ref[k]) == ["b", "w"]
+        for leaf in ("w", "b"):
+            assert new[k][leaf].dtype == torch.float32
+            assert torch.equal(new[k][leaf], old[k][leaf])
+            assert tuple(new[k][leaf].shape) == ref[k][leaf].shape
+    half = TL.gelu_mlp_init(gen(), 8, 16, dtype=torch.bfloat16, bias=False)
+    assert sorted(half["w_in"]) == ["w"]
+    assert torch.equal(half["w_in"]["w"], old["w_in"]["w"].bfloat16())
+    assert TL.gelu_mlp_init(gen(), 8, 16, lead=(2,))["w_out"]["b"].shape == \
+        (2, 8)

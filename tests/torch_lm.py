@@ -1,10 +1,12 @@
 """Shared inputs of the LM parity tests (``tests/test_torch_lm_*.py``):
 JAX LM params made from numpy draws in the JAX package's own tree
 (``jax.eval_shape`` of its ``init``, so no JAX random draws are compiled),
-carried into the port by ``lm_params_from_jax``, and the configs both
-packages build; and the whole-model checks that the sub-quadratic
-families' files share (forward under a layer mask, decode, remat, train
-steps, the slot server)."""
+carried into the port by ``lm_params_from_jax``, the configs both
+packages build, and the cross-attention families' stub-frontend inputs
+(:func:`extras_np`); and the whole-model checks that the sub-quadratic
+and cross-attention families' files share (forward under a layer mask,
+decode, remat, train steps, the slot server), each feeding both packages
+the same extras."""
 import dataclasses
 import functools
 from unittest import mock
@@ -22,6 +24,7 @@ from repro.launch.serve import SlotServer as JaxSlotServer
 from repro.launch.steps import build_serve_step as jax_build_serve_step
 from repro.launch.steps import build_train_step as jax_train_step
 from repro.models import build as jax_build
+from repro.models import extra_inputs as jax_extra_inputs
 from repro.optim import adamw_init as jax_adamw_init
 from repro_torch.configs import TrainConfig, get_config, reduced
 from repro_torch.convert import lm_params_from_jax
@@ -46,16 +49,21 @@ def configs(arch, **over):
 #: sLSTM's per-head ``r`` [..., H, P, 4P]), drawn as dense ``w`` are
 MATRICES = ("w_up", "wq", "wk", "wv", "w_if", "w_down", "w_in", "w_out",
             "r")
-#: their gate biases and per-head constants, drawn as biases are
-SMALL = ("b_if", "A_log", "dt_bias", "D", "conv_b")
+#: their gate biases and per-head constants, and LayerNorm's ``bias``,
+#: drawn as biases are
+SMALL = ("b_if", "A_log", "dt_bias", "D", "conv_b", "bias")
+#: the VLM's tanh gates (float32 scalars, zero at init: drawn nonzero so
+#: the cross layers count)
+GATES = ("gate_attn", "gate_mlp")
 
 
 def jax_params(jcfg, seed=0):
     """Numpy params in the JAX model's tree: dense ``w`` and the
     sub-quadratic families' bare matrices ~ N(0, 1/d_in), the Mamba conv
-    taps N(0, 0.5^2) (the reference's init scale), embeddings N(0, 1),
-    norm scales 1 + N(0, 0.1^2), biases, gate biases and the per-head SSM
-    constants N(0, 0.1^2) (nonzero, so every leaf matters)."""
+    taps N(0, 0.5^2) (the reference's init scale), the VLM's gates N(0,
+    0.5^2), embeddings N(0, 1), norm scales 1 + N(0, 0.1^2), biases
+    (LayerNorm's too), gate biases and the per-head SSM constants N(0,
+    0.1^2) (nonzero, so every leaf matters)."""
     shapes = jax.eval_shape(jax_build(jcfg).init, jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
 
@@ -69,7 +77,7 @@ def jax_params(jcfg, seed=0):
             x = 0.1 * x
         elif bare in MATRICES:
             x = x / np.sqrt(s.shape[-2])
-        elif bare == "conv_w":
+        elif bare == "conv_w" or bare in GATES:
             x = 0.5 * x
         elif "'w'" in name:
             x = x / np.sqrt(s.shape[-2])
@@ -105,6 +113,23 @@ def tokens(cfg, B, S, seed=0):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def extras_np(jcfg, B, seed=11):
+    """The family's stub-frontend inputs (``image_embeds``,
+    ``audio_frames``) as numpy N(0, 1) float32 draws, B rows; empty for
+    the other families."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.normal(size=shape).astype(np.float32)
+            for k, (shape, _) in jax_extra_inputs(jcfg, B, 0).items()}
+
+
+def as_jax(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def as_torch(tree):
+    return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+
 @functools.lru_cache(maxsize=None)
 def jax_forward(jcfg):
     """The JAX model's ``apply`` then ``logits``, jitted once per
@@ -112,8 +137,8 @@ def jax_forward(jcfg):
     m = jax_build(jcfg)
 
     @jax.jit
-    def fwd(params, toks, mask):
-        h, _ = m.apply(params, toks, layer_mask=mask, remat="none")
+    def fwd(params, toks, mask, extras):
+        h, _ = m.apply(params, toks, extras, layer_mask=mask, remat="none")
         return h, m.logits(params, h)
     return fwd
 
@@ -125,9 +150,11 @@ def assert_forward_matches_jax(arch, mask, seed=1, S=32, tol=F32):
     jcfg, tcfg = configs(arch)
     jp, tp = both_params(jcfg, seed=seed)
     toks = tokens(jcfg, 2, S)
-    jh, jl = jax_forward(jcfg)(jp, jnp.asarray(toks), jnp.asarray(mask))
+    ex = extras_np(jcfg, 2)
+    jh, jl = jax_forward(jcfg)(jp, jnp.asarray(toks), jnp.asarray(mask),
+                               as_jax(ex))
     m = build(tcfg)
-    h, aux = m.apply(tp, torch.from_numpy(toks), remat="none",
+    h, aux = m.apply(tp, torch.from_numpy(toks), as_torch(ex), remat="none",
                      layer_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(h.detach().numpy(), np.asarray(jh), **tol)
     np.testing.assert_allclose(m.logits(tp, h).detach().numpy(),
@@ -142,11 +169,12 @@ def decode_runs(arch, S=12, seed=3):
     jcfg, tcfg = configs(arch)
     jp, tp = both_params(jcfg, seed=seed)
     toks = tokens(jcfg, 2, S, seed=seed + 1)
+    ex = extras_np(jcfg, 2)
     jm, m = jax_build(jcfg), build(tcfg)
-    h, _ = m.apply(tp, torch.from_numpy(toks), remat="none")
-    cache = m.decode_init(tp, 2, S)
+    h, _ = m.apply(tp, torch.from_numpy(toks), as_torch(ex), remat="none")
+    cache = m.decode_init(tp, 2, S, extras=as_torch(ex))
     jstep = jax.jit(jm.decode_step)
-    jcache = jm.decode_init(jp, 2, S)
+    jcache = jm.decode_init(jp, 2, S, extras=as_jax(ex))
     got, jgot = [], []
     for t in range(S):
         tok = toks[:, t:t + 1]
@@ -161,14 +189,15 @@ def decode_runs(arch, S=12, seed=3):
 def remat_outputs(arch):
     """The hidden states and every gradient under ``none``, ``full`` and
     ``dots``, from the same init."""
-    _, tcfg = configs(arch)
+    jcfg, tcfg = configs(arch)
     m = build(tcfg)
     toks = torch.from_numpy(tokens(tcfg, 2, 32, seed=2))
+    ex = as_torch(extras_np(jcfg, 2))
     outs = []
     for remat in ("none", "full", "dots"):
         params = m.init(torch.Generator().manual_seed(0))
         leaves = [p.requires_grad_() for p in tree_leaves(params)]
-        h, _ = m.apply(params, toks, remat=remat)
+        h, _ = m.apply(params, toks, ex, remat=remat)
         loss = m.logits(params, h).square().mean()
         outs.append([h.detach()] + list(torch.autograd.grad(loss, leaves)))
     return outs
@@ -192,9 +221,10 @@ def train_runs(arch, steps=2, B=2, S=32, seed=7):
     state = {"params": tp, "opt": adamw_init(tp)}
     rng = np.random.default_rng(seed + 1)
     out = {"jax": [], "port": [], "lr": []}
-    for _ in range(steps):
+    for i in range(steps):
         toks = rng.integers(0, tcfg.vocab_size, (B, S + 1)).astype(np.int32)
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 **extras_np(jcfg, B, seed=seed + 2 + i)}
         jstate, jm = jstep(jstate, {k: jnp.asarray(v)
                                     for k, v in batch.items()})
         state, m = step(state, {k: torch.from_numpy(v)
@@ -233,15 +263,21 @@ def _drawn_init(cfg):
 
 
 def served_tokens(arch, max_len=48):
-    """The JAX server and the port's, given the JAX server's params: 2
-    slots, 3 requests of 5 tokens, 4 new each (a slot is refilled and
-    carries on from its previous occupant's state)."""
+    """The JAX server and the port's, given the JAX server's params (and
+    the same stub-frontend inputs, :func:`extras_np`): 2 slots, 3 requests
+    of 5 tokens, 4 new each (a slot is refilled and carries on from its
+    previous occupant's state)."""
     jcfg, tcfg = configs(arch)
     with mock.patch.object(jax_serve, "build_serve_step", _drawn_init):
         jsrv = JaxSlotServer(jcfg, 2, max_len)
     srv = SlotServer(tcfg, 2, max_len, device="cpu")
     srv.params = lm_params_from_jax(jax.tree.map(np.asarray, jsrv.params))
-    srv.cache = srv.model.decode_init(srv.params, srv.slots, srv.max_len)
+    ex = extras_np(jcfg, 2)
+    if ex:
+        jsrv.cache = jsrv.model.decode_init(jsrv.params, 2, max_len,
+                                            extras=as_jax(ex))
+    srv.cache = srv.model.decode_init(srv.params, srv.slots, srv.max_len,
+                                      extras=as_torch(ex))
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, tcfg.vocab_size, size=5) for _ in range(3)]
     outs = {}
