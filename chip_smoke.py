@@ -3025,7 +3025,11 @@ LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("zamba2 prefill", 4, 2048, 32, 32, 64, 0),
                 ("zamba2 train", 2, 1024, 32, 32, 64, 0),
                 ("whisper decoder", 4, 448, 16, 16, 64, 0),
-                ("vlm train", 2, 1024, 32, 8, 128, 0))
+                ("vlm train", 2, 1024, 32, 8, 128, 0),
+                ("mixtral prefill", 4, 2048, 48, 8, 128, 4096),
+                ("qwen3-moe prefill", 4, 2048, 64, 4, 128, 0),
+                ("mixtral train", 2, 1024, 48, 8, 128, 4096),
+                ("qwen3-moe train", 2, 1024, 64, 4, 128, 0))
 LM_ROUTES = tuple(f"flash_attention_fwd_{r}" for r in FWD_ROUTES) + tuple(
     f"flash_attention_bwd_{r}" for r in BWD_ROUTES)
 #: the sub-quadratic families at full width and depth in bf16:
@@ -3034,8 +3038,10 @@ LM_ROUTES = tuple(f"flash_attention_fwd_{r}" for r in FWD_ROUTES) + tuple(
 #: N 64; one shared attention block of 32 heads of 64 at 6 sites)
 LM_SUBQ = {"xlstm": "xlstm-1.3b", "zamba2": "zamba2-1.2b"}
 #: ``[lm <family> prefill]``: B, S (xLSTM's shorter: its sLSTM time loop
-#: is eager launches at every position)
-LM_SUBQ_PREFILL = {"xlstm": (4, 1024), "zamba2": (4, 2048)}
+#: is eager launches at every position), blocks (None: full depth).
+#: xLSTM runs 16 of its 48 blocks (8 mLSTM + 8 sLSTM), to pay for the MoE
+#: phases (its full-depth forwards: PERF.md, §5)
+LM_SUBQ_PREFILL = {"xlstm": (4, 1024, 16), "zamba2": (4, 2048, None)}
 #: ``[lm <family> train]``: B, S, steps, blocks (None: full depth).
 #: xLSTM trains 8 of its 48 blocks (4 mLSTM + 4 sLSTM), to pay for the
 #: cross-attention phases (its full-depth steps: PERF.md, §5)
@@ -3052,6 +3058,22 @@ LM_CROSS_PREFILL = {"whisper": (4, 448), "vlm": (4, 2048)}
 #: VLM trains 10 of its 40 layers (2 groups): at full depth its bf16
 #: params and grads and float32 moments, about 117 GB, pass the card
 LM_CROSS_TRAIN = {"whisper": (4, 448, 2, None), "vlm": (2, 1024, 2, 10)}
+#: the MoE family at full width in bf16: mixtral-8x22b (56 layers, d
+#: 6144, 48:8 heads of 128, window 4096, 8 experts top-2 of d_ff 16384)
+#: and qwen3-moe-235b-a22b (94 layers, d 4096, 64:4 heads of 128 with
+#: ``qk_norm``, 128 experts top-8 of d_ff 1536, vocab 151936); about 2.5
+#: B params a layer each
+LM_MOE = {"mixtral": "mixtral-8x22b", "qwen3-moe": "qwen3-moe-235b-a22b"}
+#: ``[lm <family> serve]`` and ``[lm <family> prefill]``: the depth.  The
+#: prefill holds the bf16 params beside their float32 copy: 4 layers of
+#: mixtral are 10.4 B params (62.5 GB in both), 3 of qwen3-moe 8.7 B
+LM_MOE_DEPTH = {"mixtral": 4, "qwen3-moe": 3}
+#: ``[lm <family> prefill]``: B, S
+LM_MOE_PREFILL = (4, 2048)
+#: ``[lm <family> train]``: B, S, steps, layers (bf16 params and grads and
+#: float32 AdamW moments, 12 bytes a param: mixtral's 2 layers, 5.4 B
+#: params, about 65 GB; qwen3-moe's 1, 3.7 B with its vocabulary, 45 GB)
+LM_MOE_TRAIN = {"mixtral": (2, 1024, 2, 2), "qwen3-moe": (2, 1024, 2, 1)}
 
 
 def _synced_wall(fn):
@@ -3092,7 +3114,7 @@ def _shape_note(cfg):
         return (f"{cfg.num_layers} Mamba2 blocks, d {cfg.d_model}, a shared "
                 f"block of {cfg.num_heads} heads of {cfg.hd}")
     heads = (f"d {cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
-             f"{cfg.hd}")
+             f"{cfg.hd}" + (" with qk_norm" if cfg.qk_norm else ""))
     if cfg.family == "audio":
         return (f"{cfg.encoder_layers} encoder and {cfg.num_layers} decoder "
                 f"layers, {heads}, {cfg.num_audio_frames} stub frames")
@@ -3101,10 +3123,13 @@ def _shape_note(cfg):
         return (f"{cfg.num_layers} layers in {cfg.num_layers // k} groups of "
                 f"{k - 1} self and 1 cross, {heads}, {cfg.num_image_tokens} "
                 "stub image tokens")
+    if cfg.family == "moe":
+        return (f"{cfg.num_layers} layers, {heads}, {cfg.num_experts} "
+                f"experts top-{cfg.experts_per_token} of d_ff {cfg.d_ff}")
     return f"{cfg.num_layers} layers, {heads}"
 
 
-def phase_lm_serve(arch=LM_ARCH, tag="lm serve"):
+def phase_lm_serve(arch=LM_ARCH, tag="lm serve", layers=None):
     """``[lm serve]``: the reference serve main's run (4 slots, 8 requests
     of 12 prompt tokens, 8 new each, a cache of 56) through ``SlotServer``
     on phi3-mini at full width and depth, bf16, random weights from seed
@@ -3117,14 +3142,17 @@ def phase_lm_serve(arch=LM_ARCH, tag="lm serve"):
     whisper serve]`` and ``[lm vlm serve]`` on the cross-attention
     families: the server draws its stub frames or image tokens, and
     ``decode_init`` (whisper's 1500-frame encoder, the cross K/V) is timed
-    again warm."""
+    again warm.  ``[lm mixtral serve]`` and ``[lm qwen3-moe serve]`` at
+    ``layers`` of their depth (:func:`_cut_depth`): the MoE FFN decodes
+    through the reference's gather path, each token's experts' weights
+    gathered (mixtral: [4, 2, 6144, 16384] a weight)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.serve import SlotServer, serve
     slots, requests, prompt, new = LM_SERVE
-    cfg = get_config(arch)
+    cfg, depth = _cut_depth(get_config(arch), layers)
     torch.cuda.reset_peak_memory_stats()
     srv, init_s = _synced_wall(lambda: SlotServer(
         cfg, slots, (prompt + new + 8) * 2, device="cuda"))
@@ -3141,13 +3169,14 @@ def phase_lm_serve(arch=LM_ARCH, tag="lm serve"):
     launched = sum(LAUNCHES.values())
     _, warm = _synced_wall(lambda: [srv.step() for _ in range(8)])
     served = [t for o in outs for t in o]
-    print(f"[{tag}] SlotServer {arch} at full width ({_shape_note(cfg)}, "
+    print(f"[{tag}] SlotServer {arch} at full width and {depth} "
+          f"({_shape_note(cfg)}, "
           f"vocab {cfg.vocab_size}, {cfg.dtype}), init {init_s:.2f} s{enc}: "
           f"{len(outs)}/{requests} requests, {len(served)} tokens served in"
           f" {steps} decode steps, {secs:.2f} s ({secs / steps * 1e3:.2f} "
           f"ms a step, the first included); warm {warm / 8 * 1e3:.2f} ms a "
-          f"step; kernel launches {launched} (decode attention is plain "
-          f"torch); peak memory "
+          f"step, {warm:.3f} s for the 8; kernel launches {launched} "
+          f"(decode attention is plain torch); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; first "
           f"outputs {outs[:2]}")
     if len(outs) != requests or len(served) != requests * new or \
@@ -3184,10 +3213,11 @@ def phase_lm_subq_prefill(family):
     launches."""
     from repro_torch.configs import get_config
     from repro_torch.models.hybrid import num_attn_sites
-    B, S = LM_SUBQ_PREFILL[family]
-    cfg = get_config(LM_SUBQ[family])
+    B, S, layers = LM_SUBQ_PREFILL[family]
+    cfg, depth = _cut_depth(get_config(LM_SUBQ[family]), layers)
     return _lm_prefill_row(f"lm {family} prefill", family, cfg, B, S,
-                           num_attn_sites(cfg) if family == "zamba2" else 0)
+                           num_attn_sites(cfg) if family == "zamba2" else 0,
+                           depth)
 
 
 class _SlstmClock:
@@ -3217,7 +3247,7 @@ class _SlstmClock:
         self.mod.slstm_apply = self.orig
 
 
-def _lm_prefill_row(tag, label, cfg, B, S, n_wgmma):
+def _lm_prefill_row(tag, label, cfg, B, S, n_wgmma, depth="depth"):
     """One prefill run: ``build_prefill_step`` with ``use_pallas=True`` on
     random bf16 weights from seed 0, first and warm; its last-position
     logits held against the same step with ``use_pallas=False`` (the
@@ -3230,66 +3260,106 @@ def _lm_prefill_row(tag, label, cfg, B, S, n_wgmma):
     each other is printed, not held.  ``n_wgmma`` wgmma forwards, and no
     other route's launch.  A cross-attention family's stub inputs ride
     the batch (:func:`_stub_extras`, bf16, upcast by the float32 model).
-    Returns the launches."""
+    A MoE model's errors are taken on runs routed as the float32 plain
+    forward (``moe.routes``): the timed runs route for themselves, their
+    logits are held finite and of the right shape, their error from the
+    float32 forward and how many choices the first one routes otherwise
+    are printed, and the pinned kernel run must launch as the timed one.
+    The peak memory is the timed bf16 runs'; the check's (with the
+    float32 copy of the params) is printed beside it.  ``depth`` names
+    the depth on the phase line.  Returns the launches."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import TrainConfig
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import moe
     from repro_torch.tree import tree_map
     steps = {(dt, pallas): build_prefill_step(
         dataclasses.replace(cfg, dtype=dt),
         TrainConfig(use_pallas=pallas))[1]
         for dt in ("bfloat16", "float32") for pallas in (True, False)}
     model = build_prefill_step(cfg)[0]
+    torch.cuda.reset_peak_memory_stats()
     params, init_s = _synced_wall(lambda: model.init(
         torch.Generator("cuda").manual_seed(0)))
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     batch = {"tokens": torch.from_numpy(toks).cuda(),
              **_stub_extras(cfg, B, S, seed=2)}
     reset_launches()
-    got, first_s = _synced_wall(
-        lambda: steps["bfloat16", True](params, batch))
+    with moe.routes() as bf16_routes:
+        got, first_s = _synced_wall(
+            lambda: steps["bfloat16", True](params, batch))
     launches = {k: LAUNCHES[k] for k in LM_ROUTES}
     with _SlstmClock() as slstm:
         _, kernel_s = _synced_wall(
             lambda: steps["bfloat16", True](params, batch))
+    peak = torch.cuda.max_memory_allocated()
     ref, plain_s = _synced_wall(
         lambda: steps["bfloat16", False](params, batch))
     p32 = tree_map(lambda t: t.float(), params)
-    f32 = {pallas: steps["float32", pallas](p32, batch)
-           for pallas in (True, False)}
+    f32 = {}
+    with moe.routes() as routes:
+        f32[False] = steps["float32", False](p32, batch)
+    with moe.routes(routes):
+        f32[True] = steps["float32", True](p32, batch)
     del p32
+    timed, pinned, pinned_launches = got, "", launches
+    if routes:
+        # a rounding apart, a near tie routes a token to another expert
+        # (and moves the capacity's cut): the errors below are taken with
+        # every route's routing pinned to the float32 plain forward's
+        flips = sum(int((a != b).sum()) for a, b in zip(bf16_routes, routes))
+        reset_launches()
+        with moe.routes(routes):
+            got = steps["bfloat16", True](params, batch)
+        pinned_launches = {k: LAUNCHES[k] for k in LM_ROUTES}
+        with moe.routes(routes):
+            ref = steps["bfloat16", False](params, batch)
+        pinned = (f"; the first bf16 kernel run routes {flips} of "
+                  f"{sum(r.numel() for r in routes)} top-"
+                  f"{cfg.experts_per_token} choices unlike the float32 "
+                  f"forward, its logits rel err from that forward "
+                  f"{_errors(timed, f32[False])[1]:.3e}; each run below "
+                  f"routes as that forward ({len(routes)} layers) and the "
+                  f"pinned kernel run launches {pinned_launches}")
     err = {name: _errors(a, b)[1] for name, a, b in (
         ("bf16 kernel vs plain", got, ref),
         ("bf16 kernel vs f32", got, f32[False]),
         ("bf16 plain vs f32", ref, f32[False]),
         ("f32 kernel vs plain", f32[True], f32[False]))}
-    finite = bool(torch.isfinite(got).all())
+    shape = (B, 1, cfg.vocab_size)
+    finite = all(bool(torch.isfinite(t).all()) and tuple(t.shape) == shape
+                 for t in (timed, got))
     share = (f"; the sLSTM blocks {slstm.seconds:.3f} s of the warm run "
              f"({100 * slstm.seconds / kernel_s:.1f}%, {slstm.calls} "
              f"blocks)" if slstm.calls else "")
-    print(f"[{tag}] {label} ({cfg.name}, {_shape_note(cfg)}, window "
-          f"{cfg.window}) B {B} x S {S} bf16: init "
+    print(f"[{tag}] {label} ({cfg.name} at full width and {depth}, "
+          f"{_shape_note(cfg)}, window {cfg.window}) B {B} x S {S} bf16: init "
           f"{init_s:.2f} s; kernel route {first_s:.3f} s first, "
           f"{kernel_s:.3f} s warm; plain route {plain_s:.3f} s; launches"
-          f" {launches}; logits {tuple(got.shape)} finite "
-          f"{finite}; rel errs " + ", ".join(
-              f"{k} {v:.3e}" for k, v in err.items())
+          f" {launches}; logits {tuple(timed.shape)} finite "
+          f"{finite}; peak memory {peak / 2 ** 30:.2f} GiB (the check's, "
+          f"with a float32 copy of the params, "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)"
+          f"{pinned}; rel errs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
           + f" (limits: f32 kernel vs plain "
           f"{KERNEL_TOL['float32']:.0e}; bf16 kernel vs f32 at most "
           f"1.25x bf16 plain vs f32){share}")
-    if not finite or tuple(got.shape) != (B, 1, cfg.vocab_size) or \
+    if not finite or \
             err["f32 kernel vs plain"] > KERNEL_TOL["float32"] or \
             err["bf16 kernel vs f32"] > 1.25 * err["bf16 plain vs f32"]:
         raise AssertionError(f"[{tag}] {label}: the kernel route "
                              "disagrees with the plain route")
     if launches["flash_attention_fwd_wgmma"] != n_wgmma or \
-            sum(launches.values()) != n_wgmma:
-        raise AssertionError(f"[{tag}] {label}: launches {launches}, "
+            sum(launches.values()) != n_wgmma or pinned_launches != launches:
+        raise AssertionError(f"[{tag}] {label}: launches {launches} "
+                             f"(pinned {pinned_launches}), "
                              f"expected {n_wgmma} wgmma forwards and no "
                              "other")
+    del timed
     del params, got, ref, f32
     _free_card()
     return launches
@@ -3494,6 +3564,93 @@ def phase_lm_cross_reference():
                       n + 2 * 2 * n, 2 * n)
 
 
+def phase_lm_moe_prefill(family):
+    """``[lm mixtral prefill]`` and ``[lm qwen3-moe prefill]``: B 4 x S
+    2048 at full width and ``LM_MOE_DEPTH`` layers, the run and checks of
+    ``[lm prefill]`` (:func:`_lm_prefill_row`): one wgmma forward a layer
+    (mixtral's 4096-key window passes S, so every key is seen; qwen3-moe
+    puts 16 query heads on a KV head, after ``qk_norm``) and no other
+    route.  The MoE FFN takes the capacity dispatch, its expert products
+    cuBLAS's, as the reference's are XLA's.  Returns the launches."""
+    from repro_torch.configs import get_config
+    B, S = LM_MOE_PREFILL
+    cfg, depth = _cut_depth(get_config(LM_MOE[family]), LM_MOE_DEPTH[family])
+    return _lm_prefill_row(f"lm {family} prefill", family, cfg, B, S,
+                           cfg.num_layers, depth)
+
+
+def phase_lm_moe_train(family):
+    """``[lm mixtral train]`` and ``[lm qwen3-moe train]``: B 2 x S 1024 at
+    full width and ``LM_MOE_TRAIN``'s depth, 2 steps as ``[lm train]``, the
+    loss carrying the router's aux term: each step launches two wgmma
+    forwards (the forward and the remat recompute) and one wgmma backward
+    a layer.  Returns the launches."""
+    from repro_torch.configs import get_config
+    B, S, steps, layers = LM_MOE_TRAIN[family]
+    cfg, depth = _cut_depth(get_config(LM_MOE[family]), layers)
+    n = cfg.num_layers * steps
+    return _lm_train(f"lm {family} train", cfg, B, S, steps, 2 * n, n,
+                     depth=depth)
+
+
+def phase_lm_moe_reference():
+    """``[lm moe reference]``: mixtral-8x22b's and qwen3-moe-235b-a22b's
+    smoke configs (2 layers, d 256, 4 heads of 64, 4 experts top-2,
+    float32; mixtral's window 64, qwen3's ``qk_norm``) card against CPU, as
+    ``[lm reference]`` (tiled forwards: 2 a prefill, 4 a train step; 2
+    backwards a step), then the routing (:func:`_moe_routing_check`)."""
+    from repro_torch.configs import get_smoke_config
+    for family, arch in LM_MOE.items():
+        cfg = get_smoke_config(arch)
+        n = cfg.num_layers
+        _lm_reference(f"lm moe reference {family}", cfg, n + 2 * 2 * n,
+                      2 * n)
+        _moe_routing_check(f"lm moe reference {family}", cfg)
+
+
+def _moe_routing_check(tag, cfg):
+    """The prefill step (``use_pallas``, B 2 x S 64) on one init (seed 0)
+    twice on the card and once on the CPU: each layer's top-k indices
+    equal on both, and the two card runs' logits and indices bitwise
+    equal (the dispatch's scatter adds, so the dropped choices' zero rows
+    leave the kept token in slot C - 1 as it is, in any order)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+    model, prefill = build_prefill_step(cfg, TrainConfig(use_pallas=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64)))
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        with moe.routes() as routes:
+            logits = prefill(p, {"tokens": toks.to(dev)}).cpu()
+        runs.append((logits, [i.cpu() for i in routes]))
+        del p
+    (l1, i1), (l2, i2), (lc, ic) = runs
+    bitwise = torch.equal(l1, l2) and all(
+        torch.equal(a, b) for a, b in zip(i1, i2))
+    same = len(i1) == len(ic) == cfg.num_layers and all(
+        torch.equal(a, b) for a, b in zip(i1, ic))
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = moe.capacity(64, K, E, cfg.moe_capacity_factor)
+    dropped = [int((moe.slots(topi.reshape(2, -1), E) >= C).sum())
+               for topi in ic]
+    print(f"[{tag}] routing, prefill B 2 x S 64 (capacity {C} a row and "
+          f"expert): top-{K} indices of {len(ic)} layers card vs CPU equal "
+          f"{same}; two card prefills bitwise equal (logits and indices) "
+          f"{bitwise}; choices dropped by capacity per layer {dropped} of "
+          f"{2 * 64 * K}; logits card vs CPU max diff "
+          f"{float((l1 - lc).abs().max()):.3e}")
+    if not (same and bitwise):
+        raise AssertionError(f"[{tag}] the routing differs")
+    _free_card()
+
+
 def _lm_reference(tag, cfg, n_fwd, n_bwd):
     """``cfg`` (2 layers, float32) on the card against the CPU on the same
     params (the CPU server's, from seed 0, copied to the card; a VLM's
@@ -3579,13 +3736,14 @@ def _lm_reference(tag, cfg, n_fwd, n_bwd):
 
 
 def phase_lm_kernels():
-    """The attention kernel at the LM paths' four bf16 shapes (model
-    layout [B, S, H, D], causal): forward and backward held against the
-    plain version at 2e-2, then timed beside it and beside SDPA
-    (``is_causal``, ``enable_gqa`` for minitron's 4 query heads a KV
-    head; the window row through an explicit window mask, SDPA having no
-    window), 5 calls each; the bound on the bf16 dense tensor-core peak;
-    each shape's route printed beside its times; on the wgmma route two
+    """The attention kernel at the LM paths' bf16 shapes (``LM_ATTENTION``,
+    model layout [B, S, H, D], causal): forward and backward held against
+    the plain version at 2e-2, then timed beside it and beside SDPA
+    (``is_causal``, ``enable_gqa`` where query heads share a KV head; a
+    window shorter than S through an explicit window mask, SDPA having no
+    window; mixtral's 4096 keys at S 2048 are causal), 5 calls each; the
+    bound on the bf16 dense tensor-core peak; each shape's route printed
+    beside its times; on the wgmma route two
     backward launches held bitwise equal.  Uses only the module's
     wrappers, routes and plain version, so ``scripts/attention_ab.py``
     times earlier designs with it.  Returns the records; their launches
@@ -3605,7 +3763,7 @@ def phase_lm_kernels():
                    .bfloat16().requires_grad_() for h in (Hq, Hkv, Hkv))
         do = torch.randn((B, S, Hq, D), generator=g, device="cuda").bfloat16()
         mask = None
-        if window:
+        if window and window < S:   # a window of S keys or more is causal
             mask = mod._visible(S, S, True, window, "cuda")
 
         def fn(a, b, c):
@@ -3648,7 +3806,8 @@ def phase_lm_kernels():
             # products per kept pair as the float32 rows
             [(2 * (2 * nq + 2 * nk) + 4 * B * Hq * S, 4 * D * pairs),
              (2 * (4 * nq + 4 * nk) + 4 * B * Hq * S, 10 * D * pairs)],
-            "SDPA" + (" window mask" if window else " is_causal"), label,
+            "SDPA" + (" window mask" if mask is not None else " is_causal"),
+            label,
             flops_per_s=BF16_FLOPS_PER_S, iters=5)
         rec[0]["fwd_route"], rec[1]["bwd_route"] = fwd_route, route
         rec[1]["source"] = ATTENTION_SOURCES["bwd_" + route]
@@ -3671,7 +3830,8 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
     """The LM kernel records' launches: each shape's path runs', forward
     and backward, and by route.  ``prefill_launches`` and
     ``train_launches`` by label (a family's under its name:
-    ``"zamba2"``, ``"whisper"``, ``"vlm"``)."""
+    ``"zamba2"``, ``"whisper"``, ``"vlm"``, ``"mixtral"``,
+    ``"qwen3-moe"``)."""
     runs = {"lm phi3-mini prefill": prefill_launches["phi3-mini"],
             # the VLM's prefill shape is minitron-8b's: its launches too
             "lm minitron-8b prefill": _summed(prefill_launches["minitron-8b"],
@@ -3683,7 +3843,11 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
             # whisper's prefill and train step share the decoder's shape
             "lm whisper decoder": _summed(prefill_launches["whisper"],
                                           train_launches["whisper"]),
-            "lm vlm train": train_launches["vlm"]}
+            "lm vlm train": train_launches["vlm"],
+            "lm mixtral prefill": prefill_launches["mixtral"],
+            "lm qwen3-moe prefill": prefill_launches["qwen3-moe"],
+            "lm mixtral train": train_launches["mixtral"],
+            "lm qwen3-moe train": train_launches["qwen3-moe"]}
     for r in records:
         counts = runs[r["path"]]
         _attention_route_launches(r, counts)
@@ -3858,6 +4022,19 @@ def main() -> int:
     _, secs = _synced_wall(phase_lm_cross_reference)
     print(f"[lm cross-attention reference] took {secs:.1f} s")
     lap("the cross-attention families")
+    for family, arch in LM_MOE.items():
+        t0 = time.perf_counter()
+        _, secs = _synced_wall(lambda: phase_lm_serve(
+            arch, f"lm {family} serve", LM_MOE_DEPTH[family]))
+        prefill_launches[family], s_pre = _synced_wall(
+            lambda: phase_lm_moe_prefill(family))
+        train_launches[family], s_train = _synced_wall(
+            lambda: phase_lm_moe_train(family))
+        print(f"[lm {family}] serve {secs:.1f} s, prefill {s_pre:.1f} s, "
+              f"train {s_train:.1f} s: {time.perf_counter() - t0:.1f} s")
+    _, secs = _synced_wall(phase_lm_moe_reference)
+    print(f"[lm moe reference] took {secs:.1f} s")
+    lap("the MoE family")
     _lm_kernel_launches(lm_records, prefill_launches, train_launches)
     lap("all phases")
     print(f"[profiler] {len(EVENT_TIMED)} kernel timings took the CUDA "

@@ -67,7 +67,9 @@ def lm_params_from_jax(tree, device="cpu"):
     """The JAX package's LM params, given as numpy arrays, leaf for leaf
     with their dtypes: ``repro.models.transformer``'s (the stacked ``[L,
     ...]`` blocks, the embedding, an untied ``unembed`` or none where it
-    is tied), ``repro.models.xlstm``'s (the ``mlstm`` and ``slstm``
+    is tied; a MoE block's ``moe`` leaves ``router``, float32 in a bf16
+    model, and ``w_gate``, ``w_up``, ``w_down`` ``[L, E, ...]``),
+    ``repro.models.xlstm``'s (the ``mlstm`` and ``slstm``
     stacks ``[L/2, ...]``, their gate and recurrent leaves ``w_if``,
     ``b_if``, ``r`` and ``b`` float32 in a bf16 model) and
     ``repro.models.hybrid``'s (the ``mamba`` stack ``[L, ...]``, its

@@ -510,6 +510,7 @@ extern "C" int flash_attention_bwd_wgmma_launch(
   if (Hkv <= 0 || Hq % Hkv != 0 ||
       !takes(dtype, causal, D, Sq, Sk, window, ptrs, 8, strides, 24))
     return (int)cudaErrorInvalidValue;
+  if (const int rc = bind_context(q)) return rc;
   auto lay = [&](int i) {
     return Lay{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   };

@@ -293,6 +293,7 @@ extern "C" int flash_attention_fwd_wgmma_launch(
   if (Hkv <= 0 || Hq % Hkv != 0 ||
       !takes(dtype, causal, D, Sq, Sk, window, ptrs, 4, strides, 12))
     return (int)cudaErrorInvalidValue;
+  if (const int rc = bind_context(q)) return rc;
   FwdArgs a{(__nv_bfloat16*)o, lse,
             Lay{strides[9], strides[10], strides[11]}, B, Hq, Hq / Hkv, Sq,
             Sk, D, window, (Sq + kBM - 1) / kBM, scale * kLog2e};

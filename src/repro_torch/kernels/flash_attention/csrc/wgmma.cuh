@@ -377,6 +377,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The driver's encode answers CUDA_ERROR_INVALID_CONTEXT in a thread
+// that has no context current, and a thread can reach a launch with none:
+// PyTorch's autograd worker runs a backward (and a remat recompute's
+// forward) after a cudaGetDevice alone whenever its allocator serves the
+// step from its cache.  This library links a runtime of its own: setting
+// through it the device that holds `ptr` makes that device's primary
+// context, PyTorch's, current in the thread.
+inline int bind_context(const void* ptr) {
+  cudaPointerAttributes at;
+  cudaError_t rc = cudaPointerGetAttributes(&at, ptr);
+  if (rc == cudaSuccess) rc = cudaSetDevice(at.device);
+  return (int)rc;
+}
+
 // the rank-4 map (D, S, H, B) of a bf16 tensor with element strides
 // str = (batch, head, position), boxes of 64 columns x `rows` rows
 inline bool make_map(CUtensorMap* map, const void* base, int D, int S, int H,

@@ -78,11 +78,14 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     def loss_fn(params, batch):
         extras = {k: batch[k] for k in batch
                   if k not in ("tokens", "labels")}
-        hidden, _ = model.apply(params, batch["tokens"], extras,
-                                remat=tcfg.remat, use_pallas=tcfg.use_pallas,
-                                attn_chunk=tcfg.attn_chunk)
-        return chunked_cross_entropy(hidden, _unembed(model, params),
+        hidden, aux = model.apply(params, batch["tokens"], extras,
+                                  remat=tcfg.remat, use_pallas=tcfg.use_pallas,
+                                  attn_chunk=tcfg.attn_chunk)
+        loss = chunked_cross_entropy(hidden, _unembed(model, params),
                                      batch["labels"], tcfg.loss_chunk)
+        if cfg.num_experts:
+            loss = loss + cfg.moe_aux_coef * aux / max(cfg.num_layers, 1)
+        return loss
 
     def train_step(state, batch):
         params = state["params"]

@@ -9,7 +9,8 @@ every block (forward, the remat recompute and backward).  The state is
 updated in place (the reference donates it).  Checkpoints are the
 reference's files (``repro_torch.checkpoint``'s ``save_pytree``), so a
 run resumes from either package's ``--ckpt-dir``.  ``--mesh`` is refused:
-the production mesh waits for the sharding slice (ROADMAP Queue 1).
+the production mesh waits for the sharding slice (ROADMAP Queue 1 item
+4); the MoE family trains on one device, its experts unsharded.
 The cross-attention families train on zero stub-frontend inputs, as in
 the reference.
 The reference's ``--fl-clients``/``--fl-agg-every`` are parsed there but
@@ -69,7 +70,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh:
         raise ValueError(f"--mesh {args.mesh}: the production mesh waits for "
-                         "the sharding slice (ROADMAP Queue 1); the port "
+                         "the sharding slice (sharding/rules.py, "
+                         "launch/mesh.py, ROADMAP Queue 1 item 4); the port "
                          "trains on one device")
     device = resolve_device(args.device)
 

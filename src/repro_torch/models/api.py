@@ -10,15 +10,15 @@ Every family exposes the same surface:
     decode_init(params, batch, seq_len, **extras) -> cache
     decode_step(params, cache, tokens, pos, layer_mask=...) -> (logits, cache)
 
-The port builds the ``dense`` family (``models/transformer.py``),
+The port builds every family of the reference: ``dense`` and ``moe``
+(``models/transformer.py``, its MoE blocks from ``models/moe.py``),
 ``ssm`` (``models/xlstm.py``), ``mamba-hybrid`` (``models/hybrid.py``),
 ``vlm`` (``models/vlm.py``) and ``audio`` (``models/encdec.py``).  The
 last two read their stub frontend's embeddings from ``extras``
 (``image_embeds``, ``audio_frames``; :func:`extra_inputs`): ``apply``
 raises ``KeyError`` without them, as the reference does, and
-``decode_init`` takes zeros.  ``moe`` raises ``NotImplementedError``
-until ``models/moe.py`` is ported with the mesh (ROADMAP Queue 1); an
-unknown family keeps the reference's ``ValueError``.
+``decode_init`` takes zeros.  An unknown family keeps the reference's
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -30,12 +30,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, transformer, vlm, xlstm
 
-#: the reference's families that the port has not ported yet
-UNPORTED_FAMILIES = ("moe",)
-
-#: the ported families' modules
-_MODULES = {"dense": transformer, "ssm": xlstm, "mamba-hybrid": hybrid,
-            "vlm": vlm, "audio": encdec}
+#: the families' modules
+_MODULES = {"dense": transformer, "moe": transformer, "ssm": xlstm,
+            "mamba-hybrid": hybrid, "vlm": vlm, "audio": encdec}
 
 #: the stub-frontend input each cross-attention family reads
 _EXTRA = {"vlm": "image_embeds", "audio": "audio_frames"}
@@ -65,11 +62,6 @@ def extra_inputs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, tuple]:
 
 def build(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {fam!r} ({cfg.name}) is not ported yet: the port builds "
-            "the dense, ssm, mamba-hybrid, vlm and audio families; moe "
-            "follows with the mesh in ROADMAP Queue 1")
     if fam not in _MODULES:
         raise ValueError(f"unknown family {fam!r}")
     mod = _MODULES[fam]

@@ -39,6 +39,20 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype, lead=()):
     return (scale * w).to(dtype)
 
 
+def normal_by_matrix(gen: torch.Generator, shape, scale: float, dtype,
+                     lead=()):
+    """:func:`_normal`'s distribution drawn one trailing matrix at a time
+    into a tensor made in ``dtype``: a stack of bf16 experts (mixtral's
+    ``w_gate`` at 4 layers is 3.2 G elements) never exists in float32
+    whole."""
+    out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
+                      device=gen.device)
+    for m in out.view((-1,) + tuple(shape[-2:])):
+        m.copy_(torch.randn(m.shape, generator=gen,
+                            device=gen.device).mul_(scale))
+    return out
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: Optional[float] = None, *, dtype=torch.float32,
                lead: Tuple[int, ...] = ()):

@@ -1,0 +1,160 @@
+"""Mixture-of-Experts FFN (token-choice top-k router, capacity dispatch) —
+port of ``repro.models.moe``.
+
+Two execution paths, as in the reference:
+
+* **capacity dispatch** (training / prefill, ``S > 1``): the tokens of
+  each sequence row are scattered into expert buffers ``[B, E, C, d]``
+  (capacity ``C = max(K, ceil(S*K/E * capacity_factor))``), the experts
+  run as batched matrix products over the stacked ``[E, d, f]`` tensors,
+  and the results gather back.  A token's slot in its expert's buffer is
+  its rank among the row's ``S*K`` choices in token-major, choice-minor
+  order; choices past ``C`` are dropped (their rows zero, written to slot
+  ``C - 1`` by an ADDING scatter, so a kept token there keeps its value).
+* **gather path** (decode, ``S == 1``): each token's experts' weights are
+  gathered (``[B, K, d, f]`` a weight) and applied directly; under
+  ``moe_decode_impl="dispatch"`` the batch goes through the capacity
+  dispatch as one sequence.
+
+The router runs in float32 and returns a Switch-style load-balance aux
+loss beside the output.  Within :func:`routes` it records each call's
+top-k indices, or takes given ones in their place, so that two forwards
+that round differently can be held against each other on one routing.
+The expert products are plain ``einsum`` (cuBLAS batched products), as
+the reference's are plain XLA products outside any Pallas kernel.  Initialisation draws each expert's matrix on
+its own (:func:`repro_torch.models.layers.normal_by_matrix`), so a
+stack of bf16 experts never exists in float32 whole.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+
+def moe_init(gen: torch.Generator, cfg, dtype, *, lead=()):
+    """``moe.py:28-37``: the float32 router ``[d, E]``, and ``w_gate``,
+    ``w_up`` ``[E, d, f]`` and ``w_down`` ``[E, f, d]`` in ``dtype``
+    (``lead``: the layer stack in front of each)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s = 1.0 / math.sqrt(d)
+    return {
+        "router": L._normal(gen, (d, E), s, torch.float32, lead),
+        "w_gate": L.normal_by_matrix(gen, (E, d, f), s, dtype, lead),
+        "w_up": L.normal_by_matrix(gen, (E, d, f), s, dtype, lead),
+        "w_down": L.normal_by_matrix(gen, (E, f, d), 1.0 / math.sqrt(f),
+                                     dtype, lead),
+    }
+
+
+#: set within :func:`routes`: (the list each router call appends its
+#: top-k indices to, an iterator of indices that replace the top-k or None)
+_ROUTES = None
+
+
+@contextlib.contextmanager
+def routes(replay=None):
+    """Within ``with``: each router call's top-k indices, layer by layer,
+    appended to the list it yields (empty for a model without experts).
+    Given ``replay`` (such a list), the router takes those indices in
+    place of its own top-k, its weights the gates there, renormalised as
+    ever, so two forwards that round differently route alike."""
+    global _ROUTES
+    seen = []
+    _ROUTES = (seen, None if replay is None else iter(replay))
+    try:
+        yield seen
+    finally:
+        _ROUTES = None
+
+
+def _route(p, cfg, x):
+    """x: [..., d] -> (weights [..., K], idx [..., K], aux_loss).
+
+    ``torch.topk`` with ``sorted=True`` gives ``jax.lax.top_k``'s
+    descending order, which sets each choice's slot in the dispatch."""
+    logits = x.float() @ p["router"]                           # [..., E]
+    gates = torch.softmax(logits, dim=-1)
+    K, E = cfg.experts_per_token, cfg.num_experts
+    topw, topi = torch.topk(gates, K, dim=-1, sorted=True)
+    if _ROUTES is not None:
+        seen, replay = _ROUTES
+        if replay is not None:
+            topi = next(replay).to(x.device)
+            topw = gates.gather(-1, topi)
+        seen.append(topi)
+    topw = topw / (topw.sum(-1, keepdim=True) + 1e-9)
+    # Switch load-balance aux loss
+    me = gates.reshape(-1, E).mean(0)
+    onehot = F.one_hot(topi, E).float()
+    ce = onehot.sum(-2).reshape(-1, E).mean(0) / K
+    aux = E * torch.sum(me * ce)
+    return topw, topi, aux
+
+
+def capacity(S, K, E, capacity_factor):
+    """Each expert's slots a sequence row: ``max(K, ceil(S*K/E * cf))``."""
+    return max(K, int(math.ceil(S * K / E * capacity_factor)))
+
+
+def slots(flat_e, E):
+    """flat_e: [B, T] expert ids, token-major and choice-minor -> [B, T]:
+    each choice's rank among its row's choices of that expert, its slot in
+    the expert's buffer (dropped where it reaches the capacity)."""
+    onehot = F.one_hot(flat_e, E)                              # [B, T, E]
+    pos_in_e = torch.cumsum(onehot, dim=1) - onehot
+    return torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0]
+
+
+def _experts(p, xb):
+    """xb: [..., E, C, d] -> [..., E, C, d]: each expert's SwiGLU on its
+    buffer."""
+    h = F.silu(torch.einsum("...ecd,edf->...ecf", xb, p["w_gate"]))
+    h = h * torch.einsum("...ecd,edf->...ecf", xb, p["w_up"])
+    return torch.einsum("...ecf,efd->...ecd", h, p["w_down"])
+
+
+def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
+    """x: [B, S, d] -> (y [B, S, d], aux_loss)."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    if S == 1:
+        if cfg.moe_decode_impl == "dispatch":
+            # decode through the capacity dispatch, batch as sequence
+            y, aux = moe_apply(p, cfg, x.transpose(0, 1),
+                               capacity_factor=capacity_factor or 2.0)
+            return y.transpose(0, 1), aux
+        return _moe_gather(p, cfg, x)
+    capacity_factor = capacity_factor or cfg.moe_capacity_factor
+    topw, topi, aux = _route(p, cfg, x)                        # [B,S,K]
+    C = capacity(S, K, E, capacity_factor)
+
+    flat_e = topi.reshape(B, S * K)                            # [B, T]
+    pos = slots(flat_e, E)                                     # [B, T]
+    keep = (pos < C).to(x.dtype)
+    pos = pos.clamp_max(C - 1)
+
+    xr = x.repeat_interleave(K, dim=1)                         # [B, T, d]
+    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
+    buf = x.new_zeros((B, E, C, d)).index_put(
+        (bidx, flat_e, pos), xr * keep[..., None], accumulate=True)
+    yb = _experts(p, buf)                                      # [B,E,C,d]
+    y = yb[bidx, flat_e, pos] * keep[..., None]                # [B, T, d]
+    y = y.reshape(B, S, K, d) * topw[..., None].to(x.dtype)
+    return y.sum(dim=2), aux
+
+
+def _moe_gather(p, cfg, x):
+    """Decode path: gather each token's experts' weights.  x: [B, 1, d]."""
+    topw, topi, aux = _route(p, cfg, x)                        # [B,1,K]
+    ti = topi[:, 0]                                            # [B, K]
+    xt = x[:, 0]                                               # [B, d]
+    h = F.silu(torch.einsum("bd,bkdf->bkf", xt, p["w_gate"][ti]))
+    h = h * torch.einsum("bd,bkdf->bkf", xt, p["w_up"][ti])
+    y = torch.einsum("bkf,bkfd->bkd", h, p["w_down"][ti])
+    y = (y * topw[:, 0, :, None].to(x.dtype)).sum(dim=1)
+    return y[:, None, :], aux

@@ -1,6 +1,7 @@
-"""Dense decoder-only transformer with stacked block params — port of
-``repro.models.transformer`` (the dense family: yi-34b, phi3-mini,
-minitron, command-r).
+"""Dense / MoE decoder-only transformer with stacked block params — port
+of ``repro.models.transformer`` (the dense family: yi-34b, phi3-mini,
+minitron, command-r; the moe family: mixtral-8x22b, qwen3-moe, whose
+blocks hold ``models/moe.py``'s FFN in place of the SwiGLU).
 
 The blocks keep the reference's STACKED layout: every block leaf carries
 a leading ``[L]`` axis (the reference makes it with ``jax.vmap`` over
@@ -16,8 +17,9 @@ Remat (``transformer.py:78-84``): ``"full"`` recomputes each block in the
 backward (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves
 the block's matrix products and recomputes the rest (a selective-
 checkpoint policy), ``"none"`` saves everything.  The numbers are the
-same under each.  The MoE blocks (``num_experts > 0``) wait for
-``models/moe.py`` (ROADMAP Queue 1).
+same under each.  A MoE block returns its router's aux loss, which
+:func:`apply` sums over the layers, each weighted by its gate's mean, as
+the reference's scan does.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply, moe_init
 
 #: the ops whose outputs ``remat="dots"`` keeps (the reference's
 #: ``dots_with_no_batch_dims_saveable``: the matrix products)
@@ -39,27 +42,23 @@ def _dt(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _no_moe(cfg):
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks (num_experts={cfg.num_experts}) wait "
-            "for models/moe.py, which the port has not ported yet (ROADMAP "
-            "Queue 1)")
-
-
 def block_init(gen: torch.Generator, cfg, dtype, *, lead=()):
-    """One pre-norm block's params (``lead=(L,)``: the stack of L)."""
-    _no_moe(cfg)
+    """One pre-norm block's params (``lead=(L,)``: the stack of L): the
+    MoE FFN under ``num_experts``, else the SwiGLU."""
     dev = gen.device
-    return {
+    p = {
         "attn_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype, device=dev,
                                     lead=lead),
         "attn": L.attention_init(gen, cfg, dtype, lead=lead),
         "mlp_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype, device=dev,
                                    lead=lead),
-        "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype,
-                             bias=cfg.mlp_bias, lead=lead),
     }
+    if cfg.num_experts:
+        p["moe"] = moe_init(gen, cfg, dtype, lead=lead)
+    else:
+        p["mlp"] = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                 bias=cfg.mlp_bias, lead=lead)
+    return p
 
 
 def block_apply(p, cfg, x, positions, gate, *, window=None,
@@ -73,13 +72,17 @@ def block_apply(p, cfg, x, positions, gate, *, window=None,
         norm_eps=cfg.norm_eps)
     x = x + gate * a
     h = L.rmsnorm_apply(p["mlp_norm"], x, cfg.norm_eps)
-    x = x + gate * L.swiglu_apply(p["mlp"], h)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.num_experts:
+        m, aux = moe_apply(p["moe"], cfg, h)
+    else:
+        m = L.swiglu_apply(p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + gate * m
+    return x, cache, aux
 
 
 def init(gen: torch.Generator, cfg):
     """The model's params on ``gen``'s device, in ``cfg.dtype``."""
-    _no_moe(cfg)
     dtype = _dt(cfg)
     params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype),

@@ -1031,11 +1031,17 @@ def test_fleet_mesh_on_one_card_is_a_noop(cuda, group, tmp_path):
 # the LM substrate's shapes, bf16, causal, model layout [B, S, H, D]: (B,
 # S, Hq, Hkv, D, window): phi3-mini's prefill (D 96, two TMA boxes of 64
 # columns), minitron-8b's (GQA 4, D 128), phi3-mini's train step and a
-# 1024-key window at S 4096; all on the wgmma route
+# 1024-key window at S 4096; mixtral-8x22b's prefill and train step (GQA
+# 6, a 4096-key window past S) and qwen3-moe's (GQA 16); all on the wgmma
+# route
 LM_ATTN = {"phi3-mini prefill": (4, 2048, 32, 32, 96, 0),
            "minitron-8b prefill": (4, 2048, 32, 8, 128, 0),
            "phi3-mini train": (2, 1024, 32, 32, 96, 0),
-           "phi3-mini SWA 1024": (2, 4096, 32, 32, 96, 1024)}
+           "phi3-mini SWA 1024": (2, 4096, 32, 32, 96, 1024),
+           "mixtral prefill": (4, 2048, 48, 8, 128, 4096),
+           "qwen3-moe prefill": (4, 2048, 64, 4, 128, 0),
+           "mixtral train": (2, 1024, 48, 8, 128, 4096),
+           "qwen3-moe train": (2, 1024, 64, 4, 128, 0)}
 
 
 @pytest.mark.cuda
@@ -1292,3 +1298,88 @@ def test_cross_attention_smoke_forward_on_the_card_matches_the_cpu(cuda,
     for got, ref in zip(out["cuda"], out["cpu"]):
         assert torch.isfinite(got).all()
         assert _rel_err(got, ref) <= TOL[torch.float32]
+
+
+#: a fresh interpreter whose first wgmma backward runs on autograd's worker
+#: thread with the allocator's cache serving every tensor of the step, so
+#: that the thread has made no call that binds a context (the cache warmed
+#: by tensors of the same sizes, freed); prints the launches
+_FRESH_THREAD = """
+import torch
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.flash_attention import flash_attention
+B, S, Hq, Hkv, D = 4, 2048, 48, 8, 128
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda").bfloat16()
+           .requires_grad_() for h in (Hq, Hkv, Hkv))
+do = torch.randn((B, S, Hq, D), generator=g, device="cuda").bfloat16()
+spare = [torch.empty_like(t) for t in (q, k, v, q)]
+spare.append(torch.empty((B * Hq * 2 * S,), device="cuda"))
+del spare
+o = flash_attention(q, k, v, causal=True, window=4096)
+grads = torch.autograd.grad(o, [q, k, v], do)
+torch.cuda.synchronize()
+assert all(torch.isfinite(t.float()).all() for t in grads)
+print(*(LAUNCHES[f"flash_attention_{k}_wgmma"] for k in ("fwd", "bwd")))
+"""
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_launches_on_a_thread_with_no_context(cuda):
+    """The wgmma kernels encode their TMA maps through the driver, which
+    needs a context current in the calling thread: autograd's worker thread
+    reaches the backward with none when the allocator's cache serves the
+    step (mixtral's prefill shape failed so with ``CUDA_ERROR_INVALID_
+    CONTEXT`` before the launch bound the context).  A fresh interpreter,
+    so that no earlier test has bound one."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, "-c", _FRESH_THREAD],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["1", "1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_moe_smoke_forward_on_the_card_matches_the_cpu(cuda, arch):
+    """Each MoE config's smoke variant (2 layers, d 256, 4 heads of 64, 4
+    experts top-2, float32) on the card against the CPU on the same params
+    (drawn on the CPU), B 2 x S 64, ``use_pallas``: hidden states, logits
+    and the router's aux loss at the float32 tolerance, the routing equal
+    layer by layer, and two runs on the card bitwise equal (the dispatch's
+    scatter adds).  The card launches the tiled forward once a layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.api import build
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = model.init(g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    out, moved, routes = [], [], []
+    for dev in ("cpu", cuda, cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = dict(LAUNCHES)
+        with torch.no_grad(), moe.routes() as seen:
+            h, aux = model.apply(p, toks.to(dev), remat="none",
+                                 use_pallas=True)
+            out.append((h.cpu(), model.logits(p, h).cpu(), aux.cpu()))
+        torch.cuda.synchronize()
+        routes.append([i.cpu() for i in seen])
+        moved.append({key: LAUNCHES[key] - before[key] for key in LAUNCHES
+                      if LAUNCHES[key] != before[key]})
+    assert moved[1] == {"flash_attention": 2, "flash_attention_fwd_tiled": 2}
+    for got, ref in zip(out[1], out[0]):
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= TOL[torch.float32]
+    assert len(routes[0]) == 2
+    assert all(torch.equal(a, b) for a, b in zip(routes[1], routes[0]))
+    assert all(torch.equal(a, b) for a, b in zip(out[2], out[1]))
+    assert all(torch.equal(a, b) for a, b in zip(routes[2], routes[1]))

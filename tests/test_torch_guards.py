@@ -3,7 +3,7 @@ nothing of the JAX package; its entry points run on the card unless the
 caller asks for the CPU, with no fallback; every setting the reference
 rejects raises its ``ValueError``, and every setting a slice ported runs
 (since the fleet mesh, every setting the reference accepts: none raises
-``NotImplementedError``)."""
+``NotImplementedError``; since the MoE family, every LM family builds)."""
 import dataclasses
 import math
 import os
@@ -197,16 +197,31 @@ def test_lm_launchers_default_to_cuda_and_never_fall_back(entry):
              if entry == "train" else ["--smoke"])
 
 
+@pytest.mark.parametrize("entry", ["serve", "train"])
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
-def test_unported_lm_families_raise_not_implemented(arch):
-    """The LM family the port has not ported (MoE) is refused by
-    ``build`` before any work, naming the queue that holds it; the dense
-    family builds."""
+def test_moe_family_builds_and_launches_on_cpu(arch, entry):
+    """mixtral-8x22b and qwen3-moe-235b-a22b (``moe``, once refused with
+    ``NotImplementedError``) build, mixtral as ``sub_quadratic`` (its
+    window) and qwen3 not, as in the reference, and the serve and train
+    mains run their smoke configs on ``--device cpu``: the server decodes
+    through the gather path, the trainer's loss carries the router's aux
+    term."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
     from repro_torch.models.api import build
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        build(get_config(arch))
-    assert build(get_config("phi3-mini-3.8b")).cfg.family == "dense"
+    model = build(get_config(arch))
+    assert model.sub_quadratic == (arch == "mixtral-8x22b")
+    assert model.cfg.num_experts and model.cfg.name == arch
+    common = ["--arch", arch, "--smoke", "--device", "cpu"]
+    if entry == "serve":
+        out = serve.main(common + ["--slots", "2", "--requests", "3",
+                                   "--prompt-len", "4", "--max-new", "3"])
+        assert [len(o) for o in out["outputs"]] == [3, 3, 3]
+    else:
+        out = train.main(common + ["--steps", "2", "--batch", "2", "--seq",
+                                   "32"])
+        assert len(out["losses"]) == 2
+        assert all(math.isfinite(l) for l in out["losses"])
 
 
 @pytest.mark.parametrize("entry", ["serve", "train"])

@@ -19,7 +19,8 @@ from repro.models import build as jax_build
 from repro.optim.schedules import make_schedule as jax_schedule
 import repro_torch.configs as tcfgs
 from repro_torch.launch.steps import adapt_for_shape
-from repro_torch.models.api import UNPORTED_FAMILIES, build
+from repro_torch.models import api
+from repro_torch.models.api import build
 from repro_torch.optim.schedules import make_schedule
 
 ALL = list(jcfgs.REGISTRY)
@@ -99,20 +100,19 @@ def test_adapt_for_shape_equals_jax(shape):
 
 @pytest.mark.parametrize("arch", ALL)
 def test_build_ports_the_dense_family(arch):
-    """The ported families (dense, ssm, mamba-hybrid, vlm, audio) build
-    in both packages with the same ``sub_quadratic``; the unported family
-    (moe) raises ``NotImplementedError`` naming the queue; a family
-    neither knows (the ResNet config's ``cnn``) raises the reference's
-    ``ValueError``."""
-    assert UNPORTED_FAMILIES == ("moe",)
+    """Every LM family of the reference (dense, moe, ssm, mamba-hybrid,
+    vlm, audio) builds in both packages with the same ``sub_quadratic``
+    (the moe family, once refused, too: mixtral's window makes it
+    sub-quadratic, qwen3-moe is not); a family neither knows (the ResNet
+    config's ``cnn``) raises the reference's ``ValueError``."""
+    assert not hasattr(api, "UNPORTED_FAMILIES")
     cfg = tcfgs.get_smoke_config(arch)
-    if cfg.family in ("dense", "ssm", "mamba-hybrid", "vlm", "audio"):
+    if cfg.family in ("dense", "moe", "ssm", "mamba-hybrid", "vlm",
+                      "audio"):
         assert build(cfg).sub_quadratic == \
             jax_build(jcfgs.get_smoke_config(arch)).sub_quadratic
-    elif cfg.family in UNPORTED_FAMILIES:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            build(cfg)
-        jax_build(jcfgs.get_smoke_config(arch))
+        if cfg.family == "moe":
+            assert build(cfg).sub_quadratic == (cfg.window > 0)
     else:
         with pytest.raises(ValueError) as ours:
             build(cfg)

@@ -147,10 +147,19 @@ def test_prefill_step_matches_jax(use_pallas):
 
 
 def test_moe_blocks_are_refused():
-    _, tcfg = configs("mixtral-8x22b")
+    """Refused until ``models/moe.py`` was ported; now a MoE block is
+    built: its tree (``moe`` in place of ``mlp``) has the JAX block's
+    leaves, shapes and dtypes, the router float32 in a bf16 model."""
+    jcfg, tcfg = configs("mixtral-8x22b", dtype="bfloat16")
     from repro_torch.models import transformer
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        transformer.init(torch.Generator().manual_seed(0), tcfg)
+    params = transformer.init(torch.Generator().manual_seed(0), tcfg)
+    assert "mlp" not in params["blocks"] and "moe" in params["blocks"]
+    shapes = jax.eval_shape(jax_build(jcfg).init, jax.random.PRNGKey(0))
+    ref = jax.tree_util.tree_leaves(shapes)
+    got = tree_leaves(params)
+    assert [(str(t.dtype), tuple(t.shape)) for t in got] == \
+        [("torch." + a.dtype.name, a.shape) for a in ref]
+    assert params["blocks"]["moe"]["router"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "command-r-35b"],

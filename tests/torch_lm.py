@@ -45,10 +45,11 @@ def configs(arch, **over):
             reduced(get_config(arch), **over))
 
 
-#: the sub-quadratic families' bare matrices ([..., d_in, d_out], or the
-#: sLSTM's per-head ``r`` [..., H, P, 4P]), drawn as dense ``w`` are
+#: the sub-quadratic families' and the MoE FFN's bare matrices ([...,
+#: d_in, d_out], or the sLSTM's per-head ``r`` [..., H, P, 4P]), drawn as
+#: dense ``w`` are
 MATRICES = ("w_up", "wq", "wk", "wv", "w_if", "w_down", "w_in", "w_out",
-            "r")
+            "r", "router", "w_gate")
 #: their gate biases and per-head constants, and LayerNorm's ``bias``,
 #: drawn as biases are
 SMALL = ("b_if", "A_log", "dt_bias", "D", "conv_b", "bias")
@@ -138,35 +139,41 @@ def jax_forward(jcfg):
 
     @jax.jit
     def fwd(params, toks, mask, extras):
-        h, _ = m.apply(params, toks, extras, layer_mask=mask, remat="none")
-        return h, m.logits(params, h)
+        h, aux = m.apply(params, toks, extras, layer_mask=mask, remat="none")
+        return h, m.logits(params, h), aux
     return fwd
 
 
 def assert_forward_matches_jax(arch, mask, seed=1, S=32, tol=F32):
     """``apply`` and ``logits`` under the layer mask ``mask`` against the
     JAX model's at ``tol``, B 2 x S tokens (two chunks of the smoke
-    config's 16)."""
+    config's 16), and the aux loss too: zero but for the MoE family,
+    whose router's loss is held at ``tol``."""
     jcfg, tcfg = configs(arch)
     jp, tp = both_params(jcfg, seed=seed)
     toks = tokens(jcfg, 2, S)
     ex = extras_np(jcfg, 2)
-    jh, jl = jax_forward(jcfg)(jp, jnp.asarray(toks), jnp.asarray(mask),
-                               as_jax(ex))
+    jh, jl, jaux = jax_forward(jcfg)(jp, jnp.asarray(toks),
+                                     jnp.asarray(mask), as_jax(ex))
     m = build(tcfg)
     h, aux = m.apply(tp, torch.from_numpy(toks), as_torch(ex), remat="none",
                      layer_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(h.detach().numpy(), np.asarray(jh), **tol)
     np.testing.assert_allclose(m.logits(tp, h).detach().numpy(),
                                np.asarray(jl), **tol)
-    assert float(aux) == 0.0
+    if tcfg.num_experts:
+        assert float(aux) > 0.0
+        np.testing.assert_allclose(float(aux), float(jaux), **tol)
+    else:
+        assert float(aux) == 0.0
     return h
 
 
-def decode_runs(arch, S=12, seed=3):
+def decode_runs(arch, S=12, seed=3, **over):
     """Decode S tokens one at a time in both packages, B 2: the port's
-    logits, the JAX step's and the port's teacher-forced forward's."""
-    jcfg, tcfg = configs(arch)
+    logits, the JAX step's and the port's teacher-forced forward's
+    (``over`` changes the smoke config)."""
+    jcfg, tcfg = configs(arch, **over)
     jp, tp = both_params(jcfg, seed=seed)
     toks = tokens(jcfg, 2, S, seed=seed + 1)
     ex = extras_np(jcfg, 2)
@@ -208,7 +215,7 @@ def train_runs(arch, steps=2, B=2, S=32, seed=7):
     (full remat, the loss in chunks of 16) from the same params and
     batches, the JAX step (``jax.value_and_grad`` and ``adamw_update``)
     jitted once: (losses and grad norms by package, lrs, params by
-    package)."""
+    package, and the batches as numpy)."""
     jcfg, tcfg = configs(arch)
     kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10,
               loss_chunk=16)
@@ -220,7 +227,7 @@ def train_runs(arch, steps=2, B=2, S=32, seed=7):
               "opt": jax_adamw_init(jp)}
     state = {"params": tp, "opt": adamw_init(tp)}
     rng = np.random.default_rng(seed + 1)
-    out = {"jax": [], "port": [], "lr": []}
+    out = {"jax": [], "port": [], "lr": [], "batches": []}
     for i in range(steps):
         toks = rng.integers(0, tcfg.vocab_size, (B, S + 1)).astype(np.int32)
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
@@ -232,6 +239,7 @@ def train_runs(arch, steps=2, B=2, S=32, seed=7):
         out["jax"].append((float(jm["loss"]), float(jm["grad_norm"])))
         out["port"].append((float(m["loss"]), float(m["grad_norm"])))
         out["lr"].append(float(m["lr"]))
+        out["batches"].append(batch)
     out["params"] = (jax.tree.map(np.asarray, jstate["params"]),
                      state["params"])
     return out
