@@ -53,7 +53,7 @@ its own lines; any failure raises and exits non-zero:
 6. the paper's own fleet (``benchmarks/common.py``'s harness: 40
    devices, 10%, 5 local epochs, full-width ResNet-18 on 32x32), which
    ``"auto"`` runs on the per-client executor: DR-FL + MARL for 3 rounds
-   (``[paper fleet]``), ``FLConfig()`` as it stands but for 3 of its 30
+   (``[paper fleet]``), ``FLConfig()`` as it stands but for 2 of its 30
    rounds (``[defaults]``), then every other arm of Table 1 / Fig. 5 for
    1 round (``[table1]``); HeteroFL and ScaleFL on the bucketed executor at
    64 devices (``[baselines bucketed]``); the transformer on the
@@ -160,7 +160,22 @@ its own lines; any failure raises and exits non-zero:
    (served tokens, prefill logits, losses); then the attention kernel at
    those four bf16 shapes against its plain version, its backward twice
    (bitwise equal), timed beside SDPA, its route and its bound on the
-   bf16 tensor-core peak printed beside its times;
+   bf16 tensor-core peak printed beside its times; then DR-FL over pods
+   (``launch/steps.py``'s FL steps, the paper's Step 2 in the LM train
+   loop) and the production mesh (``launch/{mesh,specs,train}.py``):
+   ``[lm fl train]``, ``build_fl_train_step`` on phi3-mini at full width
+   and depth, B 4 x S 1024, four clients of one sequence on the four
+   exits, 2 steps (128 wgmma forwards, 64 backwards), walls and peak;
+   ``[lm fl bucketed]``, ``build_fl_bucketed_train_step`` on the same
+   clients bucket-major (320 and 160; the attention kernel is held to
+   its plain version and timed at both steps' shapes, B 4 and B 1 x S
+   1024, with the shapes above), its wall's share of the masked
+   step's, its first loss against the masked step's, and both steps in
+   float32 on the plain route at 4 layers, exits (1, 2, 3, 4), held to
+   each other at the reference's tolerances; ``[lm mesh]``, in a
+   one-rank NCCL group the production and debug meshes refused, then 2
+   meshed train steps and 2 meshed FL steps on a ``(1, 1)`` mesh,
+   phi3-mini at 4 layers, bitwise equal to the one-device steps;
 15. the sub-quadratic families (xlstm-1.3b, zamba2-1.2b) and the
    cross-attention families (whisper-medium: 24 encoder and 24 decoder
    layers over 1500 stub audio frames; llama-3.2-vision-11b: 8 groups of
@@ -3016,11 +3031,19 @@ LM_PREFILL = (("phi3-mini", "phi3-mini-3.8b", 4, 2048, 0),
               ("phi3-mini SWA 1024", "phi3-mini-3.8b", 2, 4096, 1024))
 #: ``[lm train]``: B, S, steps
 LM_TRAIN = (2, 1024, 2)
+#: ``[lm fl train]`` and ``[lm fl bucketed]``: B (one sequence a client,
+#: one client an exit), S, steps
+LM_FL = (4, 1024, 2)
+#: ``[lm mesh]``: layers (exits 1 to layers), the train steps' B, the FL
+#: steps' B (one client an exit), S, steps of each
+LM_MESH = (4, 2, 4, 1024, 2)
 #: the attention kernel at the LM paths' shapes: (label, B, S, Hq, Hkv,
 #: D, window); all bf16 and causal
 LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("minitron-8b prefill", 4, 2048, 32, 8, 128, 0),
                 ("phi3-mini train", 2, 1024, 32, 32, 96, 0),
+                ("phi3-mini fl train", 4, 1024, 32, 32, 96, 0),
+                ("phi3-mini fl bucketed", 1, 1024, 32, 32, 96, 0),
                 ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024),
                 ("zamba2 prefill", 4, 2048, 32, 32, 64, 0),
                 ("zamba2 train", 2, 1024, 32, 32, 64, 0),
@@ -3651,6 +3674,294 @@ def _moe_routing_check(tag, cfg):
     _free_card()
 
 
+def _fl_gates(cfg, B, device):
+    """One client a row, client i on submodel i % M: the FL step's gates
+    ``[L, B]``, per-layer counts ``[L]`` and client count."""
+    import torch
+    from repro_torch.core.layerwise import layer_mask, num_submodels
+    gates = torch.stack([layer_mask(cfg, i % num_submodels(cfg),
+                                    device=device) for i in range(B)], dim=1)
+    return {"layer_gates": gates, "layer_counts": gates.sum(dim=1),
+            "n_clients": float(B)}
+
+
+def _fl_batches(cfg, B, S, steps, seed=0):
+    """``steps`` of the trainer's batches (``lm_batches``) on the card,
+    each row one client's, with the FL gates (:func:`_fl_gates`)."""
+    import torch
+    from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
+    it = lm_batches(synthetic_lm_dataset(max(S * B * 4, 100_000),
+                                         cfg.vocab_size, seed=0), B, S,
+                    seed=seed)
+    out = []
+    for _ in range(steps):
+        b = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        b.update(_fl_gates(cfg, B, "cuda"))
+        out.append(b)
+    return out
+
+
+def _bucket_major(batch, nb):
+    """A masked FL batch whose row i is client i (submodel i % nb) as the
+    bucketed step takes it, ``[nb, B/nb, S]``: bucket b holds submodel b's
+    clients."""
+    import torch
+    return {k: torch.stack([batch[k][b::nb] for b in range(nb)])
+            for k in ("tokens", "labels")}
+
+
+def _fl_run(tag, build, cfg, tcfg, batches):
+    """``build(cfg, tcfg)``'s step over ``batches`` from a state made from
+    seed 0 on the card: the rows (loss, grad norm, seconds), the peak of
+    ``max_memory_allocated`` and the launches by route."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import make_train_state
+    model, step = build(cfg, tcfg)[:2]
+    state = make_train_state(model, torch.Generator("cuda").manual_seed(0),
+                             tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for b in batches:
+        (_, m), secs = _synced_wall(lambda: step(state, b))
+        rows.append((float(m["loss"]), float(m["grad_norm"]), secs))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: LAUNCHES[k] for k in LM_ROUTES}
+    print(f"[{tag}] {cfg.name} at full width and depth ({_shape_note(cfg)},"
+          f" exits {tuple(cfg.exit_points)}, {cfg.dtype}), "
+          f"{len(batches[0]['labels'].flatten(0, -2))} clients of one "
+          f"sequence of {batches[0]['labels'].shape[-1]}, remat full, "
+          "use_pallas: " + "; ".join(
+              f"step {i}: loss {l:.4f}, grad norm {g:.4f}, {s:.3f} s"
+              for i, (l, g, s) in enumerate(rows))
+          + f"; peak memory {peak / 2 ** 30:.2f} GiB; launches {launches}")
+    if not all(math.isfinite(l) and math.isfinite(g) for l, g, _ in rows):
+        raise AssertionError(f"[{tag}] a non-finite loss or grad norm")
+    del state
+    _free_card()
+    return rows, launches
+
+
+def _check_launches(tag, launches, n_fwd, n_bwd):
+    if launches["flash_attention_fwd_wgmma"] != n_fwd or \
+            launches["flash_attention_bwd_wgmma"] != n_bwd or \
+            sum(launches.values()) != n_fwd + n_bwd:
+        raise AssertionError(f"[{tag}] launches {launches}: expected "
+                             f"{n_fwd} wgmma forwards and {n_bwd} wgmma "
+                             "backwards, no other route")
+
+
+def _fl_float32_check():
+    """Masked against bucketed in float32 on the plain route at 4 of
+    phi3-mini's 32 layers, full width, exits cut to (1, 2, 3, 4), B 4 x S
+    256 (one client an exit), the reference's ``TrainConfig`` (its
+    ``test_fl_bucketed_step_bitwise_equals_masked``): losses within 1e-5
+    relative, every updated param at atol 1e-6, rtol 1e-5.  Returns the
+    line's numbers."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import (build_fl_bucketed_train_step,
+                                          build_fl_train_step,
+                                          make_train_state)
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=4,
+                              exit_points=(1, 2, 3, 4), dtype="float32")
+    tcfg = TrainConfig(loss_chunk=256, remat="none")
+    (batch,) = _fl_batches(cfg, 4, 256, 1, seed=3)
+    states, losses = [], []
+    for build, b in ((build_fl_train_step, batch),
+                     (build_fl_bucketed_train_step, _bucket_major(batch, 4))):
+        model, step = build(cfg, tcfg)[:2]
+        state = make_train_state(
+            model, torch.Generator("cuda").manual_seed(0), tcfg)
+        _, m = step(state, b)
+        states.append(state["params"])
+        losses.append(float(m["loss"]))
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    worst, ok = 0.0, rel <= 1e-5
+    for a, b in zip(*(tree_leaves(s) for s in states)):
+        worst = max(worst, float((a - b).detach().abs().max()))
+        ok = ok and torch.allclose(a, b, atol=1e-6, rtol=1e-5)
+    del states
+    _free_card()
+    return losses, rel, worst, ok
+
+
+def phase_lm_fl():
+    """``[lm fl train]`` and ``[lm fl bucketed]``: the FL-over-pods steps
+    (``launch/steps.py``, the paper's Step 2 in the LM train loop) on
+    phi3-mini at full width and depth, bf16, ``remat="full"``,
+    ``use_pallas``, 2 steps each on ``lm_batches`` at B 4 x S 1024: four
+    clients of one sequence, client i on exit i (8, 16, 24, 32 layers).
+    The masked step (``build_fl_train_step``, the gates ``[L, B]``)
+    computes every layer for every client: 2 x 32 wgmma forwards (the
+    forward and the remat recompute) and 32 backwards a step.  The
+    bucketed step (``build_fl_bucketed_train_step``, bucket-major ``[4,
+    1, 1024]``, from a state re-made from the same seed: a copy would not
+    fit beside the first) runs each bucket's prefix only: 2 x 80 and 80 a
+    step.  Checks: exactly those launches, no other route; the two steps'
+    first losses within 2e-2 relative; and :func:`_fl_float32_check`.
+    Returns the launches of both runs."""
+    import importlib
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.steps import (build_fl_bucketed_train_step,
+                                          build_fl_train_step)
+    B, S, steps = LM_FL
+    cfg = get_config(LM_ARCH)
+    exits = tuple(cfg.exit_points)
+    if len(exits) != B:
+        raise AssertionError(f"[lm fl train] {B} clients for {exits}")
+    fwd_route, route, _ = attention_routes(
+        importlib.import_module(
+            "repro_torch.kernels.flash_attention.flash_attention"),
+        S, S, cfg.hd, cfg.num_heads // cfg.num_kv_heads, "bfloat16")
+    if (fwd_route, route) != ("wgmma", "wgmma"):
+        raise AssertionError(f"[lm fl train] the routes at S {S}, D "
+                             f"{cfg.hd}: forward {fwd_route}, backward "
+                             f"{route}")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=10,
+                       total_steps=steps, remat="full", loss_chunk=min(512, S),
+                       use_pallas=True)
+    batches = _fl_batches(cfg, B, S, steps)
+    masked, m_launch = _fl_run("lm fl train", build_fl_train_step, cfg, tcfg,
+                               batches)
+    L = cfg.num_layers
+    _check_launches("lm fl train", m_launch, 2 * L * steps, L * steps)
+    bucketed, b_launch = _fl_run(
+        "lm fl bucketed", build_fl_bucketed_train_step, cfg, tcfg,
+        [_bucket_major(b, len(exits)) for b in batches])
+    n = sum(exits) * steps
+    _check_launches("lm fl bucketed", b_launch, 2 * n, n)
+    first = abs(bucketed[0][0] - masked[0][0]) / abs(masked[0][0])
+    losses, rel, worst, ok = _fl_float32_check()
+    print(f"[lm fl bucketed] the bucketed step's wall over the masked "
+          f"step's: " + ", ".join(f"step {i} {b[2] / m[2]:.3f}" for i, (m, b)
+                                  in enumerate(zip(masked, bucketed)))
+          + f" (the layers it computes: {sum(exits)}/{L * len(exits)} = "
+          f"{sum(exits) / (L * len(exits)):.3f}); first-step losses "
+          f"{masked[0][0]:.6f} masked, {bucketed[0][0]:.6f} bucketed, "
+          f"relative {first:.2e} (limit 2e-2); the routes at S {S}, D "
+          f"{cfg.hd}: forward {fwd_route}, backward {route}")
+    print(f"[lm fl bucketed] float32, plain route, 4 of {L} layers, exits "
+          f"(1, 2, 3, 4), B 4 x S 256: losses {losses[0]:.7f} masked, "
+          f"{losses[1]:.7f} bucketed, relative {rel:.2e} (limit 1e-5); "
+          f"updated params max diff {worst:.3e} (atol 1e-6, rtol 1e-5: "
+          f"{ok})")
+    if first > 2e-2 or not ok:
+        raise AssertionError("[lm fl bucketed] the bucketed and masked "
+                             "steps disagree")
+    return m_launch, b_launch
+
+
+def phase_lm_mesh():
+    """``[lm mesh]``: one card is one rank.  In a one-rank NCCL group the
+    production and debug meshes raise ``ValueError`` (256 and 4 ranks),
+    so a ``(1, 1)`` ``("data", "model")`` mesh is built directly;
+    phi3-mini at full width, 4 of its 32 layers (exits 1-4), bf16,
+    ``use_pallas``, its state laid out by ``state_shardings``
+    (``launch/train.py::place_state``): 2 meshed train steps (B 2 x S
+    1024) and 2 meshed FL steps (B 4 x S 1024, client i on exit i), each
+    against the one-device step from the same init: losses, grad norms
+    and every param and moment bitwise equal.  Returns the launches of
+    the train steps and of the FL steps (both runs of each), by
+    ``"train"`` and ``"fl"``."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    from repro_torch.launch.steps import (build_fl_train_step,
+                                          build_train_step, make_train_state)
+    from repro_torch.launch.train import (gather_state, meshed_step,
+                                          place_state)
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    layers, B, B_fl, S, steps = LM_MESH
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=layers,
+                              exit_points=tuple(range(1, layers + 1)))
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=10,
+                       total_steps=2 * steps, remat="full", loss_chunk=512,
+                       use_pallas=True)
+    model, train_step = build_train_step(cfg, tcfg)
+    _, fl_step = build_fl_train_step(cfg, tcfg)
+    it = lm_batches(synthetic_lm_dataset(max(S * B * 4, 100_000),
+                                         cfg.vocab_size, seed=0), B, S, seed=0)
+    runs = [(train_step, {k: torch.from_numpy(v).cuda()
+                          for k, v in next(it).items()})
+            for _ in range(steps)]
+    runs += [(fl_step, b) for b in _fl_batches(cfg, B_fl, S, steps, seed=1)]
+    torch.cuda.set_device(0)
+    refused = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            for build in (make_production_mesh, make_debug_mesh):
+                try:
+                    build()
+                except ValueError as e:
+                    refused.append(str(e))
+                else:
+                    raise AssertionError(f"[lm mesh] {build.__name__} "
+                                         "built on one rank")
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            one = make_train_state(
+                model, torch.Generator("cuda").manual_seed(0), tcfg)
+            meshed = place_state(make_train_state(
+                model, torch.Generator("cuda").manual_seed(0), tcfg), mesh)
+            reset_launches()
+            rows, parts = [], []
+            for i, (step, b) in enumerate(runs):
+                (one, m1), s1 = _synced_wall(lambda: step(one, b))
+                (meshed, m2), s2 = _synced_wall(
+                    lambda: meshed_step(step, mesh)(meshed, b))
+                rows.append(((float(m1["loss"]), float(m1["grad_norm"])),
+                             (float(m2["loss"]), float(m2["grad_norm"])),
+                             s1, s2))
+                if i + 1 in (steps, 2 * steps):   # the train, the FL steps
+                    parts.append({k: LAUNCHES[k] for k in LM_ROUTES})
+                    reset_launches()
+            launches = _summed(*parts)
+            whole = gather_state(meshed)
+        finally:
+            dist.destroy_process_group()
+    same = all(a == b for a, b, _, _ in rows) and all(
+        (x == y) if isinstance(x, int) else torch.equal(x, y)
+        for x, y in zip(tree_leaves(whole), tree_leaves(one)))
+    placed = {str(t.placements) for t in tree_leaves(meshed["params"])}
+    # each step twice (one device, meshed): the forward and the remat
+    # recompute, and the backward, at each layer
+    n_fwd, n_bwd = 2 * 2 * layers * steps, 2 * layers * steps
+    print(f"[lm mesh] one-rank NCCL group: " + "; ".join(refused)
+          + f"; a (1, 1) ('data', 'model') mesh built directly; "
+          f"{cfg.name} at full width, {layers} of 32 layers, {cfg.dtype}, "
+          f"use_pallas, the state placed by state_shardings ({placed}): "
+          + "; ".join(f"{'train' if i < steps else 'fl'} step {i % steps}: "
+                      f"loss {a[0]:.4f} one device, {b[0]:.4f} meshed, "
+                      f"{s1:.3f} s / {s2:.3f} s" for i, (a, b, s1, s2)
+                      in enumerate(rows))
+          + f"; losses, grad norms, params and moments bitwise equal: "
+          f"{same}; launches {launches}; {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("[lm mesh] the meshed steps differ from the "
+                             "one-device steps")
+    for what, part in zip(("train", "fl"), parts):
+        _check_launches(f"lm mesh {what}", part, n_fwd, n_bwd)
+    print("[lm mesh] several ranks over NCCL (torchrun --nproc-per-node "
+          "k) are not run on this one-card machine; tests/test_torch_mesh."
+          "py runs the meshed steps on 4 gloo ranks on the CPU")
+    del one, meshed, whole
+    _free_card()
+    return dict(zip(("train", "fl"), parts))
+
+
 def _lm_reference(tag, cfg, n_fwd, n_bwd):
     """``cfg`` (2 layers, float32) on the card against the CPU on the same
     params (the CPU server's, from seed 0, copied to the card; a VLM's
@@ -3831,12 +4142,20 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
     and backward, and by route.  ``prefill_launches`` and
     ``train_launches`` by label (a family's under its name:
     ``"zamba2"``, ``"whisper"``, ``"vlm"``, ``"mixtral"``,
-    ``"qwen3-moe"``)."""
+    ``"qwen3-moe"``; the FL steps' under ``"fl"`` and ``"fl bucketed"``,
+    the mesh's train and FL steps under ``"mesh"`` and ``"mesh fl"``)."""
     runs = {"lm phi3-mini prefill": prefill_launches["phi3-mini"],
             # the VLM's prefill shape is minitron-8b's: its launches too
             "lm minitron-8b prefill": _summed(prefill_launches["minitron-8b"],
                                               prefill_launches["vlm"]),
-            "lm phi3-mini train": train_launches["phi3-mini"],
+            # phi3-mini's S 1024 steps by batch: B 2 ([lm train], [lm
+            # mesh]'s train steps), B 4 ([lm fl train], [lm mesh]'s FL
+            # steps) and B 1 ([lm fl bucketed]'s buckets)
+            "lm phi3-mini train": _summed(train_launches["phi3-mini"],
+                                          train_launches["mesh"]),
+            "lm phi3-mini fl train": _summed(train_launches["fl"],
+                                             train_launches["mesh fl"]),
+            "lm phi3-mini fl bucketed": train_launches["fl bucketed"],
             "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"],
             "lm zamba2 prefill": prefill_launches["zamba2"],
             "lm zamba2 train": train_launches["zamba2"],
@@ -3997,6 +4316,14 @@ def main() -> int:
     phase_lm_reference()
     print(f"[lm substrate] the four phases took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (train_launches["fl"], train_launches["fl bucketed"]), secs = \
+        _synced_wall(phase_lm_fl)
+    mesh_launches, s_mesh = _synced_wall(phase_lm_mesh)
+    train_launches["mesh"] = mesh_launches["train"]
+    train_launches["mesh fl"] = mesh_launches["fl"]
+    print(f"[lm fl] the FL steps took {secs:.1f} s, the mesh {s_mesh:.1f} "
+          f"s: {time.perf_counter() - t0:.1f} s")
     for family, arch in LM_SUBQ.items():
         t0 = time.perf_counter()
         phase_lm_serve(arch, f"lm {family} serve")

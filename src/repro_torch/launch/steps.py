@@ -9,22 +9,32 @@ cross-entropy (never
 materialises the full ``[B, S, V]`` logits tensor), per-layer remat
 happens inside the model's ``apply``, and AdamW updates the state IN
 PLACE (:func:`repro_torch.optim.optimizers.adamw_update_`), the port's
-form of the reference's donated state.  The FL-over-pods steps
-(``build_fl_train_step``, ``build_fl_bucketed_train_step``,
-``fl_batch_extras``) feed only the dry-run and wait for that slice.
+form of the reference's donated state.  Each train step is a
+:class:`TrainStep`: its gradient function, then that update, so a
+sharded caller (``launch/train.py::meshed_step``) runs the same two
+halves around its collectives.
+
+The FL-over-pods steps (:func:`build_fl_train_step`,
+:func:`build_fl_bucketed_train_step`, :func:`fl_batch_extras`) are the
+paper's Step 2 inside the LM train loop: each client trains a
+depth-prefix submodel (:mod:`repro_torch.core.layerwise`), and the
+layer-aligned masked mean falls out of the batch-mean gradient, rescaled
+per layer.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.core.layerwise import exit_points
+from repro_torch.models import transformer as T
 from repro_torch.models.api import build
 from repro_torch.optim.optimizers import adamw_init, adamw_update_
 from repro_torch.optim.schedules import make_schedule
-from repro_torch.tree import tree_leaves, tree_unflatten_like
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
 def chunked_cross_entropy(hidden, w_unembed, labels, chunk: int):
@@ -68,12 +78,52 @@ def make_train_state(model, gen: torch.Generator, tcfg: TrainConfig):
     return {"params": params, "opt": adamw_init(params)}
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainStep:
+    """A train step: ``grads(params, batch) -> (loss, grads)``, then the
+    in-place AdamW at ``schedule``'s rate.  ``step(state, batch)`` ->
+    (state, metrics), ``state`` updated in place and returned."""
+    grads: Callable
+    schedule: Callable
+    tcfg: TrainConfig
+
+    def update_(self, grads, opt, params, grad_norm=None):
+        """AdamW on ``params`` and ``opt`` in place; (lr, metrics)."""
+        t = self.tcfg
+        lr = self.schedule(opt["step"])
+        m = adamw_update_(grads, opt, params, lr=lr, beta1=t.beta1,
+                          beta2=t.beta2, eps=t.eps,
+                          weight_decay=t.weight_decay,
+                          grad_clip=t.grad_clip, grad_norm=grad_norm)
+        return lr, m
+
+    def __call__(self, state, batch):
+        loss, grads = self.grads(state["params"], batch)
+        lr, m = self.update_(grads, state["opt"], state["params"])
+        return state, {"loss": loss.detach(), "lr": lr, **m}
+
+
+def _value_and_grad(loss_fn):
+    """``loss_fn``'s (loss, grads by leaf) at ``params``, which become
+    leaves that require grad."""
+    def grads(params, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, batch)
+        return loss, tree_unflatten_like(params,
+                                         torch.autograd.grad(loss, leaves))
+    return grads
+
+
+def _schedule(tcfg: TrainConfig):
+    return make_schedule(tcfg.schedule, tcfg.learning_rate,
+                         tcfg.warmup_steps, tcfg.total_steps)
+
+
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """(model, train_step): ``train_step(state, batch)`` -> (state,
-    metrics), ``state`` updated in place and returned."""
+    """(model, train_step), a :class:`TrainStep`."""
     model = build(cfg)
-    schedule = make_schedule(tcfg.schedule, tcfg.learning_rate,
-                             tcfg.warmup_steps, tcfg.total_steps)
 
     def loss_fn(params, batch):
         extras = {k: batch[k] for k in batch
@@ -87,21 +137,122 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             loss = loss + cfg.moe_aux_coef * aux / max(cfg.num_layers, 1)
         return loss
 
-    def train_step(state, batch):
-        params = state["params"]
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = loss_fn(params, batch)
-        grads = tree_unflatten_like(params, torch.autograd.grad(loss, leaves))
-        lr = schedule(state["opt"]["step"])
-        m = adamw_update_(grads, state["opt"], params, lr=lr,
-                          beta1=tcfg.beta1, beta2=tcfg.beta2, eps=tcfg.eps,
-                          weight_decay=tcfg.weight_decay,
-                          grad_clip=tcfg.grad_clip)
-        return state, {"loss": loss.detach(), "lr": lr, **m}
+    return model, TrainStep(_value_and_grad(loss_fn), _schedule(tcfg), tcfg)
 
-    return model, train_step
+
+# ---------------------------------------------------------------------------
+# FL-over-pods train step (the paper's Step 2 as one step)
+# ---------------------------------------------------------------------------
+
+
+def _rescale(grads, scale: torch.Tensor, L: int):
+    """Each leaf whose leading dim is ``L`` times ``scale`` [L], in
+    float32, cast back to the grad's dtype."""
+    def leaf(g):
+        if g.dim() >= 1 and g.shape[0] == L:
+            return (g.float() * scale.reshape((-1,) + (1,) * (g.dim() - 1))
+                    ).to(g.dtype)
+        return g
+    return tree_map(leaf, grads)
+
+
+def build_fl_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """DR-FL in the multi-pod mapping: every pod (client) trains a
+    depth-prefix submodel of the replicated global model.
+
+    The batch carries ``layer_gates [L, B]`` — per-example submodel masks
+    (constant within a client's rows, so under a mesh they shard with the
+    tokens' batch axes) — ``layer_counts [L]``, how many clients train
+    each layer, and ``n_clients``.  Masked-out layers are exact
+    identities, so their parameter gradients vanish for the clients that
+    skip them: the batch-mean gradient is the DR-FL masked SUM over the
+    contributing clients divided by the client count, and rescaling the
+    stacked-layer grads by ``n_clients / count_l`` makes it the paper's
+    layer-aligned masked MEAN (Eq. 2 generalised).  Only the dense and
+    MoE decoder families take per-example gates.  (model, a
+    :class:`TrainStep`)."""
+    model = build(cfg)
+
+    def loss_fn(params, batch):
+        hidden, aux = model.apply(params, batch["tokens"], {},
+                                  layer_mask=batch["layer_gates"],
+                                  remat=tcfg.remat, use_pallas=tcfg.use_pallas,
+                                  attn_chunk=tcfg.attn_chunk)
+        loss = chunked_cross_entropy(hidden, _unembed(model, params),
+                                     batch["labels"], tcfg.loss_chunk)
+        if cfg.num_experts:
+            loss = loss + cfg.moe_aux_coef * aux / max(cfg.num_layers, 1)
+        return loss
+
+    value_and_grad = _value_and_grad(loss_fn)
+
+    def grads(params, batch):
+        loss, g = value_and_grad(params, batch)
+        counts = batch["layer_counts"].float()
+        n = torch.as_tensor(batch["n_clients"], dtype=torch.float32,
+                            device=counts.device)
+        return loss, _rescale(g, n / torch.clamp_min(counts, 1.0),
+                              cfg.num_layers)
+
+    return model, TrainStep(grads, _schedule(tcfg), tcfg)
+
+
+def build_fl_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """The FL-over-pods step without the masked layers' work.
+
+    The masked step (:func:`build_fl_train_step`) computes every layer for
+    every client and multiplies the masked ones by 0.  DR-FL submodels are
+    depth prefixes from a fixed exit table, so clients are bucketed by
+    submodel: the batch arrives bucket-major, ``[n_exits, B/n_exits, S]``,
+    and bucket ``b`` runs only its first ``exit_points[b]`` layers (views
+    of the stacked params, so their gradients land in the stacked leaves
+    and the unsliced layers' are exact zeros).  The per-layer rescale to
+    the masked mean uses the static exit table.  As in the reference, the
+    buckets call the transformer directly, with no extras and no aux
+    loss.  (model, a :class:`TrainStep`, the number of buckets)."""
+    model = build(cfg)
+    exits = list(exit_points(cfg))
+    nb = len(exits)
+    L = cfg.num_layers
+    # static per-layer coverage counts
+    counts = [sum(1 for k in exits if l < k) for l in range(L)]
+
+    def _slice_blocks(params, k):
+        sliced = dict(params)
+        sliced["blocks"] = tree_map(lambda a: a[:k], params["blocks"])
+        return sliced, dataclasses.replace(cfg, num_layers=k)
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]                # [nb, B/nb, S]
+        labels = batch["labels"]
+        total = 0.0
+        for b, k in enumerate(exits):
+            sub, cfg_b = _slice_blocks(params, k)
+            hidden, _ = T.apply(sub, cfg_b, tokens[b], remat=tcfg.remat,
+                                use_pallas=tcfg.use_pallas,
+                                attn_chunk=tcfg.attn_chunk)
+            total = total + chunked_cross_entropy(
+                hidden, _unembed(model, params), labels[b], tcfg.loss_chunk)
+        return total / nb
+
+    value_and_grad = _value_and_grad(loss_fn)
+
+    def grads(params, batch):
+        loss, g = value_and_grad(params, batch)
+        scale = torch.tensor([nb / max(c, 1) for c in counts],
+                             dtype=torch.float32, device=loss.device)
+        return loss, _rescale(g, scale, L)
+
+    return model, TrainStep(grads, _schedule(tcfg), tcfg), nb
+
+
+def fl_batch_extras(cfg: ModelConfig, shape: ShapeConfig, n_clients: int = 4):
+    """name -> (shape, dtype) of the FL step's extra inputs, as
+    :func:`repro_torch.models.api.extra_inputs` gives a family's."""
+    B = shape.global_batch
+    return {"layer_gates": ((cfg.num_layers, B), torch.float32),
+            "layer_counts": ((cfg.num_layers,), torch.float32),
+            "n_clients": ((), torch.float32)}
 
 
 # ---------------------------------------------------------------------------

@@ -155,7 +155,8 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None,
     """The decode cache on the params' device: ``self`` (``k``, ``v`` [L,
     B, clen, Hkv, hd], ``pos`` [L] int32) and ``cross`` (``k``, ``v`` [L,
     B, T_a, Hkv, hd], the encoder output projected once; zero frames when
-    none are given)."""
+    none are given; ``pos`` [L] zeros), and ``pos``, the reference's int32
+    count of decoded steps."""
     w = cfg.window if window is None else window
     clen = min(seq_len, w) if w else seq_len
     dtype, dev = T._dt(cfg), params["embed"]["emb"].device
@@ -173,7 +174,9 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None,
         "self": {"k": torch.zeros(shape, dtype=dtype, device=dev),
                  "v": torch.zeros(shape, dtype=dtype, device=dev),
                  "pos": torch.zeros((Ld,), dtype=torch.int32, device=dev)},
-        "cross": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        "cross": {"k": torch.stack(ks), "v": torch.stack(vs),
+                  "pos": torch.zeros((Ld,), dtype=torch.int32, device=dev)},
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
@@ -192,5 +195,6 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
         x = _dec_block(bp, cfg, x, None, positions, mask[i].to(x.dtype),
                        self_cache={k: sc[k][i] for k in ("k", "v", "pos")},
                        cross_cache={k: cc[k][i] for k in ("k", "v")})
+    cache["pos"] += 1
     x = L.layernorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

@@ -103,7 +103,8 @@ def logits_fn(params, cfg, hidden):
 def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
     """The decode state on the params' device: ``mamba`` (``ssm``,
     ``conv``; ``[L, B, ...]`` float32) and ``attn`` (``k``, ``v`` [sites,
-    B, clen, Hkv, hd] in ``cfg.dtype``, ``pos`` [sites] int32)."""
+    B, clen, Hkv, hd] in ``cfg.dtype``, ``pos`` [sites] int32) and
+    ``pos``, the reference's int32 count of decoded steps."""
     w = cfg.window if window is None else window
     clen = min(seq_len, w) if w else seq_len
     dev = params["embed"]["emb"].device
@@ -115,6 +116,7 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
                  "v": torch.zeros(shape, dtype=T._dt(cfg), device=dev),
                  "pos": torch.zeros((n_sites,), dtype=torch.int32,
                                     device=dev)},
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
@@ -145,5 +147,6 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
             x, _, _ = T.block_apply(params["shared_attn"], cfg, x, positions,
                                     one, window=window, cache=c)
             site += 1
+    cache["pos"] += 1
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

@@ -15,9 +15,10 @@ The LM half (:func:`rmsnorm_apply` to :func:`swiglu_apply`) follows
 reference's is (it reaches no Pallas kernel); the reference's dtype
 barrier there (``:57-86``) only steers XLA's SPMD partitioner and is an
 identity here, as is ``attn_seq_shard`` (``:309-310``) on one card.
-Attention is the grouped einsum of ``gqa_attend``; the ``repeat_kv``
-branch (``:199-213``) follows a sharding policy that is off on one card
-and waits for the sharding slice.  Prefill and training take the
+Attention is the grouped einsum of ``gqa_attend``, or, under the
+sharding policy's ``repeat_kv`` (``repro_torch.sharding.rules``, off by
+default), the reference's branch (``:199-215``) with the KV heads
+repeated.  Prefill and training take the
 hand-written ``flash_attention`` kernel under ``use_pallas``, as the
 reference takes its Pallas kernel; decode attention stays plain torch,
 as the reference computes it outside any kernel.
@@ -29,6 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.rules import get_sharding_policy
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, lead=()):
@@ -47,6 +50,8 @@ def normal_by_matrix(gen: torch.Generator, shape, scale: float, dtype,
     whole."""
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
                       device=gen.device)
+    if out.is_meta:                # shapes only (launch/specs.py)
+        return out
     for m in out.view((-1,) + tuple(shape[-2:])):
         m.copy_(torch.randn(m.shape, generator=gen,
                             device=gen.device).mul_(scale))
@@ -269,17 +274,28 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool, window: int = 0, q_offset=0,
                kv_len=None) -> torch.Tensor:
     """Grouped-query attention, the reference's grouped einsum
-    (``layers.py:157-226``, KV heads never repeated): q [B, Sq, Hq, D],
-    k and v [B, Sk, Hkv, D] -> [B, Sq, Hq, D].  The scores are float32
-    products of q and k upcast first (the reference's bf16 operands with
+    (``layers.py:157-226``): q [B, Sq, Hq, D], k and v [B, Sk, Hkv, D] ->
+    [B, Sq, Hq, D].  The scores are float32 products of q and k upcast
+    first (the reference's bf16 operands with
     ``preferred_element_type=float32``); p is rounded to v's dtype before
     the second product, which also accumulates in float32 (TF32 stays
-    off, ``repro_torch/__init__.py``)."""
+    off, ``repro_torch/__init__.py``).  Under the ``repeat_kv`` policy
+    the KV heads are repeated (each ``G`` times in a row) and the query
+    heads are a pure batch dim of both products, as in the reference."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     valid = _visible(Sq, Sk, causal, window, q_offset, kv_len, q.device)
+    if get_sharding_policy()["repeat_kv"] and G > 1:
+        kr = k.repeat_interleave(G, dim=2)
+        vr = v.repeat_interleave(G, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+        s = torch.where(valid[:, None], s, s.new_tensor(MASKED))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                         vr.float())
+        return o.to(q.dtype)
     qg = q.reshape(B, Sq, Hkv, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     s = torch.where(valid[:, None, None], s, s.new_tensor(MASKED))

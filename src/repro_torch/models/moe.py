@@ -17,7 +17,10 @@ Two execution paths, as in the reference:
   dispatch as one sequence.
 
 The router runs in float32 and returns a Switch-style load-balance aux
-loss beside the output.  Within :func:`routes` it records each call's
+loss beside the output.  Its token means are the whole batch's: under
+an activation mesh (``sharding/rules.py::set_activation_mesh``), where
+each batch rank holds an equal shard, they are averaged over the batch
+axes, as the reference's SPMD mean is global (:func:`_batch_mean`).  Within :func:`routes` it records each call's
 top-k indices, or takes given ones in their place, so that two forwards
 that round differently can be held against each other on one routing.
 The expert products are plain ``einsum`` (cuBLAS batched products), as
@@ -31,9 +34,11 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.rules import activation_mesh, batch_axes, mesh_size
 
 
 def moe_init(gen: torch.Generator, cfg, dtype, *, lead=()):
@@ -72,6 +77,26 @@ def routes(replay=None):
         _ROUTES = None
 
 
+def _batch_mean(t):
+    """``t``, a mean over this rank's tokens, as the mean over the batch
+    axes of the activation mesh (the ranks hold equal shards); ``t``
+    itself without a mesh.  Its gradient stays this rank's own: the
+    meshed step (``launch/train.py::meshed_step``) averages the ranks'
+    gradients, which makes it the whole batch's."""
+    mesh = activation_mesh()
+    if mesh is None:
+        return t
+    axes = batch_axes(mesh)
+    n = mesh_size(mesh, axes)
+    if n == 1:
+        return t
+    whole = t.detach().clone()
+    for a in axes:
+        dist.all_reduce(whole, group=mesh.get_group(a))
+    whole = whole / n
+    return t + (whole - t).detach() if t.requires_grad else whole
+
+
 def _route(p, cfg, x):
     """x: [..., d] -> (weights [..., K], idx [..., K], aux_loss).
 
@@ -89,9 +114,9 @@ def _route(p, cfg, x):
         seen.append(topi)
     topw = topw / (topw.sum(-1, keepdim=True) + 1e-9)
     # Switch load-balance aux loss
-    me = gates.reshape(-1, E).mean(0)
+    me = _batch_mean(gates.reshape(-1, E).mean(0))
     onehot = F.one_hot(topi, E).float()
-    ce = onehot.sum(-2).reshape(-1, E).mean(0) / K
+    ce = _batch_mean(onehot.sum(-2).reshape(-1, E).mean(0) / K)
     aux = E * torch.sum(me * ce)
     return topw, topi, aux
 

@@ -139,7 +139,8 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None,
     """Self-attention KV caches and each group's static cross K/V, on the
     params' device: ``self`` (``k``, ``v`` [G, n_self, B, clen, Hkv, hd],
     ``pos`` [G, n_self] int32) and ``cross`` (``k``, ``v`` [G, B, T_img,
-    Hkv, hd]; zero image tokens when none are given)."""
+    Hkv, hd]; zero image tokens when none are given; ``pos`` [G] zeros),
+    and ``pos``, the reference's int32 count of decoded steps."""
     w = cfg.window if window is None else window
     clen = min(seq_len, w) if w else seq_len
     dtype, dev = T._dt(cfg), params["embed"]["emb"].device
@@ -163,7 +164,9 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None,
                  "v": torch.zeros(shape, dtype=dtype, device=dev),
                  "pos": torch.zeros((n_groups, n_self), dtype=torch.int32,
                                     device=dev)},
-        "cross": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        "cross": {"k": torch.stack(ks), "v": torch.stack(vs),
+                  "pos": torch.zeros((n_groups,), dtype=torch.int32, device=dev)},
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
@@ -188,5 +191,6 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
                 cache={k: sc[k][g, j] for k in ("k", "v", "pos")})
         x = cross_block_apply(cp, cfg, x, x, mask[g, n_self].to(x.dtype),
                               cache={k: cc[k][g] for k in ("k", "v")})
+    cache["pos"] += 1
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

@@ -331,11 +331,13 @@ def logits_fn(params, cfg, hidden):
 
 def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
     """The recurrent state on the params' device: ``mlstm`` (C, n, m) and
-    ``slstm`` (h, c, n, m), each stacked ``[L/2, B, ...]``, float32."""
+    ``slstm`` (h, c, n, m), each stacked ``[L/2, B, ...]``, float32, and
+    ``pos``, the reference's int32 count of decoded steps."""
     dev = params["embed"]["emb"].device
     lead = (cfg.num_layers // 2,)
     return {"mlstm": mlstm_state_init(cfg, batch, dev, lead=lead),
-            "slstm": slstm_state_init(cfg, batch, dev, lead=lead)}
+            "slstm": slstm_state_init(cfg, batch, dev, lead=lead),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def _write(stack, i, new):
@@ -359,5 +361,6 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
         ds, ss = slstm_decode(sp, cfg, x, [t[i] for t in cache["slstm"]])
         _write(cache["slstm"], i, ss)
         x = x + mask[i, 1].to(x.dtype) * ds
+    cache["pos"] += 1
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

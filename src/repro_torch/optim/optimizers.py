@@ -70,15 +70,19 @@ INPLACE_CHUNK = 1 << 28
 
 @torch.no_grad()
 def adamw_update_(grads, state, params, *, lr, beta1=0.9, beta2=0.95,
-                  eps=1e-8, weight_decay=0.0, grad_clip: float = 0.0):
+                  eps=1e-8, weight_decay=0.0, grad_clip: float = 0.0,
+                  grad_norm=None):
     """:func:`adamw_update` in place: ``params`` and ``state``'s ``mu``
     and ``nu`` are overwritten and ``state["step"]`` advances; returns
     ``{"grad_norm": tensor}``.  Every element goes through the same
     operations in the same order as in :func:`adamw_update`, so the
     results are equal bit for bit; only the slicing into chunks of
     ``INPLACE_CHUNK`` elements is new, and elementwise arithmetic does not
-    depend on it."""
-    gnorm = global_norm(grads)
+    depend on it.  ``grad_norm``, where given, is the norm the clip
+    reads in place of ``grads``' own: a rank that updates its shards of a
+    sharded state (``launch/train.py::meshed_step``) clips by the whole
+    gradient's norm."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     if grad_clip:
         scale = torch.clamp_max(grad_clip / (gnorm + 1e-9), 1.0)
     else:

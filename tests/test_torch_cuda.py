@@ -1030,13 +1030,15 @@ def test_fleet_mesh_on_one_card_is_a_noop(cuda, group, tmp_path):
 
 # the LM substrate's shapes, bf16, causal, model layout [B, S, H, D]: (B,
 # S, Hq, Hkv, D, window): phi3-mini's prefill (D 96, two TMA boxes of 64
-# columns), minitron-8b's (GQA 4, D 128), phi3-mini's train step and a
-# 1024-key window at S 4096; mixtral-8x22b's prefill and train step (GQA
+# columns), minitron-8b's (GQA 4, D 128), phi3-mini's train step, its FL
+# steps' (B 4 masked, B 1 a bucket) and a 1024-key window at S 4096; mixtral-8x22b's prefill and train step (GQA
 # 6, a 4096-key window past S) and qwen3-moe's (GQA 16); all on the wgmma
 # route
 LM_ATTN = {"phi3-mini prefill": (4, 2048, 32, 32, 96, 0),
            "minitron-8b prefill": (4, 2048, 32, 8, 128, 0),
            "phi3-mini train": (2, 1024, 32, 32, 96, 0),
+           "phi3-mini fl train": (4, 1024, 32, 32, 96, 0),
+           "phi3-mini fl bucketed": (1, 1024, 32, 32, 96, 0),
            "phi3-mini SWA 1024": (2, 4096, 32, 32, 96, 1024),
            "mixtral prefill": (4, 2048, 48, 8, 128, 4096),
            "qwen3-moe prefill": (4, 2048, 64, 4, 128, 0),
@@ -1383,3 +1385,55 @@ def test_moe_smoke_forward_on_the_card_matches_the_cpu(cuda, arch):
     assert all(torch.equal(a, b) for a, b in zip(routes[1], routes[0]))
     assert all(torch.equal(a, b) for a, b in zip(out[2], out[1]))
     assert all(torch.equal(a, b) for a, b in zip(routes[2], routes[1]))
+
+
+@pytest.mark.cuda
+def test_fl_steps_launch_only_the_wgmma_route(cuda):
+    """The FL-over-pods steps at phi3-mini's full width, 2 layers (exits
+    (1, 2)), bf16, ``remat="full"``, ``use_pallas``, 4 clients of one row
+    of S 1024 each, from the same init: the masked step launches two
+    wgmma forwards (the forward and the remat recompute) and one wgmma
+    backward a layer; the bucketed step (bucket-major ``[2, 2, 1024]``)
+    the same for each bucket's layers, 1 + 2; no other route.  Their
+    losses agree at the bf16 tolerance, and are finite."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.layerwise import layer_mask
+    from repro_torch.launch.steps import (build_fl_bucketed_train_step,
+                                          build_fl_train_step,
+                                          make_train_state)
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), num_layers=2,
+                              exit_points=(1, 2))
+    tcfg = TrainConfig(remat="full", use_pallas=True, loss_chunk=512)
+    B, S = 4, 1024
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    # clients 0, 1 on submodel 0 and 2, 3 on submodel 1 (bucket-major)
+    gates = torch.stack([layer_mask(cfg, i // 2, device=cuda)
+                         for i in range(B)], dim=1)
+    masked = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+              "layer_gates": gates, "layer_counts": gates.sum(dim=1),
+              "n_clients": float(B)}
+    bucketed = {k: masked[k].reshape(2, B // 2, S)
+                for k in ("tokens", "labels")}
+    runs = []
+    for build, batch, n in (
+            (build_fl_train_step, masked, cfg.num_layers),
+            (lambda c, t: build_fl_bucketed_train_step(c, t)[:2], bucketed,
+             1 + 2)):
+        model, step = build(cfg, tcfg)
+        state = make_train_state(
+            model, torch.Generator(device=cuda).manual_seed(0), tcfg)
+        before = dict(LAUNCHES)
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+                 if LAUNCHES[key] != before[key]}
+        assert moved == {"flash_attention": 2 * n,
+                         "flash_attention_fwd_wgmma": 2 * n,
+                         "flash_attention_bwd": n,
+                         "flash_attention_bwd_wgmma": n}
+        runs.append(float(m["loss"]))
+        del state
+    assert all(torch.isfinite(torch.tensor(runs)))
+    assert abs(runs[1] - runs[0]) <= TOL[torch.bfloat16] * abs(runs[0])

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.checkpoint import load_pytree as jax_load_pytree
 from repro.configs import TrainConfig as JaxTrainConfig
@@ -199,7 +200,19 @@ def test_train_main_runs_on_cpu_and_resumes(tmp_path):
         resumed["state"]["params"]["embed"]["emb"].detach().numpy())
 
 
-def test_train_mesh_waits_for_the_sharding_slice():
-    with pytest.raises(ValueError, match="sharding slice"):
-        train.main(["--arch", "phi3-mini-3.8b", "--smoke", "--device",
-                    "cpu", "--mesh", "single"])
+def test_train_mesh_waits_for_the_sharding_slice(tmp_path):
+    """``--mesh`` is no longer refused (the sharding slice is in): it
+    builds the production mesh, so with no process group, and in a group
+    of one rank, it raises ``ValueError`` naming the 256 ranks the
+    single-pod mesh needs."""
+    args = ["--arch", "phi3-mini-3.8b", "--smoke", "--device", "cpu",
+            "--mesh", "single", "--steps", "1"]
+    with pytest.raises(ValueError, match="needs 256 ranks.*has 1"):
+        train.main(args)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 256 ranks.*has 1"):
+            train.main(args)
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,394 @@
+"""The production mesh on ``torch.distributed``: ``repro_torch.sharding.
+rules``, ``launch/{mesh,specs}.py`` and ``launch/train.py``'s meshed step,
+against the JAX package.
+
+In one process: the spec functions read only a mesh's axis names and
+sizes, so both packages get one stand-in per mesh shape (the single- and
+multi-pod production and debug meshes), with no devices behind it.  Every
+arch's parameter specs (full and smoke shapes) under the policies
+default, ``fsdp=False``, ``zero1`` and ``dp2d``; the cases of
+``tests/test_dryrun_small.py``'s rule check; every family's decode-cache
+specs; ``batch_axes``; the train-input, cache and state placements (the
+moments under ``zero1``); the ``repeat_kv`` branch of ``gqa_attend``
+against the default branch and against the JAX one under the same
+policy; the mesh builders' refusals; and the meshed
+step on a one-rank ``(1, 1)`` mesh, bit for bit the one-device step.
+
+Then, on 4 gloo ranks (one spawn, ``tests/torch_mesh_ranks.py``, through
+``torch_shard_ranks.launch``): the meshed train step on the ``(2, 2)``
+debug mesh against the one-process step after 2 steps under four
+policies, each rank's shards against their placements, the meshed FL
+step, and a ``--ckpt-dir`` run on the mesh that one process resumes.
+"""
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from jax.sharding import AbstractMesh
+from jax.sharding import PartitionSpec as P
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
+
+import torch_mesh_ranks as mesh_ranks
+import torch_shard_ranks as ranks
+from repro.configs import INPUT_SHAPES as JAX_SHAPES
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.launch import specs as jspecs
+from repro.models import build as jax_build
+from repro.models.layers import gqa_attend as jax_gqa_attend
+from repro.sharding import rules as jrules
+from repro_torch.configs import INPUT_SHAPES, get_config, list_archs, \
+    reduced
+from repro_torch.launch import specs, train
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.launch.steps import (build_fl_train_step, build_train_step,
+                                      make_train_state)
+from repro_torch.models.api import build
+from repro_torch.models.layers import gqa_attend
+from repro_torch.sharding import rules
+from repro_torch.tree import tree_leaves
+
+#: the reference's four meshes, as axis names and sizes
+MESHES = {"single": (("data", "model"), (16, 16)),
+          "multi": (("pod", "data", "model"), (2, 16, 16)),
+          "debug": (("data", "model"), (2, 2)),
+          "debug-multi": (("pod", "data", "model"), (2, 2, 2))}
+POLICIES = {"default": {}, "fsdp=False": {"fsdp": False},
+            "zero1": {"fsdp": False, "zero1": True}, "dp2d": {"dp2d": True}}
+DEFAULTS = dict(fsdp=True, act_model=True, repeat_kv=False, zero1=False,
+                attn_seq=False, attn_heads=False, act_seq=False,
+                block_gather=False, dp2d=False)
+
+
+def stand_in(name):
+    """One mesh's axis names and a ``shape`` mapping, which both
+    packages' spec functions read."""
+    names, sizes = MESHES[name]
+    return types.SimpleNamespace(axis_names=names,
+                                 shape=dict(zip(names, sizes)))
+
+
+@pytest.fixture
+def policy():
+    """Sets both packages' sharding policies; restores the defaults."""
+    def put(**kw):
+        jrules.set_sharding_policy(**kw)
+        rules.set_sharding_policy(**kw)
+    yield put
+    put(**DEFAULTS)
+
+
+def _spec(p, ndim):
+    """A reference ``PartitionSpec`` as the port's tuple, one entry a
+    dim."""
+    t = tuple(p)
+    return t + (None,) * (ndim - len(t))
+
+
+def _jax_by_path(specs_tree, shapes_tree):
+    """{path: (spec tuple)} of a reference spec tree over its shapes."""
+    pairs = jax.tree_util.tree_flatten_with_path(
+        specs_tree, is_leaf=lambda x: isinstance(x, P))[0]
+    shapes = jax.tree_util.tree_flatten_with_path(shapes_tree)[0]
+    assert len(pairs) == len(shapes)
+    return {jrules._path_str(kp): _spec(p, len(s.shape))
+            for (kp, p), (_, s) in zip(pairs, shapes)}
+
+
+def _port_by_path(tree, path=""):
+    """{path: leaf} of a spec or placements tree (dicts and lists; its
+    tuples are leaves)."""
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, list) else None)
+    if items is None:
+        return {path: tree}
+    out = {}
+    for k, v in items:
+        out.update(_port_by_path(v, f"{path}/{k}" if path else str(k)))
+    return out
+
+
+def _configs(arch):
+    return {"full": (jax_get_config(arch), get_config(arch)),
+            "smoke": (jax_reduced(jax_get_config(arch)),
+                      reduced(get_config(arch)))}
+
+
+def _small_shape(B, S, jax_side=False):
+    """A decode shape of B x S in either package."""
+    from repro.configs.base import ShapeConfig as JaxShape
+    from repro_torch.configs.base import ShapeConfig
+    return (JaxShape if jax_side else ShapeConfig)("small", S, B, "decode")
+
+
+# ---------------------------------------------------------------------------
+# specs, in one process
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_param_specs_equal_the_reference(arch, policy):
+    """Every leaf of the full and smoke params (meta tensors here, the
+    reference's ``eval_shape``) on the four meshes under the four
+    policies, and with ``force_fsdp``."""
+    for size, (jcfg, cfg) in _configs(arch).items():
+        jshapes = jax.eval_shape(jax_build(jcfg).init, jax.random.PRNGKey(0))
+        shapes = specs._params_shape(build(cfg))
+        assert all(t.is_meta for t in tree_leaves(shapes))
+        for pol in POLICIES.values():
+            policy(**DEFAULTS)
+            policy(**pol)
+            for name in MESHES:
+                mesh = stand_in(name)
+                for force in (False, True):
+                    got = _port_by_path(rules.param_specs(shapes, mesh, force))
+                    ref = _jax_by_path(
+                        jrules.param_specs(jshapes, mesh, force), jshapes)
+                    assert got == ref, (arch, size, pol, name, force)
+
+
+def test_spec_for_the_reference_rule_cases():
+    """``tests/test_dryrun_small.py``'s cases on the debug mesh, in both
+    packages."""
+    mesh = stand_in("debug")
+    cases = [("blocks/attn/wq/w", (4, 64, 64), (None, "data", "model")),
+             ("blocks/moe/w_gate", (4, 8, 64, 64),
+              (None, "model", "data", None)),
+             ("blocks/moe/w_gate", (4, 3, 64, 64),
+              (None, None, "data", "model")),
+             ("blocks/attn_norm/scale", (64,), (None,)),
+             ("blocks/mlp/w_up/w", (4, 63, 65), (None, None, None))]
+    for path, shape, want in cases:
+        assert rules.spec_for(path, shape, mesh) == want
+        assert _spec(jrules.spec_for(path, shape, mesh), len(shape)) == want
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_cache_specs_equal_the_reference(arch, policy):
+    """Every family's decode cache (``decode_inputs``: the port's
+    ``decode_init`` on meta params) at the full config's ``decode_32k``
+    and the smoke config's B 4 x S 64, under the default and ``dp2d``."""
+    for size, (jcfg, cfg) in _configs(arch).items():
+        shape = (INPUT_SHAPES["decode_32k"] if size == "full" else
+                 _small_shape(4, 64))
+        jshape = (JAX_SHAPES["decode_32k"] if size == "full" else
+                  _small_shape(4, 64, jax_side=True))
+        cache, tokens, pos = specs.decode_inputs(build(cfg), cfg, shape)
+        jcache, jtok, jpos = jspecs.decode_inputs(jax_build(jcfg), jcfg,
+                                                  jshape)
+        assert tokens == ((shape.global_batch, 1), torch.int32)
+        assert pos == ((), torch.int32)
+        assert _port_by_path(rules.map_with_path(
+            lambda p, t: tuple(t.shape), cache)) == {
+            jrules._path_str(kp): tuple(s.shape) for kp, s in
+            jax.tree_util.tree_flatten_with_path(jcache)[0]}
+        for pol in ({}, {"dp2d": True}):
+            policy(**DEFAULTS)
+            policy(**pol)
+            for name in MESHES:
+                mesh = stand_in(name)
+                got = _port_by_path(rules.cache_specs(cache, mesh))
+                ref = _jax_by_path(jrules.cache_specs(jcache, mesh), jcache)
+                assert got == ref, (arch, size, pol, name)
+                placed = _port_by_path(specs.decode_cache_shardings(cache,
+                                                                    mesh))
+                assert placed == {k: rules.placements(v, mesh)
+                                  for k, v in ref.items()}
+
+
+def test_batch_axes_and_placements(policy):
+    """``batch_axes``, ``batch_spec`` and ``activation_spec`` on each mesh
+    under the default and ``dp2d``; the train inputs' placements; a spec
+    as placements."""
+    for pol in ({}, {"dp2d": True}):
+        policy(**DEFAULTS)
+        policy(**pol)
+        for name in MESHES:
+            mesh = stand_in(name)
+            assert rules.batch_axes(mesh) == jrules.batch_axes(mesh)
+            assert specs.batch_spec(mesh) == tuple(jspecs.batch_spec(mesh))
+            for ndim in (2, 3):
+                for ok in (True, False):
+                    assert rules.activation_spec(mesh, ndim, ok) == _spec(
+                        jrules.activation_spec(mesh, ndim, ok), ndim)
+            for arch in ("phi3-mini-3.8b", "whisper-medium"):
+                jcfg, cfg = _configs(arch)["full"]
+                got = specs.train_input_shardings(
+                    cfg, INPUT_SHAPES["train_4k"], mesh)
+                ref = jspecs.train_input_shardings(
+                    jcfg, JAX_SHAPES["train_4k"], AbstractMesh(
+                        MESHES[name][1], MESHES[name][0]))
+                assert set(got) == set(ref)
+                for k, s in ref.items():
+                    nd = 3 if k in ("image_embeds", "audio_frames") else 2
+                    assert got[k] == rules.placements(_spec(s.spec, nd), mesh)
+        assert specs.train_inputs(cfg, INPUT_SHAPES["train_4k"]) == {
+            k: (tuple(s.shape), getattr(torch, str(s.dtype))) for k, s in
+            jspecs.train_inputs(jcfg, JAX_SHAPES["train_4k"]).items()}
+    mesh = stand_in("debug-multi")
+    assert rules.placements((None, ("pod", "data"), "model"), mesh) == (
+        Shard(1), Shard(1), Shard(2))
+    assert rules.placements((None, None), mesh) == (Replicate(),) * 3
+
+
+@pytest.mark.parametrize("knob", rules.HOOK_KNOBS)
+def test_hook_knobs_refuse_another_value(knob, policy):
+    """A knob that steers only the activation hooks (not yet ported)
+    raises on another value than its default and leaves the policy as it
+    was; its default is taken; the keys are the reference's."""
+    before = rules.get_sharding_policy()
+    assert set(before) == set(jrules.get_sharding_policy())
+    with pytest.raises(NotImplementedError, match=knob):
+        rules.set_sharding_policy(**{knob: not DEFAULTS[knob]}, fsdp=False)
+    assert rules.get_sharding_policy() == before
+    rules.set_sharding_policy(**{knob: DEFAULTS[knob]})
+    assert rules.get_sharding_policy() == before
+    with pytest.raises(NotImplementedError, match="model_axis_ok"):
+        rules.set_activation_mesh(None, model_axis_ok=False)
+    assert rules.activation_mesh() is None
+
+
+@pytest.mark.parametrize("pol", ["default", "zero1"])
+def test_state_shardings_equal_the_reference(pol, policy):
+    """The train state's placements against the reference's
+    ``NamedSharding``s on an ``AbstractMesh``: moments follow their
+    params, or under ``zero1`` the forced FSDP specs; the step
+    replicated."""
+    policy(**POLICIES[pol])
+    for arch in ("phi3-mini-3.8b", "mixtral-8x22b", "xlstm-1.3b",
+                 "llama-3.2-vision-11b"):
+        jcfg, cfg = _configs(arch)["full"]
+        jp = jax.eval_shape(jax_build(jcfg).init, jax.random.PRNGKey(0))
+        jstate = {"params": jp, "opt": {
+            "step": jax.ShapeDtypeStruct((), jnp.int32), "mu": jp, "nu": jp}}
+        shapes = specs._params_shape(build(cfg))
+        for name in ("single", "multi"):
+            names, sizes = MESHES[name]
+            ref = jspecs.state_shardings(jstate, AbstractMesh(sizes, names))
+            mesh = stand_in(name)
+            got = specs.state_shardings(
+                {"params": shapes, "opt": {"step": 0}}, mesh)
+            assert got["opt"]["step"] == (Replicate(),) * len(names)
+            for part, tree in (("params", got["params"]),
+                               ("mu", got["opt"]["mu"]),
+                               ("nu", got["opt"]["nu"])):
+                jtree = ref["params"] if part == "params" else \
+                    ref["opt"][part]
+                want = {k: rules.placements(v, mesh) for k, v in
+                        _jax_by_path(jax.tree.map(lambda s: s.spec, jtree),
+                                     jp).items()}
+                assert _port_by_path(tree) == want, (arch, name, part)
+            if pol == "zero1":
+                assert got["opt"]["mu"] != got["params"]
+            assert specs.params_shardings(shapes, mesh) == got["params"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_repeat_kv_branch(dtype, policy):
+    """``repeat_kv`` materialises the repeated KV heads; the output equals
+    the grouped einsum's and the JAX branch's under the same policy
+    (causal, a window, a cache length)."""
+    rng = np.random.default_rng(5)
+    B, Sq, Sk, Hq, Hkv, D = 2, 6, 9, 8, 2, 16
+    q, k, v = (rng.normal(size=(B, s, h, D)).astype(np.float32)
+               for s, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype))
+                  for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else \
+        dict(rtol=1e-2, atol=1e-2)
+    for kw in (dict(causal=True), dict(causal=True, window=3, q_offset=3),
+               dict(causal=False, kv_len=7)):
+        grouped = gqa_attend(tq, tk, tv, **kw).float().numpy()
+        policy(repeat_kv=True)
+        got = gqa_attend(tq, tk, tv, **kw).float().numpy()
+        ref = np.asarray(jax_gqa_attend(jq, jk, jv, **kw), np.float32)
+        policy(repeat_kv=False)
+        np.testing.assert_allclose(got, grouped, **tol)
+        np.testing.assert_allclose(got, ref, **tol)
+
+
+# ---------------------------------------------------------------------------
+# the mesh builders and the train main, in one process
+# ---------------------------------------------------------------------------
+
+
+def test_mesh_builders_refuse_other_world_sizes(tmp_path):
+    for build_mesh, need in ((make_production_mesh, 256),
+                             (make_debug_mesh, 4)):
+        with pytest.raises(ValueError, match=f"needs {need} ranks.*has 1"):
+            build_mesh()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 512 ranks.*has 1"):
+            make_production_mesh(multi_pod=True)
+        with pytest.raises(ValueError, match="needs 8 ranks.*has 1"):
+            make_debug_mesh(multi_pod=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("fl", [False, True])
+def test_meshed_step_on_one_rank_is_the_one_device_step(fl, tmp_path):
+    """On a ``(1, 1)`` mesh of a one-rank group (``[lm mesh]``'s layout
+    on the card), 2 meshed steps equal 2 one-device steps bit for bit:
+    losses, grad norms and every param and moment."""
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    tcfg = mesh_ranks.TCFG
+    model, step = (build_fl_train_step if fl else build_train_step)(cfg, tcfg)
+    one = make_train_state(model, torch.Generator().manual_seed(0), tcfg)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        meshed = train.place_state(
+            make_train_state(model, torch.Generator().manual_seed(0), tcfg),
+            mesh)
+        run = train.meshed_step(step, mesh)
+        for b in mesh_ranks._batches(cfg, 2, fl=fl):
+            one, m1 = step(one, b)
+            meshed, m2 = run(meshed, b)
+            assert (float(m1["loss"]), float(m1["grad_norm"])) == \
+                (float(m2["loss"]), float(m2["grad_norm"]))
+        whole = train.gather_state(meshed)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(tree_leaves(whole), tree_leaves(one)):
+        assert a == b if isinstance(a, int) else torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# 4 gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def test_meshed_steps_under_four_ranks(tmp_path):
+    """The rank program's checks (``torch_mesh_ranks.mesh_steps``), then
+    its ``--ckpt-dir`` run, saved on the mesh after 2 steps and resumed to
+    step 3 by the train main in this process, against the same run saved
+    by one process and resumed so (the data stream restarts on a resume,
+    as in the reference): the resumed step's loss and params at the step
+    tolerances."""
+    ck = tmp_path / "ck"
+    ranks.launch(mesh_ranks.mesh_steps, tmp_path, str(ck), timeout=240.0)
+    one = tmp_path / "one"
+    train.train(reduced(get_config(mesh_ranks.ARCH)), mesh_ranks.CKPT_TCFG,
+                batch=4, seq=16, steps=2, device=torch.device("cpu"),
+                ckpt_dir=str(one))
+    runs = [train.main(mesh_ranks.CKPT_ARGS + ["--ckpt-dir", str(d)])
+            for d in (ck, one)]
+    for r in runs:
+        assert len(r["losses"]) == 1 and r["state"]["opt"]["step"] == 3
+    np.testing.assert_allclose(runs[0]["losses"], runs[1]["losses"],
+                               rtol=1e-5)
+    for a, b in zip(tree_leaves(runs[0]["state"]["params"]),
+                    tree_leaves(runs[1]["state"]["params"])):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=0, atol=2.0 * 3 * 3e-4)
