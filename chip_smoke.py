@@ -173,9 +173,16 @@ its own lines; any failure raises and exits non-zero:
    step's, its first loss against the masked step's, and both steps in
    float32 on the plain route at 4 layers, exits (1, 2, 3, 4), held to
    each other at the reference's tolerances; ``[lm mesh]``, in a
-   one-rank NCCL group the production and debug meshes refused, then 2
-   meshed train steps and 2 meshed FL steps on a ``(1, 1)`` mesh,
-   phi3-mini at 4 layers, bitwise equal to the one-device steps;
+   one-rank NCCL group the production and debug meshes refused, then on
+   a ``(1, 1)`` mesh the tensor-parallel path (the state built leaf by
+   leaf, the model split over the model axis, attention through the
+   kernel's local-shard entry) under seven sharding policies, 2 train
+   steps and 2 FL steps each, phi3-mini at 4 layers, bitwise equal to
+   the one-device steps, the entry's launches counted, and ``[lm mesh
+   bytes]`` (host only: each dense and MoE config's per-rank state on
+   the (16, 16) production mesh); the attention kernel is also timed at
+   one rank's local heads under a 4-way model axis (phi3-mini train, 8
+   of 32 heads);
 15. the sub-quadratic families (xlstm-1.3b, zamba2-1.2b) and the
    cross-attention families (whisper-medium: 24 encoder and 24 decoder
    layers over 1500 stub audio frames; llama-3.2-vision-11b: 8 groups of
@@ -3037,11 +3044,27 @@ LM_FL = (4, 1024, 2)
 #: ``[lm mesh]``: layers (exits 1 to layers), the train steps' B, the FL
 #: steps' B (one client an exit), S, steps of each
 LM_MESH = (4, 2, 4, 1024, 2)
+#: ``[lm mesh]``'s sharding policies (attn_heads with repeat_kv and zero1
+#: without FSDP, as the reference pairs them); dp2d, which puts the model
+#: axis among the batch axes, only on the CPU's 4 ranks
+LM_MESH_POLICIES = (("default", {}),
+                    ("repeat_kv+attn_heads",
+                     {"repeat_kv": True, "attn_heads": True}),
+                    ("attn_seq", {"attn_seq": True}),
+                    ("act_seq", {"act_seq": True}),
+                    ("block_gather", {"block_gather": True}),
+                    ("fsdp=False", {"fsdp": False}),
+                    ("zero1", {"fsdp": False, "zero1": True}))
+#: ``[lm mesh bytes]``: the configs whose blocks are transformer.py's
+LM_MESH_ARCHS = ("phi3-mini-3.8b", "minitron-8b", "yi-34b", "command-r-35b",
+                 "mixtral-8x22b", "qwen3-moe-235b-a22b")
 #: the attention kernel at the LM paths' shapes: (label, B, S, Hq, Hkv,
 #: D, window); all bf16 and causal
 LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("minitron-8b prefill", 4, 2048, 32, 8, 128, 0),
                 ("phi3-mini train", 2, 1024, 32, 32, 96, 0),
+                # one rank's local heads under a 4-way model axis
+                ("phi3-mini train local heads", 2, 1024, 8, 8, 96, 0),
                 ("phi3-mini fl train", 4, 1024, 32, 32, 96, 0),
                 ("phi3-mini fl bucketed", 1, 1024, 32, 32, 96, 0),
                 ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024),
@@ -3855,17 +3878,48 @@ def phase_lm_fl():
     return m_launch, b_launch
 
 
+def _lm_mesh_bytes():
+    """``[lm mesh bytes]``, host only: each dense and MoE config's
+    per-rank bytes of params, grads and AdamW moments on the (16, 16)
+    production mesh beside the whole state's, from the spec functions on
+    the meta device (``launch/specs.py::state_bytes``)."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import state_bytes
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 16, "model": 16})
+    parts = []
+    for arch in LM_MESH_ARCHS:
+        b = state_bytes(get_config(arch), mesh)
+        parts.append(
+            f"{arch} params {b['params'] / 1e9:.3f} / "
+            f"{b['whole_params'] / 1e9:.3f} GB, grads {b['grads'] / 1e9:.3f}"
+            f" / {b['whole_grads'] / 1e9:.3f} GB, float32 moments "
+            f"{b['moments'] / 1e9:.3f} / {b['whole_moments'] / 1e9:.3f} GB")
+    print("[lm mesh bytes] each rank's state on the (16, 16) ('data', "
+          "'model') production mesh / the whole state's, from the specs on "
+          "the meta device (no card): " + "; ".join(parts))
+
+
 def phase_lm_mesh():
     """``[lm mesh]``: one card is one rank.  In a one-rank NCCL group the
     production and debug meshes raise ``ValueError`` (256 and 4 ranks),
     so a ``(1, 1)`` ``("data", "model")`` mesh is built directly;
     phi3-mini at full width, 4 of its 32 layers (exits 1-4), bf16,
-    ``use_pallas``, its state laid out by ``state_shardings``
-    (``launch/train.py::place_state``): 2 meshed train steps (B 2 x S
-    1024) and 2 meshed FL steps (B 4 x S 1024, client i on exit i), each
-    against the one-device step from the same init: losses, grad norms
-    and every param and moment bitwise equal.  Returns the launches of
-    the train steps and of the FL steps (both runs of each), by
+    ``use_pallas``.  The one-device steps run once from seed 0: 2 train
+    steps (B 2 x S 1024) then 2 FL steps (B 4 x S 1024, client i on exit
+    i).  Then, under each of ``LM_MESH_POLICIES``, the tensor-parallel
+    path (``launch/train.py``: the state built leaf by leaf by
+    ``sharded_train_state``, ``meshed_step`` on the params' ``DTensor``s,
+    the model's regions in ``sharding/tp.py``) runs the same 4 steps,
+    held bit for bit to the one-device steps: losses, grad norms and
+    every param and moment (the policies steer only the mesh, and
+    phi3-mini's 32 heads, one a KV head, make ``repeat_kv`` a no-op on
+    one device).  Every attention launch of the meshed steps goes
+    through ``flash_attention``'s local-shard entry
+    (``flash_attention_sharded``, ``_bwd_sharded``), counted and checked.
+    Then ``[lm mesh bytes]``.  Returns the launches of the train steps
+    and of the FL steps (the one-device run and every policy's), by
     ``"train"`` and ``"fl"``."""
     import tempfile
     import torch
@@ -3877,8 +3931,9 @@ def phase_lm_mesh():
     from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
     from repro_torch.launch.steps import (build_fl_train_step,
                                           build_train_step, make_train_state)
-    from repro_torch.launch.train import (gather_state, meshed_step,
-                                          place_state)
+    from repro_torch.launch.train import meshed_step, sharded_train_state
+    from repro_torch.sharding.rules import (get_sharding_policy,
+                                            set_sharding_policy)
     from repro_torch.tree import tree_leaves
     t0 = time.perf_counter()
     layers, B, B_fl, S, steps = LM_MESH
@@ -3895,8 +3950,18 @@ def phase_lm_mesh():
                           for k, v in next(it).items()})
             for _ in range(steps)]
     runs += [(fl_step, b) for b in _fl_batches(cfg, B_fl, S, steps, seed=1)]
+    keys = LM_ROUTES + ("flash_attention_sharded",
+                        "flash_attention_bwd_sharded")
+    parts = [dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)]
+
+    def count(i):
+        """Add the launches since the last count to the train (i <
+        steps) or the FL part."""
+        for k in keys:
+            parts[i >= steps][k] += LAUNCHES[k]
+        reset_launches()
     torch.cuda.set_device(0)
-    refused = []
+    refused, lines, same_all = [], [], True
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
                                 rank=0, world_size=1,
@@ -3912,54 +3977,87 @@ def phase_lm_mesh():
                                          "built on one rank")
             mesh = init_device_mesh("cuda", (1, 1),
                                     mesh_dim_names=("data", "model"))
+            reset_launches()
             one = make_train_state(
                 model, torch.Generator("cuda").manual_seed(0), tcfg)
-            meshed = place_state(make_train_state(
-                model, torch.Generator("cuda").manual_seed(0), tcfg), mesh)
-            reset_launches()
-            rows, parts = [], []
+            ref = []
             for i, (step, b) in enumerate(runs):
-                (one, m1), s1 = _synced_wall(lambda: step(one, b))
-                (meshed, m2), s2 = _synced_wall(
-                    lambda: meshed_step(step, mesh)(meshed, b))
-                rows.append(((float(m1["loss"]), float(m1["grad_norm"])),
-                             (float(m2["loss"]), float(m2["grad_norm"])),
-                             s1, s2))
-                if i + 1 in (steps, 2 * steps):   # the train, the FL steps
-                    parts.append({k: LAUNCHES[k] for k in LM_ROUTES})
-                    reset_launches()
-            launches = _summed(*parts)
-            whole = gather_state(meshed)
+                (one, m), secs = _synced_wall(lambda: step(one, b))
+                ref.append((float(m["loss"]), float(m["grad_norm"]), secs))
+                count(i)
+            before = get_sharding_policy()
+            for name, pol in LM_MESH_POLICIES:
+                set_sharding_policy(**pol)
+                try:
+                    (meshed, secs_init) = _synced_wall(
+                        lambda: sharded_train_state(model, "cuda", mesh))
+                    rows = []
+                    for i, (step, b) in enumerate(runs):
+                        (meshed, m), secs = _synced_wall(
+                            lambda: meshed_step(step, mesh)(meshed, b))
+                        rows.append((float(m["loss"]), float(m["grad_norm"]),
+                                     secs))
+                        count(i)
+                finally:
+                    set_sharding_policy(**before)
+                same = all(a[:2] == b[:2] for a, b in zip(ref, rows)) and \
+                    all((x == y) if isinstance(x, int) else
+                        torch.equal(x.to_local(), y)
+                        for x, y in zip(tree_leaves(meshed), tree_leaves(one)))
+                same_all = same_all and same
+                placed = sorted({str(tuple(t.placements))
+                                 for t in tree_leaves(meshed["params"])})
+                lines.append(
+                    f"{name}: state built leaf by leaf in {secs_init:.3f} s "
+                    f"({', '.join(placed)}); " + ", ".join(
+                        f"{'train' if i < steps else 'fl'} {i % steps} loss "
+                        f"{r[0]:.4f} {r[2]:.3f} s" for i, r in
+                        enumerate(rows)) + f"; bitwise equal: {same}")
+                del meshed
+                _free_card()
         finally:
             dist.destroy_process_group()
-    same = all(a == b for a, b, _, _ in rows) and all(
-        (x == y) if isinstance(x, int) else torch.equal(x, y)
-        for x, y in zip(tree_leaves(whole), tree_leaves(one)))
-    placed = {str(t.placements) for t in tree_leaves(meshed["params"])}
-    # each step twice (one device, meshed): the forward and the remat
-    # recompute, and the backward, at each layer
-    n_fwd, n_bwd = 2 * 2 * layers * steps, 2 * layers * steps
+    n = len(LM_MESH_POLICIES)
     print(f"[lm mesh] one-rank NCCL group: " + "; ".join(refused)
           + f"; a (1, 1) ('data', 'model') mesh built directly; "
           f"{cfg.name} at full width, {layers} of 32 layers, {cfg.dtype}, "
-          f"use_pallas, the state placed by state_shardings ({placed}): "
-          + "; ".join(f"{'train' if i < steps else 'fl'} step {i % steps}: "
-                      f"loss {a[0]:.4f} one device, {b[0]:.4f} meshed, "
-                      f"{s1:.3f} s / {s2:.3f} s" for i, (a, b, s1, s2)
-                      in enumerate(rows))
-          + f"; losses, grad norms, params and moments bitwise equal: "
-          f"{same}; launches {launches}; {time.perf_counter() - t0:.1f} s")
-    if not same:
-        raise AssertionError("[lm mesh] the meshed steps differ from the "
-                             "one-device steps")
+          f"use_pallas; one device: " + ", ".join(
+              f"{'train' if i < steps else 'fl'} {i % steps} loss {r[0]:.4f}"
+              f" grad norm {r[1]:.4f} {r[2]:.3f} s"
+              for i, r in enumerate(ref)))
+    for line in lines:
+        print(f"[lm mesh] tensor-parallel, {line}")
+    if not same_all:
+        raise AssertionError("[lm mesh] a meshed step differs from the "
+                             "one-device step")
+    # each step (one device, then every policy's): the forward and the
+    # remat recompute, and the backward, at each layer; the meshed ones
+    # through the local-shard entry
+    n_fwd, n_bwd = 2 * layers * steps, layers * steps
     for what, part in zip(("train", "fl"), parts):
-        _check_launches(f"lm mesh {what}", part, n_fwd, n_bwd)
+        _check_launches(f"lm mesh {what}",
+                        {k: part[k] for k in LM_ROUTES},
+                        (n + 1) * n_fwd, (n + 1) * n_bwd)
+        if (part["flash_attention_sharded"],
+                part["flash_attention_bwd_sharded"]) != (n * n_fwd,
+                                                         n * n_bwd):
+            raise AssertionError(f"[lm mesh {what}] local-shard entry "
+                                 f"launches {part}: expected {n * n_fwd} "
+                                 f"and {n * n_bwd}")
+    print(f"[lm mesh] launches: train {parts[0]}; fl {parts[1]}; the "
+          f"local-shard entry's "
+          f"{sum(p['flash_attention_sharded'] for p in parts)} forwards and "
+          f"{sum(p['flash_attention_bwd_sharded'] for p in parts)} "
+          f"backwards (at 32 heads; counted in the lm phi3-mini train and "
+          f"fl train rows); {time.perf_counter() - t0:.1f} s")
     print("[lm mesh] several ranks over NCCL (torchrun --nproc-per-node "
           "k) are not run on this one-card machine; tests/test_torch_mesh."
-          "py runs the meshed steps on 4 gloo ranks on the CPU")
-    del one, meshed, whole
+          "py runs the tensor-parallel steps on 4 gloo ranks on the CPU")
+    _lm_mesh_bytes()
+    del one
     _free_card()
-    return dict(zip(("train", "fl"), parts))
+    return {"train": {k: parts[0][k] for k in LM_ROUTES},
+            "fl": {k: parts[1][k] for k in LM_ROUTES}}
 
 
 def _lm_reference(tag, cfg, n_fwd, n_bwd):
@@ -4155,6 +4253,11 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
                                           train_launches["mesh"]),
             "lm phi3-mini fl train": _summed(train_launches["fl"],
                                              train_launches["mesh fl"]),
+            # a timing shape only: on one card's (1, 1) mesh all 32
+            # heads are the one rank's, so the main path never gives the
+            # kernel 8 heads ([lm mesh] prints the local-shard entry's
+            # launches, which the two rows above count)
+            "lm phi3-mini train local heads": {},
             "lm phi3-mini fl bucketed": train_launches["fl bucketed"],
             "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"],
             "lm zamba2 prefill": prefill_launches["zamba2"],

@@ -1,0 +1,102 @@
+"""The collectives one tensor-parallel train step makes on the (2, 2)
+``("data", "model")`` debug mesh: 4 gloo ranks on the CPU, the smoke
+configs of phi3-mini-3.8b and mixtral-8x22b with two KV heads (the
+shapes of ``tests/torch_mesh_ranks.py``), B 4 x S 16, full remat, under
+each sharding policy.  ``CommDebugMode`` records them (the tests'
+recorder, ``tests/torch_mesh_ranks.py::Collectives``); for each kind and
+mesh axis the script prints their count and bytes (each collective's
+largest tensor), and the largest tensor a collective over the model axis
+touches beside the smallest layer of a model-sharded param (a whole
+gather of one would reach it).  The second of two steps is recorded.
+
+    PYTHONPATH=src python scripts/mesh_collectives.py
+
+``torch.distributed`` calls (the loss and norm all-reduces, the
+vocab-parallel logsumexp's max and sum, the load-balance loss's token
+means, the ``dp2d`` rows' token gather) do not name their group in the
+record and are listed under ``c10d``.  Bytes are those of the smoke
+shapes; no time is taken.
+"""
+from __future__ import annotations
+
+import collections
+import os
+import sys
+import tempfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.tensor import DTensor
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
+
+ARCHS = ("phi3-mini-3.8b", "mixtral-8x22b")
+
+
+def _rank(rank, path):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
+                            world_size=4)
+    from torch_mesh_ranks import DEFAULTS, OVER, POLICIES, Collectives
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_train_step, make_train_state
+    from repro_torch.sharding.rules import set_sharding_policy
+    from repro_torch.tree import tree_leaves
+    mesh = make_debug_mesh()
+    axis = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       loss_chunk=8, remat="full")
+    rng = np.random.default_rng(1)
+    for arch in ARCHS:
+        cfg = reduced(get_config(arch), **OVER)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 17)))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        for name, pol in POLICIES.items():
+            set_sharding_policy(**DEFAULTS)
+            set_sharding_policy(**pol)
+            model, step = build_train_step(cfg, tcfg)
+            state = T.place_state(make_train_state(
+                model, torch.Generator().manual_seed(0), tcfg), mesh)
+            run = T.meshed_step(step, mesh)
+            state, _ = run(state, batch)
+            with Collectives() as rec:
+                state, _ = run(state, batch)
+            mi = mesh.mesh_dim_names.index("model")
+            layer = min((t[0] if t.ndim >= 3 else t).numel()
+                        for t in tree_leaves(state["params"])
+                        if isinstance(t, DTensor)
+                        and t.placements[mi].is_shard())
+            rows = collections.defaultdict(lambda: [0, 0])
+            biggest = 0
+            for op, group, n, nbytes in rec.seen:
+                where = axis.get(group, group)
+                rows[(op, where)][0] += 1
+                rows[(op, where)][1] += nbytes
+                if where in ("model", "c10d"):
+                    biggest = max(biggest, n)
+            if rank == 0:
+                table = ", ".join(
+                    f"{op} over {where} {c} ({b} bytes)"
+                    for (op, where), (c, b) in sorted(rows.items()))
+                print(f"{arch}-smoke {name}: {len(rec.seen)} collectives, "
+                      f"{sum(b for *_, b in rec.seen)} bytes: {table}; the "
+                      f"largest tensor over the model axis {biggest} "
+                      f"elements, the smallest model-sharded layer {layer}",
+                      flush=True)
+    set_sharding_policy(**DEFAULTS)
+    dist.destroy_process_group()
+
+
+def main():
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank, args=(f"{tmp}/pg",), nprocs=4,
+                           start_method="spawn")
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,9 @@ counted once), ``flash_attention_bwd_fused`` or
 ``flash_attention_bwd_three_pass`` (the tiled route's two), and
 ``rmsnorm``'s forward and backward under theirs, ``rmsnorm_vec`` or
 ``rmsnorm_general`` and ``rmsnorm_bwd_vec`` or ``rmsnorm_bwd_general``.
+A ``flash_attention`` launch made through its local-shard entry (the
+mesh's ``DTensor``s) also counts under ``flash_attention_sharded`` or
+``flash_attention_bwd_sharded``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ LAUNCHES: Dict[str, int] = {"layer_agg": 0, "rmsnorm": 0, "rmsnorm_bwd": 0,
                             "flash_attention_bwd_short": 0,
                             "flash_attention_bwd_wgmma": 0,
                             "flash_attention_bwd_fused": 0,
-                            "flash_attention_bwd_three_pass": 0}
+                            "flash_attention_bwd_three_pass": 0,
+                            "flash_attention_sharded": 0,
+                            "flash_attention_bwd_sharded": 0}
 
 
 def reset_launches() -> None:

@@ -42,6 +42,16 @@ causal attention at the LM's shapes; else ``tiled``.  ``LAUNCHES``
 counts each forward under ``flash_attention_fwd_split``, ``_fwd_wgmma``
 or ``_fwd_tiled`` and each backward under ``flash_attention_bwd_short``,
 ``_wgmma``, ``_fused`` or ``_three_pass``.
+
+On the mesh, :func:`flash_attention` takes ``DTensor``s (its local-shard
+entry, :func:`_flash_attention_local_shards`): the kernel runs on each
+rank's local heads (q, k, v sharded on the head dim over a mesh dim,
+Hq and Hkv both divisible by its ranks) or batch rows, or on the whole
+tensors where they are replicated; the output keeps q's placements, and
+the backward goes through the same entry.  Any other placements (the
+query rows sharded: the kernel has no query offset, as the TPU kernel
+has none) raise.  Its launches count also under
+``flash_attention_sharded`` and ``flash_attention_bwd_sharded``.
 """
 from __future__ import annotations
 
@@ -52,8 +62,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import LAUNCHES, build
+from repro_torch.sharding import tp
 
 SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / f
                 for f in ("fwd.cu", "bwd_fused.cu", "bwd_three_pass.cu",
@@ -85,6 +97,8 @@ WGMMA_KT = 128
 WGMMA_ROWS = 64
 _LIB = None
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+#: set while the local-shard entry launches: its launches count there too
+_LOCAL_SHARDS = False
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)
 _TAIL = [_S] + [_I] * 8 + [_F, _I, _P]
@@ -663,6 +677,9 @@ class _FlashAttentionFn(torch.autograd.Function):
         lse = _forward(q, k, v, o, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
+        ctx.local_shards = _LOCAL_SHARDS
+        if _LOCAL_SHARDS:
+            LAUNCHES["flash_attention_sharded"] += 1
         return o
 
     @staticmethod
@@ -672,6 +689,8 @@ class _FlashAttentionFn(torch.autograd.Function):
             do = do.contiguous()             # the kernels need D contiguous
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         _backward(q, k, v, o, do, lse, dq, dk, dv, ctx.causal, ctx.window)
+        if ctx.local_shards:
+            LAUNCHES["flash_attention_bwd_sharded"] += 1
         return dq, dk, dv, None, None
 
 
@@ -680,13 +699,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model layout (``flash_attention/ops.py``): q [B, Sq, Hq, D]; k, v
     [B, Sk, Hkv, D] -> [B, Sq, Hq, D], differentiable in q, k and v.  Views
     are taken as they are (D contiguous, other strides free): on the card
-    nothing is copied."""
+    nothing is copied.  ``DTensor``s on a mesh go through the local-shard
+    entry (:func:`_flash_attention_local_shards`)."""
+    if isinstance(q, DTensor):
+        return _flash_attention_local_shards(q, k, v, causal, window)
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_plain_model(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _FlashAttentionFn.apply(q, k, v, bool(causal), int(window))
+
+
+def _local_kernel(q, k, v, *, causal, window):
+    global _LOCAL_SHARDS
+    outer, _LOCAL_SHARDS = _LOCAL_SHARDS, True
+    try:
+        return flash_attention(q, k, v, causal=causal, window=window)
+    finally:
+        _LOCAL_SHARDS = outer
+
+
+def _flash_attention_local_shards(q, k, v, causal, window):
+    """The local-shard entry: q [B, Sq, Hq, D], k and v [B, Sk, Hkv, D]
+    ``DTensor``s whose placements on each mesh dim are all ``Replicate``,
+    all ``Shard(0)`` (batch rows) or all ``Shard(2)`` (heads; Hq and Hkv
+    divisible by the dim's ranks, so each rank's query heads read its own
+    KV heads).  The kernel (its plain version on CPU tensors) runs on
+    each rank's local tensors, forward and backward, the output in q's
+    placements.  Other placements raise ``ValueError``
+    (``sharding.tp.attention_layout``): nothing is gathered here and
+    nothing falls back."""
+    return tp.attend_local(_local_kernel, q, k, v, seq_ok=False,
+                           causal=bool(causal), window=int(window))
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -105,3 +105,56 @@ def state_shardings(state_shape, mesh):
 def params_shardings(params_shape, mesh):
     return _placed(param_specs(params_shape, mesh), mesh)
 
+
+
+def _local_numel(shape, pl, sizes) -> int:
+    """Elements of one rank's shard of ``shape`` under placements ``pl``
+    on a mesh of ``sizes`` (the rules shard only dims their axes
+    divide)."""
+    dims = list(shape)
+    for p, n in zip(pl, sizes):
+        if p.is_shard():
+            dims[p.dim] //= n
+    out = 1
+    for d in dims:
+        out *= d
+    return out
+
+
+def state_bytes(cfg: ModelConfig, mesh) -> Dict[str, int]:
+    """Each rank's bytes of ``cfg``'s train state on ``mesh`` (``params``
+    in the config's dtype, ``grads`` like the params, AdamW's two float32
+    ``moments``) beside the whole state's (``whole_params``,
+    ``whole_grads``, ``whole_moments``), from the meta device's shapes
+    and :func:`state_shardings`: nothing is allocated, and ``mesh`` may
+    be a stand-in with ``axis_names`` and a ``shape`` mapping."""
+    from repro_torch.models.api import build
+    from repro_torch.sharding.rules import _axes
+    from repro_torch.tree import tree_leaves
+    shapes = _params_shape(build(cfg))
+    sh = state_shardings({"params": shapes, "opt": {"step": 0}}, mesh)
+    sizes = tuple(_axes(mesh).values())
+    out = dict.fromkeys(("params", "grads", "moments", "whole_params",
+                         "whole_grads", "whole_moments"), 0)
+    for t, pl, mpl in zip(tree_leaves(shapes),
+                          [p for p in _leaves_of(sh["params"])],
+                          [p for p in _leaves_of(sh["opt"]["mu"])]):
+        item = t.element_size()
+        local = _local_numel(t.shape, pl, sizes) * item
+        out["params"] += local
+        out["grads"] += local
+        out["moments"] += 2 * 4 * _local_numel(t.shape, mpl, sizes)
+        out["whole_params"] += t.numel() * item
+        out["whole_grads"] += t.numel() * item
+        out["whole_moments"] += 2 * 4 * t.numel()
+    return out
+
+
+def _leaves_of(placed):
+    """A placements tree's leaves (the placements tuples), in
+    ``tree_leaves`` order."""
+    if isinstance(placed, dict):
+        return [p for k in sorted(placed) for p in _leaves_of(placed[k])]
+    if isinstance(placed, list):
+        return [p for v in placed for p in _leaves_of(v)]
+    return [placed]

@@ -20,6 +20,13 @@ paper's Step 2 inside the LM train loop: each client trains a
 depth-prefix submodel (:mod:`repro_torch.core.layerwise`), and the
 layer-aligned masked mean falls out of the batch-mean gradient, rescaled
 per layer.
+
+On the production mesh the dense and MoE decoders' steps run on the
+params' ``DTensor``s (``launch/train.py::meshed_step``): the model splits
+its compute over the model axis (``sharding/tp.py``), and the
+cross-entropy is vocab-parallel (each rank's logits only for its vocab
+shard of the unembedding, a logsumexp across the shards, no gather of
+the logits); the FL steps' per-layer gates and rescale stay replicated.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.layerwise import exit_points
@@ -34,7 +43,32 @@ from repro_torch.models import transformer as T
 from repro_torch.models.api import build
 from repro_torch.optim.optimizers import adamw_init, adamw_update_
 from repro_torch.optim.schedules import make_schedule
+from repro_torch.sharding import tp
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of vocab shards, one on each
+    of ``group``'s ranks, in ATen's own steps (the max, zero where
+    infinite; the sum of the exponentials of the differences; its log
+    plus the max), the max and the sum all-reduced, and with ATen's
+    backward (``grad * exp(x - lse)``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = torch.amax(x, dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        m.masked_fill_(m.abs() == float("inf"), 0)
+        s = torch.exp(x - m).sum(dim=-1)
+        dist.all_reduce(s, group=group)
+        lse = s.log_().add_(m.squeeze(-1))
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp(), None
 
 
 def chunked_cross_entropy(hidden, w_unembed, labels, chunk: int):
@@ -42,23 +76,50 @@ def chunked_cross_entropy(hidden, w_unembed, labels, chunk: int):
 
     Walks the sequence in chunks; each step makes only [B,chunk,V]
     logits.  Labels < 0 are masked out; lengths that ``chunk`` does not
-    divide take one chunk."""
+    divide take one chunk.
+
+    On the mesh (``w_unembed`` a ``DTensor``) it is vocab-parallel where
+    ``model`` shards the unembedding's vocab (the ``("embed", "vocab")``
+    spec): each rank's logits [B, c, V / m] for its vocab shard
+    [lo, hi), the logsumexp across the shards (:class:`_LogSumExp`), the
+    target logit from the shard that holds it; no [B, S, V] logits are
+    gathered.  ``hidden`` is in the compute layout, and each position's
+    loss is summed on this rank's own rows, so the mean over the batch
+    ranks is the batch's."""
     B, S, d = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         chunk = S
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    if isinstance(w_unembed, DTensor):
+        w = w_unembed
+        vocab = tp.model_shard_dim(w) == w.ndim - 1
+        lo, hi = tp.model_range(w, w.ndim - 1)
+        group = tp.model_group() if vocab else None
+        hidden = tp.local(hidden, grad=Partial() if vocab else Replicate())
+        w_unembed = tp.weight(w)
+        rows = tp.group_rows(labels)
+
+        def total(nll):
+            return tp.own_rows(tp.wrap(nll)).sum()
+    else:
+        lo, hi, group, rows, total = 0, w_unembed.shape[-1], None, labels, \
+            torch.sum
+    tot = torch.zeros((), dtype=torch.float32, device=labels.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=labels.device)
     for i in range(S // chunk):
-        h = hidden[:, i * chunk:(i + 1) * chunk]
-        lab = labels[:, i * chunk:(i + 1) * chunk]
-        logits = (h @ w_unembed).float()                       # [B,c,V]
-        lse = torch.logsumexp(logits, dim=-1)
+        c = slice(i * chunk, (i + 1) * chunk)
+        lab = rows[:, c]
+        logits = (hidden[:, c] @ w_unembed).float()            # [B,c,V]
+        lse = (torch.logsumexp(logits, dim=-1) if group is None else
+               _LogSumExp.apply(logits, group))
+        idx = lab.clamp_min(0).long() - lo
         tgt = torch.gather(logits, -1,
-                           lab.clamp_min(0).long()[..., None])[..., 0]
-        mask = (lab >= 0).float()
-        tot = tot + ((lse - tgt) * mask).sum()
-        cnt = cnt + mask.sum()
+                           idx.clamp(0, hi - lo - 1)[..., None])[..., 0]
+        if group is not None:
+            inside = (idx >= 0) & (idx < hi - lo)
+            tgt = tp.sum_over_model(torch.where(inside, tgt, 0.0))
+        tot = tot + total((lse - tgt) * (lab >= 0).float())
+        cnt = cnt + (labels[:, c] >= 0).float().sum()
     return tot / torch.clamp_min(cnt, 1.0)
 
 
@@ -82,10 +143,16 @@ def make_train_state(model, gen: torch.Generator, tcfg: TrainConfig):
 class TrainStep:
     """A train step: ``grads(params, batch) -> (loss, grads)``, then the
     in-place AdamW at ``schedule``'s rate.  ``step(state, batch)`` ->
-    (state, metrics), ``state`` updated in place and returned."""
+    (state, metrics), ``state`` updated in place and returned.
+    ``tensor_parallel``: ``grads`` takes the params' ``DTensor``s on the
+    mesh (the dense and MoE decoders); ``batch_dim``: the dim of
+    ``tokens`` and ``labels`` that holds the batch rows (the bucketed
+    step's are bucket-major)."""
     grads: Callable
     schedule: Callable
     tcfg: TrainConfig
+    tensor_parallel: bool = False
+    batch_dim: int = 0
 
     def update_(self, grads, opt, params, grad_norm=None):
         """AdamW on ``params`` and ``opt`` in place; (lr, metrics)."""
@@ -137,7 +204,15 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             loss = loss + cfg.moe_aux_coef * aux / max(cfg.num_layers, 1)
         return loss
 
-    return model, TrainStep(_value_and_grad(loss_fn), _schedule(tcfg), tcfg)
+    return model, TrainStep(_value_and_grad(loss_fn), _schedule(tcfg), tcfg,
+                            tensor_parallel=_tensor_parallel(cfg))
+
+
+def _tensor_parallel(cfg: ModelConfig) -> bool:
+    """The families whose blocks are ``models/transformer.py``'s split
+    their compute on the mesh; the others' meshed steps gather the
+    params whole (``launch/train.py::meshed_step``)."""
+    return cfg.family in ("dense", "moe")
 
 
 # ---------------------------------------------------------------------------
@@ -147,12 +222,20 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
 def _rescale(grads, scale: torch.Tensor, L: int):
     """Each leaf whose leading dim is ``L`` times ``scale`` [L], in
-    float32, cast back to the grad's dtype."""
+    float32, cast back to the grad's dtype (a ``DTensor``'s local shard:
+    the layer dim is never sharded, so the rescale is replicated)."""
+    def local(g):
+        return (g.float() * scale.reshape((-1,) + (1,) * (g.dim() - 1))
+                ).to(g.dtype)
+
     def leaf(g):
-        if g.dim() >= 1 and g.shape[0] == L:
-            return (g.float() * scale.reshape((-1,) + (1,) * (g.dim() - 1))
-                    ).to(g.dtype)
-        return g
+        if g.dim() < 1 or g.shape[0] != L:
+            return g
+        if isinstance(g, DTensor):
+            return DTensor.from_local(local(g.to_local()), g.device_mesh,
+                                      g.placements, run_check=False,
+                                      shape=g.shape, stride=g.stride())
+        return local(g)
     return tree_map(leaf, grads)
 
 
@@ -194,7 +277,8 @@ def build_fl_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         return loss, _rescale(g, n / torch.clamp_min(counts, 1.0),
                               cfg.num_layers)
 
-    return model, TrainStep(grads, _schedule(tcfg), tcfg)
+    return model, TrainStep(grads, _schedule(tcfg), tcfg,
+                            tensor_parallel=_tensor_parallel(cfg))
 
 
 def build_fl_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig):
@@ -219,7 +303,9 @@ def build_fl_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
     def _slice_blocks(params, k):
         sliced = dict(params)
-        sliced["blocks"] = tree_map(lambda a: a[:k], params["blocks"])
+        sliced["blocks"] = tree_map(
+            lambda a: tp.first_layers(a, k) if isinstance(a, DTensor)
+            else a[:k], params["blocks"])
         return sliced, dataclasses.replace(cfg, num_layers=k)
 
     def loss_fn(params, batch):
@@ -243,7 +329,9 @@ def build_fl_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                              dtype=torch.float32, device=loss.device)
         return loss, _rescale(g, scale, L)
 
-    return model, TrainStep(grads, _schedule(tcfg), tcfg), nb
+    return model, TrainStep(grads, _schedule(tcfg), tcfg,
+                            tensor_parallel=_tensor_parallel(cfg),
+                            batch_dim=1), nb
 
 
 def fl_batch_extras(cfg: ModelConfig, shape: ShapeConfig, n_clients: int = 4):

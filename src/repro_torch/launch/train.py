@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --smoke --steps 20 --batch 8 --seq 64 --device cpu
 
-    # the production mesh (256 ranks; 512 with --mesh multi); every rank
-    # holds the whole model's state and gradients (see below):
+    # the production mesh (256 ranks; 512 with --mesh multi); a rank of
+    # the dense and MoE decoders holds only its shards (see below):
     torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
         --arch phi3-mini-3.8b --shape train_4k --mesh single \
         --ckpt-dir /ckpt/phi3
@@ -23,26 +23,29 @@ drive nothing; the port leaves them out.
 environment (NCCL with each rank on ``cuda:LOCAL_RANK``, gloo with
 ``--device cpu``), builds the production mesh
 (:func:`repro_torch.launch.mesh.make_production_mesh`; another world
-size raises ``ValueError``) and installs it as the activation mesh.  What
-this mapping is: it reproduces the reference's values and its state
-layout, not its compute layout.  The params and AdamW moments are
-``DTensor``s placed by :func:`repro_torch.launch.specs.state_shardings`
-(each rank holds the shards the rules name), and :func:`meshed_step` is
-data parallelism over the batch axes: each step gathers the params
-whole, takes the gradient of this rank's batch shard, averages it over
-the batch ranks, clips by the whole gradient's norm and updates each
-rank's shards in place.  So the mesh saves no memory yet: every rank
-builds the whole state before it keeps its shards, and holds the whole
-params and gradients in each step, so it runs only models whose whole
-state and gradients fit one device.  The model axis's tensor-parallel
-compute and the MoE experts' parallelism (the dispatch's all-to-all) are a later
-slice's.  Under a mesh ``--ckpt-dir`` gathers the state, rank 0 writes
-the reference's files, and every rank loads them whole and keeps its
-shards.
+size raises ``ValueError``) and installs it as the activation mesh.  The
+params and AdamW moments are ``DTensor``s placed by
+:func:`repro_torch.launch.specs.state_shardings` (each rank holds the
+shards the rules name).  For the dense and MoE decoders (phi3-mini,
+minitron, yi, command-r, mixtral, qwen3-moe) the state is built leaf by
+leaf (:func:`sharded_train_state`: each leaf drawn as one process draws
+it and cut to this rank's shard at once), and :func:`meshed_step` runs
+the step on the shards: the model splits its compute over the model
+axis as the reference's GSPMD does (``sharding/tp.py``), no param is
+gathered whole, and each rank updates its shards in place.  A rank
+holds its shards, one layer's weights gathered over the FSDP axis, and
+its activations.  The other families (xlstm-1.3b, zamba2-1.2b,
+whisper-medium, llama-3.2-vision-11b) keep data parallelism over the
+batch axes: every rank builds the whole state before it keeps its
+shards and gathers the params whole each step, so their whole state and
+gradients must fit one device.  Under a mesh ``--ckpt-dir`` gathers the
+state, rank 0 writes the reference's files, and every rank loads them
+whole and keeps its shards.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -57,13 +60,16 @@ from repro_torch.configs import (INPUT_SHAPES, TrainConfig, get_config,
 from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.specs import state_shardings
+from repro_torch.launch.specs import _MetaGenerator, state_shardings
 from repro_torch.launch.steps import (TrainStep, adapt_for_shape,
                                       build_train_step, make_train_state)
+from repro_torch.models import layers as L
 from repro_torch.models.api import extra_inputs
 from repro_torch.optim.optimizers import global_norm
 from repro_torch.sharding.rules import (activation_mesh, batch_axes,
-                                        mesh_size, set_activation_mesh)
+                                        map_with_path, mesh_size,
+                                        model_axis_ok, placements,
+                                        set_activation_mesh, spec_for)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -75,10 +81,14 @@ def _on_disk(state):
 
 @torch.no_grad()
 def _restore(state, path):
-    """Load ``path`` into ``state``'s tensors in place."""
+    """Load ``path`` into ``state``'s tensors in place (a ``DTensor``'s
+    shard from the whole leaf)."""
     loaded = load_pytree(path, _on_disk(state))
     for dst, src in zip(tree_leaves(_on_disk(state)), tree_leaves(loaded)):
-        if isinstance(dst, torch.Tensor):
+        if isinstance(dst, DTensor):
+            dst.to_local().copy_(local_shard(
+                torch.as_tensor(src), dst.device_mesh, dst.placements))
+        elif isinstance(dst, torch.Tensor):
             dst.copy_(torch.as_tensor(src))
     state["opt"]["step"] = int(np.asarray(loaded["opt"]["step"]))
 
@@ -122,6 +132,59 @@ def place_state(state, mesh):
                                    shardings["opt"]["nu"])}}
 
 
+def _placed_zeros(shape, mesh, placements, device):
+    """A float32 ``DTensor`` of zeros of the global ``shape``, each rank
+    making only its shard."""
+    local = local_shard(torch.empty(shape, device="meta"), mesh,
+                        placements).shape
+    return DTensor.from_local(
+        torch.zeros(local, dtype=torch.float32, device=device), mesh,
+        placements, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def sharded_train_state(model, device, mesh, seed: int = 0):
+    """The train state that ``place_state(make_train_state(model,
+    Generator(device).manual_seed(seed)), mesh)`` gives, built leaf by
+    leaf: the leaves' order and paths from the model's ``init`` on the
+    meta device, then the same ``init`` on ``device``, each leaf cut to
+    this rank's shard as soon as its initialiser makes it
+    (``models.layers.leaf_hook``) and the moments made as shards.  A
+    rank holds its shards and one whole leaf at a time, never the whole
+    state."""
+    made = []
+    with L.leaf_hook(lambda t: made.append(t) or t):
+        shapes = model.init(_MetaGenerator())
+    paths = {}
+    map_with_path(lambda path, t: paths.setdefault(id(t), path), shapes)
+    order = [paths.get(id(t)) for t in made]
+    if None in order or sorted(order) != sorted(paths.values()):
+        raise RuntimeError(f"{model.cfg.name}: its init makes a leaf outside "
+                           "the initialisers' leaf hook (models/layers.py)")
+    shardings = state_shardings({"params": shapes, "opt": {"step": 0}}, mesh)
+    where = {}
+    map_with_path(lambda path, t: where.setdefault(
+        path, placements(spec_for(path, t.shape, mesh), mesh)), shapes)
+    queue = iter(order)
+
+    def cut(t):
+        pl = where[next(queue)]
+        local = local_shard(t, mesh, pl)
+        if local is not t:
+            local = local.clone()     # let the whole leaf go
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    with L.leaf_hook(cut):
+        params = model.init(torch.Generator(device).manual_seed(seed))
+
+    def moments():
+        return tree_map(lambda s, pl: _placed_zeros(s.shape, mesh, pl,
+                                                    device),
+                        shapes, shardings["opt"]["mu"])
+    return {"params": params,
+            "opt": {"step": 0, "mu": moments(), "nu": moments()}}
+
+
 @torch.no_grad()
 def gather_state(state):
     """The state with every ``DTensor`` gathered whole (a collective each:
@@ -142,16 +205,17 @@ def _batch_index(mesh, axes):
     return idx
 
 
-def batch_shard(batch, mesh):
+def batch_shard(batch, mesh, rows: int = 0):
     """This rank's shard of a global batch (every rank holds it whole)
-    over :func:`batch_axes`: tokens, labels and stub inputs split dim 0,
-    the FL gates dim 1."""
+    over :func:`batch_axes`: tokens, labels and stub inputs split dim
+    ``rows`` (1 for the bucketed FL step's bucket-major batch), the FL
+    gates dim 1."""
     axes = batch_axes(mesh)
     n = mesh_size(mesh, axes)
     idx = _batch_index(mesh, axes)
     out = {}
     for k, v in batch.items():
-        d = _BATCH_DIM.get(k, 0)
+        d = _BATCH_DIM.get(k, rows if k in ("tokens", "labels") else 0)
         if d is None:
             out[k] = v
             continue
@@ -164,21 +228,101 @@ def batch_shard(batch, mesh):
 
 
 def meshed_step(step: TrainStep, mesh):
-    """``step`` (:func:`build_train_step`'s or
-    :func:`~repro_torch.launch.steps.build_fl_train_step`'s) on a state
-    placed by :func:`place_state`, as data parallelism over the batch
-    axes of ``mesh``: it computes what ``step`` computes on the whole
-    batch.  The mean of equal shards' mean losses is the batch's; the one
-    term that is not such a mean, the MoE load-balance loss (a product of
-    token means), takes its means over the batch axes of the activation
-    mesh, which the step installs while it runs (``models/moe.py``).
-    Every rank passes the whole global batch; returns (state, metrics),
-    the state's shards updated in place.
+    """``step`` (any of ``launch/steps.py``'s train steps) on a state
+    placed by :func:`place_state` (or :func:`sharded_train_state`): it
+    computes what ``step`` computes on the whole batch.  Every rank
+    passes the whole global batch; returns (state, metrics), the
+    state's shards updated in place.
+
+    The dense and MoE decoders (``step.tensor_parallel``) run on the
+    params' ``DTensor``s (:func:`_tensor_parallel_step`).  The other
+    families keep data parallelism over the batch axes with the params
+    gathered whole (:func:`_gathered_step`), and say so once a run.
+    """
+    if step.tensor_parallel:
+        return _tensor_parallel_step(step, mesh)
+    if dist.get_rank() == 0:
+        print("meshed_step: this family's step gathers the params whole on "
+              "every rank (data parallelism over the batch axes); the "
+              "tensor-parallel compute covers the dense and MoE decoders",
+              flush=True)
+    return _gathered_step(step, mesh)
+
+
+def _sharded_norm(grads, mesh) -> torch.Tensor:
+    """The whole gradient's global norm from each rank's shards: each
+    leaf's sum of squares summed over the mesh dims that shard it."""
+    leaves = tree_leaves(grads)
+    sq = torch.stack([torch.sum(torch.square(g.to_local().float()))
+                      for g in leaves])
+    for i in range(mesh.ndim):
+        sharded = torch.tensor([g.placements[i].is_shard() for g in leaves],
+                               device=sq.device)
+        if mesh.size(i) == 1 or not bool(sharded.any()):
+            continue
+        part = torch.where(sharded, sq, torch.zeros_like(sq))
+        dist.all_reduce(part, group=mesh.get_group(i))
+        sq = torch.where(sharded, part, sq)
+    return torch.sqrt(sq.sum())
+
+
+def _tensor_parallel_step(step: TrainStep, mesh):
+    """The step on the params' ``DTensor``s with the activation mesh
+    installed: the model splits its compute over the model axis
+    (``sharding/tp.py``) and never gathers a param whole; the gradients
+    come back in the params' placements, summed over the batch ranks,
+    and are divided by their count (the mean of equal shards' mean
+    losses is the batch's); the clip reads the whole gradient's norm
+    (:func:`_sharded_norm`); AdamW updates each rank's shards in place,
+    and where a moment is sharded finer than its param (``zero1``) the
+    moment's region of the param, gathered back into the param's shard
+    (:func:`_write_back`)."""
+    axes = batch_axes(mesh)
+    groups = [mesh.get_group(a) for a in axes]
+    n = mesh_size(mesh, axes)
+
+    def run(state, batch):
+        params, opt = state["params"], state["opt"]
+        with _installed(mesh):
+            loss, grads = step.grads(params,
+                                     batch_shard(batch, mesh, step.batch_dim))
+        loss = loss.detach()
+        for g in groups:
+            dist.all_reduce(loss, group=g)
+        loss.div_(n)
+        if n > 1:
+            for g in tree_leaves(grads):
+                g.to_local().div_(n)
+        region = tree_map(lambda m: tuple(m.placements), opt["mu"])
+        with torch.no_grad():
+            local_grads = tree_map(
+                lambda g, pl: (g if tuple(g.placements) == pl else
+                               g.redistribute(mesh, pl)).to_local(),
+                grads, region)
+            targets = tree_map(
+                lambda p, pl: p.to_local() if tuple(p.placements) == pl
+                else p.redistribute(mesh, pl).to_local().clone(),
+                params, region)
+        lr, m = _update_shards(step, state, local_grads, targets, region,
+                               mesh, _sharded_norm(grads, mesh))
+        return state, {"loss": loss, "lr": lr, **m}
+
+    return run
+
+
+def _gathered_step(step: TrainStep, mesh):
+    """``step`` as data parallelism over the batch axes of ``mesh``.  The
+    mean of equal shards' mean losses is the batch's; the one term that
+    is not such a mean, the MoE load-balance loss (a product of token
+    means), takes its means over the batch axes of the activation mesh,
+    which the step installs while it runs (``models/moe.py``).
 
     Each step gathers the params whole, takes the gradient of this rank's
     batch shard, all-reduces it (and the loss) over the batch axes and
     divides by their size, clips by the norm of that whole gradient, and
-    runs AdamW on each rank's shards.  Where a moment is sharded finer
+    runs AdamW on each rank's shards (the xLSTM, Mamba2-hybrid, whisper
+    and VLM families: their activation hooks are the identity on the
+    whole params' plain tensors).  Where a moment is sharded finer
     than its param (``zero1``), the rank updates the moment's region of
     the param and the param's shard is gathered back from the ranks'
     regions (``redistribute``)."""
@@ -190,36 +334,54 @@ def meshed_step(step: TrainStep, mesh):
         params, opt = state["params"], state["opt"]
         with torch.no_grad():
             whole = tree_map(lambda p: p.full_tensor(), params)
-        outer = activation_mesh()
-        set_activation_mesh(mesh)
-        try:
-            loss, grads = step.grads(whole, batch_shard(batch, mesh))
-        finally:
-            set_activation_mesh(outer)
+        with _installed(mesh):
+            loss, grads = step.grads(whole, batch_shard(batch, mesh,
+                                                        step.batch_dim))
         loss = loss.detach()
         for t in [loss] + tree_leaves(grads):
             for g in groups:
                 dist.all_reduce(t, group=g)
             t.div_(n)
-        gnorm = global_norm(grads)
-        mu, nu = opt["mu"], opt["nu"]
         # each leaf's update region: its moments' shard
-        region = tree_map(lambda m: m.placements, mu)
+        region = tree_map(lambda m: m.placements, opt["mu"])
         local_grads = tree_map(lambda g, pl: local_shard(g, mesh, pl),
                                grads, region)
         targets = tree_map(
             lambda p, w, pl: p.to_local() if p.placements == pl
             else local_shard(w.detach(), mesh, pl).clone(),
             params, whole, region)
-        local_opt = {"step": opt["step"],
-                     "mu": tree_map(lambda t: t.to_local(), mu),
-                     "nu": tree_map(lambda t: t.to_local(), nu)}
-        lr, m = step.update_(local_grads, local_opt, targets, grad_norm=gnorm)
-        opt["step"] = local_opt["step"]
-        _write_back(params, targets, region, mesh)
+        lr, m = _update_shards(step, state, local_grads, targets, region,
+                               mesh, global_norm(grads))
         return state, {"loss": loss, "lr": lr, **m}
 
     return run
+
+
+@contextlib.contextmanager
+def _installed(mesh):
+    """``mesh`` as the activation mesh while a step takes its gradient
+    (``model_axis_ok`` kept where the caller installed this mesh)."""
+    outer, ok = activation_mesh(), model_axis_ok()
+    set_activation_mesh(mesh, ok if outer is mesh else True)
+    try:
+        yield
+    finally:
+        set_activation_mesh(outer, ok)
+
+
+def _update_shards(step, state, local_grads, targets, region, mesh, gnorm):
+    """AdamW on this rank's moments and the params' update regions
+    (``targets``), clipped by the whole gradient's norm ``gnorm``; the
+    regions of params that their moments shard finer are gathered back
+    (:func:`_write_back`).  Returns (lr, metrics)."""
+    opt = state["opt"]
+    local_opt = {"step": opt["step"],
+                 "mu": tree_map(lambda t: t.to_local(), opt["mu"]),
+                 "nu": tree_map(lambda t: t.to_local(), opt["nu"])}
+    lr, m = step.update_(local_grads, local_opt, targets, grad_norm=gnorm)
+    opt["step"] = local_opt["step"]
+    _write_back(state["params"], targets, region, mesh)
+    return lr, m
 
 
 @torch.no_grad()
@@ -248,8 +410,12 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
     the state holds ``DTensor``s."""
     B, S = batch, seq
     model, train_step = build_train_step(cfg, tcfg)
-    state = make_train_state(model, torch.Generator(device).manual_seed(0),
-                             tcfg)
+    sharded = mesh is not None and train_step.tensor_parallel
+    if sharded:
+        state = sharded_train_state(model, device, mesh)
+    else:
+        state = make_train_state(
+            model, torch.Generator(device).manual_seed(0), tcfg)
     lead = mesh is None or dist.get_rank() == 0
     start = 0
     if ckpt_dir:
@@ -260,7 +426,8 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
             if lead:
                 print(f"resumed from {ck} (step {start})")
     if mesh is not None:
-        state = place_state(state, mesh)
+        if not sharded:
+            state = place_state(state, mesh)
         train_step = meshed_step(train_step, mesh)
 
     toks = synthetic_lm_dataset(max(S * B * 4, 100_000), cfg.vocab_size,

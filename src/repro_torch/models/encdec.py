@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding.rules import constrain
 
 
 def enc_block_init(gen: torch.Generator, cfg, dtype, *, lead=()):
@@ -97,7 +98,7 @@ def encode(params, cfg, audio_frames, *, remat="full"):
                                  norm_eps=cfg.norm_eps)
         x = x + a
         h = L.layernorm_apply(bp["mlp_norm"], x, cfg.norm_eps)
-        return x + L.gelu_mlp_apply(bp["mlp"], h)
+        return constrain(x + L.gelu_mlp_apply(bp["mlp"], h))
 
     body = _remat(body, remat)
     for bp in T._unstack(params["encoder"], cfg.encoder_layers):
@@ -135,8 +136,9 @@ def apply(params, cfg, tokens, audio_frames, *, layer_mask=None, window=None,
     mask = T._gates(cfg, layer_mask, x.device)
 
     def body(x, enc_out, bp, gate):
-        return _dec_block(bp, cfg, x, enc_out, positions, gate.to(x.dtype),
-                          use_pallas=use_pallas, attn_chunk=attn_chunk)
+        return constrain(_dec_block(bp, cfg, x, enc_out, positions,
+                                    gate.to(x.dtype), use_pallas=use_pallas,
+                                    attn_chunk=attn_chunk))
 
     body = _remat(body, remat)
     for i, bp in enumerate(T._unstack(params["decoder"], cfg.num_layers)):

@@ -28,6 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.ssm import (mamba_apply, mamba_decode, mamba_init,
                                     mamba_state_init)
+from repro_torch.sharding.rules import constrain
 
 
 def _segments(cfg):
@@ -79,7 +80,7 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
 
     def body(x, mp, gate):
         d, _ = mamba_apply(mp, cfg, x)
-        return x + gate.to(x.dtype) * d
+        return constrain(x + gate.to(x.dtype) * d)
 
     body = T._remat_wrap(body, "none" if remat == "none" else "full")
     blocks = T._unstack(params["mamba"], cfg.num_layers)

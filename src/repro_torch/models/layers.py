@@ -22,16 +22,55 @@ repeated.  Prefill and training take the
 hand-written ``flash_attention`` kernel under ``use_pallas``, as the
 reference takes its Pallas kernel; decode attention stays plain torch,
 as the reference computes it outside any kernel.
+
+On the production mesh (``launch/train.py::meshed_step``) the dense and
+MoE decoders' params arrive as the ``DTensor``s the rules place (which
+selects these paths) and their activations as ``DTensor``s, and
+:func:`dense_apply`, :func:`swiglu_apply`, :func:`rmsnorm_apply`,
+:func:`attention_apply`, :func:`gqa_attend` and
+:func:`gqa_attend_chunked` split the compute as
+the reference's GSPMD does (``sharding/tp.py``'s regions, each running
+the one-device code on its local tensors): the q/k/v and SwiGLU
+gate/up products column-parallel, the output and down products
+row-parallel, attention on each rank's local heads, the activation
+hooks at the reference's call sites.  Initialisers hand each leaf they
+make to :func:`leaf_hook`'s function where one is installed (the
+sharded state build, ``launch/train.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.sharding.rules import get_sharding_policy
+from repro_torch.sharding import tp
+from repro_torch.sharding.rules import (attn_head_shard, attn_seq_shard,
+                                        get_sharding_policy)
+
+#: what :func:`leaf_hook` installs: each initialiser's leaf goes through
+#: it and is replaced by what it returns
+_LEAF_HOOK = None
+
+
+@contextlib.contextmanager
+def leaf_hook(fn):
+    """Within ``with``: every param leaf an initialiser of this module
+    makes is passed to ``fn`` as soon as it is made, and the tree holds
+    what ``fn`` returns (``launch/train.py`` keeps each leaf's shard)."""
+    global _LEAF_HOOK
+    outer, _LEAF_HOOK = _LEAF_HOOK, fn
+    try:
+        yield
+    finally:
+        _LEAF_HOOK = outer
+
+
+def _leaf(t: torch.Tensor):
+    return t if _LEAF_HOOK is None else _LEAF_HOOK(t)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, lead=()):
@@ -39,7 +78,7 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype, lead=()):
     ``dtype``, with ``lead`` axes in front."""
     w = torch.randn(tuple(lead) + tuple(shape), generator=gen,
                     device=gen.device)
-    return (scale * w).to(dtype)
+    return _leaf((scale * w).to(dtype))
 
 
 def normal_by_matrix(gen: torch.Generator, shape, scale: float, dtype,
@@ -50,12 +89,11 @@ def normal_by_matrix(gen: torch.Generator, shape, scale: float, dtype,
     whole."""
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
                       device=gen.device)
-    if out.is_meta:                # shapes only (launch/specs.py)
-        return out
-    for m in out.view((-1,) + tuple(shape[-2:])):
-        m.copy_(torch.randn(m.shape, generator=gen,
-                            device=gen.device).mul_(scale))
-    return out
+    if not out.is_meta:            # meta: shapes only (launch/specs.py)
+        for m in out.view((-1,) + tuple(shape[-2:])):
+            m.copy_(torch.randn(m.shape, generator=gen,
+                                device=gen.device).mul_(scale))
+    return _leaf(out)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -65,7 +103,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     (``layers.py:26``), drawn in float32 and cast to ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn(lead + (d_in, d_out), generator=gen, device=gen.device)
-    return {"w": (w * scale).to(dtype)}
+    return {"w": _leaf((w * scale).to(dtype))}
 
 
 def dense_bias_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -73,15 +111,60 @@ def dense_bias_init(gen: torch.Generator, d_in: int, d_out: int,
                     dtype=torch.float32, lead: Tuple[int, ...] = ()):
     p = dense_init(gen, d_in, d_out, scale, dtype=dtype, lead=lead)
     if bias:
-        p["b"] = torch.zeros(lead + (d_out,), dtype=dtype, device=gen.device)
+        p["b"] = _leaf(torch.zeros(lead + (d_out,), dtype=dtype,
+                                   device=gen.device))
     return p
 
 
 def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(p["w"], DTensor):
+        return _dense_sharded(p, x)
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def _column_params(p):
+    """A column-parallel product's local params: ``w``'s model shard (its
+    output columns), the bias's matching slice (each rank uses a part
+    of it: its gradient is partial over ``model``)."""
+    out = {"w": tp.weight(p["w"])}
+    if "b" in p:
+        lo, hi = tp.model_range(p["w"], p["w"].ndim - 1)
+        out["b"] = tp.weight(p["b"], Partial())[..., lo:hi]
+    return out
+
+
+def _row_params(p):
+    """A row-parallel product's local params: ``w``'s model shard (its
+    input rows); the bias counted on model rank 0 only (zero on the
+    others), so the partial sums add it once."""
+    out = {"w": tp.weight(p["w"])}
+    if "b" in p:
+        b = tp.weight(p["b"], Partial())
+        out["b"] = b if tp.model_rank() == 0 else b * 0.0
+    return out
+
+
+def _dense_sharded(p, x):
+    """``x @ w (+ b)`` on the mesh as the rules place ``w``, x [..., d_in]
+    in the compute layout: column-parallel where ``model`` shards w's
+    output dim (the ``("embed", "heads")`` and ``("embed", "mlp")``
+    specs: x whole, out sharded on its last dim), row-parallel where it
+    shards w's input dim (``("heads", "embed")``, ``("mlp", "embed")``: x
+    sharded on its last dim, out a partial sum over ``model``), else
+    replicated compute."""
+    last = x.ndim - 1
+    dim = tp.model_shard_dim(p["w"])
+    if dim == p["w"].ndim - 1:
+        y = dense_apply(_column_params(p), tp.local(x, grad=Partial()))
+        return tp.wrap(y, Shard(last))
+    if dim == p["w"].ndim - 2:
+        y = dense_apply(_row_params(p), tp.local(x, Shard(last)))
+        return tp.wrap(y, Partial())
+    local = {k: tp.weight(v) for k, v in p.items()}
+    return tp.wrap(dense_apply(local, tp.local(x)))
 
 
 def stacked_dense_apply(p, x: torch.Tensor) -> torch.Tensor:
@@ -99,20 +182,44 @@ def stacked_dense_apply(p, x: torch.Tensor) -> torch.Tensor:
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *,
                dtype=torch.float32):
-    return {"emb": torch.randn((vocab, d), generator=gen,
-                               device=gen.device).to(dtype)}
+    return {"emb": _leaf(torch.randn((vocab, d), generator=gen,
+                                     device=gen.device).to(dtype))}
+
+
+def embed_apply(p, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding lookup ``emb[tokens]``.  On the mesh (``emb`` a
+    ``DTensor``, ``tokens`` this rank's rows) a vocab-parallel lookup:
+    each model rank looks up the tokens in its vocab shard (the
+    ``("vocab", "embed")`` spec) and the rows come back a partial sum
+    over ``model``, which the caller's :func:`~repro_torch.sharding.
+    rules.constrain` reduces."""
+    emb = p["emb"]
+    if not isinstance(emb, DTensor):
+        return emb[tokens]
+    tok = tp.group_rows(tokens)
+    if tp.model_shard_dim(emb) != 0:
+        return tp.wrap(tp.weight(emb)[tok])
+    lo, hi = tp.model_range(emb, 0)
+    e = tp.weight(emb)
+    idx = tok.long() - lo
+    inside = (idx >= 0) & (idx < hi - lo)
+    x = e[idx.clamp(0, hi - lo - 1)] * inside[..., None].to(e.dtype)
+    return tp.wrap(x, Partial())
 
 
 def rmsnorm_init(d: int, *, dtype=torch.float32, device="cpu",
                  lead: Tuple[int, ...] = ()):
-    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    return {"scale": _leaf(torch.ones(lead + (d,), dtype=dtype,
+                                      device=device))}
 
 
 def layernorm_init(d: int, *, dtype=torch.float32, device="cpu",
                    lead: Tuple[int, ...] = ()):
     """``layers.py:100``: unit scale, zero bias (``lead``: the stack)."""
-    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
-            "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+    return {"scale": _leaf(torch.ones(lead + (d,), dtype=dtype,
+                                      device=device)),
+            "bias": _leaf(torch.zeros(lead + (d,), dtype=dtype,
+                                      device=device))}
 
 
 def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -215,8 +322,20 @@ MASKED = -1e30
 
 
 def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """``layers.py:88-98``: float32 statistics, the output in x's dtype."""
-    xf = x.float()
+    """``layers.py:88-98``: float32 statistics, the output in x's dtype.
+    On the mesh (``p`` and ``x`` ``DTensor``s): the norm of the whole
+    feature dim, replicated over ``model``, in the compute layout (where
+    GSPMD gathers the residual for it, or ``gather_block_input`` already
+    has)."""
+    if isinstance(p["scale"], DTensor):
+        return tp.wrap(rmsnorm_apply({"scale": tp.weight(p["scale"])},
+                                     tp.local(x), eps))
+    # in float32 ``x.float()`` is x itself; the view makes the norm's
+    # three uses of x one term of x's gradient, as the cast does in bf16
+    # and as a region's local tensor does on the mesh, so the sum of x's
+    # gradient terms (this one and the residual's) is the same on one
+    # device and on a one-rank mesh, bit for bit
+    xf = x.view_as(x) if x.dtype == torch.float32 else x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
@@ -282,26 +401,70 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off, ``repro_torch/__init__.py``).  Under the ``repeat_kv`` policy
     the KV heads are repeated (each ``G`` times in a row) and the query
     heads are a pure batch dim of both products, as in the reference."""
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
-    valid = _visible(Sq, Sk, causal, window, q_offset, kv_len, q.device)
+    if isinstance(q, DTensor):
+        return _gqa_attend_sharded(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len)
+    G = q.shape[2] // k.shape[2]
     if get_sharding_policy()["repeat_kv"] and G > 1:
         kr = k.repeat_interleave(G, dim=2)
         vr = v.repeat_interleave(G, dim=2)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
-        s = torch.where(valid[:, None], s, s.new_tensor(MASKED))
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
-                         vr.float())
-        return o.to(q.dtype)
+        return _attend_repeated(q, kr, vr, causal=causal, window=window,
+                                q_offset=q_offset, kv_len=kv_len)
+    return _attend_grouped(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, kv_len=kv_len)
+
+
+def _attend_repeated(q, kr, vr, *, causal, window=0, q_offset=0,
+                     kv_len=None):
+    """The ``repeat_kv`` branch's products: the query heads a pure batch
+    dim, kr and vr [B, Sk, Hq, D]."""
+    Sq, Sk, D = q.shape[1], kr.shape[1], q.shape[3]
+    valid = _visible(Sq, Sk, causal, window, q_offset, kv_len, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) \
+        * (1.0 / math.sqrt(D))
+    s = torch.where(valid[:, None], s, s.new_tensor(MASKED))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(vr.dtype).float(), vr.float())
+    return o.to(q.dtype)
+
+
+def _attend_grouped(q, k, v, *, causal, window=0, q_offset=0, kv_len=None):
+    """The grouped einsum: query head h reads KV head h // G."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    valid = _visible(Sq, Sk, causal, window, q_offset, kv_len, q.device)
     qg = q.reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(D))
     s = torch.where(valid[:, None, None], s, s.new_tensor(MASKED))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _gqa_attend_sharded(q, k, v, *, causal, window, q_offset, kv_len):
+    """:func:`gqa_attend` on the mesh: each rank's local shards
+    (``tp.attend_local``: heads, batch rows, or, under ``attn_seq``, its
+    query rows at their offset).  The ``repeat_kv`` branch repeats each
+    rank's local KV heads, then calls ``attn_head_shard`` on q and the
+    repeated KV, as the reference's branch does (``layers.py:199-205``)."""
+    if not (isinstance(q_offset, int) and q_offset == 0) or \
+            kv_len is not None:
+        raise NotImplementedError("attention on the mesh takes no cache "
+                                  "(decode runs on one device)")
+    G = q.shape[2] // k.shape[2]
+    if get_sharding_policy()["repeat_kv"] and G > 1:
+        tp.attention_layout(q, k, v, seq_ok=True)
+        kr, vr = (tp.from_local(
+            tp.to_local(t, t.placements).repeat_interleave(G, dim=2),
+            t.placements, (t.shape[0], t.shape[1], q.shape[2], t.shape[3]),
+            mesh=t.device_mesh) for t in (k, v))
+        q, kr, vr = attn_head_shard(q, kr, vr)
+        return tp.attend_local(_attend_repeated, q, kr, vr, seq_ok=True,
+                               causal=causal, window=window)
+    return tp.attend_local(_attend_grouped, q, k, v, seq_ok=True,
+                           causal=causal, window=window)
 
 
 def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -311,6 +474,11 @@ def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``layers.py:228-280``, its ``lax.scan`` a loop): never holds the
     [Sq, Sk] scores.  Key counts that ``chunk`` does not divide, or that
     fit in one chunk, take :func:`gqa_attend`, as in the reference."""
+    if isinstance(q, DTensor):
+        # the query rows' offsets are not taken here: attn_seq's q comes
+        # gathered, as to the kernel (attention_apply)
+        return tp.attend_local(gqa_attend_chunked, q, k, v, seq_ok=False,
+                               causal=causal, window=window, chunk=chunk)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if Sk % chunk or Sk <= chunk:
@@ -359,6 +527,14 @@ def attention_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     read as it is.  With ``use_pallas``, causal self-attention without a
     cache launches the hand-written ``flash_attention`` kernel (on CPU
     tensors its plain version)."""
+    if isinstance(p["wq"]["w"], DTensor):
+        if cache is not None or kv_src is not None:
+            raise NotImplementedError("attention on the mesh is causal "
+                                      "self-attention without a cache")
+        return _attention_sharded(
+            p, cfg, x, positions, causal=causal, window=window,
+            use_pallas=use_pallas, attn_chunk=attn_chunk,
+            norm_eps=norm_eps), cache
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = _split_heads(dense_apply(p["wq"], x), nh, hd)
     src = x if kv_src is None else kv_src
@@ -397,6 +573,92 @@ def attention_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     return out, cache
 
 
+def _heads(flat, norms, cfg, positions, nq: int, nkv: int, norm_eps):
+    """attention_apply's q, k, v from the products' outputs: the heads
+    split, ``qk_norm``, RoPE, in the one-device order."""
+    hd = cfg.hd
+    q = _split_heads(flat[0], nq, hd)
+    k = _split_heads(flat[1], nkv, hd)
+    v = _split_heads(flat[2], nkv, hd)
+    if norms:
+        q = rmsnorm_apply(norms["q_norm"], q, norm_eps)
+        k = rmsnorm_apply(norms["k_norm"], k, norm_eps)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _merge_heads(o):
+    """o [B, S, H, D] (a ``DTensor``) as [B, S, H*D] in the same
+    placements; a head shard that is uneven over its ranks is gathered
+    first (its flat columns would not be the flat tensor's even shard)."""
+    m = o.device_mesh
+    H = o.shape[2]
+    even = tuple(Replicate() if p == Shard(2) and H % m.size(i) else p
+                 for i, p in enumerate(o.placements))
+    if even != tuple(o.placements):
+        o = o.redistribute(m, even)
+    local = tp.to_local(o, even)
+    flat = local.reshape(local.shape[:2] + (-1,))
+    return tp.from_local(flat, even, tuple(o.shape[:2]) + (H * o.shape[3],),
+                         mesh=m)
+
+
+def _attention_sharded(p, cfg, x, positions, *, causal, window,
+                       use_pallas, attn_chunk, norm_eps):
+    """``attention_apply`` on the mesh: x in the compute layout.  The
+    q/k/v products column-parallel as the rules place wq, wk, wv
+    (``("embed", "heads")``); where Hq and Hkv both divide the model axis
+    each rank keeps its local heads, else the products' columns are
+    gathered to whole heads (the reference's GSPMD replicates around an
+    indivisible head axis).  Then ``attn_seq_shard`` (``layers.py:
+    308-310``), attention on local shards (the ``flash_attention``
+    kernel under ``use_pallas``, which like the reference's takes no
+    query offset: under ``attn_seq`` its q is gathered; the plain path
+    attends on the local query rows), and ``wo`` row-parallel: the
+    output a partial sum over ``model``."""
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    m = tp.model_size()
+    names = ("wq", "wk", "wv")
+    cols = [tp.model_shard_dim(p[n]["w"]) == p[n]["w"].ndim - 1
+            for n in names]
+    # x's gradient is partial over model through the sharded products and
+    # whole through the replicated ones: one boundary for each kind
+    xs = tp.local(x, grad=Partial()) if any(cols) else None
+    xr = None if all(cols) else tp.local(x)
+    flat = [dense_apply(_column_params(p[n]), xs) if c else
+            dense_apply({k: tp.weight(t) for k, t in p[n].items()}, xr)
+            for n, c in zip(names, cols)]
+    norm_names = [n for n in ("q_norm", "k_norm") if n in p]
+    if all(cols) and nh % m == 0 and nkv % m == 0:
+        # each rank's heads: the q/k norms' scales act on every rank's
+        # heads, so their gradients are partial over model
+        norms = {n: {"scale": tp.weight(p[n]["scale"], Partial())}
+                 for n in norm_names}
+        q, k, v = (tp.wrap(t, Shard(2)) for t in _heads(
+            flat, norms, cfg, positions, nh // m, nkv // m, norm_eps))
+    else:
+        whole = [tp.local(tp.wrap(f, Shard(2) if c else Replicate()))
+                 for f, c in zip(flat, cols)]
+        norms = {n: {"scale": tp.weight(p[n]["scale"])} for n in norm_names}
+        q, k, v = (tp.wrap(t) for t in _heads(whole, norms, cfg, positions,
+                                                nh, nkv, norm_eps))
+    q, k, v = attn_seq_shard(q, k, v)
+    if (use_pallas and causal) or attn_chunk:
+        rows = tuple(Replicate() if pl == Shard(1) else pl
+                     for pl in q.placements)
+        if rows != tuple(q.placements):
+            q = q.redistribute(q.device_mesh, rows)
+    if use_pallas and causal:
+        from repro_torch.kernels.flash_attention import flash_attention
+        o = flash_attention(q, k, v, causal=True, window=window)
+    elif attn_chunk:
+        o = gqa_attend_chunked(q, k, v, causal=causal, window=window,
+                               chunk=attn_chunk)
+    else:
+        o = gqa_attend(q, k, v, causal=causal, window=window)
+    return dense_apply(p["wo"], _merge_heads(o))
+
+
 def make_kv_cache(cfg, batch: int, length: int, dtype, device="cpu"):
     return {"k": torch.zeros((batch, length, cfg.num_kv_heads, cfg.hd),
                              dtype=dtype, device=device),
@@ -415,5 +677,23 @@ def swiglu_init(gen: torch.Generator, d: int, f: int, dtype,
 
 
 def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(p["w_gate"]["w"], DTensor):
+        return _swiglu_sharded(p, x)
     return dense_apply(p["w_down"], F.silu(dense_apply(p["w_gate"], x))
                        * dense_apply(p["w_up"], x))
+
+
+def _swiglu_sharded(p, x):
+    """``swiglu_apply`` on the mesh, x in the compute layout, as one
+    region: gate and up column-parallel, down row-parallel where
+    ``model`` shards the MLP width (the ``("embed", "mlp")`` and
+    ``("mlp", "embed")`` specs; the output a partial sum over
+    ``model``), else replicated compute."""
+    if tp.model_shard_dim(p["w_gate"]["w"]) == p["w_gate"]["w"].ndim - 1:
+        local = {"w_gate": _column_params(p["w_gate"]),
+                 "w_up": _column_params(p["w_up"]),
+                 "w_down": _row_params(p["w_down"])}
+        return tp.wrap(swiglu_apply(local, tp.local(x, grad=Partial())),
+                       Partial())
+    local = {k: {n: tp.weight(t) for n, t in v.items()} for k, v in p.items()}
+    return tp.wrap(swiglu_apply(local, tp.local(x)))

@@ -20,13 +20,22 @@ The router runs in float32 and returns a Switch-style load-balance aux
 loss beside the output.  Its token means are the whole batch's: under
 an activation mesh (``sharding/rules.py::set_activation_mesh``), where
 each batch rank holds an equal shard, they are averaged over the batch
-axes, as the reference's SPMD mean is global (:func:`_batch_mean`).  Within :func:`routes` it records each call's
+axes, as the reference's SPMD mean is global (:func:`batch_mean`).  Within :func:`routes` it records each call's
 top-k indices, or takes given ones in their place, so that two forwards
 that round differently can be held against each other on one routing.
 The expert products are plain ``einsum`` (cuBLAS batched products), as
 the reference's are plain XLA products outside any Pallas kernel.  Initialisation draws each expert's matrix on
 its own (:func:`repro_torch.models.layers.normal_by_matrix`), so a
 stack of bf16 experts never exists in float32 whole.
+
+On the production mesh (``launch/train.py::meshed_step``: ``x`` and the
+params ``DTensor``s) the capacity dispatch splits over the model axis as
+the rules place the experts (:func:`_moe_sharded`): each rank's experts
+(``E`` over ``model`` where it divides, else every expert at its shard
+of the FFN width) run on the dispatch buffer's slice for them, and the
+combine is a partial sum over ``model``; no expert weight is gathered.
+The router stays replicated, and the load-balance loss is taken on each
+rank's own rows with the batch's token means (:func:`batch_mean`).
 """
 from __future__ import annotations
 
@@ -36,8 +45,10 @@ import math
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp
 from repro_torch.sharding.rules import activation_mesh, batch_axes, mesh_size
 
 
@@ -77,7 +88,7 @@ def routes(replay=None):
         _ROUTES = None
 
 
-def _batch_mean(t):
+def batch_mean(t):
     """``t``, a mean over this rank's tokens, as the mean over the batch
     axes of the activation mesh (the ranks hold equal shards); ``t``
     itself without a mesh.  Its gradient stays this rank's own: the
@@ -97,28 +108,40 @@ def _batch_mean(t):
     return t + (whole - t).detach() if t.requires_grad else whole
 
 
-def _route(p, cfg, x):
-    """x: [..., d] -> (weights [..., K], idx [..., K], aux_loss).
+def _gates(p, cfg, x):
+    """x: [..., d] -> (the router's softmax [..., E], top-k weights [...,
+    K] renormalised, top-k indices [..., K]).
 
     ``torch.topk`` with ``sorted=True`` gives ``jax.lax.top_k``'s
     descending order, which sets each choice's slot in the dispatch."""
     logits = x.float() @ p["router"]                           # [..., E]
     gates = torch.softmax(logits, dim=-1)
-    K, E = cfg.experts_per_token, cfg.num_experts
-    topw, topi = torch.topk(gates, K, dim=-1, sorted=True)
+    topw, topi = torch.topk(gates, cfg.experts_per_token, dim=-1,
+                            sorted=True)
     if _ROUTES is not None:
         seen, replay = _ROUTES
         if replay is not None:
             topi = next(replay).to(x.device)
             topw = gates.gather(-1, topi)
         seen.append(topi)
-    topw = topw / (topw.sum(-1, keepdim=True) + 1e-9)
-    # Switch load-balance aux loss
-    me = _batch_mean(gates.reshape(-1, E).mean(0))
+    return gates, topw / (topw.sum(-1, keepdim=True) + 1e-9), topi
+
+
+def _aux(cfg, gates, topi):
+    """The Switch load-balance aux loss of ``gates`` [..., E] and the
+    choices ``topi`` [..., K], its token means the batch's
+    (:func:`batch_mean`)."""
+    K, E = cfg.experts_per_token, cfg.num_experts
+    me = batch_mean(gates.reshape(-1, E).mean(0))
     onehot = F.one_hot(topi, E).float()
-    ce = _batch_mean(onehot.sum(-2).reshape(-1, E).mean(0) / K)
-    aux = E * torch.sum(me * ce)
-    return topw, topi, aux
+    ce = batch_mean(onehot.sum(-2).reshape(-1, E).mean(0) / K)
+    return E * torch.sum(me * ce)
+
+
+def _route(p, cfg, x):
+    """x: [..., d] -> (weights [..., K], idx [..., K], aux_loss)."""
+    gates, topw, topi = _gates(p, cfg, x)
+    return topw, topi, _aux(cfg, gates, topi)
 
 
 def capacity(S, K, E, capacity_factor):
@@ -145,6 +168,8 @@ def _experts(p, xb):
 
 def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
     """x: [B, S, d] -> (y [B, S, d], aux_loss)."""
+    if isinstance(p["router"], DTensor):
+        return _moe_sharded(p, cfg, x, capacity_factor)
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     if S == 1:
@@ -156,21 +181,65 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 0.0):
         return _moe_gather(p, cfg, x)
     capacity_factor = capacity_factor or cfg.moe_capacity_factor
     topw, topi, aux = _route(p, cfg, x)                        # [B,S,K]
+    return _dispatch(p, cfg, x, topw, topi, capacity_factor, 0, E), aux
+
+
+def _dispatch(p, cfg, x, topw, topi, capacity_factor, lo, hi):
+    """The capacity dispatch, the experts ``lo``..``hi - 1`` (``p``'s
+    expert leaves hold those) and the combine: x [B, S, d], the top-k
+    ``topw`` and ``topi`` [B, S, K] -> y [B, S, d], the sum over the
+    choices of those experts (all of them: the whole output)."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
     C = capacity(S, K, E, capacity_factor)
 
     flat_e = topi.reshape(B, S * K)                            # [B, T]
     pos = slots(flat_e, E)                                     # [B, T]
     keep = (pos < C).to(x.dtype)
     pos = pos.clamp_max(C - 1)
+    # the choices of this expert range, their experts counted from lo
+    mine = (flat_e >= lo) & (flat_e < hi)
+    keep = keep * mine.to(x.dtype)
+    ex = (flat_e - lo).clamp(0, hi - lo - 1)
 
     xr = x.repeat_interleave(K, dim=1)                         # [B, T, d]
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
-    buf = x.new_zeros((B, E, C, d)).index_put(
-        (bidx, flat_e, pos), xr * keep[..., None], accumulate=True)
+    buf = x.new_zeros((B, hi - lo, C, d)).index_put(
+        (bidx, ex, pos), xr * keep[..., None], accumulate=True)
     yb = _experts(p, buf)                                      # [B,E,C,d]
-    y = yb[bidx, flat_e, pos] * keep[..., None]                # [B, T, d]
+    y = yb[bidx, ex, pos] * keep[..., None]                    # [B, T, d]
     y = y.reshape(B, S, K, d) * topw[..., None].to(x.dtype)
-    return y.sum(dim=2), aux
+    return y.sum(dim=2)
+
+
+def _moe_sharded(p, cfg, x, capacity_factor):
+    """:func:`moe_apply`'s capacity dispatch on the mesh, x in the compute
+    layout, in two regions.  The router, replicated on ``model`` (its
+    ``("embed", None)`` spec): softmax and top-k on every model rank
+    alike; the aux loss on this rank's own rows.  The experts: each rank
+    runs the experts its shard holds (``E`` over ``model``, the
+    ``("expert", "embed", "mlp")`` spec) on the dispatch buffer's slice
+    for them, or, where ``E`` does not divide the model axis, every
+    expert at its shard of the FFN width (``"mlp"``); either way the
+    combine is a partial sum over ``model``."""
+    B, S, d = x.shape
+    if S == 1:
+        raise NotImplementedError("the MoE decode path runs on one device")
+    capacity_factor = capacity_factor or cfg.moe_capacity_factor
+    gates, topw, topi = _gates({"router": tp.weight(p["router"])}, cfg,
+                               tp.local(x))
+    gates, topw = tp.wrap(gates), tp.wrap(topw)
+    aux = _aux(cfg, tp.own_rows(gates), tp.own_slice(topi))
+    E = cfg.num_experts
+    names = ("w_gate", "w_up", "w_down")
+    sharded = tp.model_shard_dim(p["w_gate"]) is not None
+    lo, hi = tp.model_range(p["w_gate"], p["w_gate"].ndim - 3)
+    grad = Partial() if sharded else Replicate()
+    y = _dispatch({n: tp.weight(p[n]) for n in names}, cfg,
+                  tp.local(x, grad=grad), tp.local(topw, grad=grad), topi,
+                  capacity_factor, lo, hi)
+    assert hi - lo == E or tp.model_shard_dim(p["w_gate"]) == 0, (lo, hi)
+    return tp.wrap(y, grad), aux
 
 
 def _moe_gather(p, cfg, x):

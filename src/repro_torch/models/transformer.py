@@ -20,6 +20,16 @@ checkpoint policy), ``"none"`` saves everything.  The numbers are the
 same under each.  A MoE block returns its router's aux loss, which
 :func:`apply` sums over the layers, each weighted by its gate's mean, as
 the reference's scan does.
+
+On the production mesh (``launch/train.py::meshed_step``) the params are
+``DTensor``s and so is the residual stream: the activation hooks sit at
+the reference's call sites (``constrain`` after the embedding and after
+each block, ``gather_block_input`` at block entry, ``transformer.py:42,
+98, 110``), the embedding is vocab-parallel
+(:func:`~repro_torch.models.layers.embed_apply`), the blocks' branches
+split over the model axis (``models/layers.py``, ``models/moe.py``) and
+each residual add reduces its branch's partial sums to the residual's
+placements.  Without a mesh the hooks are the identity.
 """
 from __future__ import annotations
 
@@ -29,8 +39,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models import layers as L
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import batch_mean, moe_apply, moe_init
+from repro_torch.sharding import tp
+from repro_torch.sharding.rules import constrain, gather_block_input
 
 #: the ops whose outputs ``remat="dots"`` keeps (the reference's
 #: ``dots_with_no_batch_dims_saveable``: the matrix products)
@@ -61,23 +75,37 @@ def block_init(gen: torch.Generator, cfg, dtype, *, lead=()):
     return p
 
 
+def _residual(x, a, gate):
+    """``x + gate * a``.  On the mesh the branch's output ``a`` (a partial
+    sum over ``model``) is reduced to the residual's placements, and the
+    sum is taken on the local shards: the gate holds this rank's rows,
+    which the residual's batch placements keep."""
+    if not isinstance(x, DTensor):
+        return x + gate * a
+    if tuple(a.placements) != tuple(x.placements):
+        a = a.redistribute(x.device_mesh, x.placements)
+    y = tp.to_local(x, x.placements) + gate * tp.to_local(a, a.placements)
+    return tp.from_local(y, x.placements, x.shape, mesh=x.device_mesh)
+
+
 def block_apply(p, cfg, x, positions, gate, *, window=None,
                 use_pallas=False, attn_chunk=0, cache=None):
     """One pre-norm residual block.  Returns (x, cache, aux_loss)."""
     window = cfg.window if window is None else window
+    x = gather_block_input(x)
     h = L.rmsnorm_apply(p["attn_norm"], x, cfg.norm_eps)
     a, cache = L.attention_apply(
         p["attn"], cfg, h, positions, causal=True, window=window,
         cache=cache, use_pallas=use_pallas, attn_chunk=attn_chunk,
         norm_eps=cfg.norm_eps)
-    x = x + gate * a
+    x = _residual(x, a, gate)
     h = L.rmsnorm_apply(p["mlp_norm"], x, cfg.norm_eps)
     if cfg.num_experts:
         m, aux = moe_apply(p["moe"], cfg, h)
     else:
         m = L.swiglu_apply(p["mlp"], h)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + gate * m
+        aux = torch.zeros((), dtype=torch.float32, device=positions.device)
+    x = _residual(x, m, gate)
     return x, cache, aux
 
 
@@ -105,11 +133,14 @@ def unembed_matrix(params, cfg):
 def _unstack(blocks, n: int):
     """The n blocks' views of the stacked params, by ``torch.unbind``:
     its backward stacks the blocks' gradients once, where indexing each
-    block would pad each gradient to the whole stack."""
+    block would pad each gradient to the whole stack.  A ``DTensor``
+    leaf's layers are views of this rank's shard (``tp.unstack``)."""
     layers = [{} for _ in range(n)]
     for k, v in blocks.items():
-        for layer, part in zip(layers, _unstack(v, n) if isinstance(v, dict)
-                               else torch.unbind(v)):
+        parts = (_unstack(v, n) if isinstance(v, dict) else
+                 tp.unstack(v, n) if isinstance(v, DTensor) else
+                 torch.unbind(v))
+        for layer, part in zip(layers, parts):
             layer[k] = part
     return layers
 
@@ -146,22 +177,25 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
     computed here: the train step takes a sequence-chunked cross-entropy.
     """
     B, S = tokens.shape
-    x = params["embed"]["emb"][tokens]
-    positions = torch.arange(S, device=x.device)
-    mask = _gates(cfg, layer_mask, x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(L.embed_apply(params["embed"], tokens))
+    positions = torch.arange(S, device=tokens.device)
+    mask = _gates(cfg, layer_mask, tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
     def body(x, bp, gate):
         g = gate if gate.dim() == 0 else gate[:, None, None]   # [B]->[B,1,1]
         x, _, a = block_apply(bp, cfg, x, positions, g.to(x.dtype),
                               window=window, use_pallas=use_pallas,
                               attn_chunk=attn_chunk)
-        return x, a
+        return constrain(x), a
 
     body = _remat_wrap(body, remat)
     for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
         x, a = body(x, bp, mask[i])
-        aux = aux + mask[i].mean() * a
+        # the gate's mean over the whole batch, as the reference's is
+        # (each rank holds its rows' gates under a mesh)
+        aux = aux + (batch_mean(mask[i].mean()) if cfg.num_experts
+                     else mask[i].mean()) * a
     return L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
 
 

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding.rules import constrain
 
 
 def group_shape(cfg):
@@ -118,7 +119,8 @@ def apply(params, cfg, tokens, image_embeds, *, layer_mask=None, window=None,
                                     gates[j].to(x.dtype), window=window,
                                     use_pallas=use_pallas,
                                     attn_chunk=attn_chunk)
-        return cross_block_apply(cp, cfg, x, img, gates[n_self].to(x.dtype))
+        return constrain(cross_block_apply(cp, cfg, x, img,
+                                           gates[n_self].to(x.dtype)))
 
     body = T._remat_wrap(group_body, "none" if remat == "none" else "full")
     for sp, cp, gates in zip(T._unstack(params["self_blocks"], n_groups),

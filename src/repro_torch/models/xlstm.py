@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import _normal
+from repro_torch.sharding.rules import constrain
 from repro_torch.models.transformer import (_dt, _gates, _remat_wrap,
                                             _unstack)
 
@@ -307,7 +308,7 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
     """tokens: [B, S] int -> (hidden [B, S, d], aux_loss 0).  No
     attention: ``window``, ``use_pallas`` and ``attn_chunk`` are taken for
     the common signature and change nothing."""
-    x = params["embed"]["emb"][tokens]
+    x = constrain(params["embed"]["emb"][tokens])
     npairs = cfg.num_layers // 2
     mask = _pair_gates(cfg, layer_mask, x.device)
 
@@ -315,7 +316,7 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
         dm, _ = mlstm_apply(mp, cfg, x)
         x = x + gate[0].to(x.dtype) * dm
         ds, _ = slstm_apply(sp, cfg, x)
-        return x + gate[1].to(x.dtype) * ds
+        return constrain(x + gate[1].to(x.dtype) * ds)
 
     body = _remat_wrap(body, "none" if remat == "none" else "full")
     for i, (mp, sp) in enumerate(zip(_unstack(params["mlstm"], npairs),

@@ -23,15 +23,20 @@ read only the mesh's axis names and sizes, so they take a ``DeviceMesh``
 or any stand-in with ``axis_names`` and a ``shape`` mapping (the
 reference's meshes are such), and need no process group.
 
-The activation hooks of the reference (``constrain``,
-``constrain_spec``, ``gather_block_input``, ``attn_head_shard``,
-``attn_seq_shard``) are not here: they place activations for GSPMD and
-change no value, and they take effect once the model axis splits the
-compute (ROADMAP Queue 1).  Until then the policy knobs that only steer
-them (:data:`HOOK_KNOBS`) keep their keys but refuse another value, and
-:func:`activation_spec` has no sequence-parallel branch.  The mesh that
-:func:`set_activation_mesh` installs is read by model code that takes a
-mean over the batch (``models/moe.py``'s load-balance loss).
+The activation hooks of the reference (:func:`constrain`,
+:func:`constrain_spec`, :func:`gather_block_input`,
+:func:`attn_head_shard`, :func:`attn_seq_shard`) take the same specs
+and fallbacks.  Where the reference constrains a traced array for
+GSPMD, the port redistributes a ``DTensor`` to the spec's placements; a
+plain tensor (a rank that holds it whole, or no mesh) passes unchanged,
+so model code calls them unconditionally.  Each hook's spec comes from a
+function of the mesh and the shape alone (:func:`residual_spec`,
+:func:`block_input_spec`, :func:`attn_head_specs`,
+:func:`attn_seq_specs`), which the tests hold against the reference's
+hooks.  The mesh that :func:`set_activation_mesh` installs is read by
+the hooks, by the tensor-parallel regions (``sharding/tp.py``) and by
+model code that takes a mean over the batch (``models/moe.py``'s
+load-balance loss).
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import re
 from typing import Dict, Optional, Sequence, Tuple
 
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 # --- logical-axis rule table -------------------------------------------------
 # suffix regex -> logical axes of the *base* (unstacked) param shape,
@@ -88,8 +93,8 @@ _POLICY = {"fsdp": True, "act_model": True, "repeat_kv": False,
            "zero1": False, "attn_seq": False, "attn_heads": False,
            "act_seq": False, "block_gather": False, "dp2d": False}
 
-#: the knobs that steer only the activation hooks, which wait for the
-#: tensor-parallel slice: their defaults are the only values taken
+#: the knobs that steer only the activation hooks (and so only where the
+#: compute is split over the mesh, not the params' specs)
 HOOK_KNOBS = ("act_model", "attn_seq", "attn_heads", "act_seq",
               "block_gather")
 
@@ -107,17 +112,12 @@ def set_sharding_policy(*, fsdp: Optional[bool] = None,
     (``models/layers.py::gqa_attend``) so the query-head axis is a pure
     batch dim of the score products.  zero1: with fsdp=False, keep
     optimizer moments sharded over 'data' (ZeRO-1) — replicated weights,
-    sharded optimizer state.  A knob of :data:`HOOK_KNOBS` set away from
-    its default raises ``NotImplementedError``."""
+    sharded optimizer state.  attn_seq / attn_heads / act_seq /
+    block_gather / act_model steer the activation hooks (their
+    docstrings); dp2d puts the model axis among the batch axes."""
     new = dict(fsdp=fsdp, act_model=act_model, repeat_kv=repeat_kv,
                zero1=zero1, attn_seq=attn_seq, attn_heads=attn_heads,
                act_seq=act_seq, block_gather=block_gather, dp2d=dp2d)
-    for k in HOOK_KNOBS:
-        if new[k] is not None and new[k] != _POLICY[k]:
-            raise NotImplementedError(
-                f"sharding policy {k}={new[k]} steers the activation "
-                f"hooks, which the port has not yet (the tensor-parallel "
-                f"mesh slice)")
     for k, v in new.items():
         if v is not None:
             _POLICY[k] = v
@@ -270,24 +270,23 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
-# --- the activation mesh (set by the train main) -----------------------------
+# --- the activation mesh and hooks (rules.py:255-353 of the reference) ------
 
 #: a module global, not the reference's thread-local: autograd runs the
 #: backward, and the remat recompute in it, on a thread of its own on the
 #: card, and the recompute must read the same mesh as the forward
 _ACTIVATION_MESH = None
+_MODEL_OK = True
 
 
 def set_activation_mesh(mesh, model_axis_ok: bool = True):
     """Install the mesh that model code reads (None: no mesh).
-    ``model_axis_ok=False`` (never shard the feature dim) steers only the
-    activation hooks and raises ``NotImplementedError``."""
-    global _ACTIVATION_MESH
-    if not model_axis_ok:
-        raise NotImplementedError(
-            "model_axis_ok=False steers the activation hooks, which the "
-            "port has not yet (the tensor-parallel mesh slice)")
+    ``model_axis_ok=False`` disables sharding the feature dim in
+    :func:`constrain` (e.g. decode steps where the residual stream is
+    tiny)."""
+    global _ACTIVATION_MESH, _MODEL_OK
     _ACTIVATION_MESH = mesh
+    _MODEL_OK = bool(model_axis_ok)
 
 
 def activation_mesh():
@@ -295,13 +294,141 @@ def activation_mesh():
     return _ACTIVATION_MESH
 
 
-def activation_spec(mesh, ndim: int, model_ok: bool = True) -> tuple:
-    """The batch over the batch axes, the feature dim over ``model``
-    (the reference's, without ``act_seq``'s branch: see
-    :data:`HOOK_KNOBS`)."""
+def model_axis_ok() -> bool:
+    """``set_activation_mesh``'s ``model_axis_ok``."""
+    return _MODEL_OK
+
+
+def _batch_entry(mesh):
     b = batch_axes(mesh)
+    return b if len(b) > 1 else b[0]
+
+
+def activation_spec(mesh, ndim: int, model_ok: bool = True) -> tuple:
+    """The batch over the batch axes; with ``model_ok`` and 3 dims or
+    more, the feature dim over ``model`` (the sequence dim under
+    ``act_seq``, Megatron-style sequence parallelism; nothing under
+    ``dp2d``, whose batch already takes the model axis)."""
     spec = [None] * ndim
-    spec[0] = b if len(b) > 1 else b[0]
+    spec[0] = _batch_entry(mesh)
     if model_ok and ndim >= 3 and not _POLICY.get("dp2d"):
-        spec[-1] = "model"
+        spec[1 if _POLICY.get("act_seq") else -1] = "model"
     return tuple(spec)
+
+
+def residual_spec(mesh, shape) -> tuple:
+    """:func:`constrain`'s spec for a tensor of ``shape``: the
+    activation spec, without the model axis where the dim it shards
+    (the feature dim, or the sequence under ``act_seq``) is not divisible
+    by it, and without the batch axes where the batch is not divisible
+    by them (``rules.py:344-352``)."""
+    ndim = len(shape)
+    model_ok = _MODEL_OK and _POLICY["act_model"]
+    spec = list(activation_spec(mesh, ndim, model_ok))
+    dim = 1 if _POLICY.get("act_seq") else -1
+    if model_ok and ndim >= 3 and shape[dim] % _axes(mesh)["model"] != 0:
+        spec = list(activation_spec(mesh, ndim, False))
+    if shape[0] % mesh_size(mesh, batch_axes(mesh)) != 0:
+        spec[0] = None
+    return tuple(spec)
+
+
+def block_input_spec(mesh, ndim: int):
+    """:func:`gather_block_input`'s spec under ``block_gather`` (the
+    batch over the batch axes, every other dim whole), else None."""
+    if not _POLICY.get("block_gather") or ndim != 3:
+        return None
+    return (_batch_entry(mesh), None, None)
+
+
+def attn_head_specs(mesh, q_shape, k_shape):
+    """:func:`attn_head_shard`'s specs under ``attn_heads``: (q's, k's and
+    v's or None where only q is constrained), or None."""
+    if not _POLICY.get("attn_heads") or q_shape[1] <= 1:
+        return None
+    heads = (_batch_entry(mesh), None, "model", None)
+    if _POLICY.get("repeat_kv") and q_shape[2] != k_shape[2]:
+        return heads, None   # the repeat happens inside gqa_attend
+    return heads, heads
+
+
+def attn_seq_specs(mesh, q_shape):
+    """:func:`attn_seq_shard`'s specs under ``attn_seq`` where the
+    sequence divides the model axis: (q's, k's and v's), or None."""
+    if not _POLICY.get("attn_seq"):
+        return None
+    m = _axes(mesh)["model"]
+    if q_shape[1] % m or q_shape[1] < m:
+        return None
+    b = _batch_entry(mesh)
+    return (b, "model", None, None), (b, None, None, None)
+
+
+def constrain_spec(x, spec):
+    """``x`` under an explicit spec if a mesh is installed: a ``DTensor``
+    is redistributed to ``placements(spec)`` (the reference's
+    ``with_sharding_constraint``); a plain tensor, which this rank holds
+    whole, is returned as it is."""
+    mesh = _ACTIVATION_MESH
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = tuple(spec) + (None,) * (x.ndim - len(spec))
+    target = placements(spec, mesh)
+    if tuple(x.placements) == target:
+        return x
+    return x.redistribute(x.device_mesh, target)
+
+
+def gather_block_input(x):
+    """Manual sequence-parallel boundary: gather the residual to full
+    feature width ONCE at block entry (``block_gather``), so the norm and
+    both branches start from one gather.  A no-op otherwise."""
+    mesh = _ACTIVATION_MESH
+    if mesh is None:
+        return x
+    spec = block_input_spec(mesh, x.ndim)
+    return x if spec is None else constrain_spec(x, spec)
+
+
+def attn_head_shard(q, k, v):
+    """Head-axis attention sharding (``attn_heads``): Q and the (repeated)
+    KV over ``model`` on the head axis, [B, S, H, D].  Head counts that do
+    not divide the model axis shard unevenly (the reference's GSPMD pads
+    them).  Used together with ``repeat_kv``, inside ``gqa_attend``."""
+    mesh = _ACTIVATION_MESH
+    if mesh is None:
+        return q, k, v
+    specs = attn_head_specs(mesh, tuple(q.shape), tuple(k.shape))
+    if specs is None:
+        return q, k, v
+    q = constrain_spec(q, specs[0])
+    if specs[1] is None:
+        return q, k, v
+    return q, constrain_spec(k, specs[1]), constrain_spec(v, specs[1])
+
+
+def attn_seq_shard(q, k, v):
+    """Context-parallel attention sharding (``attn_seq``): Q over
+    (``model``, sequence), KV replicated on the model axis; only where the
+    sequence divides the model axis.  The reference's rationale: an
+    indivisible head axis (yi-34b: 56 heads on 16) makes GSPMD all-reduce
+    whole score tensors, and one KV gather a layer is far cheaper."""
+    mesh = _ACTIVATION_MESH
+    if mesh is None:
+        return q, k, v
+    specs = attn_seq_specs(mesh, tuple(q.shape))
+    if specs is None:
+        return q, k, v
+    return (constrain_spec(q, specs[0]), constrain_spec(k, specs[1]),
+            constrain_spec(v, specs[1]))
+
+
+def constrain(x):
+    """Residual-stream sharding constraint: [B, S, d] -> (batch, None,
+    model) by :func:`residual_spec`.  No-op unless a mesh was installed
+    via :func:`set_activation_mesh` and ``x`` is a ``DTensor``: models
+    call this unconditionally."""
+    mesh = _ACTIVATION_MESH
+    if mesh is None or x.ndim < 2:
+        return x
+    return constrain_spec(x, residual_spec(mesh, tuple(x.shape)))

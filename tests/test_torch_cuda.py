@@ -1030,13 +1030,15 @@ def test_fleet_mesh_on_one_card_is_a_noop(cuda, group, tmp_path):
 
 # the LM substrate's shapes, bf16, causal, model layout [B, S, H, D]: (B,
 # S, Hq, Hkv, D, window): phi3-mini's prefill (D 96, two TMA boxes of 64
-# columns), minitron-8b's (GQA 4, D 128), phi3-mini's train step, its FL
+# columns), minitron-8b's (GQA 4, D 128), phi3-mini's train step (and one
+# rank's 8 local heads of it under a 4-way model axis), its FL
 # steps' (B 4 masked, B 1 a bucket) and a 1024-key window at S 4096; mixtral-8x22b's prefill and train step (GQA
 # 6, a 4096-key window past S) and qwen3-moe's (GQA 16); all on the wgmma
 # route
 LM_ATTN = {"phi3-mini prefill": (4, 2048, 32, 32, 96, 0),
            "minitron-8b prefill": (4, 2048, 32, 8, 128, 0),
            "phi3-mini train": (2, 1024, 32, 32, 96, 0),
+           "phi3-mini train local heads": (2, 1024, 8, 8, 96, 0),
            "phi3-mini fl train": (4, 1024, 32, 32, 96, 0),
            "phi3-mini fl bucketed": (1, 1024, 32, 32, 96, 0),
            "phi3-mini SWA 1024": (2, 4096, 32, 32, 96, 1024),
@@ -1437,3 +1439,142 @@ def test_fl_steps_launch_only_the_wgmma_route(cuda):
         del state
     assert all(torch.isfinite(torch.tensor(runs)))
     assert abs(runs[1] - runs[0]) <= TOL[torch.bfloat16] * abs(runs[0])
+
+
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A ``(1, 1)`` ``("data", "model")`` mesh in a one-rank NCCL group
+    (one card is one rank), installed as the activation mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding.rules import set_activation_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    set_activation_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_activation_mesh(None)
+        dist.destroy_process_group()
+
+
+def _attention_inputs(cuda, B, S, Hq, Hkv, D, seed=4):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((B, S, h, D), generator=g, device=cuda).bfloat16()
+            for h in (Hq, Hkv, Hkv, Hq)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["heads", "batch", "replicated"])
+def test_local_shard_entry_equals_the_kernel(one_rank_mesh, cuda, layout):
+    """``flash_attention`` on ``DTensor``s (its local-shard entry) on a
+    ``(1, 1)`` mesh, q, k, v sharded on the heads, on the batch rows or
+    replicated, at phi3-mini's train shape with GQA 4: the output and
+    dq, dk, dv equal the direct kernel call's on the same tensors bit for
+    bit, the output keeps q's placements, and the entry's forward and
+    backward launches count under ``flash_attention_sharded`` and
+    ``_bwd_sharded`` beside their route's."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = {"heads": (Shard(0), Shard(2)), "batch": (Shard(0), Shard(0)),
+          "replicated": (Replicate(), Replicate())}[layout]
+    q, k, v, do = _attention_inputs(cuda, 2, 1024, 32, 8, 96)
+    direct = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*direct, causal=True)
+    ref = [o] + list(torch.autograd.grad(o, direct, do))
+    meshed = [DTensor.from_local(t.clone(), one_rank_mesh, pl,
+                                 run_check=False).requires_grad_()
+              for t in (q, k, v)]
+    before = dict(LAUNCHES)
+    o = flash_attention(*meshed, causal=True)
+    assert isinstance(o, DTensor) and tuple(o.placements) == pl
+    grads = torch.autograd.grad(o, meshed, DTensor.from_local(
+        do, one_rank_mesh, pl, run_check=False))
+    torch.cuda.synchronize()
+    got = [o.to_local()] + [g.to_local() for g in grads]
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    moved = {key: LAUNCHES[key] - before[key] for key in LAUNCHES
+             if LAUNCHES[key] != before[key]}
+    assert moved == {"flash_attention": 1, "flash_attention_fwd_wgmma": 1,
+                     "flash_attention_sharded": 1, "flash_attention_bwd": 1,
+                     "flash_attention_bwd_wgmma": 1,
+                     "flash_attention_bwd_sharded": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("foreign", ["q rows", "mixed", "head dim",
+                                     "partial"])
+def test_local_shard_entry_refuses_foreign_placements(one_rank_mesh, cuda,
+                                                      foreign):
+    """Placements the entry was not written for raise ``ValueError``
+    before any launch: q sharded on its rows (the kernel takes no query
+    offset), q and k on different dims, the head dim sharded, a partial
+    sum.  Nothing is gathered and nothing falls back."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    q, k, v, _ = _attention_inputs(cuda, 2, 1024, 32, 8, 96)
+    R = Replicate()
+    pq, pk = {"q rows": ((R, Shard(1)), (R, R)),
+              "mixed": ((R, Shard(2)), (R, R)),
+              "head dim": ((R, Shard(3)), (R, Shard(3))),
+              "partial": ((R, Partial()), (R, Partial()))}[foreign]
+    dq, dk, dv = (DTensor.from_local(t, one_rank_mesh, p, run_check=False)
+                  for t, p in ((q, pq), (k, pk), (v, pk)))
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="attention on local shards"):
+        flash_attention(dq, dk, dv, causal=True)
+    assert LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fl", [False, True])
+def test_tensor_parallel_step_on_one_card_is_the_one_device_step(
+        one_rank_mesh, cuda, fl):
+    """phi3-mini at full width, 2 layers, bf16, ``use_pallas``: the
+    tensor-parallel meshed step (the state built leaf by leaf) on the
+    ``(1, 1)`` mesh equals the one-device step bit for bit after 2 steps
+    (losses, grad norms, every param and moment), and every attention
+    launch of it goes through the local-shard entry."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.layerwise import layer_mask
+    from repro_torch.launch.steps import (build_fl_train_step,
+                                          build_train_step, make_train_state)
+    from repro_torch.launch.train import meshed_step, sharded_train_state
+    from repro_torch.sharding.rules import set_activation_mesh
+    from repro_torch.tree import tree_leaves
+    set_activation_mesh(None)
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), num_layers=2,
+                              exit_points=(1, 2))
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=4,
+                       remat="full", use_pallas=True, loss_chunk=512)
+    model, step = (build_fl_train_step if fl else build_train_step)(cfg,
+                                                                    tcfg)
+    g = torch.Generator().manual_seed(2)
+    batches = []
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (4, 513), generator=g)
+        b = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+        if fl:
+            gates = torch.stack([layer_mask(cfg, i % 2, device=cuda)
+                                 for i in range(4)], dim=1)
+            b.update(layer_gates=gates, layer_counts=gates.sum(dim=1),
+                     n_clients=4.0)
+        batches.append(b)
+    one = make_train_state(model, torch.Generator(cuda).manual_seed(0), tcfg)
+    meshed = sharded_train_state(model, cuda, one_rank_mesh)
+    run = meshed_step(step, one_rank_mesh)
+    for b in batches:
+        one, m1 = step(one, b)
+        before = dict(LAUNCHES)
+        meshed, m2 = run(meshed, b)
+        torch.cuda.synchronize()
+        assert (float(m1["loss"]), float(m1["grad_norm"])) == \
+            (float(m2["loss"]), float(m2["grad_norm"]))
+        sharded = LAUNCHES["flash_attention_sharded"] - \
+            before["flash_attention_sharded"]
+        total = LAUNCHES["flash_attention"] - before["flash_attention"]
+        assert sharded == total == 2 * cfg.num_layers
+    for a, b in zip(tree_leaves(meshed), tree_leaves(one)):
+        assert a == b if isinstance(a, int) else torch.equal(a.to_local(), b)
+

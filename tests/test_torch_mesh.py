@@ -11,15 +11,26 @@ default, ``fsdp=False``, ``zero1`` and ``dp2d``; the cases of
 specs; ``batch_axes``; the train-input, cache and state placements (the
 moments under ``zero1``); the ``repeat_kv`` branch of ``gqa_attend``
 against the default branch and against the JAX one under the same
-policy; the mesh builders' refusals; and the meshed
-step on a one-rank ``(1, 1)`` mesh, bit for bit the one-device step.
+policy; the policy knobs and the activation hooks' specs against the
+reference's hooks (their ``with_sharding_constraint`` patched to hand
+back the spec); each rank's state bytes on the production mesh against
+the reference's shard shapes; the mesh builders' refusals; and the
+meshed step on a one-rank ``(1, 1)`` mesh, bit for bit the one-device
+step; the vocab-parallel logsumexp on a one-rank group, bit for bit
+``torch.logsumexp``.
 
 Then, on 4 gloo ranks (one spawn, ``tests/torch_mesh_ranks.py``, through
-``torch_shard_ranks.launch``): the meshed train step on the ``(2, 2)``
-debug mesh against the one-process step after 2 steps under four
-policies, each rank's shards against their placements, the meshed FL
-step, and a ``--ckpt-dir`` run on the mesh that one process resumes.
+``torch_shard_ranks.launch``): the tensor-parallel train and masked FL
+steps of phi3-mini's and mixtral's smoke configs on the ``(2, 2)`` debug
+mesh under eight policies against the one-process steps (each rank's
+shards, its local sizes, and no collective that gathers a model-sharded
+param whole), xLSTM's train step, whose meshed step gathers the params
+whole, under the same policies, the bucketed FL step, the leaf-by-leaf
+state build and its peak, the meshed steps from the JAX package's
+params against the JAX package's live steps, and a ``--ckpt-dir`` run
+on the mesh that one process resumes.
 """
+import json
 import types
 
 import jax
@@ -33,6 +44,7 @@ from jax.sharding import PartitionSpec as P
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
+import torch_lm
 import torch_mesh_ranks as mesh_ranks
 import torch_shard_ranks as ranks
 from repro.configs import INPUT_SHAPES as JAX_SHAPES
@@ -237,20 +249,172 @@ def test_batch_axes_and_placements(policy):
 
 
 @pytest.mark.parametrize("knob", rules.HOOK_KNOBS)
-def test_hook_knobs_refuse_another_value(knob, policy):
-    """A knob that steers only the activation hooks (not yet ported)
-    raises on another value than its default and leaves the policy as it
-    was; its default is taken; the keys are the reference's."""
-    before = rules.get_sharding_policy()
-    assert set(before) == set(jrules.get_sharding_policy())
-    with pytest.raises(NotImplementedError, match=knob):
-        rules.set_sharding_policy(**{knob: not DEFAULTS[knob]}, fsdp=False)
-    assert rules.get_sharding_policy() == before
-    rules.set_sharding_policy(**{knob: DEFAULTS[knob]})
-    assert rules.get_sharding_policy() == before
-    with pytest.raises(NotImplementedError, match="model_axis_ok"):
-        rules.set_activation_mesh(None, model_axis_ok=False)
-    assert rules.activation_mesh() is None
+def test_hook_knobs_take_their_values(knob, policy):
+    """Each knob that steers the activation hooks takes the value off its
+    default, with another knob beside it, and the policy then equals the
+    reference's under the same calls; the default is taken back."""
+    policy(**{knob: not DEFAULTS[knob]}, fsdp=False)
+    got = rules.get_sharding_policy()
+    assert got == jrules.get_sharding_policy()
+    assert got[knob] is (not DEFAULTS[knob]) and got["fsdp"] is False
+    policy(**DEFAULTS)
+    assert rules.get_sharding_policy() == jrules.get_sharding_policy() == \
+        DEFAULTS
+
+
+class _Constrained:
+    """What the patched ``with_sharding_constraint`` hands back: the
+    input's shape and the spec it was constrained to."""
+
+    def __init__(self, x, spec):
+        self.shape, self.ndim, self.spec = x.shape, len(x.shape), spec
+
+
+@pytest.fixture
+def hooks(monkeypatch):
+    """The reference's hooks handing back the spec they would constrain
+    to: ``with_sharding_constraint`` and ``NamedSharding`` patched, so a
+    stand-in mesh serves.  Yields ``install(mesh, model_axis_ok)`` for
+    both packages; uninstalls both."""
+    monkeypatch.setattr(jrules, "NamedSharding", lambda mesh, spec: spec)
+    monkeypatch.setattr(jrules.jax.lax, "with_sharding_constraint",
+                        _Constrained)
+
+    def install(mesh, ok=True):
+        jrules.set_activation_mesh(mesh, model_axis_ok=ok)
+        rules.set_activation_mesh(mesh, model_axis_ok=ok)
+    yield install
+    install(None)
+
+
+def _ref_spec(x, ndim):
+    """A reference hook's result as the port's spec tuple (an input that
+    no spec constrained, as None)."""
+    return _spec(x.spec, ndim) if isinstance(x, _Constrained) else None
+
+
+def _shape(*dims):
+    return jax.ShapeDtypeStruct(dims, jnp.float32)
+
+
+#: [B, S, d] shapes: everything divisible, and d, S or B not (the
+#: reference's fallbacks, rules.py:344-352), on the debug meshes (model
+#: 2, batch 2 or 4) and the production meshes (model 16)
+RESIDUALS = ((8, 64, 256), (8, 64, 255), (8, 63, 256), (3, 64, 256),
+             (3, 63, 255), (32, 4096, 4096), (32, 4096, 4100),
+             (32, 4100, 4096), (30, 4096, 4096))
+
+
+@pytest.mark.parametrize("pol", ["default", "act_seq", "dp2d",
+                                 "act_model=False"])
+def test_activation_specs_equal_the_reference(pol, policy, hooks):
+    """``activation_spec`` and the residual stream's ``constrain`` spec
+    (``rules.residual_spec``) against the reference's on the four
+    stand-in meshes, at shapes whose feature, sequence or batch dims do
+    not divide (its fallbacks), with ``model_axis_ok`` on and off; the
+    block input's (``block_gather``) and the attention hooks' specs
+    (``attn_heads`` with and without ``repeat_kv``, ``attn_seq``) too."""
+    base = {"default": {}, "act_seq": {"act_seq": True},
+            "dp2d": {"dp2d": True},
+            "act_model=False": {"act_model": False}}[pol]
+    policy(**base)
+    for name in MESHES:
+        mesh = stand_in(name)
+        for ndim in (2, 3, 4):
+            for ok in (True, False):
+                assert rules.activation_spec(mesh, ndim, ok) == _spec(
+                    jrules.activation_spec(mesh, ndim, ok), ndim)
+        for ok in (True, False):
+            hooks(mesh, ok)
+            for shape in RESIDUALS + ((8, 64),):
+                assert rules.residual_spec(mesh, shape) == _ref_spec(
+                    jrules.constrain(_shape(*shape)), len(shape)), \
+                    (name, ok, shape)
+        for gather in (False, True):
+            policy(block_gather=gather)
+            for shape in ((8, 64, 256), (8, 64)):
+                assert rules.block_input_spec(mesh, len(shape)) == \
+                    _ref_spec(jrules.gather_block_input(_shape(*shape)),
+                              len(shape))
+        policy(block_gather=False)
+        for heads, rep_kv, seq in ((True, False, False), (True, True, False),
+                                   (False, False, True)):
+            policy(attn_heads=heads, repeat_kv=rep_kv, attn_seq=seq)
+            for q, k in (((4, 64, 32, 96), (4, 64, 32, 96)),
+                         ((4, 64, 56, 128), (4, 64, 8, 128)),
+                         ((4, 63, 8, 64), (4, 63, 2, 64)),
+                         ((4, 1, 8, 64), (4, 1, 2, 64))):
+                ref = jrules.attn_head_shard(_shape(*q), _shape(*k),
+                                             _shape(*k))
+                want = (_ref_spec(ref[0], 4), _ref_spec(ref[1], 4)) \
+                    if isinstance(ref[0], _Constrained) else None
+                assert rules.attn_head_specs(mesh, q, k) == want, \
+                    (name, heads, rep_kv, q, k)
+                ref = jrules.attn_seq_shard(_shape(*q), _shape(*k),
+                                            _shape(*k))
+                want = (_ref_spec(ref[0], 4), _ref_spec(ref[1], 4)) \
+                    if isinstance(ref[0], _Constrained) else None
+                assert rules.attn_seq_specs(mesh, q) == want, (name, seq, q)
+        policy(attn_heads=False, repeat_kv=False, attn_seq=False)
+
+
+def test_model_axis_ok_is_read(policy, hooks):
+    """``set_activation_mesh(model_axis_ok=False)`` is taken and read:
+    the residual stream's spec loses its model axis, as the reference's
+    does; without a mesh, and on a plain tensor under one, every hook is
+    the identity."""
+    mesh = stand_in("single")
+    hooks(mesh, False)
+    assert not rules.model_axis_ok()
+    assert rules.activation_mesh() is mesh
+    for shape in RESIDUALS:
+        got = rules.residual_spec(mesh, shape)
+        assert got == _ref_spec(jrules.constrain(_shape(*shape)), 3)
+        assert got[1:] == (None, None)
+    hooks(mesh, True)
+    assert rules.model_axis_ok()
+    assert rules.residual_spec(mesh, (32, 4096, 4096)) == \
+        ("data", None, "model")
+    x = torch.ones(2, 4, 8)
+    q = torch.ones(2, 32, 16, 8)
+    policy(block_gather=True, attn_seq=True, attn_heads=True)
+    for m in (None, mesh):
+        hooks(m)
+        assert rules.constrain(x) is x
+        assert rules.gather_block_input(x) is x
+        assert rules.constrain_spec(x, ("data", None, "model")) is x
+        assert all(a is q for a in rules.attn_seq_shard(q, q, q))
+        assert all(a is q for a in rules.attn_head_shard(q, q, q))
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "yi-34b",
+                                  "mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_per_rank_state_bytes_equal_the_reference(arch):
+    """``specs.state_bytes`` on the single-pod production mesh: each
+    rank's params, grads and float32 moments from the meta device's
+    shapes and the port's placements, against the reference's
+    ``NamedSharding.shard_shape`` of its state's specs; and a far smaller
+    share than the whole state."""
+    jcfg, cfg = _configs(arch)["full"]
+    names, sizes = MESHES["single"]
+    got = specs.state_bytes(cfg, stand_in("single"))
+    jp = jax.eval_shape(jax_build(jcfg).init, jax.random.PRNGKey(0))
+    jstate = {"params": jp, "opt": {
+        "step": jax.ShapeDtypeStruct((), jnp.int32), "mu": jp, "nu": jp}}
+    ref = jspecs.state_shardings(jstate, AbstractMesh(sizes, names))
+
+    def local_bytes(tree, item=None):
+        return sum(int(np.prod(sh.shard_shape(s.shape))) *
+                   (item or s.dtype.itemsize) for sh, s in
+                   zip(jax.tree.leaves(tree), jax.tree.leaves(jp)))
+    assert got["params"] == got["grads"] == local_bytes(ref["params"])
+    assert got["moments"] == 2 * local_bytes(ref["opt"]["mu"], 4)
+    whole = sum(int(np.prod(s.shape)) * s.dtype.itemsize
+                for s in jax.tree.leaves(jp))
+    assert got["whole_params"] == got["whole_grads"] == whole
+    assert got["whole_moments"] == 2 * 4 * sum(
+        int(np.prod(s.shape)) for s in jax.tree.leaves(jp))
+    assert got["params"] * 200 < whole
 
 
 @pytest.mark.parametrize("pol", ["default", "zero1"])
@@ -334,12 +498,16 @@ def test_mesh_builders_refuse_other_world_sizes(tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("fl", [False, True])
-def test_meshed_step_on_one_rank_is_the_one_device_step(fl, tmp_path):
+@pytest.mark.parametrize("arch, fl", [
+    (mesh_ranks.ARCH, False), (mesh_ranks.ARCH, True),
+    (mesh_ranks.GATHERED_ARCH, False)], ids=["False", "True", "gathered"])
+def test_meshed_step_on_one_rank_is_the_one_device_step(arch, fl, tmp_path):
     """On a ``(1, 1)`` mesh of a one-rank group (``[lm mesh]``'s layout
     on the card), 2 meshed steps equal 2 one-device steps bit for bit:
-    losses, grad norms and every param and moment."""
-    cfg = reduced(get_config("phi3-mini-3.8b"))
+    losses, grad norms and every param and moment; phi3-mini's train and
+    FL steps on the tensor-parallel path, xLSTM's train step on the
+    path that gathers the params whole."""
+    cfg = reduced(get_config(arch))
     tcfg = mesh_ranks.TCFG
     model, step = (build_fl_train_step if fl else build_train_step)(cfg, tcfg)
     one = make_train_state(model, torch.Generator().manual_seed(0), tcfg)
@@ -364,20 +532,94 @@ def test_meshed_step_on_one_rank_is_the_one_device_step(fl, tmp_path):
         assert a == b if isinstance(a, int) else torch.equal(a, b)
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 512), (4, 16, 128), (1, 3, 7)])
+def test_vocab_parallel_logsumexp_is_torch_logsumexp(shape, tmp_path):
+    """``launch/steps.py::_LogSumExp`` (the vocab-parallel cross-entropy's
+    logsumexp) on a one-rank group, forward and backward, bit for bit
+    ``torch.logsumexp``'s, rows of -inf and +inf included."""
+    from repro_torch.launch.steps import _LogSumExp
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 8)
+    x[0, 0] = -float("inf")
+    x[-1, -1, 0] = float("inf")
+    g = torch.from_numpy(rng.standard_normal(shape[:-1]).astype(np.float32))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        a = x.clone().requires_grad_(True)
+        got = _LogSumExp.apply(a, dist.group.WORLD)
+        (ga,) = torch.autograd.grad(got, a, g)
+    finally:
+        dist.destroy_process_group()
+    b = x.clone().requires_grad_(True)
+    ref = torch.logsumexp(b, dim=-1)
+    (gb,) = torch.autograd.grad(ref, b, g)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    # the infinite rows' gradients are NaN in both
+    torch.testing.assert_close(ga, gb, rtol=0, atol=0, equal_nan=True)
+
+
+def test_meshed_state_is_freed_after_its_steps(tmp_path):
+    """A tensor-parallel meshed state lives no longer than its last
+    reference: after 2 steps and ``del``, no param or moment storage is
+    left (a region's local view of a param must not become the param's
+    own tensor with a grad_fn, which would tie the param and its graph
+    in a cycle the collector cannot see)."""
+    import gc
+    import weakref
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    model, step = build_train_step(cfg, mesh_ranks.TCFG)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        state = train.sharded_train_state(model, torch.device("cpu"), mesh)
+        run = train.meshed_step(step, mesh)
+        for b in mesh_ranks._batches(cfg, 2):
+            state, _ = run(state, b)
+        refs = [weakref.ref(t) for t in tree_leaves(state)
+                if not isinstance(t, int)]
+        del state
+        gc.collect()
+        assert refs and all(r() is None for r in refs)
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # 4 gloo ranks
 # ---------------------------------------------------------------------------
 
 
 def test_meshed_steps_under_four_ranks(tmp_path):
-    """The rank program's checks (``torch_mesh_ranks.mesh_steps``), then
-    its ``--ckpt-dir`` run, saved on the mesh after 2 steps and resumed to
-    step 3 by the train main in this process, against the same run saved
-    by one process and resumed so (the data stream restarts on a resume,
-    as in the reference): the resumed step's loss and params at the step
-    tolerances."""
-    ck = tmp_path / "ck"
-    ranks.launch(mesh_ranks.mesh_steps, tmp_path, str(ck), timeout=240.0)
+    """The rank program's checks (``torch_mesh_ranks.mesh_steps``); its
+    meshed steps from the JAX package's params (``torch_lm.train_runs``'
+    inputs, under the default policy and ``dp2d``) against the JAX
+    package's live steps; then its ``--ckpt-dir`` run, saved on the mesh
+    after 2 steps and resumed to step 3 by the train main in this
+    process, against the same run saved by one process and resumed so
+    (the data stream restarts on a resume, as in the reference): the
+    resumed step's loss and params at the step tolerances."""
+    ck, jax_dir = tmp_path / "ck", tmp_path / "jax"
+    jax_dir.mkdir()
+    jax_losses = {}
+    for arch in (mesh_ranks.ARCH, mesh_ranks.MOE_ARCH):
+        runs = torch_lm.train_runs(arch, steps=2, B=4, S=32, seed=7)
+        jcfg, _ = torch_lm.configs(arch)
+        torch.save({"params": torch_lm.both_params(jcfg, seed=7)[1],
+                    "batches": [{k: torch.from_numpy(v) for k, v in b.items()}
+                                for b in runs["batches"]]},
+                   jax_dir / f"{arch}.pt")
+        jax_losses[arch] = runs["jax"]
+    ranks.launch(mesh_ranks.mesh_steps, tmp_path, str(ck), str(jax_dir),
+                 timeout=360.0)
+    meshed = json.loads((jax_dir / "meshed.json").read_text())
+    assert len(meshed) == 4
+    for key, rows in meshed.items():
+        # losses and grad norms at the LM tests' rtol
+        np.testing.assert_allclose(rows, jax_losses[key.split()[0]],
+                                   rtol=1e-5, atol=0, err_msg=key)
     one = tmp_path / "one"
     train.train(reduced(get_config(mesh_ranks.ARCH)), mesh_ranks.CKPT_TCFG,
                 batch=4, seq=16, steps=2, device=torch.device("cpu"),

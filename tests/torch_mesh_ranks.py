@@ -3,33 +3,77 @@ of a 4-rank gloo group (``torch_shard_ranks.launch``) on the ``(2, 2)``
 debug mesh, holds the meshed steps (``launch/train.py::meshed_step``) to
 the one-process steps it computes itself, and raises on a mismatch (the
 spawning test re-raises it).  No jax here: the spawned ranks import only
-torch and the port."""
+torch and the port; the spawning test holds the losses this program
+writes (:func:`jax_steps`) to the JAX package's steps.
+
+The dense and MoE decoders' meshed steps are tensor-parallel: each rank
+computes on its shards.  :class:`Collectives` (a ``CommDebugMode``)
+records every collective a step makes, with the largest tensor it
+touches, so the checks can see that no step gathers a model-sharded
+param whole.  xLSTM's meshed step keeps the params gathered whole
+(``launch/train.py::_gathered_step``) and is held to one process too."""
+import json
+import weakref
+
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor.debug import CommDebugMode
+from torch.distributed.tensor.debug._comm_mode import c10d_collective_ops
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.checkpoint import latest_step, load_pytree
-from repro_torch.configs import TrainConfig, get_smoke_config
+from repro_torch.configs import (TrainConfig, get_config, get_smoke_config,
+                                 reduced)
 from repro_torch.core.layerwise import layer_mask
 from repro_torch.launch import train as T
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
-from repro_torch.launch.steps import (build_fl_train_step, build_train_step,
+from repro_torch.launch.steps import (build_fl_bucketed_train_step,
+                                      build_fl_train_step, build_train_step,
                                       make_train_state)
-from repro_torch.sharding.rules import set_sharding_policy
-from repro_torch.tree import tree_leaves
+from repro_torch.models.api import build as build_model
+from repro_torch.optim.optimizers import adamw_init
+from repro_torch.sharding.rules import get_sharding_policy, set_sharding_policy
+from repro_torch.tree import tree_leaves, tree_map
 
 STEP = dict(rtol=1e-5, atol=1e-6)          # tests/test_shard.py's
 ARCH = "phi3-mini-3.8b"
 #: a MoE config: its load-balance loss is a product of token means, which
 #: the meshed step must take over the whole batch
 MOE_ARCH = "mixtral-8x22b"
+#: a family whose meshed step gathers the params whole (its blocks are
+#: not ``models/transformer.py``'s; it takes no FL gates)
+GATHERED_ARCH = "xlstm-1.3b"
 TCFG = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
                    loss_chunk=8, remat="full")
-#: the policies the meshed train step runs under (zero1 on replicated
-#: weights, as the reference pairs them)
-POLICIES = {"default": {}, "fsdp=False": {"fsdp": False},
+#: the policies the meshed steps run under (zero1 on replicated weights,
+#: and attn_heads with repeat_kv, as the reference pairs them)
+POLICIES = {"default": {},
+            "repeat_kv+attn_heads": {"repeat_kv": True, "attn_heads": True},
+            "attn_seq": {"attn_seq": True}, "act_seq": {"act_seq": True},
+            "block_gather": {"block_gather": True},
+            "fsdp=False": {"fsdp": False},
             "zero1": {"fsdp": False, "zero1": True}, "dp2d": {"dp2d": True}}
+DEFAULTS = dict(fsdp=True, act_model=True, repeat_kv=False, zero1=False,
+                attn_seq=False, attn_heads=False, act_seq=False,
+                block_gather=False, dp2d=False)
+#: the smoke configs' overrides: two KV heads for four query heads, so
+#: the grouped attention and ``repeat_kv``'s repeat are exercised
+OVER = {"num_kv_heads": 2}
+#: configs whose shapes the model axis does not split evenly: yi-34b's
+#: smoke config with 3 query heads over 1 KV head (the q/k/v products'
+#: columns shard mid-head, so the heads are gathered whole, as the
+#: reference gathers yi-34b's 56 heads on 16), and mixtral's with 3
+#: experts (the experts replicate over model, their FFN width shards)
+UNEVEN = (("yi-34b", dict(d_model=192, num_heads=3, num_kv_heads=1,
+                          head_dim=64)),
+          (MOE_ARCH, dict(num_experts=3, num_kv_heads=2)))
+#: the JAX comparison's steps (``tests/torch_lm.py::train_runs``'s
+#: settings: 2 steps, B 4 x S 32)
+JAX_TCFG = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       loss_chunk=16, remat="full")
 #: the checkpoint run: two meshed steps of the train main's loop at its
 #: ``--smoke --batch 4 --seq 16 --steps 3`` settings; the spawning test
 #: resumes it to step 3 in one process
@@ -63,7 +107,7 @@ def _close(got, ref, what, **tol):
                                    err_msg=what, **(tol or STEP))
 
 
-def _same_state(meshed, one, lrs, what):
+def _same_state(meshed, one, lrs, what, zero_grads=False):
     """The gathered meshed state against the one-process state: the
     moments (the averaged gradients) at the step tolerances, the params
     within 2 lr per update (a param whose gradient sits at AdamW's eps
@@ -71,26 +115,38 @@ def _same_state(meshed, one, lrs, what):
     ``tests/torch_lm.py::assert_trained_like_jax``) and all but a few of
     each param's elements at the step tolerances (an update that was
     never written back moves every element by about lr), the step
-    equal."""
+    equal.  With ``zero_grads`` the elements whose gradient is zero but
+    for rounding (the one-process first moment below AdamW's eps: the
+    sLSTM input gate's bias, whose gradient the gate's stabilising max
+    cancels) are held to the 2 lr bound only: their update is AdamW's
+    step on rounding noise, which the two reduction orders round
+    differently."""
     whole = T.gather_state(meshed)
     _close(whole["opt"]["mu"], one["opt"]["mu"], what)
     _close(whole["opt"]["nu"], one["opt"]["nu"], what)
     _close(whole["params"], one["params"], what, rtol=0,
            atol=2.0 * sum(lrs))
-    for a, b in zip(tree_leaves(whole["params"]),
-                    tree_leaves(one["params"])):
+    for a, b, mu in zip(tree_leaves(whole["params"]),
+                        tree_leaves(one["params"]),
+                        tree_leaves(one["opt"]["mu"])):
         a, b = a.detach().numpy(), b.detach().numpy()
-        assert np.mean(~np.isclose(a, b, **STEP)) < 1e-4, what
+        off = ~np.isclose(a, b, **STEP)
+        if zero_grads:
+            off &= np.abs(mu.numpy()) >= TCFG.eps
+        assert np.mean(off) < 1e-4, what
     assert whole["opt"]["step"] == one["opt"]["step"] == len(lrs)
+    return whole
 
 
-def _check_shards(state, mesh, what):
+def _check_shards(state, mesh, what, whole=None):
     """Every ``DTensor`` of the state holds the slice its placements name
-    (``distribute_tensor``'s own slicing of the gathered tensor)."""
-    whole = T.gather_state(state)
+    (``distribute_tensor``'s own slicing of the gathered tensor,
+    ``whole`` where the caller has it)."""
+    whole = T.gather_state(state) if whole is None else whole
     for t, w in zip(tree_leaves(state), tree_leaves(whole)):
         if isinstance(t, DTensor):
-            ref = distribute_tensor(w, mesh, t.placements).to_local()
+            ref = distribute_tensor(w, mesh, t.placements,
+                                    src_data_rank=None).to_local()
             assert torch.equal(t.to_local(), ref), what
 
 
@@ -99,28 +155,254 @@ def _data_sharded(tree):
     return sum(isinstance(t.placements[0], Shard) for t in tree_leaves(tree))
 
 
-def _run(build, cfg, mesh, batches):
-    """Two steps one process and two meshed, from the same init: (the
-    one-process state, metrics; the meshed state, metrics)."""
-    model, step = build(cfg, TCFG)
-    one = make_train_state(model, torch.Generator().manual_seed(0), TCFG)
+class Collectives(CommDebugMode):
+    """``CommDebugMode`` that also keeps, for each collective, its op, its
+    process group's name (a functional collective's; ``"c10d"`` for a
+    ``torch.distributed`` call, whose group it does not name), the
+    element count of the largest tensor among its inputs and outputs,
+    and its bytes (that tensor's)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        packet = getattr(func, "_overloadpacket", None)
+        if out is not NotImplemented and (
+                packet in self.comm_registry or packet in c10d_collective_ops):
+            leaves = tree_flatten((args, kwargs, out))[0]
+            tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+            big = max(tensors, key=lambda t: t.numel(), default=None)
+            group = ("c10d" if packet in c10d_collective_ops else
+                     [a for a in leaves if isinstance(a, str)][-1])
+            self.seen.append((str(packet).split(".")[-1], group,
+                              0 if big is None else big.numel(),
+                              0 if big is None else
+                              big.numel() * big.element_size()))
+        return out
+
+
+def _model_sharded(tree, mesh):
+    """The param leaves that ``model`` shards."""
+    i = mesh.mesh_dim_names.index("model")
+    return [t for t in tree_leaves(tree)
+            if isinstance(t, DTensor) and t.placements[i].is_shard()]
+
+
+def _no_whole_gather(params, seen, mesh, what):
+    """No collective over the model axis (and no ``torch.distributed``
+    call, whose group the record does not name) touches a tensor as large
+    as one layer of a model-sharded param: gathering one whole would.
+    The FSDP gathers run over ``data``; the model axis carries only
+    activations and their gradients."""
+    whole = min(t[0].numel() if t.ndim >= 3 else t.numel()
+                for t in _model_sharded(params, mesh))
+    model = mesh.get_group("model").group_name
+    big = [s for s in seen if s[1] in (model, "c10d") and s[2] >= whole]
+    assert seen and not big, (what, whole, big)
+
+
+def _check_local_sizes(params, mesh, what):
+    """Each leaf's local tensor holds its share of the whole: half of a
+    model-sharded leaf on the model axis, halved again where ``data``
+    shards it too."""
+    for t in tree_leaves(params):
+        n = 1
+        for i, p in enumerate(t.placements):
+            n *= mesh.size(i) if p.is_shard() else 1
+        assert t.to_local().numel() * n == t.numel(), what
+    for t in _model_sharded(params, mesh):
+        assert t.to_local().numel() * 2 <= t.numel(), what
+
+
+#: the one-process steps by (config, step kind, repeat_kv): the other
+#: knobs steer only the mesh
+_ONE = {}
+
+
+def _run(build, cfg, mesh, batches, tcfg=TCFG):
+    """Steps one process and meshed, from the same init: (the
+    one-process state, metrics; the meshed state, metrics; the meshed
+    steps' collectives, :class:`Collectives`' records)."""
+    model, step = build(cfg, tcfg)[:2]
+    key = (cfg, build, get_sharding_policy()["repeat_kv"])
+    if key not in _ONE:
+        one = make_train_state(model, torch.Generator().manual_seed(0),
+                               tcfg)
+        m1 = []
+        for b in batches:
+            one, m = step(one, b)
+            m1.append((float(m["loss"]), float(m["grad_norm"]),
+                       float(m["lr"])))
+        _ONE[key] = one, m1
+    one, m1 = _ONE[key]
     meshed = T.place_state(
-        make_train_state(model, torch.Generator().manual_seed(0), TCFG), mesh)
+        make_train_state(model, torch.Generator().manual_seed(0), tcfg), mesh)
     run = T.meshed_step(step, mesh)
-    m1, m2 = [], []
+    m2, seen = [], []
     for b in batches:
-        one, m = step(one, b)
-        m1.append((float(m["loss"]), float(m["grad_norm"]), float(m["lr"])))
-        meshed, m = run(meshed, b)
+        with Collectives() as rec:
+            meshed, m = run(meshed, b)
+        seen += rec.seen
         m2.append((float(m["loss"]), float(m["grad_norm"]), float(m["lr"])))
-    return one, m1, meshed, m2
+    return one, m1, meshed, m2, seen
 
 
-def mesh_steps(rank, ckpt_dir):
-    """The builders' refusals; the meshed train step under each policy,
-    the meshed FL step, and a MoE config's meshed train and FL steps
-    against the one-process steps, the shards against their placements;
-    the checkpoint run."""
+def _step_checks(cfg, mesh, pol, name, fl):
+    """Two meshed steps (train or masked FL) against the one-process
+    steps: metrics, state, shards and the policy's FSDP and moments; for
+    a tensor-parallel step also its local sizes and no collective as
+    large as a model-sharded param."""
+    set_sharding_policy(**DEFAULTS)
+    set_sharding_policy(**pol)
+    what = f"{cfg.name} {'fl' if fl else 'train'} {name}"
+    build = build_fl_train_step if fl else build_train_step
+    try:
+        one, m1, meshed, m2, seen = _run(
+            build, cfg, mesh, _batches(cfg, 2, seed=3 if fl else 1, fl=fl))
+        np.testing.assert_allclose(m2, m1, rtol=1e-5, err_msg=what)
+        tensor_parallel = build(cfg, TCFG)[1].tensor_parallel
+        whole = _same_state(meshed, one, [m[2] for m in m1], what,
+                            zero_grads=not tensor_parallel)
+        _check_shards(meshed, mesh, what, whole)
+        if tensor_parallel:
+            _check_local_sizes(meshed["params"], mesh, what)
+            _no_whole_gather(meshed["params"], seen, mesh, what)
+        fsdp = _data_sharded(meshed["params"])
+        moments = _data_sharded(meshed["opt"]["mu"])
+        if pol.get("fsdp", True):
+            assert fsdp and moments == fsdp, what
+        else:
+            assert fsdp == 0 and bool(moments) == pol.get("zero1", False), \
+                what
+    finally:
+        set_sharding_policy(**DEFAULTS)
+
+
+class Peak(TorchDispatchMode):
+    """The largest tensor, and the most bytes of CPU tensor storage alive
+    at once, among what the ops under it make (a ``DTensor`` by its local
+    tensor; views by their base's storage)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes, self.refs = {}, {}
+        self.now = self.peak = self.largest = 0
+
+    def _drop(self, key):
+        self.refs[key] -= 1
+        if not self.refs[key]:
+            self.now -= self.bytes.pop(key)
+            del self.refs[key]
+
+    def _track(self, t):
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        if not isinstance(t, torch.Tensor) or t.is_meta:
+            return
+        try:
+            st = t.untyped_storage()
+            key = st.data_ptr()
+        except RuntimeError:           # a wrapper without storage
+            return
+        if not key:
+            return
+        self.largest = max(self.largest, t.numel())
+        if key not in self.bytes:
+            self.bytes[key], self.refs[key] = st.nbytes(), 0
+            self.now += st.nbytes()
+            self.peak = max(self.peak, self.now)
+        self.refs[key] += 1
+        weakref.finalize(t, self._drop, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            self._track(t)
+        return out
+
+
+def _state_bytes(state, local):
+    """The params' and moments' bytes: each rank's shards, or whole."""
+    return sum((t.to_local() if local else t).numel() * t.element_size()
+               for t in tree_leaves([state["params"], state["opt"]["mu"],
+                                     state["opt"]["nu"]]))
+
+
+def _sharded_build_checks(cfg, mesh):
+    """``sharded_train_state`` equals ``place_state`` of the one-process
+    state bit for bit; it holds at most its shards plus one whole leaf
+    (with its initialiser's float32 draw) at once, far below the whole
+    state; and ``train()`` on the mesh makes no tensor larger than the
+    state's largest leaf."""
+    model = build_model(cfg)
+    with Peak() as peak:
+        state = T.sharded_train_state(model, torch.device("cpu"), mesh)
+    ref = T.place_state(
+        make_train_state(model, torch.Generator().manual_seed(0), TCFG),
+        mesh)
+    for a, b in zip(tree_leaves(state), tree_leaves(ref)):
+        if isinstance(a, int):
+            assert a == b
+            continue
+        assert a.placements == b.placements
+        assert torch.equal(a.to_local(), b.to_local())
+    leaf = max(t.numel() for t in tree_leaves(ref["params"]))
+    bound = _state_bytes(state, True) + 2 * 4 * leaf
+    assert peak.peak <= bound < _state_bytes(ref, False) / 2, \
+        (peak.peak, bound, _state_bytes(ref, False))
+    assert peak.largest <= leaf, (peak.largest, leaf)
+    with Peak() as peak:
+        T.train(cfg, CKPT_TCFG, batch=4, seq=16, steps=1,
+                device=torch.device("cpu"), mesh=mesh)
+    assert peak.largest <= leaf, (peak.largest, leaf)
+
+
+def _bucket_major(batch, nb):
+    return {k: torch.stack([batch[k][b::nb] for b in range(nb)])
+            for k in ("tokens", "labels")}
+
+
+def jax_steps(mesh, jax_dir):
+    """The meshed train steps of each arch's smoke config from the params
+    and batches the spawning test saved (``tests/torch_lm.py::
+    train_runs``' inputs, converted from the JAX package's), under the
+    default policy and ``dp2d``: their losses and grad norms, written by
+    rank 0 for the test to hold to the JAX package's steps."""
+    out = {}
+    for arch in (ARCH, MOE_ARCH):
+        saved = torch.load(f"{jax_dir}/{arch}.pt")
+        cfg = get_smoke_config(arch)
+        for name in ("default", "dp2d"):
+            set_sharding_policy(**POLICIES[name])
+            try:
+                _, step = build_train_step(cfg, JAX_TCFG)
+                params = tree_map(lambda t: t.clone(), saved["params"])
+                state = T.place_state(
+                    {"params": params, "opt": adamw_init(params)}, mesh)
+                run = T.meshed_step(step, mesh)
+                rows = []
+                for b in saved["batches"]:
+                    state, m = run(state, b)
+                    rows.append((float(m["loss"]), float(m["grad_norm"])))
+                out[f"{arch} {name}"] = rows
+            finally:
+                set_sharding_policy(**DEFAULTS)
+    if dist.get_rank() == 0:
+        with open(f"{jax_dir}/meshed.json", "w") as f:
+            json.dump(out, f)
+
+
+def mesh_steps(rank, ckpt_dir, jax_dir):
+    """The builders' refusals; the tensor-parallel train and masked FL
+    steps of phi3-mini's and mixtral's smoke configs (two KV heads)
+    under every policy, the :data:`UNEVEN` configs', the bucketed FL
+    step, and the gathered train steps of :data:`GATHERED_ARCH`'s under
+    every policy, against the one-process steps (:func:`_step_checks`);
+    the leaf-by-leaf state build (:func:`_sharded_build_checks`); the
+    meshed steps from the JAX package's params (:func:`jax_steps`); the
+    checkpoint run."""
     for build, need in ((lambda: make_production_mesh(), 256),
                         (lambda: make_production_mesh(multi_pod=True), 512),
                         (lambda: make_debug_mesh(multi_pod=True), 8)):
@@ -132,35 +414,28 @@ def mesh_steps(rank, ckpt_dir):
             raise AssertionError(f"a {need}-rank mesh built on 4 ranks")
     mesh = make_debug_mesh()
     assert mesh.mesh_dim_names == ("data", "model")
-    cfg = get_smoke_config(ARCH)
-    for name, pol in POLICIES.items():
-        set_sharding_policy(**pol)
-        try:
-            one, m1, meshed, m2 = _run(build_train_step, cfg, mesh,
-                                       _batches(cfg, 2))
-            np.testing.assert_allclose(m2, m1, rtol=1e-5, err_msg=name)
-            _same_state(meshed, one, [m[2] for m in m1], name)
-            _check_shards(meshed, mesh, name)
-            fsdp = _data_sharded(meshed["params"])
-            moments = _data_sharded(meshed["opt"]["mu"])
-            if name == "default":
-                assert fsdp and moments == fsdp, name
-            elif name != "dp2d":
-                assert fsdp == 0 and bool(moments) == (name == "zero1"), name
-        finally:
-            set_sharding_policy(fsdp=True, zero1=False, dp2d=False)
     for arch in (ARCH, MOE_ARCH):
-        cfg = get_smoke_config(arch)
-        for fl in (False, True) if arch == MOE_ARCH else (True,):
-            what = f"{arch} {'fl' if fl else 'train'}"
-            one, m1, meshed, m2 = _run(
-                build_fl_train_step if fl else build_train_step, cfg, mesh,
-                _batches(cfg, 2, seed=3, fl=fl))
-            np.testing.assert_allclose(m2, m1, rtol=1e-5, err_msg=what)
-            _same_state(meshed, one, [m[2] for m in m1], what)
-            _check_shards(meshed, mesh, what)
-    cfg = get_smoke_config(ARCH)
+        cfg = reduced(get_config(arch), **OVER)
+        for name, pol in POLICIES.items():
+            for fl in (False, True):
+                _step_checks(cfg, mesh, pol, name, fl)
+    for arch, over in UNEVEN:
+        cfg = reduced(get_config(arch), **over)
+        for fl in (False, True):
+            _step_checks(cfg, mesh, {}, "default", fl)
+    cfg = reduced(get_config(GATHERED_ARCH))
+    for name, pol in POLICIES.items():
+        _step_checks(cfg, mesh, pol, name, False)
+    cfg = reduced(get_config(ARCH), **OVER)
+    one, m1, meshed, m2, _ = _run(
+        build_fl_bucketed_train_step, cfg, mesh,
+        [_bucket_major(b, 2) for b in _batches(cfg, 2, seed=5)])
+    np.testing.assert_allclose(m2, m1, rtol=1e-5, err_msg="bucketed")
+    _same_state(meshed, one, [m[2] for m in m1], "bucketed")
+    _sharded_build_checks(cfg, mesh)
+    jax_steps(mesh, jax_dir)
 
+    cfg = get_smoke_config(ARCH)
     out = T.train(cfg, CKPT_TCFG, batch=4, seq=16, steps=2,
                   device=torch.device("cpu"), mesh=mesh, ckpt_dir=ckpt_dir)
     whole = T.gather_state(out["state"])
