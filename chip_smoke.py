@@ -178,11 +178,17 @@ its own lines; any failure raises and exits non-zero:
    leaf, the model split over the model axis, attention through the
    kernel's local-shard entry) under seven sharding policies, 2 train
    steps and 2 FL steps each, phi3-mini at 4 layers, bitwise equal to
-   the one-device steps, the entry's launches counted, and ``[lm mesh
-   bytes]`` (host only: each dense and MoE config's per-rank state on
-   the (16, 16) production mesh); the attention kernel is also timed at
-   one rank's local heads under a 4-way model axis (phi3-mini train, 8
-   of 32 heads);
+   the one-device steps, the entry's launches counted, then ``[lm mesh
+   <family>]``, every other family at full width and cut depth (xLSTM's
+   2 blocks, zamba2's 6 Mamba2 blocks and a shared-attention site,
+   whisper's 2 and 2 layers over 1500 frames, the VLM's group of 4 self
+   layers and a cross layer over 1601 image tokens) under three
+   policies, 2 train steps each, bitwise equal to the one-device steps,
+   the entry's launches exact, and ``[lm mesh bytes]`` (host only: each
+   LM config's per-rank state on the (16, 16) production mesh); the
+   attention kernel is also timed at one rank's local heads under a
+   4-way model axis (phi3-mini train, 8 of 32 heads; zamba2's shared
+   block, 8 of 32 at D 64; the VLM's self layers, 8:2 of 32:8 at D 128);
 15. the sub-quadratic families (xlstm-1.3b, zamba2-1.2b) and the
    cross-attention families (whisper-medium: 24 encoder and 24 decoder
    layers over 1500 stub audio frames; llama-3.2-vision-11b: 8 groups of
@@ -3055,9 +3061,26 @@ LM_MESH_POLICIES = (("default", {}),
                     ("block_gather", {"block_gather": True}),
                     ("fsdp=False", {"fsdp": False}),
                     ("zero1", {"fsdp": False, "zero1": True}))
-#: ``[lm mesh bytes]``: the configs whose blocks are transformer.py's
+#: ``[lm mesh]``'s other families at full width, their depth cut: (label,
+#: arch, the cut, B, S).  xLSTM: one mLSTM and one sLSTM block; zamba2:
+#: 6 Mamba2 blocks and one shared-attention site; whisper: 2 encoder and
+#: 2 decoder layers over 1500 frames; the VLM: one group of 4 self layers
+#: and a cross layer over 1601 image tokens
+LM_MESH_FAMILIES = (("xlstm", "xlstm-1.3b", {"num_layers": 2}, 2, 128),
+                    ("zamba2", "zamba2-1.2b", {"num_layers": 6}, 2, 1024),
+                    ("whisper", "whisper-medium",
+                     {"encoder_layers": 2, "num_layers": 2}, 4, 448),
+                    ("vlm", "llama-3.2-vision-11b", {"num_layers": 5}, 2,
+                     1024))
+#: the policies the families run under (the one-device steps are taken
+#: again under repeat_kv where it changes them: the VLM's GQA)
+LM_MESH_FAMILY_POLICIES = (("default", {}), ("dp2d", {"dp2d": True}),
+                           ("repeat_kv+attn_heads",
+                            {"repeat_kv": True, "attn_heads": True}))
+#: ``[lm mesh bytes]``: every LM config but the dense family's smallest
 LM_MESH_ARCHS = ("phi3-mini-3.8b", "minitron-8b", "yi-34b", "command-r-35b",
-                 "mixtral-8x22b", "qwen3-moe-235b-a22b")
+                 "mixtral-8x22b", "qwen3-moe-235b-a22b", "xlstm-1.3b",
+                 "zamba2-1.2b", "whisper-medium", "llama-3.2-vision-11b")
 #: the attention kernel at the LM paths' shapes: (label, B, S, Hq, Hkv,
 #: D, window); all bf16 and causal
 LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
@@ -3070,6 +3093,10 @@ LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024),
                 ("zamba2 prefill", 4, 2048, 32, 32, 64, 0),
                 ("zamba2 train", 2, 1024, 32, 32, 64, 0),
+                # the shared block's and the VLM's self layers' local
+                # heads under a 4-way model axis
+                ("zamba2 train local heads", 2, 1024, 8, 8, 64, 0),
+                ("vlm train local heads", 2, 1024, 8, 2, 128, 0),
                 ("whisper decoder", 4, 448, 16, 16, 64, 0),
                 ("vlm train", 2, 1024, 32, 8, 128, 0),
                 ("mixtral prefill", 4, 2048, 48, 8, 128, 4096),
@@ -3879,8 +3906,9 @@ def phase_lm_fl():
 
 
 def _lm_mesh_bytes():
-    """``[lm mesh bytes]``, host only: each dense and MoE config's
-    per-rank bytes of params, grads and AdamW moments on the (16, 16)
+    """``[lm mesh bytes]``, host only: each LM config's (but the dense
+    family's smallest) per-rank bytes of params, grads and AdamW moments
+    on the (16, 16)
     production mesh beside the whole state's, from the spec functions on
     the meta device (``launch/specs.py::state_bytes``)."""
     import types
@@ -3918,9 +3946,12 @@ def phase_lm_mesh():
     one device).  Every attention launch of the meshed steps goes
     through ``flash_attention``'s local-shard entry
     (``flash_attention_sharded``, ``_bwd_sharded``), counted and checked.
-    Then ``[lm mesh bytes]``.  Returns the launches of the train steps
-    and of the FL steps (the one-device run and every policy's), by
-    ``"train"`` and ``"fl"``."""
+    Then, in the same group, ``LM_MESH_FAMILIES`` (xLSTM, the Mamba2
+    hybrid, whisper and the VLM at full width, their depth cut) under
+    ``LM_MESH_FAMILY_POLICIES`` (:func:`_lm_mesh_family`), and ``[lm
+    mesh bytes]``.  Returns the launches of the train steps and of the
+    FL steps (the one-device run and every policy's), by ``"train"`` and
+    ``"fl"``, and of each family's steps by its label."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -4015,6 +4046,11 @@ def phase_lm_mesh():
                         enumerate(rows)) + f"; bitwise equal: {same}")
                 del meshed
                 _free_card()
+            del one
+            _free_card()
+            families = {label: _lm_mesh_family(label, arch, cut, B, S,
+                                               steps, mesh)
+                        for label, arch, cut, B, S in LM_MESH_FAMILIES}
         finally:
             dist.destroy_process_group()
     n = len(LM_MESH_POLICIES)
@@ -4054,10 +4090,127 @@ def phase_lm_mesh():
           "k) are not run on this one-card machine; tests/test_torch_mesh."
           "py runs the tensor-parallel steps on 4 gloo ranks on the CPU")
     _lm_mesh_bytes()
-    del one
-    _free_card()
     return {"train": {k: parts[0][k] for k in LM_ROUTES},
-            "fl": {k: parts[1][k] for k in LM_ROUTES}}
+            "fl": {k: parts[1][k] for k in LM_ROUTES}, **families}
+
+
+def _lm_mesh_family(label, arch, cut, B, S, steps, mesh):
+    """``[lm mesh <label>]``: ``arch`` at full width with ``cut`` (one of
+    ``LM_MESH_FAMILIES``), bf16, ``use_pallas``, ``steps`` train steps of
+    B x S (the stub inputs drawn once): the one-device steps, then under
+    each of ``LM_MESH_FAMILY_POLICIES`` the tensor-parallel path on
+    ``mesh`` (the state built leaf by leaf, ``meshed_step``) from the
+    same seed, held bit for bit to them (losses, grad norms, every param
+    and moment; the one-device steps taken again where a policy changes
+    them: ``repeat_kv`` on the VLM's grouped cross-attention).  The
+    attention launches are exact: a causal self-attention layer's
+    forward, its remat recompute and its backward (zamba2's shared block
+    is not recomputed), the meshed steps' through the local-shard entry.
+    Returns the launches of all the steps by route."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import build_train_step, make_train_state
+    from repro_torch.launch.train import meshed_step, sharded_train_state
+    from repro_torch.models.hybrid import num_attn_sites
+    from repro_torch.sharding.rules import (get_sharding_policy,
+                                            set_sharding_policy)
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=10,
+                       total_steps=steps, remat="full",
+                       loss_chunk=min(512, S), use_pallas=True)
+    model, step = build_train_step(cfg, tcfg)
+    it = lm_batches(synthetic_lm_dataset(max(S * B * 4, 100_000),
+                                         cfg.vocab_size, seed=0), B, S, seed=0)
+    extras = _stub_extras(cfg, B, S, seed=1)
+    batches = [dict({k: torch.from_numpy(v).cuda()
+                     for k, v in next(it).items()}, **extras)
+               for _ in range(steps)]
+    if cfg.family == "mamba-hybrid":
+        n_fwd = n_bwd = num_attn_sites(cfg)
+    elif cfg.family == "ssm":
+        n_fwd = n_bwd = 0
+    else:
+        n_bwd = _causal_layers(cfg)
+        n_fwd = 2 * n_bwd
+    keys = LM_ROUTES + ("flash_attention_sharded",
+                        "flash_attention_bwd_sharded")
+    total = dict.fromkeys(keys, 0)
+    grouped = cfg.num_heads != cfg.num_kv_heads
+    before = get_sharding_policy()
+    one, ref, ref_key, lines, same_all = None, None, None, [], True
+    try:
+        for name, pol in LM_MESH_FAMILY_POLICIES:
+            key = grouped and pol.get("repeat_kv", False)
+            set_sharding_policy(**before)
+            set_sharding_policy(**pol)
+            if key != ref_key:
+                one = None
+                _free_card()
+                one = make_train_state(
+                    model, torch.Generator("cuda").manual_seed(0), tcfg)
+                reset_launches()
+                ref = []
+                for b in batches:
+                    (one, m), secs = _synced_wall(lambda: step(one, b))
+                    ref.append((float(m["loss"]), float(m["grad_norm"]),
+                                secs))
+                for k in keys:
+                    total[k] += LAUNCHES[k]
+                ref_key = key
+            meshed, secs_init = _synced_wall(
+                lambda: sharded_train_state(model, "cuda", mesh))
+            reset_launches()
+            rows = []
+            for b in batches:
+                (meshed, m), secs = _synced_wall(
+                    lambda: meshed_step(step, mesh)(meshed, b))
+                rows.append((float(m["loss"]), float(m["grad_norm"]), secs))
+            got = {k: LAUNCHES[k] for k in keys}
+            for k in keys:
+                total[k] += got[k]
+            same = all(a[:2] == b[:2] for a, b in zip(ref, rows)) and \
+                all((x == y) if isinstance(x, int) else
+                    torch.equal(x.to_local(), y)
+                    for x, y in zip(tree_leaves(meshed), tree_leaves(one)))
+            same_all = same_all and same
+            lines.append(
+                f"{name}: state in {secs_init:.3f} s; " + ", ".join(
+                    f"step {i} loss {r[0]:.4f} grad norm {r[1]:.4f} "
+                    f"{r[2]:.3f} s (one device {q[2]:.3f} s)"
+                    for i, (r, q) in enumerate(zip(rows, ref)))
+                + f"; local-shard entry {got['flash_attention_sharded']} "
+                f"forwards, {got['flash_attention_bwd_sharded']} "
+                f"backwards; bitwise equal: {same}")
+            if (got["flash_attention_sharded"],
+                    got["flash_attention_bwd_sharded"],
+                    got["flash_attention_fwd_wgmma"],
+                    got["flash_attention_bwd_wgmma"],
+                    sum(got[k] for k in LM_ROUTES)) != (
+                    steps * n_fwd, steps * n_bwd, steps * n_fwd,
+                    steps * n_bwd, steps * (n_fwd + n_bwd)):
+                raise AssertionError(
+                    f"[lm mesh {label}] {name}: launches {got}: expected "
+                    f"{steps * n_fwd} forwards and {steps * n_bwd} "
+                    "backwards, all wgmma and through the local-shard "
+                    "entry")
+            del meshed
+            _free_card()
+    finally:
+        set_sharding_policy(**before)
+    print(f"[lm mesh {label}] {cfg.name} at full width, depth cut "
+          f"({_shape_note(cfg)}), {cfg.dtype}, B {B} x S {S}, use_pallas, "
+          f"one-rank NCCL (1, 1) mesh: " + "; ".join(lines)
+          + f"; {time.perf_counter() - t0:.1f} s")
+    if not same_all:
+        raise AssertionError(f"[lm mesh {label}] a meshed step differs "
+                             "from the one-device step")
+    del one, extras, batches
+    _free_card()
+    return {k: total[k] for k in LM_ROUTES}
 
 
 def _lm_reference(tag, cfg, n_fwd, n_bwd):
@@ -4261,11 +4414,19 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
             "lm phi3-mini fl bucketed": train_launches["fl bucketed"],
             "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"],
             "lm zamba2 prefill": prefill_launches["zamba2"],
-            "lm zamba2 train": train_launches["zamba2"],
-            # whisper's prefill and train step share the decoder's shape
+            # [lm zamba2 train] and [lm mesh]'s zamba2 steps, B 2 x S 1024
+            "lm zamba2 train": _summed(train_launches["zamba2"],
+                                       train_launches["mesh zamba2"]),
+            # timing shapes, as phi3-mini's local heads
+            "lm zamba2 train local heads": {},
+            "lm vlm train local heads": {},
+            # whisper's prefill and train steps ([lm mesh]'s too) share
+            # the decoder's shape
             "lm whisper decoder": _summed(prefill_launches["whisper"],
-                                          train_launches["whisper"]),
-            "lm vlm train": train_launches["vlm"],
+                                          train_launches["whisper"],
+                                          train_launches["mesh whisper"]),
+            "lm vlm train": _summed(train_launches["vlm"],
+                                    train_launches["mesh vlm"]),
             "lm mixtral prefill": prefill_launches["mixtral"],
             "lm qwen3-moe prefill": prefill_launches["qwen3-moe"],
             "lm mixtral train": train_launches["mixtral"],
@@ -4425,6 +4586,8 @@ def main() -> int:
     mesh_launches, s_mesh = _synced_wall(phase_lm_mesh)
     train_launches["mesh"] = mesh_launches["train"]
     train_launches["mesh fl"] = mesh_launches["fl"]
+    for label, *_ in LM_MESH_FAMILIES:
+        train_launches[f"mesh {label}"] = mesh_launches[label]
     print(f"[lm fl] the FL steps took {secs:.1f} s, the mesh {s_mesh:.1f} "
           f"s: {time.perf_counter() - t0:.1f} s")
     for family, arch in LM_SUBQ.items():

@@ -1,12 +1,13 @@
 """The collectives one tensor-parallel train step makes on the (2, 2)
 ``("data", "model")`` debug mesh: 4 gloo ranks on the CPU, the smoke
-configs of phi3-mini-3.8b and mixtral-8x22b with two KV heads (the
-shapes of ``tests/torch_mesh_ranks.py``), B 4 x S 16, full remat, under
-each sharding policy.  ``CommDebugMode`` records them (the tests'
+configs of phi3-mini-3.8b and mixtral-8x22b with two KV heads, and of
+xlstm-1.3b, zamba2-1.2b, whisper-medium and llama-3.2-vision-11b (the
+shapes and stub inputs of ``tests/torch_mesh_ranks.py``), B 4 x S 16,
+full remat, under each sharding policy.  ``CommDebugMode`` records them (the tests'
 recorder, ``tests/torch_mesh_ranks.py::Collectives``); for each kind and
 mesh axis the script prints their count and bytes (each collective's
 largest tensor), and the largest tensor a collective over the model axis
-touches beside the smallest layer of a model-sharded param (a whole
+touches beside the smallest matrix of a model-sharded param (a whole
 gather of one would reach it).  The second of two steps is recorded.
 
     PYTHONPATH=src python scripts/mesh_collectives.py
@@ -24,7 +25,6 @@ import os
 import sys
 import tempfile
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -33,14 +33,14 @@ from torch.distributed.tensor import DTensor
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
 
-ARCHS = ("phi3-mini-3.8b", "mixtral-8x22b")
 
 
 def _rank(rank, path):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
                             world_size=4)
-    from torch_mesh_ranks import DEFAULTS, OVER, POLICIES, Collectives
+    from torch_mesh_ranks import (DEFAULTS, FAMILIES, OVER, POLICIES,
+                                  XLSTM_ARCH, Collectives, _batches)
     from repro_torch.configs import TrainConfig, get_config, reduced
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import make_debug_mesh
@@ -51,11 +51,11 @@ def _rank(rank, path):
     axis = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
                        loss_chunk=8, remat="full")
-    rng = np.random.default_rng(1)
-    for arch in ARCHS:
-        cfg = reduced(get_config(arch), **OVER)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 17)))
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    archs = ((("phi3-mini-3.8b", OVER), ("mixtral-8x22b", OVER),
+              (XLSTM_ARCH, {})) + tuple(f[:2] for f in FAMILIES))
+    for arch, over in archs:
+        cfg = reduced(get_config(arch), **over)
+        batch = _batches(cfg, 1)[0]
         for name, pol in POLICIES.items():
             set_sharding_policy(**DEFAULTS)
             set_sharding_policy(**pol)
@@ -67,7 +67,7 @@ def _rank(rank, path):
             with Collectives() as rec:
                 state, _ = run(state, batch)
             mi = mesh.mesh_dim_names.index("model")
-            layer = min((t[0] if t.ndim >= 3 else t).numel()
+            layer = min(t.shape[-2] * t.shape[-1]
                         for t in tree_leaves(state["params"])
                         if isinstance(t, DTensor)
                         and t.placements[mi].is_shard())
@@ -86,7 +86,7 @@ def _rank(rank, path):
                 print(f"{arch}-smoke {name}: {len(rec.seen)} collectives, "
                       f"{sum(b for *_, b in rec.seen)} bytes: {table}; the "
                       f"largest tensor over the model axis {biggest} "
-                      f"elements, the smallest model-sharded layer {layer}",
+                      f"elements, the smallest model-sharded matrix {layer}",
                       flush=True)
     set_sharding_policy(**DEFAULTS)
     dist.destroy_process_group()

@@ -21,9 +21,9 @@ depth-prefix submodel (:mod:`repro_torch.core.layerwise`), and the
 layer-aligned masked mean falls out of the batch-mean gradient, rescaled
 per layer.
 
-On the production mesh the dense and MoE decoders' steps run on the
-params' ``DTensor``s (``launch/train.py::meshed_step``): the model splits
-its compute over the model axis (``sharding/tp.py``), and the
+On the production mesh every family's steps run on the params'
+``DTensor``s (``launch/train.py::meshed_step``): the model splits its
+compute over the model axis (``sharding/tp.py``), and the
 cross-entropy is vocab-parallel (each rank's logits only for its vocab
 shard of the unembedding, a logsumexp across the shards, no gather of
 the logits); the FL steps' per-layer gates and rescale stay replicated.
@@ -144,14 +144,12 @@ class TrainStep:
     """A train step: ``grads(params, batch) -> (loss, grads)``, then the
     in-place AdamW at ``schedule``'s rate.  ``step(state, batch)`` ->
     (state, metrics), ``state`` updated in place and returned.
-    ``tensor_parallel``: ``grads`` takes the params' ``DTensor``s on the
-    mesh (the dense and MoE decoders); ``batch_dim``: the dim of
-    ``tokens`` and ``labels`` that holds the batch rows (the bucketed
-    step's are bucket-major)."""
+    ``grads`` takes plain tensors or, on the mesh, the params'
+    ``DTensor``s; ``batch_dim``: the dim of ``tokens`` and ``labels``
+    that holds the batch rows (the bucketed step's are bucket-major)."""
     grads: Callable
     schedule: Callable
     tcfg: TrainConfig
-    tensor_parallel: bool = False
     batch_dim: int = 0
 
     def update_(self, grads, opt, params, grad_norm=None):
@@ -204,15 +202,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             loss = loss + cfg.moe_aux_coef * aux / max(cfg.num_layers, 1)
         return loss
 
-    return model, TrainStep(_value_and_grad(loss_fn), _schedule(tcfg), tcfg,
-                            tensor_parallel=_tensor_parallel(cfg))
-
-
-def _tensor_parallel(cfg: ModelConfig) -> bool:
-    """The families whose blocks are ``models/transformer.py``'s split
-    their compute on the mesh; the others' meshed steps gather the
-    params whole (``launch/train.py::meshed_step``)."""
-    return cfg.family in ("dense", "moe")
+    return model, TrainStep(_value_and_grad(loss_fn), _schedule(tcfg), tcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -277,8 +267,7 @@ def build_fl_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         return loss, _rescale(g, n / torch.clamp_min(counts, 1.0),
                               cfg.num_layers)
 
-    return model, TrainStep(grads, _schedule(tcfg), tcfg,
-                            tensor_parallel=_tensor_parallel(cfg))
+    return model, TrainStep(grads, _schedule(tcfg), tcfg)
 
 
 def build_fl_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig):
@@ -329,9 +318,7 @@ def build_fl_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                              dtype=torch.float32, device=loss.device)
         return loss, _rescale(g, scale, L)
 
-    return model, TrainStep(grads, _schedule(tcfg), tcfg,
-                            tensor_parallel=_tensor_parallel(cfg),
-                            batch_dim=1), nb
+    return model, TrainStep(grads, _schedule(tcfg), tcfg, batch_dim=1), nb
 
 
 def fl_batch_extras(cfg: ModelConfig, shape: ShapeConfig, n_clients: int = 4):

@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --smoke --steps 20 --batch 8 --seq 64 --device cpu
 
-    # the production mesh (256 ranks; 512 with --mesh multi); a rank of
-    # the dense and MoE decoders holds only its shards (see below):
+    # the production mesh (256 ranks; 512 with --mesh multi); a rank
+    # holds only its shards (see below):
     torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
         --arch phi3-mini-3.8b --shape train_4k --mesh single \
         --ckpt-dir /ckpt/phi3
@@ -26,21 +26,17 @@ environment (NCCL with each rank on ``cuda:LOCAL_RANK``, gloo with
 size raises ``ValueError``) and installs it as the activation mesh.  The
 params and AdamW moments are ``DTensor``s placed by
 :func:`repro_torch.launch.specs.state_shardings` (each rank holds the
-shards the rules name).  For the dense and MoE decoders (phi3-mini,
-minitron, yi, command-r, mixtral, qwen3-moe) the state is built leaf by
+shards the rules name).  For every family the state is built leaf by
 leaf (:func:`sharded_train_state`: each leaf drawn as one process draws
 it and cut to this rank's shard at once), and :func:`meshed_step` runs
 the step on the shards: the model splits its compute over the model
-axis as the reference's GSPMD does (``sharding/tp.py``), no param is
-gathered whole, and each rank updates its shards in place.  A rank
+axis as the reference's GSPMD does (``sharding/tp.py``; the dense and
+MoE decoders, xLSTM, the Mamba2 hybrid, whisper and the VLM), no param
+is gathered over it, and each rank updates its shards in place.  A rank
 holds its shards, one layer's weights gathered over the FSDP axis, and
-its activations.  The other families (xlstm-1.3b, zamba2-1.2b,
-whisper-medium, llama-3.2-vision-11b) keep data parallelism over the
-batch axes: every rank builds the whole state before it keeps its
-shards and gathers the params whole each step, so their whole state and
-gradients must fit one device.  Under a mesh ``--ckpt-dir`` gathers the
-state, rank 0 writes the reference's files, and every rank loads them
-whole and keeps its shards.
+its activations.  Under a mesh ``--ckpt-dir`` gathers the state, rank 0
+writes the reference's files, and every rank loads them whole and keeps
+its shards.
 """
 from __future__ import annotations
 
@@ -65,7 +61,6 @@ from repro_torch.launch.steps import (TrainStep, adapt_for_shape,
                                       build_train_step, make_train_state)
 from repro_torch.models import layers as L
 from repro_torch.models.api import extra_inputs
-from repro_torch.optim.optimizers import global_norm
 from repro_torch.sharding.rules import (activation_mesh, batch_axes,
                                         map_with_path, mesh_size,
                                         model_axis_ok, placements,
@@ -227,28 +222,6 @@ def batch_shard(batch, mesh, rows: int = 0):
     return out
 
 
-def meshed_step(step: TrainStep, mesh):
-    """``step`` (any of ``launch/steps.py``'s train steps) on a state
-    placed by :func:`place_state` (or :func:`sharded_train_state`): it
-    computes what ``step`` computes on the whole batch.  Every rank
-    passes the whole global batch; returns (state, metrics), the
-    state's shards updated in place.
-
-    The dense and MoE decoders (``step.tensor_parallel``) run on the
-    params' ``DTensor``s (:func:`_tensor_parallel_step`).  The other
-    families keep data parallelism over the batch axes with the params
-    gathered whole (:func:`_gathered_step`), and say so once a run.
-    """
-    if step.tensor_parallel:
-        return _tensor_parallel_step(step, mesh)
-    if dist.get_rank() == 0:
-        print("meshed_step: this family's step gathers the params whole on "
-              "every rank (data parallelism over the batch axes); the "
-              "tensor-parallel compute covers the dense and MoE decoders",
-              flush=True)
-    return _gathered_step(step, mesh)
-
-
 def _sharded_norm(grads, mesh) -> torch.Tensor:
     """The whole gradient's global norm from each rank's shards: each
     leaf's sum of squares summed over the mesh dims that shard it."""
@@ -266,17 +239,23 @@ def _sharded_norm(grads, mesh) -> torch.Tensor:
     return torch.sqrt(sq.sum())
 
 
-def _tensor_parallel_step(step: TrainStep, mesh):
-    """The step on the params' ``DTensor``s with the activation mesh
+def meshed_step(step: TrainStep, mesh):
+    """``step`` (any of ``launch/steps.py``'s train steps) on a state
+    placed by :func:`place_state` (or :func:`sharded_train_state`): it
+    computes what ``step`` computes on the whole batch.  Every rank
+    passes the whole global batch; returns (state, metrics), the
+    state's shards updated in place.
+
+    The step runs on the params' ``DTensor``s with the activation mesh
     installed: the model splits its compute over the model axis
-    (``sharding/tp.py``) and never gathers a param whole; the gradients
-    come back in the params' placements, summed over the batch ranks,
-    and are divided by their count (the mean of equal shards' mean
-    losses is the batch's); the clip reads the whole gradient's norm
-    (:func:`_sharded_norm`); AdamW updates each rank's shards in place,
-    and where a moment is sharded finer than its param (``zero1``) the
-    moment's region of the param, gathered back into the param's shard
-    (:func:`_write_back`)."""
+    (``sharding/tp.py``; every family) and never gathers a param over
+    it; the gradients come back in the params' placements, summed over
+    the batch ranks, and are divided by their count (the mean of equal
+    shards' mean losses is the batch's); the clip reads the whole
+    gradient's norm (:func:`_sharded_norm`); AdamW updates each rank's
+    shards in place, and where a moment is sharded finer than its param
+    (``zero1``) the moment's region of the param, gathered back into the
+    param's shard (:func:`_write_back`)."""
     axes = batch_axes(mesh)
     groups = [mesh.get_group(a) for a in axes]
     n = mesh_size(mesh, axes)
@@ -305,53 +284,6 @@ def _tensor_parallel_step(step: TrainStep, mesh):
                 params, region)
         lr, m = _update_shards(step, state, local_grads, targets, region,
                                mesh, _sharded_norm(grads, mesh))
-        return state, {"loss": loss, "lr": lr, **m}
-
-    return run
-
-
-def _gathered_step(step: TrainStep, mesh):
-    """``step`` as data parallelism over the batch axes of ``mesh``.  The
-    mean of equal shards' mean losses is the batch's; the one term that
-    is not such a mean, the MoE load-balance loss (a product of token
-    means), takes its means over the batch axes of the activation mesh,
-    which the step installs while it runs (``models/moe.py``).
-
-    Each step gathers the params whole, takes the gradient of this rank's
-    batch shard, all-reduces it (and the loss) over the batch axes and
-    divides by their size, clips by the norm of that whole gradient, and
-    runs AdamW on each rank's shards (the xLSTM, Mamba2-hybrid, whisper
-    and VLM families: their activation hooks are the identity on the
-    whole params' plain tensors).  Where a moment is sharded finer
-    than its param (``zero1``), the rank updates the moment's region of
-    the param and the param's shard is gathered back from the ranks'
-    regions (``redistribute``)."""
-    axes = batch_axes(mesh)
-    groups = [mesh.get_group(a) for a in axes]
-    n = mesh_size(mesh, axes)
-
-    def run(state, batch):
-        params, opt = state["params"], state["opt"]
-        with torch.no_grad():
-            whole = tree_map(lambda p: p.full_tensor(), params)
-        with _installed(mesh):
-            loss, grads = step.grads(whole, batch_shard(batch, mesh,
-                                                        step.batch_dim))
-        loss = loss.detach()
-        for t in [loss] + tree_leaves(grads):
-            for g in groups:
-                dist.all_reduce(t, group=g)
-            t.div_(n)
-        # each leaf's update region: its moments' shard
-        region = tree_map(lambda m: m.placements, opt["mu"])
-        local_grads = tree_map(lambda g, pl: local_shard(g, mesh, pl),
-                               grads, region)
-        targets = tree_map(
-            lambda p, w, pl: p.to_local() if p.placements == pl
-            else local_shard(w.detach(), mesh, pl).clone(),
-            params, whole, region)
-        lr, m = _update_shards(step, state, local_grads, targets, region,
-                               mesh, global_norm(grads))
         return state, {"loss": loss, "lr": lr, **m}
 
     return run
@@ -410,8 +342,7 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
     the state holds ``DTensor``s."""
     B, S = batch, seq
     model, train_step = build_train_step(cfg, tcfg)
-    sharded = mesh is not None and train_step.tensor_parallel
-    if sharded:
+    if mesh is not None:
         state = sharded_train_state(model, device, mesh)
     else:
         state = make_train_state(
@@ -426,8 +357,6 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
             if lead:
                 print(f"resumed from {ck} (step {start})")
     if mesh is not None:
-        if not sharded:
-            state = place_state(state, mesh)
         train_step = meshed_step(train_step, mesh)
 
     toks = synthetic_lm_dataset(max(S * B * 4, 100_000), cfg.vocab_size,

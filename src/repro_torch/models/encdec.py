@@ -31,13 +31,26 @@ The reference's step counters that nothing reads are not kept.
 DR-FL: the layer mask covers the decoder only (an early-exited encoder
 cannot feed cross-attention).  ``window`` is accepted by :func:`apply`
 and not passed to the blocks, as in the reference.
+
+On the production mesh (``launch/train.py::meshed_step``) the params are
+``DTensor``s: the stub frames enter as this rank's rows (a ``DTensor`` in
+the own-rows layout), the LayerNorms run in the compute layout, the
+attention products and the GELU MLP split over the model axis
+(``models/layers.py``'s regions: the encoder's attention on local heads
+over all frames, the decoder's causal self-attention through
+``flash_attention``'s local-shard entry under ``use_pallas``, the cross
+layer's k and v from the encoder's output), and the embedding is
+vocab-parallel where the vocabulary divides the model axis.
 """
 from __future__ import annotations
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import tp
 from repro_torch.sharding.rules import constrain
 
 
@@ -90,15 +103,17 @@ def encode(params, cfg, audio_frames, *, remat="full"):
     """audio_frames: [B, T_a, d] (the stub frontend's output) -> [B, T_a,
     d]."""
     x = audio_frames.to(T._dt(cfg))
+    if isinstance(params["enc_norm"]["scale"], DTensor):
+        x = tp.batch_input(x)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(x, bp):
         h = L.layernorm_apply(bp["attn_norm"], x, cfg.norm_eps)
         a, _ = L.attention_apply(bp["attn"], cfg, h, positions, causal=False,
                                  norm_eps=cfg.norm_eps)
-        x = x + a
+        x = T._residual(x, a)
         h = L.layernorm_apply(bp["mlp_norm"], x, cfg.norm_eps)
-        return constrain(x + L.gelu_mlp_apply(bp["mlp"], h))
+        return constrain(T._residual(x, L.gelu_mlp_apply(bp["mlp"], h)))
 
     body = _remat(body, remat)
     for bp in T._unstack(params["encoder"], cfg.encoder_layers):
@@ -115,14 +130,14 @@ def _dec_block(bp, cfg, x, enc_out, positions, gate, *, self_cache=None,
     a, _ = L.attention_apply(bp["attn"], cfg, h, positions, causal=True,
                              cache=self_cache, use_pallas=use_pallas,
                              attn_chunk=attn_chunk, norm_eps=cfg.norm_eps)
-    x = x + gate * a
+    x = T._residual(x, a, gate)
     h = L.layernorm_apply(bp["cross_norm"], x, cfg.norm_eps)
     c, _ = L.attention_apply(bp["cross"], cfg, h, positions, causal=False,
                              kv_src=enc_out if cross_cache is None else h,
                              cache=cross_cache, norm_eps=cfg.norm_eps)
-    x = x + gate * c
+    x = T._residual(x, c, gate)
     h = L.layernorm_apply(bp["mlp_norm"], x, cfg.norm_eps)
-    return x + gate * L.gelu_mlp_apply(bp["mlp"], h)
+    return T._residual(x, L.gelu_mlp_apply(bp["mlp"], h), gate)
 
 
 def apply(params, cfg, tokens, audio_frames, *, layer_mask=None, window=None,
@@ -131,7 +146,7 @@ def apply(params, cfg, tokens, audio_frames, *, layer_mask=None, window=None,
     [B, S, d], aux_loss 0).  ``layer_mask`` [L] gates the decoder
     layers."""
     enc_out = encode(params, cfg, audio_frames, remat=remat)
-    x = params["embed"]["emb"][tokens]
+    x = constrain(L.embed_apply(params["embed"], tokens))
     positions = torch.arange(tokens.shape[1], device=x.device)
     mask = T._gates(cfg, layer_mask, x.device)
 

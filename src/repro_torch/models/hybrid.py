@@ -19,6 +19,12 @@ reference's step counter ``pos`` is not kept (nothing reads it).
 
 DR-FL: the layer mask covers the Mamba blocks; the shared block is part
 of every submodel.
+
+On the production mesh (``launch/train.py::meshed_step``) the params are
+``DTensor``s: the embedding is vocab-parallel, each Mamba2 block is
+``models/ssm.py``'s region, and the shared block is the dense family's
+(its attention on local heads, through ``flash_attention``'s local-shard
+entry under ``use_pallas``).
 """
 from __future__ import annotations
 
@@ -73,14 +79,14 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
           use_pallas=False, attn_chunk=0, remat="full"):
     """tokens: [B, S] int -> (hidden [B, S, d], aux_loss 0)."""
     B, S = tokens.shape
-    x = params["embed"]["emb"][tokens]
+    x = constrain(L.embed_apply(params["embed"], tokens))
     positions = torch.arange(S, device=x.device)
     mask = T._gates(cfg, layer_mask, x.device)
     one = torch.ones((), dtype=x.dtype, device=x.device)
 
     def body(x, mp, gate):
         d, _ = mamba_apply(mp, cfg, x)
-        return constrain(x + gate.to(x.dtype) * d)
+        return constrain(T._residual(x, d, gate.to(x.dtype)))
 
     body = T._remat_wrap(body, "none" if remat == "none" else "full")
     blocks = T._unstack(params["mamba"], cfg.num_layers)

@@ -23,15 +23,16 @@ hand-written ``flash_attention`` kernel under ``use_pallas``, as the
 reference takes its Pallas kernel; decode attention stays plain torch,
 as the reference computes it outside any kernel.
 
-On the production mesh (``launch/train.py::meshed_step``) the dense and
-MoE decoders' params arrive as the ``DTensor``s the rules place (which
+On the production mesh (``launch/train.py::meshed_step``) every LM
+family's params arrive as the ``DTensor``s the rules place (which
 selects these paths) and their activations as ``DTensor``s, and
-:func:`dense_apply`, :func:`swiglu_apply`, :func:`rmsnorm_apply`,
-:func:`attention_apply`, :func:`gqa_attend` and
-:func:`gqa_attend_chunked` split the compute as
-the reference's GSPMD does (``sharding/tp.py``'s regions, each running
-the one-device code on its local tensors): the q/k/v and SwiGLU
-gate/up products column-parallel, the output and down products
+:func:`dense_apply`, :func:`swiglu_apply`, :func:`gelu_mlp_apply`,
+:func:`rmsnorm_apply`, :func:`layernorm_apply`, :func:`embed_apply`,
+:func:`attention_apply` (self- and cross-attention), :func:`gqa_attend`
+and :func:`gqa_attend_chunked` split the compute as the reference's
+GSPMD does (``sharding/tp.py``'s regions, each running the one-device
+code on its local tensors): the q/k/v, SwiGLU gate/up and GELU input
+products column-parallel, the output, down and GELU output products
 row-parallel, attention on each rank's local heads, the activation
 hooks at the reference's call sites.  Initialisers hand each leaf they
 make to :func:`leaf_hook`'s function where one is installed (the
@@ -225,8 +226,15 @@ def layernorm_init(d: int, *, dtype=torch.float32, device="cpu",
 def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """The reference's expression (``layers.py:104-109``), written out:
     float32 mean, the biased variance of ``x - mean``, ``rsqrt``; ATen's
-    fused ``layer_norm`` sums in another order."""
-    xf = x.float()
+    fused ``layer_norm`` sums in another order.  On the mesh (``p`` and
+    ``x`` ``DTensor``s): the norm of the whole feature dim, replicated
+    over ``model``, in the compute layout, as :func:`rmsnorm_apply`'s."""
+    if isinstance(p["scale"], DTensor):
+        local = {k: tp.weight(p[k]) for k in ("scale", "bias")}
+        return tp.wrap(layernorm_apply(local, tp.local(x), eps))
+    # the view makes the norm's uses of x one term of x's gradient, as in
+    # rmsnorm_apply
+    xf = x.view_as(x) if x.dtype == torch.float32 else x.float()
     centered = xf - xf.mean(dim=-1, keepdim=True)
     var = (centered * centered).mean(dim=-1, keepdim=True)
     y = centered * torch.rsqrt(var + eps)
@@ -264,7 +272,12 @@ def gelu_mlp_init(gen: torch.Generator, d: int, f: int, *,
 
 def gelu_mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
     """``w_out(gelu(w_in(x)))``; ``jax.nn.gelu`` is the tanh approximation
-    by default (``layers.py:374-375``)."""
+    by default (``layers.py:374-375``).  On the mesh, one region as
+    :func:`swiglu_apply`'s: ``w_in`` column-parallel (its bias sliced),
+    ``w_out`` row-parallel (its bias added once), the output a partial
+    sum over ``model``; else replicated compute."""
+    if isinstance(p["w_in"]["w"], DTensor):
+        return _mlp_sharded(gelu_mlp_apply, p, x, ("w_in",), "w_out")
     return dense_apply(p["w_out"], F.gelu(dense_apply(p["w_in"], x),
                                           approximate="tanh"))
 
@@ -528,16 +541,19 @@ def attention_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     cache launches the hand-written ``flash_attention`` kernel (on CPU
     tensors its plain version)."""
     if isinstance(p["wq"]["w"], DTensor):
-        if cache is not None or kv_src is not None:
-            raise NotImplementedError("attention on the mesh is causal "
-                                      "self-attention without a cache")
+        if cache is not None:
+            raise NotImplementedError("attention on the mesh takes no "
+                                      "cache (decode runs on one device)")
         return _attention_sharded(
             p, cfg, x, positions, causal=causal, window=window,
             use_pallas=use_pallas, attn_chunk=attn_chunk,
-            norm_eps=norm_eps), cache
+            norm_eps=norm_eps, kv_src=kv_src), cache
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = _split_heads(dense_apply(p["wq"], x), nh, hd)
-    src = x if kv_src is None else kv_src
+    # a cross-attention's source (the encoder's output, which every
+    # decoder layer reads) as a view: its two uses here are one term of
+    # its gradient, as a region's local tensor makes them on the mesh
+    src = x if kv_src is None else kv_src.view_as(kv_src)
     k = _split_heads(dense_apply(p["wk"], src), nkv, hd)
     v = _split_heads(dense_apply(p["wv"], src), nkv, hd)
     if "q_norm" in p:
@@ -573,9 +589,11 @@ def attention_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     return out, cache
 
 
-def _heads(flat, norms, cfg, positions, nq: int, nkv: int, norm_eps):
+def _heads(flat, norms, cfg, positions, nq: int, nkv: int, norm_eps,
+           rope: bool = True):
     """attention_apply's q, k, v from the products' outputs: the heads
-    split, ``qk_norm``, RoPE, in the one-device order."""
+    split, ``qk_norm``, RoPE (self-attention only), in the one-device
+    order."""
     hd = cfg.hd
     q = _split_heads(flat[0], nq, hd)
     k = _split_heads(flat[1], nkv, hd)
@@ -583,6 +601,8 @@ def _heads(flat, norms, cfg, positions, nq: int, nkv: int, norm_eps):
     if norms:
         q = rmsnorm_apply(norms["q_norm"], q, norm_eps)
         k = rmsnorm_apply(norms["k_norm"], k, norm_eps)
+    if not rope:
+        return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -603,31 +623,44 @@ def _merge_heads(o):
                          mesh=m)
 
 
+def _sources(x, cols):
+    """A region's local tensors of ``x`` for the products that read it:
+    x's gradient is partial over model through the column-sharded
+    products and whole through the replicated ones, one boundary for
+    each kind; (the first, the second; None where no product needs
+    it)."""
+    return (tp.local(x, grad=Partial()) if any(cols) else None,
+            None if all(cols) else tp.local(x))
+
+
 def _attention_sharded(p, cfg, x, positions, *, causal, window,
-                       use_pallas, attn_chunk, norm_eps):
-    """``attention_apply`` on the mesh: x in the compute layout.  The
-    q/k/v products column-parallel as the rules place wq, wk, wv
-    (``("embed", "heads")``); where Hq and Hkv both divide the model axis
-    each rank keeps its local heads, else the products' columns are
-    gathered to whole heads (the reference's GSPMD replicates around an
-    indivisible head axis).  Then ``attn_seq_shard`` (``layers.py:
-    308-310``), attention on local shards (the ``flash_attention``
-    kernel under ``use_pallas``, which like the reference's takes no
-    query offset: under ``attn_seq`` its q is gathered; the plain path
-    attends on the local query rows), and ``wo`` row-parallel: the
-    output a partial sum over ``model``."""
+                       use_pallas, attn_chunk, norm_eps, kv_src=None):
+    """``attention_apply`` on the mesh: x (and a cross-attention's
+    ``kv_src``) in the compute layout.  The q/k/v products column-parallel
+    as the rules place wq, wk, wv (``("embed", "heads")``, a cross
+    layer's too): q from x, k and v from ``kv_src`` where it is given;
+    where Hq and Hkv both divide the model axis each rank keeps its local
+    heads, else the products' columns are gathered to whole heads (the
+    reference's GSPMD replicates around an indivisible head axis).  Then
+    ``attn_seq_shard`` (``layers.py:308-310``), attention on local shards
+    (causal self-attention takes the ``flash_attention`` kernel under
+    ``use_pallas``, which like the reference's takes no query offset:
+    under ``attn_seq`` its q is gathered; the plain path attends on the
+    local query rows, a cross-attention's on all the keys, non-causal and
+    without RoPE, as the reference), and ``wo`` row-parallel: the output
+    a partial sum over ``model``."""
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     m = tp.model_size()
     names = ("wq", "wk", "wv")
     cols = [tp.model_shard_dim(p[n]["w"]) == p[n]["w"].ndim - 1
             for n in names]
-    # x's gradient is partial over model through the sharded products and
-    # whole through the replicated ones: one boundary for each kind
-    xs = tp.local(x, grad=Partial()) if any(cols) else None
-    xr = None if all(cols) else tp.local(x)
+    if kv_src is None:
+        srcs = [_sources(x, cols)] * 3
+    else:
+        srcs = [_sources(x, cols[:1])] + [_sources(kv_src, cols[1:])] * 2
     flat = [dense_apply(_column_params(p[n]), xs) if c else
             dense_apply({k: tp.weight(t) for k, t in p[n].items()}, xr)
-            for n, c in zip(names, cols)]
+            for n, c, (xs, xr) in zip(names, cols, srcs)]
     norm_names = [n for n in ("q_norm", "k_norm") if n in p]
     if all(cols) and nh % m == 0 and nkv % m == 0:
         # each rank's heads: the q/k norms' scales act on every rank's
@@ -635,27 +668,32 @@ def _attention_sharded(p, cfg, x, positions, *, causal, window,
         norms = {n: {"scale": tp.weight(p[n]["scale"], Partial())}
                  for n in norm_names}
         q, k, v = (tp.wrap(t, Shard(2)) for t in _heads(
-            flat, norms, cfg, positions, nh // m, nkv // m, norm_eps))
+            flat, norms, cfg, positions, nh // m, nkv // m, norm_eps,
+            rope=kv_src is None))
     else:
         whole = [tp.local(tp.wrap(f, Shard(2) if c else Replicate()))
                  for f, c in zip(flat, cols)]
         norms = {n: {"scale": tp.weight(p[n]["scale"])} for n in norm_names}
         q, k, v = (tp.wrap(t) for t in _heads(whole, norms, cfg, positions,
-                                                nh, nkv, norm_eps))
+                                                nh, nkv, norm_eps,
+                                                rope=kv_src is None))
     q, k, v = attn_seq_shard(q, k, v)
-    if (use_pallas and causal) or attn_chunk:
+    kernel = use_pallas and causal and kv_src is None
+    chunked = attn_chunk and kv_src is None
+    if kernel or chunked:
         rows = tuple(Replicate() if pl == Shard(1) else pl
                      for pl in q.placements)
         if rows != tuple(q.placements):
             q = q.redistribute(q.device_mesh, rows)
-    if use_pallas and causal:
+    if kernel:
         from repro_torch.kernels.flash_attention import flash_attention
         o = flash_attention(q, k, v, causal=True, window=window)
-    elif attn_chunk:
+    elif chunked:
         o = gqa_attend_chunked(q, k, v, causal=causal, window=window,
                                chunk=attn_chunk)
     else:
-        o = gqa_attend(q, k, v, causal=causal, window=window)
+        o = gqa_attend(q, k, v, causal=causal and kv_src is None,
+                       window=window)
     return dense_apply(p["wo"], _merge_heads(o))
 
 
@@ -678,22 +716,23 @@ def swiglu_init(gen: torch.Generator, d: int, f: int, dtype,
 
 def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
     if isinstance(p["w_gate"]["w"], DTensor):
-        return _swiglu_sharded(p, x)
+        return _mlp_sharded(swiglu_apply, p, x, ("w_gate", "w_up"),
+                            "w_down")
     return dense_apply(p["w_down"], F.silu(dense_apply(p["w_gate"], x))
                        * dense_apply(p["w_up"], x))
 
 
-def _swiglu_sharded(p, x):
-    """``swiglu_apply`` on the mesh, x in the compute layout, as one
-    region: gate and up column-parallel, down row-parallel where
-    ``model`` shards the MLP width (the ``("embed", "mlp")`` and
-    ``("mlp", "embed")`` specs; the output a partial sum over
-    ``model``), else replicated compute."""
-    if tp.model_shard_dim(p["w_gate"]["w"]) == p["w_gate"]["w"].ndim - 1:
-        local = {"w_gate": _column_params(p["w_gate"]),
-                 "w_up": _column_params(p["w_up"]),
-                 "w_down": _row_params(p["w_down"])}
-        return tp.wrap(swiglu_apply(local, tp.local(x, grad=Partial())),
-                       Partial())
+def _mlp_sharded(fn, p, x, cols, row):
+    """An MLP ``fn`` (:func:`swiglu_apply`, :func:`gelu_mlp_apply`) on the
+    mesh, x in the compute layout, as one region: its ``cols`` products
+    column-parallel and its ``row`` product row-parallel where ``model``
+    shards the MLP width (the ``("embed", "mlp")`` and ``("mlp",
+    "embed")`` specs; the output a partial sum over ``model``), else
+    replicated compute."""
+    w = p[cols[0]]["w"]
+    if tp.model_shard_dim(w) == w.ndim - 1:
+        local = {k: _column_params(p[k]) for k in cols}
+        local[row] = _row_params(p[row])
+        return tp.wrap(fn(local, tp.local(x, grad=Partial())), Partial())
     local = {k: {n: tp.weight(t) for n, t in v.items()} for k, v in p.items()}
-    return tp.wrap(swiglu_apply(local, tp.local(x)))
+    return tp.wrap(fn(local, tp.local(x)))

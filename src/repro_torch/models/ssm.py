@@ -16,6 +16,10 @@ and shapes; every function is ``nn``-free.  ``F.softplus`` returns x
 above its threshold of 20 where ``jax.nn.softplus`` computes
 ``logaddexp(x, 0)``: the two differ there by under exp(-20), below
 float32's spacing at 20.
+
+On the production mesh (``launch/train.py::meshed_step``) the block's
+params are ``DTensor``s and it runs as one tensor-parallel region
+(:func:`_mamba_sharded`).
 """
 from __future__ import annotations
 
@@ -23,8 +27,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp
 
 CONV_K = 4  # causal depthwise conv kernel width
 
@@ -46,12 +52,14 @@ def mamba_init(gen: torch.Generator, cfg, dtype, *, lead=()):
     s = 1.0 / math.sqrt(d)
 
     def const(value, n):
-        return torch.full(lead + (n,), value, dtype=torch.float32, device=dev)
+        return L._leaf(torch.full(lead + (n,), value, dtype=torch.float32,
+                                  device=dev))
     return {
         "norm": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
         "w_in": L._normal(gen, (d, 2 * inner + 2 * N + H), s, dtype, lead),
         "conv_w": L._normal(gen, (conv_dim, CONV_K), 0.5, dtype, lead),
-        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=dev),
+        "conv_b": L._leaf(torch.zeros(lead + (conv_dim,), dtype=dtype,
+                                      device=dev)),
         "A_log": const(0.0, H),
         "dt_bias": const(-2.0, H),      # softplus(-2) ~ 0.13
         "D": const(1.0, H),
@@ -70,10 +78,16 @@ def _causal_conv(x, w, b):
     return F.silu(out + b)
 
 
+def _mamba_in(p, cfg, x):
+    """The input norm and ``w_in``'s product z | xBC | dt (on the mesh:
+    the norm's region and a column-parallel product)."""
+    h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+    return L.dense_apply({"w": p["w_in"]}, h)
+
+
 def _split_in(p, cfg, x):
     inner, H, P, N = mamba_dims(cfg)
-    h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
-    zxbcdt = h @ p["w_in"]
+    zxbcdt = _mamba_in(p, cfg, x)
     z = zxbcdt[..., :inner]
     xbc = zxbcdt[..., inner:inner + inner + 2 * N]
     dt_raw = zxbcdt[..., -H:].float()
@@ -125,20 +139,79 @@ def _ssd_chunk_scan(xh, Bm, Cm, dt, log_a, D, chunk, state=None):
     return y, Sst
 
 
-def mamba_apply(p, cfg, x, state=None):
-    """x: [B, S, d] -> (delta [B, S, d], the final SSM state)."""
-    B, S, d = x.shape
-    z, xbc, dt_raw, (inner, H, P, N) = _split_in(p, cfg, x)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xh = xbc[..., :inner].reshape(B, S, H, P)
+def _mamba_scan(p, cfg, zxbcdt, h0, h1, state=None):
+    """The depthwise conv over every xBC channel and the SSD scan of heads
+    [h0, h1) from the whole product ``zxbcdt`` [B, S, 2 inner + 2N + H]:
+    (y [B, S, (h1 - h0) P] float32, the final state)."""
+    inner, H, P, N = mamba_dims(cfg)
+    B, S = zxbcdt.shape[:2]
+    xbc = _causal_conv(zxbcdt[..., inner:inner + inner + 2 * N],
+                       p["conv_w"], p["conv_b"])
+    xh = xbc[..., :inner].reshape(B, S, H, P)[:, :, h0:h1]
     Bm = xbc[..., inner:inner + N]
     Cm = xbc[..., inner + N:]
-    dt, log_a = _gates(p, dt_raw)
-    y, Sf = _ssd_chunk_scan(xh, Bm, Cm, dt, log_a, p["D"], cfg.ssm_chunk,
-                            state)
-    y = y.reshape(B, S, inner).to(x.dtype)
+    dt, log_a = _gates({k: p[k][h0:h1] for k in ("dt_bias", "A_log")},
+                       zxbcdt[..., -H:].float()[..., h0:h1])
+    y, Sf = _ssd_chunk_scan(xh, Bm, Cm, dt, log_a, p["D"][h0:h1],
+                            cfg.ssm_chunk, state)
+    return y.reshape(B, S, -1), Sf
+
+
+def _mamba_out(p, cfg, y, z, rows=slice(None)):
+    """``out_norm`` over the whole inner width, the z gate, and the
+    product with ``w_out`` (the ``rows`` of y that ``p`` holds)."""
     y = L.rmsnorm_apply(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
-    return y @ p["w_out"], Sf
+    return y[..., rows] @ p["w_out"]
+
+
+def mamba_apply(p, cfg, x, state=None):
+    """x: [B, S, d] -> (delta [B, S, d], the final SSM state).  On the
+    mesh (``p`` and ``x`` ``DTensor``s) :func:`_mamba_sharded`'s region,
+    from a zero state; the final state is not returned (None)."""
+    if isinstance(p["w_in"], DTensor):
+        if state is not None:
+            raise NotImplementedError("the Mamba2 block on the mesh starts "
+                                      "from a zero state (decode runs on "
+                                      "one device)")
+        return _mamba_sharded(p, cfg, x), None
+    inner, H, _, _ = mamba_dims(cfg)
+    zxbcdt = _mamba_in(p, cfg, x)
+    y, Sf = _mamba_scan(p, cfg, zxbcdt, 0, H, state)
+    return _mamba_out(p, cfg, y.to(x.dtype), zxbcdt[..., :inner]), Sf
+
+
+def _mamba_sharded(p, cfg, x):
+    """:func:`mamba_apply`'s stages on the mesh, x in the residual's
+    placements.  The norm is ``rmsnorm_apply``'s region and ``w_in``
+    column-parallel (``("embed", "mlp")``), whose even column blocks do
+    not line up with the z | xBC | dt split: the product's columns are
+    gathered over ``model`` once (an activation; no param is gathered).
+    The depthwise conv (``conv_w`` replicated) runs on every channel, the
+    SSD scan on this rank's heads where H divides the model axis, else on
+    all of them; the scan's output is gathered for ``out_norm``, an RMS
+    over the whole inner width, and ``w_out`` is row-parallel: the output
+    a partial sum over ``model``.  Each rank feeds only its slice of the
+    whole tensors into its heads and its rows of ``w_out``, so their
+    gradients are partial over ``model``; where ``w_out`` is whole on
+    every rank the block is replicated compute."""
+    inner, H, _, _ = mamba_dims(cfg)
+    m, r = tp.model_size(), tp.model_rank()
+    rows = tp.model_shard_dim(p["w_out"]) == p["w_out"].ndim - 2
+    G = Partial() if rows else Replicate()
+    split = rows and H % m == 0
+    zxbcdt = tp.local(_mamba_in(p, cfg, x), grad=G)
+    w = {k: tp.weight(p[k], G) for k in ("conv_w", "conv_b", "A_log",
+                                          "dt_bias", "D")}
+    h0, h1 = (r * H // m, (r + 1) * H // m) if split else (0, H)
+    y, _ = _mamba_scan(w, cfg, zxbcdt, h0, h1)
+    y = y.to(x.dtype)
+    if split:
+        y = tp.local(tp.wrap(y, Shard(2)), grad=G)
+    out = {"out_norm": {"scale": tp.weight(p["out_norm"]["scale"], G)},
+           "w_out": tp.weight(p["w_out"])}
+    lo, hi = tp.model_range(p["w_out"], p["w_out"].ndim - 2)
+    return tp.wrap(_mamba_out(out, cfg, y, zxbcdt[..., :inner],
+                              slice(lo, hi)), G)
 
 
 def mamba_state_init(cfg, batch: int, device, *, lead=()):

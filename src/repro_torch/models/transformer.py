@@ -75,16 +75,18 @@ def block_init(gen: torch.Generator, cfg, dtype, *, lead=()):
     return p
 
 
-def _residual(x, a, gate):
-    """``x + gate * a``.  On the mesh the branch's output ``a`` (a partial
-    sum over ``model``) is reduced to the residual's placements, and the
-    sum is taken on the local shards: the gate holds this rank's rows,
-    which the residual's batch placements keep."""
+def _residual(x, a, gate=None):
+    """``x + gate * a`` (``x + a`` where ``gate`` is None).  On the mesh
+    the branch's output ``a`` (a partial sum over ``model``) is reduced
+    to the residual's placements, and the sum is taken on the local
+    shards: the gate holds this rank's rows, which the residual's batch
+    placements keep."""
     if not isinstance(x, DTensor):
-        return x + gate * a
+        return x + a if gate is None else x + gate * a
     if tuple(a.placements) != tuple(x.placements):
         a = a.redistribute(x.device_mesh, x.placements)
-    y = tp.to_local(x, x.placements) + gate * tp.to_local(a, a.placements)
+    xl, al = tp.to_local(x, x.placements), tp.to_local(a, a.placements)
+    y = xl + al if gate is None else xl + gate * al
     return tp.from_local(y, x.placements, x.shape, mesh=x.device_mesh)
 
 

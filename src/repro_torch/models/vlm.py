@@ -30,13 +30,24 @@ are not kept.
 
 DR-FL: the layer mask ``[num_layers]`` is read as ``(n_groups, n_self +
 1)``: each group's self layers, then its cross layer.
+
+On the production mesh (``launch/train.py::meshed_step``) the params are
+``DTensor``s: the embedding is vocab-parallel, the self layers are the
+dense family's regions, the cross layer's q column-parallel from the
+text and k and v from the image tokens (``image_embeds``, this rank's
+rows, as a ``DTensor`` in the own-rows layout), attention on local heads,
+``wo`` and the SwiGLU's down product row-parallel; the gates' gradients
+are partial sums reduced once.
 """
 from __future__ import annotations
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import tp
 from repro_torch.sharding.rules import constrain
 
 
@@ -58,9 +69,22 @@ def cross_block_init(gen: torch.Generator, cfg, dtype, *, lead=()):
         "mlp_norm": L.rmsnorm_init(cfg.d_model, dtype=dtype, device=dev,
                                    lead=lead),
         "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead),
-        "gate_attn": torch.zeros(lead, dtype=torch.float32, device=dev),
-        "gate_mlp": torch.zeros(lead, dtype=torch.float32, device=dev),
+        "gate_attn": L._leaf(torch.zeros(lead, dtype=torch.float32,
+                                         device=dev)),
+        "gate_mlp": L._leaf(torch.zeros(lead, dtype=torch.float32,
+                                        device=dev)),
     }
+
+
+def _gated(x, a, gate, g):
+    """``x + gate * tanh(g) * a``, ``g`` a float32 scalar param cast to
+    x's dtype.  On the mesh the sum is taken on x's local shards
+    (``transformer._residual``), where ``g``'s gradient is each rank's
+    share of a sum over its rows and features: partial on the mesh dims
+    that shard x, reduced once (``tp.pointwise_param``)."""
+    if isinstance(g, DTensor):
+        g = tp.pointwise_param(g, x)
+    return T._residual(x, a, gate * torch.tanh(g).to(x.dtype))
 
 
 def cross_block_apply(p, cfg, x, img, gate, *, cache=None):
@@ -72,10 +96,9 @@ def cross_block_apply(p, cfg, x, img, gate, *, cache=None):
                              torch.arange(x.shape[1], device=x.device),
                              causal=False, kv_src=img, cache=cache,
                              norm_eps=cfg.norm_eps)
-    x = x + gate * torch.tanh(p["gate_attn"]).to(x.dtype) * a
+    x = _gated(x, a, gate, p["gate_attn"])
     h = L.rmsnorm_apply(p["mlp_norm"], x, cfg.norm_eps)
-    return x + gate * torch.tanh(p["gate_mlp"]).to(x.dtype) * \
-        L.swiglu_apply(p["mlp"], h)
+    return _gated(x, L.swiglu_apply(p["mlp"], h), gate, p["gate_mlp"])
 
 
 def init(gen: torch.Generator, cfg):
@@ -107,8 +130,10 @@ def apply(params, cfg, tokens, image_embeds, *, layer_mask=None, window=None,
           use_pallas=False, attn_chunk=0, remat="full"):
     """tokens: [B, S]; image_embeds: [B, T_img, d] -> (hidden [B, S, d],
     aux_loss 0)."""
-    x = params["embed"]["emb"][tokens]
+    x = constrain(L.embed_apply(params["embed"], tokens))
     img = image_embeds.to(x.dtype)
+    if isinstance(x, DTensor):
+        img = tp.batch_input(img)
     positions = torch.arange(tokens.shape[1], device=x.device)
     n_groups, n_self = group_shape(cfg)
     mask = _group_gates(cfg, layer_mask, x.device)

@@ -25,6 +25,12 @@ recomputes each (mLSTM, sLSTM) pair in the backward (the reference's
 ``jax.checkpoint`` of the pair, no policy, so ``"dots"`` is ``"full"``).
 The decode state is written in place; the reference's step counter
 ``pos`` is not kept (nothing reads it).
+
+On the production mesh (``launch/train.py::meshed_step``) the params are
+``DTensor``s: the embedding is vocab-parallel and each block is a
+tensor-parallel region (:func:`_mlstm_sharded`, :func:`_slstm_sharded`;
+the sLSTM's time loop runs whole on every rank, with no collective in
+it).
 """
 from __future__ import annotations
 
@@ -32,12 +38,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import _normal
-from repro_torch.sharding.rules import constrain
 from repro_torch.models.transformer import (_dt, _gates, _remat_wrap,
-                                            _unstack)
+                                            _residual, _unstack)
+from repro_torch.sharding import tp
+from repro_torch.sharding.rules import constrain
 
 #: the reference's stabiliser floor, the initial ``m``
 M_INIT = -1e30
@@ -71,7 +79,7 @@ def mlstm_init(gen: torch.Generator, cfg, dtype, *, lead=()):
         "wk": _normal(gen, (inner, inner), si, dtype, lead),
         "wv": _normal(gen, (inner, inner), si, dtype, lead),
         "w_if": _normal(gen, (d, 2 * H), s, torch.float32, lead),  # i, f
-        "b_if": b_if.expand(lead + (2 * H,)).clone(),
+        "b_if": L._leaf(b_if.expand(lead + (2 * H,)).clone()),
         "out_norm": L.rmsnorm_init(inner, dtype=dtype, device=dev, lead=lead),
         "w_down": _normal(gen, (inner, d), si, dtype, lead),
     }
@@ -144,35 +152,108 @@ def mlstm_step(q, k, v, log_i, log_f, state):
     return y, (C, n, m_new)
 
 
+def _mlstm_up(p, cfg, x):
+    """The input norm h and ``w_up``'s product u ++ z (on the mesh: the
+    norm's region and a column-parallel product)."""
+    h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+    return h, L.dense_apply({"w": p["w_up"]}, h)
+
+
+def _mlstm_heads(p, u, h, S, P, h0, h1, reduce=None):
+    """q, k, v [B, H', S, P] from u's products with ``wq``, ``wk``,
+    ``wv`` (the rows of them that ``p`` holds, each product through
+    ``reduce``), and the gate logs [B, H', S] of heads [h0, h1) from h."""
+    B = u.shape[0]
+
+    def heads(w):
+        t = u @ w
+        return (t if reduce is None else reduce(t)).reshape(
+            B, S, -1, P).transpose(1, 2)
+    q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+    gl = h.float() @ p["w_if"] + p["b_if"]                     # [B,S,2H]
+    i_raw, f_raw = torch.chunk(gl, 2, dim=-1)
+    log_i = i_raw[..., h0:h1].transpose(1, 2)                 # [B,H',S]
+    log_f = F.logsigmoid(f_raw[..., h0:h1]).transpose(1, 2)
+    return q, k, v, log_i, log_f
+
+
 def _mlstm_pre(p, cfg, x):
     """The shared projections.  x: [B, S, d] -> q, k, v [B, H, S, P], the
     gate logs [B, H, S], the z gate."""
     B, S, d = x.shape
     inner, H, P = _mlstm_dims(cfg)
-    h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
-    u, z = torch.chunk(h @ p["w_up"], 2, dim=-1)              # [B,S,inner]
-
-    def heads(w):
-        return (u @ w).reshape(B, S, H, P).transpose(1, 2)
-    q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
-    gl = h.float() @ p["w_if"] + p["b_if"]                     # [B,S,2H]
-    i_raw, f_raw = torch.chunk(gl, 2, dim=-1)
-    log_i = i_raw.transpose(1, 2)                             # [B,H,S]
-    log_f = F.logsigmoid(f_raw).transpose(1, 2)
-    return q, k, v, log_i, log_f, z, (B, S, inner)
+    h, up = _mlstm_up(p, cfg, x)
+    u, z = torch.chunk(up, 2, dim=-1)                         # [B,S,inner]
+    return (*_mlstm_heads(p, u, h, S, P, 0, H), z, (B, S, inner))
 
 
-def _mlstm_out(p, cfg, y, z, x):
+def _mlstm_out(p, cfg, y, z, x, rows=slice(None)):
+    """``out_norm`` over the whole inner width, the z gate, and the
+    product with ``w_down`` (the ``rows`` of y that ``p`` holds)."""
     y = L.rmsnorm_apply(p["out_norm"], y.to(x.dtype), cfg.norm_eps) * F.silu(z)
-    return y @ p["w_down"]
+    return y[..., rows] @ p["w_down"]
 
 
 def mlstm_apply(p, cfg, x, state=None):
+    if isinstance(p["w_up"], DTensor):
+        if state is not None:
+            raise NotImplementedError("the mLSTM on the mesh starts from a "
+                                      "zero state (decode runs on one "
+                                      "device)")
+        return _mlstm_sharded(p, cfg, x), None
     q, k, v, log_i, log_f, z, (B, S, inner) = _mlstm_pre(p, cfg, x)
     y, new_state = _mlstm_chunk_scan(q, k, v, log_i, log_f, cfg.ssm_chunk,
                                      state)
     y = y.transpose(1, 2).reshape(B, S, inner)
     return _mlstm_out(p, cfg, y, z, x), new_state
+
+
+def _mlstm_sharded(p, cfg, x):
+    """:func:`mlstm_apply`'s stages on the mesh, x in the residual's
+    placements.  ``w_up`` [d, 2 inner] is column-parallel, and its even
+    column blocks put u on the first half of the model ranks and z on the
+    rest, so its product's columns are gathered over ``model`` once (an
+    activation).  ``wq``, ``wk``, ``wv`` are sharded on their input rows
+    (``("mlp", "heads")``: the heads lose the model axis to ``mlp``), so
+    each rank contracts its even chunk of u and q, k, v come out partial
+    sums, reduced to this rank's heads where H divides the model axis
+    (the chunk scan on local heads), else to whole heads (the scan on
+    every rank, as xlstm-1.3b's 4 heads on 16 must).  ``w_if`` and
+    ``b_if`` are replicated.  The scan's output is gathered for
+    ``out_norm`` (an RMS over the whole inner width) and ``w_down`` is
+    row-parallel: the output a partial sum over ``model``.  Where the
+    inner width does not divide the model axis every product is whole
+    on every rank and the block is replicated compute."""
+    S = x.shape[1]
+    inner, H, P = _mlstm_dims(cfg)
+    m, r = tp.model_size(), tp.model_rank()
+    # wq, wk, wv and w_down shard their inner rows over model together
+    # (the rules' "mlp" on the same width)
+    rows = tp.model_shard_dim(p["w_down"]) == 0
+    G = Partial() if rows else Replicate()
+    split = rows and H % m == 0
+    h, up = _mlstm_up(p, cfg, x)
+    u, z = torch.chunk(tp.local(up, grad=G), 2, dim=-1)
+
+    def reduce(t):
+        if not rows:
+            return t
+        t = tp.wrap(t, Partial())
+        return tp.local(t, Shard(2)) if split else tp.local(t, grad=G)
+    w = {k: tp.weight(p[k]) for k in ("wq", "wk", "wv")}
+    w.update(w_if=tp.weight(p["w_if"], G), b_if=tp.weight(p["b_if"], G))
+    lo, hi = tp.model_range(p["wq"], 0)
+    h0, h1 = (r * H // m, (r + 1) * H // m) if split else (0, H)
+    q, k, v, log_i, log_f = _mlstm_heads(
+        w, u[..., lo:hi], tp.local(h, grad=G), S, P, h0, h1, reduce)
+    y, _ = _mlstm_chunk_scan(q, k, v, log_i, log_f, cfg.ssm_chunk)
+    y = y.transpose(1, 2).reshape(u.shape[0], S, -1).to(x.dtype)
+    if split:
+        y = tp.local(tp.wrap(y, Shard(2)), grad=G)
+    out = {"out_norm": {"scale": tp.weight(p["out_norm"]["scale"], G)},
+           "w_down": tp.weight(p["w_down"])}
+    return tp.wrap(_mlstm_out(out, cfg, y, z, x,
+                              slice(*tp.model_range(p["w_down"], 0))), G)
 
 
 def mlstm_decode(p, cfg, x, state):
@@ -209,7 +290,7 @@ def slstm_init(gen: torch.Generator, cfg, dtype, *, lead=()):
         "w_in": _normal(gen, (d, 4 * d), 1.0 / math.sqrt(d), dtype, lead),
         "r": _normal(gen, (H, P, 4 * P), 1.0 / math.sqrt(P), torch.float32,
                      lead),
-        "b": b.expand(lead + (4 * d,)).clone(),
+        "b": L._leaf(b.expand(lead + (4 * d,)).clone()),
         "out_norm": L.rmsnorm_init(d, dtype=dtype, device=dev, lead=lead),
         "ffn": L.swiglu_init(gen, d, f, dtype, lead=lead),
     }
@@ -222,13 +303,14 @@ def _slstm_cell(gates_x, r, h, c, n, m, H, P):
     The time loop launches this cell at every position, so it is written
     in few launches: the per-head recurrent product and the input added in
     one ``baddbmm`` over heads ([H, B, 4P] views of the reference's
-    ``[B, 4HP]`` layout; a gate is H/4 heads' columns, a view when H is 4),
-    ``log_f + m`` taken once, the products-and-sums as ``addcmul``."""
+    ``[B, 4HP]`` layout), the gates the reference's four column blocks of
+    ``[B, 4d]`` (a gate's columns may cross a head where 4 does not
+    divide H; a view when H is 4), ``log_f + m`` taken once, the
+    products-and-sums as ``addcmul``."""
     B = gates_x.shape[0]
     pre = torch.baddbmm(gates_x.view(B, H, 4 * P).transpose(0, 1),
                         h.view(B, H, P).transpose(0, 1), r)   # [H, B, 4P]
-    z_r, i_r, f_r, o_r = (g.transpose(0, 1).reshape(B, -1)
-                          for g in pre.chunk(4, dim=0))
+    z_r, i_r, f_r, o_r = pre.transpose(0, 1).reshape(B, 4, -1).unbind(1)
     lfm = F.logsigmoid(f_r) + m
     m_new = torch.maximum(lfm, i_r)
     i_p = torch.exp(i_r - m_new)
@@ -249,17 +331,55 @@ def _slstm_out(p, cfg, y, x):
     return L.swiglu_apply(p["ffn"], y)
 
 
+def _slstm_loop(gx, r, state, H, P):
+    """The time loop over gx [B, S, 4d]: (the outputs [B, S, d], the
+    final state)."""
+    h, c, n, m = state
+    hs = []
+    for t in range(gx.shape[1]):
+        h, c, n, m = _slstm_cell(gx[:, t], r, h, c, n, m, H, P)
+        hs.append(h)
+    return torch.stack(hs, dim=1), (h, c, n, m)
+
+
 def slstm_apply(p, cfg, x, state=None):
     B, S, d = x.shape
     H = cfg.num_heads
+    if isinstance(p["w_in"], DTensor):
+        if state is not None:
+            raise NotImplementedError("the sLSTM on the mesh starts from a "
+                                      "zero state (decode runs on one "
+                                      "device)")
+        return _slstm_sharded(p, cfg, x), None
     gx = _slstm_gates(p, cfg, x)
-    h, c, n, m = slstm_state_init(cfg, B, x.device) if state is None \
-        else state
-    hs = []
-    for t in range(S):
-        h, c, n, m = _slstm_cell(gx[:, t], p["r"], h, c, n, m, H, d // H)
-        hs.append(h)
-    return _slstm_out(p, cfg, torch.stack(hs, dim=1), x), (h, c, n, m)
+    y, state = _slstm_loop(gx, p["r"], slstm_state_init(cfg, B, x.device)
+                           if state is None else state, H, d // H)
+    return _slstm_out(p, cfg, y, x), state
+
+
+def _slstm_sharded(p, cfg, x):
+    """:func:`slstm_apply` on the mesh, x in the residual's placements.
+    ``w_in`` [d, 4d] is column-parallel, but the cell reads columns j,
+    d+j, 2d+j and 3d+j and the recurrent product of a whole head, so a
+    column shard cannot run its own loop: the input product's columns are
+    gathered over ``model`` once, before the loop, and the loop runs
+    whole on every rank with the replicated ``r`` and ``b`` (no
+    collective inside it; ``r``'s gradient is whole on each rank and is
+    reduced over the batch axes once, at the region's boundary).  The
+    output norm and the SwiGLU FFN are their own regions."""
+    d, H = x.shape[-1], cfg.num_heads
+    h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+    w_in = p["w_in"]
+    if tp.model_shard_dim(w_in) == w_in.ndim - 1:
+        gx = tp.wrap(tp.local(h, grad=Partial()).float() @
+                     tp.weight(w_in).float(), Shard(2))
+    else:
+        gx = tp.wrap(tp.local(h).float() @ tp.weight(w_in).float())
+    gx = tp.local(gx) + tp.weight(p["b"])
+    y, _ = _slstm_loop(gx, tp.weight(p["r"]),
+                       slstm_state_init(cfg, gx.shape[0], gx.device), H,
+                       d // H)
+    return _slstm_out(p, cfg, tp.wrap(y.to(x.dtype)), x)
 
 
 def slstm_decode(p, cfg, x, state):
@@ -308,15 +428,15 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
     """tokens: [B, S] int -> (hidden [B, S, d], aux_loss 0).  No
     attention: ``window``, ``use_pallas`` and ``attn_chunk`` are taken for
     the common signature and change nothing."""
-    x = constrain(params["embed"]["emb"][tokens])
+    x = constrain(L.embed_apply(params["embed"], tokens))
     npairs = cfg.num_layers // 2
     mask = _pair_gates(cfg, layer_mask, x.device)
 
     def body(x, mp, sp, gate):
         dm, _ = mlstm_apply(mp, cfg, x)
-        x = x + gate[0].to(x.dtype) * dm
+        x = _residual(x, dm, gate[0].to(x.dtype))
         ds, _ = slstm_apply(sp, cfg, x)
-        return constrain(x + gate[1].to(x.dtype) * ds)
+        return constrain(_residual(x, ds, gate[1].to(x.dtype)))
 
     body = _remat_wrap(body, "none" if remat == "none" else "full")
     for i, (mp, sp) in enumerate(zip(_unstack(params["mlstm"], npairs),

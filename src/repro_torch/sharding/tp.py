@@ -1,5 +1,5 @@
 """Tensor-parallel regions on a ``DeviceMesh``: the port's counterpart of
-the reference's GSPMD partitioning of the dense and MoE decoders.
+the reference's GSPMD partitioning of every LM family.
 
 The reference writes its models once and lets GSPMD split them by the
 params' specs (``sharding/rules.py``) and the activation hooks.  The
@@ -75,10 +75,11 @@ class _ToLocal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        d = DTensor.from_local(g.contiguous(), ctx.mesh,
+        move = ctx.grad_placements != ctx.placements
+        d = DTensor.from_local(g.contiguous() if move else g, ctx.mesh,
                                ctx.grad_placements, run_check=False,
                                shape=ctx.shape, stride=ctx.stride)
-        if ctx.grad_placements != ctx.placements:
+        if move:
             d = d.redistribute(ctx.mesh, ctx.placements)
         return d, None
 
@@ -288,6 +289,26 @@ def own_rows(x: DTensor) -> torch.Tensor:
     if tuple(x.placements) != target:
         x = x.redistribute(m, target)
     return to_local(x, target)
+
+
+def batch_input(t: torch.Tensor) -> DTensor:
+    """A per-rank batch input (this rank's own rows of a stub-frontend
+    input, ``launch/train.py::batch_shard``) as a ``DTensor`` in the
+    own-rows layout."""
+    return from_local(t, own_placements())
+
+
+def pointwise_param(g: DTensor, like: DTensor) -> torch.Tensor:
+    """A param that every rank holds whole (a VLM cross layer's gate), as
+    the local tensor of a pointwise use with ``like``'s local tensor: its
+    gradient is read as ``Partial`` on the mesh dims that shard ``like``
+    (each rank's sum over its own elements) and ``Replicate`` on the
+    others."""
+    whole = (Replicate(),) * g.device_mesh.ndim
+    if tuple(g.placements) != whole:
+        g = g.redistribute(g.device_mesh, whole)
+    return to_local(g, tuple(Partial() if p.is_shard() else Replicate()
+                             for p in like.placements))
 
 
 def own_slice(t: torch.Tensor) -> torch.Tensor:

@@ -1578,3 +1578,46 @@ def test_tensor_parallel_step_on_one_card_is_the_one_device_step(
     for a, b in zip(tree_leaves(meshed), tree_leaves(one)):
         assert a == b if isinstance(a, int) else torch.equal(a.to_local(), b)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b",
+                                  "whisper-medium", "llama-3.2-vision-11b"])
+def test_family_tensor_parallel_step_on_one_card_is_the_one_device_step(
+        one_rank_mesh, cuda, arch):
+    """Each family whose blocks are not only the dense decoder's (xLSTM,
+    the Mamba2 hybrid, whisper, the VLM), its smoke config, ``use_pallas``
+    and its stub inputs: one tensor-parallel meshed step (the state built
+    leaf by leaf) on the ``(1, 1)`` mesh equals the one-device step bit
+    for bit (loss, grad norm, every param and moment), and every
+    attention launch of it goes through the local-shard entry."""
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.launch.steps import build_train_step, make_train_state
+    from repro_torch.launch.train import meshed_step, sharded_train_state
+    from repro_torch.models.api import extra_inputs
+    from repro_torch.sharding.rules import set_activation_mesh
+    from repro_torch.tree import tree_leaves
+    set_activation_mesh(None)
+    cfg = get_smoke_config(arch)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=4,
+                       remat="full", use_pallas=True, loss_chunk=16)
+    model, step = build_train_step(cfg, tcfg)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=g)
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    for k, (shape, dt) in extra_inputs(cfg, 4, 32).items():
+        batch[k] = torch.randn(shape, generator=g).to(dt).to(cuda)
+    one = make_train_state(model, torch.Generator(cuda).manual_seed(0), tcfg)
+    meshed = sharded_train_state(model, cuda, one_rank_mesh)
+    one, m1 = step(one, batch)
+    before = dict(LAUNCHES)
+    meshed, m2 = meshed_step(step, one_rank_mesh)(meshed, batch)
+    torch.cuda.synchronize()
+    assert (float(m1["loss"]), float(m1["grad_norm"])) == \
+        (float(m2["loss"]), float(m2["grad_norm"]))
+    sharded = LAUNCHES["flash_attention_sharded"] - \
+        before["flash_attention_sharded"]
+    total = LAUNCHES["flash_attention"] - before["flash_attention"]
+    assert sharded == total and (total > 0) == (cfg.family != "ssm")
+    for a, b in zip(tree_leaves(meshed), tree_leaves(one)):
+        assert a == b if isinstance(a, int) else torch.equal(a.to_local(), b)

@@ -193,3 +193,12 @@ def test_lm_params_from_jax_keeps_the_float32_leaves():
     h, _ = build(tcfg).apply(tp, torch.from_numpy(toks), remat="none")
     ref = np.asarray(jh, np.float32)
     assert np.abs(h.float().numpy() - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+def test_three_heads_decode_and_forward_match_jax():
+    """Heads that 4 does not divide (3, d 192: the mesh tests' config
+    whose heads do not divide the model axis): each sLSTM gate's columns
+    cross a head, and the decode and the forward equal the JAX model's."""
+    got, jgot, ref, _ = decode_runs(ARCH, d_model=192, num_heads=3)
+    np.testing.assert_allclose(got, ref, **DECODE)
+    np.testing.assert_allclose(got, jgot, **F32)

@@ -6,13 +6,14 @@ spawning test re-raises it).  No jax here: the spawned ranks import only
 torch and the port; the spawning test holds the losses this program
 writes (:func:`jax_steps`) to the JAX package's steps.
 
-The dense and MoE decoders' meshed steps are tensor-parallel: each rank
-computes on its shards.  :class:`Collectives` (a ``CommDebugMode``)
-records every collective a step makes, with the largest tensor it
-touches, so the checks can see that no step gathers a model-sharded
-param whole.  xLSTM's meshed step keeps the params gathered whole
-(``launch/train.py::_gathered_step``) and is held to one process too."""
+Every family's meshed step is tensor-parallel: each rank computes on
+its shards.  :class:`Collectives` (a ``CommDebugMode``) records every
+collective a step makes, with the largest tensor it touches, so the
+checks can see that no step gathers a model-sharded param whole."""
 import json
+import os
+import re
+import time
 import weakref
 
 import numpy as np
@@ -34,8 +35,10 @@ from repro_torch.launch.steps import (build_fl_bucketed_train_step,
                                       build_fl_train_step, build_train_step,
                                       make_train_state)
 from repro_torch.models.api import build as build_model
+from repro_torch.models.api import extra_inputs
 from repro_torch.optim.optimizers import adamw_init
-from repro_torch.sharding.rules import get_sharding_policy, set_sharding_policy
+from repro_torch.sharding.rules import (get_sharding_policy, map_with_path,
+                                        set_sharding_policy)
 from repro_torch.tree import tree_leaves, tree_map
 
 STEP = dict(rtol=1e-5, atol=1e-6)          # tests/test_shard.py's
@@ -43,9 +46,38 @@ ARCH = "phi3-mini-3.8b"
 #: a MoE config: its load-balance loss is a product of token means, which
 #: the meshed step must take over the whole batch
 MOE_ARCH = "mixtral-8x22b"
-#: a family whose meshed step gathers the params whole (its blocks are
-#: not ``models/transformer.py``'s; it takes no FL gates)
-GATHERED_ARCH = "xlstm-1.3b"
+#: the leaves whose gradient is a sum that cancels but for rounding: the
+#: sLSTM's gate bias (its input gate's part, which the gate's stabilising
+#: max cancels) and an attention's k projection bias (whisper's, in its
+#: self- and cross-attention: it adds the same vector to every key,
+#: which the softmax cancels, up to RoPE's rotation in self-attention).
+#: Their elements whose one-process first moment is below AdamW's eps
+#: take AdamW's step on rounding noise, which the two reduction orders
+#: round differently: they are held by the moments at the step
+#: tolerances and the params within 2 lr only
+CANCELLING = r"(^slstm/b|/wk/b)$"
+#: xLSTM (its mLSTM's row-parallel q/k/v, its sLSTM's whole time loop),
+#: held under every policy; it takes no FL gates, nor do the families of
+#: :data:`FAMILIES`
+XLSTM_ARCH = "xlstm-1.3b"
+#: the other families whose blocks are not only ``models/transformer.py``'s
+#: (the Mamba2 hybrid, whisper, the VLM, with two KV heads for its four
+#: query heads as its GQA), each under :data:`FAMILY_POLICIES` and the
+#: policies named beside it: the VLM's GQA cross layer under
+#: ``repeat_kv`` and ``attn_heads`` (its local KV heads), and the
+#: hybrid's state under ``zero1``
+FAMILIES = (("zamba2-1.2b", {}, ("zero1",)), ("whisper-medium", {}, ()),
+            ("llama-3.2-vision-11b", {"num_kv_heads": 2},
+             ("repeat_kv+attn_heads",)))
+FAMILY_POLICIES = ("default", "act_seq", "attn_seq", "dp2d")
+#: xLSTM's and these families' checks take one step each but for xLSTM's
+#: default, as does :data:`XLSTM_UNEVEN`'s: the regions run whole in a
+#: step, and the update of a second step from nonzero moments is
+#: family-blind, held by the two-step cases; two steps of each family
+#: are held to the JAX package's in :func:`jax_steps`
+#: an xLSTM config whose heads do not divide the model axis (3 on 2): the
+#: mLSTM's chunk scan runs on whole heads on every rank
+XLSTM_UNEVEN = dict(d_model=192, num_heads=3)
 TCFG = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
                    loss_chunk=8, remat="full")
 #: the policies the meshed steps run under (zero1 on replicated weights,
@@ -84,14 +116,18 @@ CKPT_TCFG = TrainConfig(learning_rate=3e-4, warmup_steps=10, total_steps=3,
 
 
 def _batches(cfg, n, B=4, S=16, seed=1, fl=False):
-    """``n`` batches from numpy draws; with ``fl``, four clients, one row
-    each, on the smoke config's submodels 0, 1, 0, 1."""
+    """``n`` batches from numpy draws, with the family's stub-frontend
+    inputs (N(0, 1)); with ``fl``, four clients, one row each, on the
+    smoke config's submodels 0, 1, 0, 1."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         toks = torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int64))
         b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        for k, (shape, dt) in extra_inputs(cfg, B, S).items():
+            b[k] = torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dt)
         if fl:
             gates = torch.stack([layer_mask(cfg, i % 2, device="cpu")
                                  for i in range(B)], dim=1)
@@ -107,33 +143,30 @@ def _close(got, ref, what, **tol):
                                    err_msg=what, **(tol or STEP))
 
 
-def _same_state(meshed, one, lrs, what, zero_grads=False):
+def _same_state(meshed, one, lrs, what):
     """The gathered meshed state against the one-process state: the
     moments (the averaged gradients) at the step tolerances, the params
     within 2 lr per update (a param whose gradient sits at AdamW's eps
     moves by up to lr either way on a rounding of its gradient, as in
     ``tests/torch_lm.py::assert_trained_like_jax``) and all but a few of
     each param's elements at the step tolerances (an update that was
-    never written back moves every element by about lr), the step
-    equal.  With ``zero_grads`` the elements whose gradient is zero but
-    for rounding (the one-process first moment below AdamW's eps: the
-    sLSTM input gate's bias, whose gradient the gate's stabilising max
-    cancels) are held to the 2 lr bound only: their update is AdamW's
-    step on rounding noise, which the two reduction orders round
-    differently."""
+    never written back moves every element by about lr; in the leaves of
+    :data:`CANCELLING`, of the elements whose gradient is not rounding
+    noise), the step equal."""
     whole = T.gather_state(meshed)
     _close(whole["opt"]["mu"], one["opt"]["mu"], what)
     _close(whole["opt"]["nu"], one["opt"]["nu"], what)
     _close(whole["params"], one["params"], what, rtol=0,
            atol=2.0 * sum(lrs))
-    for a, b, mu in zip(tree_leaves(whole["params"]),
-                        tree_leaves(one["params"]),
-                        tree_leaves(one["opt"]["mu"])):
+    paths = tree_leaves(map_with_path(lambda p, t: p, one["params"]))
+    for path, a, b, mu in zip(paths, tree_leaves(whole["params"]),
+                              tree_leaves(one["params"]),
+                              tree_leaves(one["opt"]["mu"])):
         a, b = a.detach().numpy(), b.detach().numpy()
         off = ~np.isclose(a, b, **STEP)
-        if zero_grads:
+        if re.search(CANCELLING, path):
             off &= np.abs(mu.numpy()) >= TCFG.eps
-        assert np.mean(off) < 1e-4, what
+        assert np.mean(off) < 1e-4, (what, path)
     assert whole["opt"]["step"] == one["opt"]["step"] == len(lrs)
     return whole
 
@@ -156,21 +189,27 @@ def _data_sharded(tree):
 
 
 class Collectives(CommDebugMode):
-    """``CommDebugMode`` that also keeps, for each collective, its op, its
-    process group's name (a functional collective's; ``"c10d"`` for a
-    ``torch.distributed`` call, whose group it does not name), the
-    element count of the largest tensor among its inputs and outputs,
-    and its bytes (that tensor's)."""
+    """``CommDebugMode``'s dispatch of collectives (``DTensor`` ops
+    desugared first, the functional and ``torch.distributed`` collectives
+    it registers), keeping for each its op, its process group's name (a
+    functional collective's; ``"c10d"`` for a ``torch.distributed`` call,
+    whose group it does not name), the element count of the largest
+    tensor among its inputs and outputs, and its bytes (that tensor's).
+    Its per-op module bookkeeping, which nothing here reads, is skipped:
+    it doubled a meshed step's time."""
 
     def __init__(self):
         super().__init__()
         self.seen = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = super().__torch_dispatch__(func, types, args, kwargs)
-        packet = getattr(func, "_overloadpacket", None)
-        if out is not NotImplemented and (
-                packet in self.comm_registry or packet in c10d_collective_ops):
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **(kwargs or {}))
+        if any(t == DTensor for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        packet = func._overloadpacket
+        if packet in self.comm_registry or packet in c10d_collective_ops:
             leaves = tree_flatten((args, kwargs, out))[0]
             tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
             big = max(tensors, key=lambda t: t.numel(), default=None)
@@ -193,10 +232,11 @@ def _model_sharded(tree, mesh):
 def _no_whole_gather(params, seen, mesh, what):
     """No collective over the model axis (and no ``torch.distributed``
     call, whose group the record does not name) touches a tensor as large
-    as one layer of a model-sharded param: gathering one whole would.
-    The FSDP gathers run over ``data``; the model axis carries only
-    activations and their gradients."""
-    whole = min(t[0].numel() if t.ndim >= 3 else t.numel()
+    as one matrix of a model-sharded param (one layer's; a stacked
+    leaf's trailing two dims): gathering one whole would.  The FSDP
+    gathers run over ``data``; the model axis carries only activations
+    and their gradients."""
+    whole = min(t.shape[-2] * t.shape[-1]
                 for t in _model_sharded(params, mesh))
     model = mesh.get_group("model").group_name
     big = [s for s in seen if s[1] in (model, "c10d") and s[2] >= whole]
@@ -216,8 +256,8 @@ def _check_local_sizes(params, mesh, what):
         assert t.to_local().numel() * 2 <= t.numel(), what
 
 
-#: the one-process steps by (config, step kind, repeat_kv): the other
-#: knobs steer only the mesh
+#: the one-process steps by (config, step kind, repeat_kv, steps): the
+#: other knobs steer only the mesh
 _ONE = {}
 
 
@@ -226,7 +266,7 @@ def _run(build, cfg, mesh, batches, tcfg=TCFG):
     one-process state, metrics; the meshed state, metrics; the meshed
     steps' collectives, :class:`Collectives`' records)."""
     model, step = build(cfg, tcfg)[:2]
-    key = (cfg, build, get_sharding_policy()["repeat_kv"])
+    key = (cfg, build, get_sharding_policy()["repeat_kv"], len(batches))
     if key not in _ONE:
         one = make_train_state(model, torch.Generator().manual_seed(0),
                                tcfg)
@@ -249,26 +289,24 @@ def _run(build, cfg, mesh, batches, tcfg=TCFG):
     return one, m1, meshed, m2, seen
 
 
-def _step_checks(cfg, mesh, pol, name, fl):
-    """Two meshed steps (train or masked FL) against the one-process
-    steps: metrics, state, shards and the policy's FSDP and moments; for
-    a tensor-parallel step also its local sizes and no collective as
-    large as a model-sharded param."""
+def _step_checks(cfg, mesh, pol, name, fl, steps=2):
+    """``steps`` meshed steps (train or masked FL) against the
+    one-process steps: metrics, state, shards and the policy's FSDP and
+    moments, each rank's local sizes and no collective as large as a
+    model-sharded param."""
     set_sharding_policy(**DEFAULTS)
     set_sharding_policy(**pol)
     what = f"{cfg.name} {'fl' if fl else 'train'} {name}"
     build = build_fl_train_step if fl else build_train_step
     try:
         one, m1, meshed, m2, seen = _run(
-            build, cfg, mesh, _batches(cfg, 2, seed=3 if fl else 1, fl=fl))
+            build, cfg, mesh,
+            _batches(cfg, steps, seed=3 if fl else 1, fl=fl))
         np.testing.assert_allclose(m2, m1, rtol=1e-5, err_msg=what)
-        tensor_parallel = build(cfg, TCFG)[1].tensor_parallel
-        whole = _same_state(meshed, one, [m[2] for m in m1], what,
-                            zero_grads=not tensor_parallel)
+        whole = _same_state(meshed, one, [m[2] for m in m1], what)
         _check_shards(meshed, mesh, what, whole)
-        if tensor_parallel:
-            _check_local_sizes(meshed["params"], mesh, what)
-            _no_whole_gather(meshed["params"], seen, mesh, what)
+        _check_local_sizes(meshed["params"], mesh, what)
+        _no_whole_gather(meshed["params"], seen, mesh, what)
         fsdp = _data_sharded(meshed["params"])
         moments = _data_sharded(meshed["opt"]["mu"])
         if pol.get("fsdp", True):
@@ -364,17 +402,32 @@ def _bucket_major(batch, nb):
             for k in ("tokens", "labels")}
 
 
+#: the archs whose meshed steps :func:`jax_steps` runs from the JAX
+#: package's params, and under which policies (the spawning test writes
+#: each arch's inputs while the ranks run their other checks; a rank
+#: waits for them up to ``JAX_WAIT`` seconds)
+JAX_WAIT = 300.0
+JAX_ARCHS = ((ARCH, ("default", "dp2d")), (MOE_ARCH, ("default", "dp2d")),
+             (XLSTM_ARCH, ("default",))) + tuple(
+                 (arch, ("default",)) for arch, _, _ in FAMILIES)
+
+
 def jax_steps(mesh, jax_dir):
     """The meshed train steps of each arch's smoke config from the params
-    and batches the spawning test saved (``tests/torch_lm.py::
+    and batches the spawning test writes (``tests/torch_lm.py::
     train_runs``' inputs, converted from the JAX package's), under the
-    default policy and ``dp2d``: their losses and grad norms, written by
-    rank 0 for the test to hold to the JAX package's steps."""
+    policies of :data:`JAX_ARCHS`: their losses and grad norms, written
+    by rank 0 for the test to hold to the JAX package's steps."""
     out = {}
-    for arch in (ARCH, MOE_ARCH):
-        saved = torch.load(f"{jax_dir}/{arch}.pt")
+    for arch, names in JAX_ARCHS:
+        path = f"{jax_dir}/{arch}.pt"
+        deadline = time.monotonic() + JAX_WAIT
+        while not os.path.exists(path):
+            assert time.monotonic() < deadline, f"no {path}"
+            time.sleep(0.1)
+        saved = torch.load(path)
         cfg = get_smoke_config(arch)
-        for name in ("default", "dp2d"):
+        for name in names:
             set_sharding_policy(**POLICIES[name])
             try:
                 _, step = build_train_step(cfg, JAX_TCFG)
@@ -394,15 +447,34 @@ def jax_steps(mesh, jax_dir):
             json.dump(out, f)
 
 
+def _loop_collectives(mesh):
+    """The collectives of one meshed xLSTM train step at S 8 and at S 16
+    (one loss chunk and one mLSTM chunk at both): equal in number and
+    kind, so none runs inside the sLSTM's time loop."""
+    cfg = reduced(get_config(XLSTM_ARCH))
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       loss_chunk=16, remat="full")
+    model, step = build_train_step(cfg, tcfg)
+    counts = []
+    for S in (8, 16):
+        state = T.sharded_train_state(model, torch.device("cpu"), mesh)
+        with Collectives() as rec:
+            T.meshed_step(step, mesh)(state, _batches(cfg, 1, S=S)[0])
+        counts.append(sorted((op, group) for op, group, _, _ in rec.seen))
+    assert counts[0] and counts[0] == counts[1], counts
+
+
 def mesh_steps(rank, ckpt_dir, jax_dir):
     """The builders' refusals; the tensor-parallel train and masked FL
     steps of phi3-mini's and mixtral's smoke configs (two KV heads)
     under every policy, the :data:`UNEVEN` configs', the bucketed FL
-    step, and the gathered train steps of :data:`GATHERED_ARCH`'s under
-    every policy, against the one-process steps (:func:`_step_checks`);
-    the leaf-by-leaf state build (:func:`_sharded_build_checks`); the
-    meshed steps from the JAX package's params (:func:`jax_steps`); the
-    checkpoint run."""
+    step, xLSTM's train step under every policy and with heads that do
+    not divide the model axis, and the :data:`FAMILIES`' train steps
+    under :data:`FAMILY_POLICIES` and their own, against the one-process
+    steps (:func:`_step_checks`); no collective in the sLSTM loop
+    (:func:`_loop_collectives`); the leaf-by-leaf state build
+    (:func:`_sharded_build_checks`); the meshed steps from the JAX
+    package's params (:func:`jax_steps`); the checkpoint run."""
     for build, need in ((lambda: make_production_mesh(), 256),
                         (lambda: make_production_mesh(multi_pod=True), 512),
                         (lambda: make_debug_mesh(multi_pod=True), 8)):
@@ -423,9 +495,17 @@ def mesh_steps(rank, ckpt_dir, jax_dir):
         cfg = reduced(get_config(arch), **over)
         for fl in (False, True):
             _step_checks(cfg, mesh, {}, "default", fl)
-    cfg = reduced(get_config(GATHERED_ARCH))
+    cfg = reduced(get_config(XLSTM_ARCH))
     for name, pol in POLICIES.items():
-        _step_checks(cfg, mesh, pol, name, False)
+        _step_checks(cfg, mesh, pol, name, False,
+                     steps=2 if name == "default" else 1)
+    _step_checks(reduced(get_config(XLSTM_ARCH), **XLSTM_UNEVEN), mesh, {},
+                 "default", False, steps=1)
+    for arch, over, more in FAMILIES:
+        cfg = reduced(get_config(arch), **over)
+        for name in FAMILY_POLICIES + more:
+            _step_checks(cfg, mesh, POLICIES[name], name, False, steps=1)
+    _loop_collectives(mesh)
     cfg = reduced(get_config(ARCH), **OVER)
     one, m1, meshed, m2, _ = _run(
         build_fl_bucketed_train_step, cfg, mesh,

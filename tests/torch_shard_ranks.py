@@ -40,18 +40,33 @@ def _entry(rank, fn, path, args):
         dist.destroy_process_group()
 
 
-def launch(fn, tmp_path, *args, timeout: float = 150.0):
-    """``fn(rank, *args)`` on 4 spawned gloo ranks (a file store under
-    ``tmp_path``: no port, so parallel test workers never meet), killed
+def start(fn, tmp_path, *args):
+    """``fn(rank, *args)`` spawned on 4 gloo ranks (a file store under
+    ``tmp_path``: no port, so parallel test workers never meet); the
+    caller goes on and then calls :func:`wait`."""
+    return mp.start_processes(_entry, args=(fn, str(tmp_path / "pg"), args),
+                              nprocs=WORLD, join=False, start_method="spawn")
+
+
+def kill(ctx):
+    for p in ctx.processes:
+        p.kill()
+
+
+def wait(ctx, name: str, timeout: float):
+    """The spawned ranks' end (a rank's exception re-raised), or killed
     after ``timeout`` seconds."""
-    ctx = mp.start_processes(_entry, args=(fn, str(tmp_path / "pg"), args),
-                             nprocs=WORLD, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{fn.__name__} took over {timeout} s")
+            kill(ctx)
+            raise TimeoutError(f"{name} took over {timeout} s")
+
+
+def launch(fn, tmp_path, *args, timeout: float = 150.0):
+    """``fn(rank, *args)`` on 4 spawned gloo ranks, waited for: killed
+    after ``timeout`` seconds."""
+    wait(start(fn, tmp_path, *args), fn.__name__, timeout)
 
 
 def _host(t):
