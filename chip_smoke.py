@@ -2172,15 +2172,18 @@ MARL_TRAIN_ROWS = ((256, "flat"), (256, "set"), (4096, "flat"),
                    (4096, "set"), (65536, "set"), (1_048_576, "set"))
 
 
-def _marl_train_row(n, mixer_mode, iters, seed=0, agent_budget=4096):
-    """One row of the bench on the card: the replay filled by real
-    ``select`` episodes over a sampled fleet, then 13 warm-up updates and
-    ``iters`` timed ones (wall clock: each update ends in its pull)."""
-    import statistics
+#: ``[marl train]``'s updates a row: warm-up ones, then timed ones
+MARL_TRAIN_WARM, MARL_TRAIN_ITERS = 13, 10
+
+
+def _marl_train_rig(n, mixer_mode, seed=0, agent_budget=4096):
+    """One row of the bench on the card, set up: the replay filled by real
+    ``select`` episodes over a sampled fleet.  Returns the row's state for
+    :func:`_marl_train_update`."""
     from repro_torch.core.fleet import sample_fleet_state
     from repro_torch.core.marl.buffer import ReplayBuffer
     from repro_torch.core.selection import OBS_DIM, MarlSelector
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES
     sizes = (2.8e6, 8.4e6, 22.5e6, 44.8e6)
     fracs = (0.11, 0.3, 0.72, 1.0)
     k, T = max(1, n // 100), 4
@@ -2197,36 +2200,55 @@ def _marl_train_row(n, mixer_mode, iters, seed=0, agent_budget=4096):
             sel.select(fleet, t, k, sizes, fracs)
             sel.observe_reward(0.1 * (ep + t))
         buf.add_episode(*sel.episode_arrays(fleet, T))
-    fill_s = time.perf_counter() - t0
-    losses, times = [], []
-    reset_launches()
-    for i in range(13 + iters):
-        t0 = time.perf_counter()
-        losses.append(sel.learner.update(
-            buf.sample(sel.learner.cfg.batch_size))["td_loss"])
-        if i >= 13:
-            times.append(time.perf_counter() - t0)
-    steps = 13 + iters
-    want = (_set_mixer_attention(steps, buf.N) if mixer_mode == "set" else
-            {"flash_attention": 0, "flash_attention_bwd": 0})
-    wrong = {key: (LAUNCHES[key], v) for key, v in want.items()
-             if LAUNCHES[key] != v}
-    launches = {key: LAUNCHES[key] for key in want}
+    return dict(n=n, mode=mixer_mode, sel=sel, buf=buf,
+                fill_s=time.perf_counter() - t0, losses=[], times=[],
+                counted=dict.fromkeys(LAUNCHES, 0))
+
+
+def _marl_train_update(rig):
+    """One QMIX update of a row, on the wall clock (it ends in its pull);
+    its loss and its kernel launches go to the row's record.  Returns its
+    seconds."""
+    from repro_torch.kernels import LAUNCHES
+    sel, buf = rig["sel"], rig["buf"]
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    loss = sel.learner.update(buf.sample(sel.learner.cfg.batch_size))[
+        "td_loss"]
+    secs = time.perf_counter() - t0
+    rig["losses"].append(loss)
+    for key, v in LAUNCHES.items():
+        rig["counted"][key] += v - before[key]
+    return secs
+
+
+def _marl_train_row(rig):
+    """A row's record from its updates, its launches checked against the
+    set mixer's attention (none for the flat mixer)."""
+    import statistics
+    n, mixer_mode, buf, losses = (rig["n"], rig["mode"], rig["buf"],
+                                  rig["losses"])
+    want = (_set_mixer_attention(len(losses), buf.N) if mixer_mode == "set"
+            else {"flash_attention": 0, "flash_attention_bwd": 0})
+    wrong = {key: (rig["counted"][key], v) for key, v in want.items()
+             if rig["counted"][key] != v}
+    launches = {key: rig["counted"][key] for key in want}
     if wrong:
         raise AssertionError(f"[marl train] n={n} {mixer_mode} launches "
                              f"(counted, expected): {wrong}")
+    times = rig["times"]
     row = dict(n=n, mode=mixer_mode, agents_stored=buf.N,
-               batch=min(sel.learner.cfg.batch_size, len(buf)),
+               batch=min(rig["sel"].learner.cfg.batch_size, len(buf)),
                train_step_s=statistics.median(times),
-               train_step_min_s=min(times), replay_fill_s=fill_s,
+               train_step_min_s=min(times), replay_fill_s=rig["fill_s"],
                replay_mb=buf.nbytes / 1e6, loss_first=losses[0],
                loss_last=losses[-1], loss_decreased=losses[-1] < losses[0],
-               state_dim=sel.learner.cfg.state_dim, launches=launches)
+               state_dim=rig["sel"].learner.cfg.state_dim, launches=launches)
     print(f"[marl train] {mixer_mode:4s} n={n:7d} stored agents "
           f"{row['agents_stored']} B {row['batch']}: train step median "
           f"{row['train_step_s'] * 1e3:.2f} ms (min "
           f"{row['train_step_min_s'] * 1e3:.2f}), replay fill "
-          f"{fill_s:.2f} s, replay {row['replay_mb']:.2f} MB, loss "
+          f"{rig['fill_s']:.2f} s, replay {row['replay_mb']:.2f} MB, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f} (decreased "
           f"{row['loss_decreased']})")
     return row
@@ -2236,14 +2258,27 @@ def phase_marl_train():
     """``[marl train]``: the port's twin of ``benchmarks/
     marl_train_bench.py`` on the card (the flat mixer up to 4096, the set
     mixer to 1M devices, storing 4096 agents: attention at BH 12, Sk
-    4096).  The bench's own acceptance: the set rows' step time is flat in
-    n, here each row's fastest of 10 steps from 4096 up within 1.5x of
-    the 4096 row's (a step is ~30 ms of host work, and a median of a few
-    wall-clock steps moves by 40% on the shared host).  Loss behaviour is
-    compared with ``BENCH_marl_train.json`` (a JAX run on a CPU) in
-    PERF.md, not the times.  Returns the rows."""
-    rows = [_marl_train_row(n, mode, iters=10)
-            for n, mode in MARL_TRAIN_ROWS]
+    4096).  Each row fills its replay and takes ``MARL_TRAIN_WARM``
+    warm-up updates; then the rows take their ``MARL_TRAIN_ITERS`` timed
+    updates in turn, one update of each row a round, so that a spell of
+    load on the shared host falls on every row alike (a step is ~25 ms of
+    host work, and rows timed one after another moved by 40-60% against
+    each other).  The bench's own acceptance: the set rows' step time is
+    flat in n, here each row's fastest timed step from 4096 up within 1.5x
+    of the 4096 row's.  Loss behaviour is compared with
+    ``BENCH_marl_train.json`` (a JAX run on a CPU) in PERF.md, not the
+    times.  Returns the rows."""
+    import gc
+    rigs = []
+    for n, mode in MARL_TRAIN_ROWS:
+        rigs.append(_marl_train_rig(n, mode))
+        for _ in range(MARL_TRAIN_WARM):
+            _marl_train_update(rigs[-1])
+    gc.collect()
+    for _ in range(MARL_TRAIN_ITERS):
+        for rig in rigs:
+            rig["times"].append(_marl_train_update(rig))
+    rows = [_marl_train_row(rig) for rig in rigs]
     base = next(r["train_step_min_s"] for r in rows
                 if (r["n"], r["mode"]) == (4096, "set"))
     ratios = {r["n"]: r["train_step_min_s"] / base for r in rows
@@ -3050,12 +3085,12 @@ LM_FL = (4, 1024, 2)
 #: ``[lm mesh]``: layers (exits 1 to layers), the train steps' B, the FL
 #: steps' B (one client an exit), S, steps of each
 LM_MESH = (4, 2, 4, 1024, 2)
-#: ``[lm mesh]``'s sharding policies (attn_heads with repeat_kv and zero1
-#: without FSDP, as the reference pairs them); dp2d, which puts the model
-#: axis among the batch axes, only on the CPU's 4 ranks
+#: ``[lm mesh]``'s sharding policies for phi3-mini's train and FL steps:
+#: ``default`` (the families take no FL step), and those that
+#: ``LM_MESH_FAMILY_POLICIES`` do not run (zero1 without FSDP, as the
+#: reference pairs them).  repeat_kv with attn_heads, a no-op at
+#: phi3-mini's 32:32 heads on one rank, runs in the families' train steps
 LM_MESH_POLICIES = (("default", {}),
-                    ("repeat_kv+attn_heads",
-                     {"repeat_kv": True, "attn_heads": True}),
                     ("attn_seq", {"attn_seq": True}),
                     ("act_seq", {"act_seq": True}),
                     ("block_gather", {"block_gather": True}),
@@ -3077,6 +3112,23 @@ LM_MESH_FAMILIES = (("xlstm", "xlstm-1.3b", {"num_layers": 2}, 2, 128),
 LM_MESH_FAMILY_POLICIES = (("default", {}), ("dp2d", {"dp2d": True}),
                            ("repeat_kv+attn_heads",
                             {"repeat_kv": True, "attn_heads": True}))
+#: ``[lm mesh serve]``: the models at full width, their depth cut as
+#: ``[lm mesh]``'s (mixtral at 2 layers, so that the MoE decode region
+#: runs), and the prefill's S: (label, arch, the cut, S)
+LM_MESH_SERVE = (("phi3-mini", "phi3-mini-3.8b", {"num_layers": 4}, 1024),
+                 ("xlstm", "xlstm-1.3b", {"num_layers": 2}, 128),
+                 ("zamba2", "zamba2-1.2b", {"num_layers": 6}, 1024),
+                 ("whisper", "whisper-medium",
+                  {"encoder_layers": 2, "num_layers": 2}, 448),
+                 ("vlm", "llama-3.2-vision-11b", {"num_layers": 5}, 1024),
+                 ("mixtral", "mixtral-8x22b", {"num_layers": 2}, 1024))
+#: every wrapper's own count of its launches (``LAUNCHES``' other keys
+#: split these by route or by entry)
+KERNEL_TOTALS = ("layer_agg", "rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd")
+#: ``[lm mesh serve]``: the prefill's B, the decode steps, the slots and
+#: the cache length
+LM_MESH_SERVE_SHAPE = (2, 8, 4, 56)
 #: ``[lm mesh bytes]``: every LM config but the dense family's smallest
 LM_MESH_ARCHS = ("phi3-mini-3.8b", "minitron-8b", "yi-34b", "command-r-35b",
                  "mixtral-8x22b", "qwen3-moe-235b-a22b", "xlstm-1.3b",
@@ -3086,8 +3138,10 @@ LM_MESH_ARCHS = ("phi3-mini-3.8b", "minitron-8b", "yi-34b", "command-r-35b",
 LM_ATTENTION = (("phi3-mini prefill", 4, 2048, 32, 32, 96, 0),
                 ("minitron-8b prefill", 4, 2048, 32, 8, 128, 0),
                 ("phi3-mini train", 2, 1024, 32, 32, 96, 0),
-                # one rank's local heads under a 4-way model axis
+                # one rank's local heads under a 4-way model axis: the
+                # train step's, and the meshed prefill's
                 ("phi3-mini train local heads", 2, 1024, 8, 8, 96, 0),
+                ("phi3-mini prefill local heads", 4, 2048, 8, 8, 96, 0),
                 ("phi3-mini fl train", 4, 1024, 32, 32, 96, 0),
                 ("phi3-mini fl bucketed", 1, 1024, 32, 32, 96, 0),
                 ("phi3-mini SWA 1024", 2, 4096, 32, 32, 96, 1024),
@@ -3948,10 +4002,13 @@ def phase_lm_mesh():
     (``flash_attention_sharded``, ``_bwd_sharded``), counted and checked.
     Then, in the same group, ``LM_MESH_FAMILIES`` (xLSTM, the Mamba2
     hybrid, whisper and the VLM at full width, their depth cut) under
-    ``LM_MESH_FAMILY_POLICIES`` (:func:`_lm_mesh_family`), and ``[lm
-    mesh bytes]``.  Returns the launches of the train steps and of the
-    FL steps (the one-device run and every policy's), by ``"train"`` and
-    ``"fl"``, and of each family's steps by its label."""
+    ``LM_MESH_FAMILY_POLICIES`` (:func:`_lm_mesh_family`), then ``[lm
+    mesh serve]`` (each of ``LM_MESH_SERVE``'s models' meshed prefill
+    and decode, :func:`_lm_mesh_serve`), and ``[lm mesh bytes]``.
+    Returns the launches of the train steps and of the FL steps (the
+    one-device run and every policy's), by ``"train"`` and ``"fl"``, of
+    each family's steps by its label, and of each serve model's prefills
+    by ``"serve <label>"``."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -4051,6 +4108,12 @@ def phase_lm_mesh():
             families = {label: _lm_mesh_family(label, arch, cut, B, S,
                                                steps, mesh)
                         for label, arch, cut, B, S in LM_MESH_FAMILIES}
+            t_serve = time.perf_counter()
+            for label, arch, cut, S_pre in LM_MESH_SERVE:
+                families[f"serve {label}"] = _lm_mesh_serve(
+                    label, arch, cut, S_pre, mesh)
+            print(f"[lm mesh serve] the six models took "
+                  f"{time.perf_counter() - t_serve:.1f} s")
         finally:
             dist.destroy_process_group()
     n = len(LM_MESH_POLICIES)
@@ -4211,6 +4274,115 @@ def _lm_mesh_family(label, arch, cut, B, S, steps, mesh):
     del one, extras, batches
     _free_card()
     return {k: total[k] for k in LM_ROUTES}
+
+
+def _lm_mesh_serve(label, arch, cut, S, mesh):
+    """``[lm mesh serve] <label>``: ``arch`` at full width with ``cut``
+    (one of ``LM_MESH_SERVE``), bf16, ``use_pallas``, seed 0, on the
+    one-rank ``mesh``: a prefill of B x S (``LM_MESH_SERVE_SHAPE``; the
+    stub inputs drawn once) and 8 greedy decode steps on 4 slots over a
+    cache of 56, one device (``build_prefill_step``,
+    ``build_serve_step``) then on the mesh (``launch/train.py``:
+    ``meshed_prefill_step``, ``sharded_decode_cache``,
+    ``meshed_serve_step`` on the params as ``DTensor``s in their
+    placements, views of the one-device tensors), held bit for bit: the
+    prefill's logits, the cache as built, every step's tokens and
+    logits; every cache leaf keeps its placements and its storage.  The
+    meshed prefill launches ``flash_attention`` once a causal layer or
+    shared site, through the local-shard entry, on the wgmma route;
+    decode launches no kernel.  Returns the two prefills' launches by
+    route."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.specs import params_shardings
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.launch.train import (meshed_prefill_step,
+                                          meshed_serve_step,
+                                          sharded_decode_cache)
+    from repro_torch.models.hybrid import num_attn_sites
+    from repro_torch.tree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    B, steps, slots, clen = LM_MESH_SERVE_SHAPE
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    model, prefill = build_prefill_step(cfg, TrainConfig(use_pallas=True))
+    _, serve = build_serve_step(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    meshed = tree_map(lambda t, pl: DTensor.from_local(t, mesh, pl,
+                                                       run_check=False),
+                      params, params_shardings(params, mesh))
+    g = torch.Generator("cuda").manual_seed(1)
+    batch = dict(_stub_extras(cfg, B, S, seed=1), tokens=torch.randint(
+        0, cfg.vocab_size, (B, S), generator=g, device="cuda"))
+    extras = _stub_extras(cfg, slots, S, seed=2)
+    first = torch.randint(0, cfg.vocab_size, (slots, 1), generator=g,
+                          device="cuda", dtype=torch.int32)
+    n_pre = (0 if cfg.family == "ssm" else num_attn_sites(cfg)
+             if cfg.family == "mamba-hybrid" else _causal_layers(cfg))
+    reset_launches()
+    one, secs_one = _synced_wall(lambda: prefill(params, batch))
+    one_launches = dict(LAUNCHES)
+    reset_launches()
+    got, secs_mesh = _synced_wall(
+        lambda: meshed_prefill_step(prefill, mesh)(meshed, batch))
+    pre = dict(LAUNCHES)
+    same = torch.equal(got, one)
+    cache1 = model.decode_init(params, slots, clen, extras=extras)
+    cache = sharded_decode_cache(model, meshed, slots, clen, mesh,
+                                 extras=extras)
+    same_init = all(torch.equal(a.to_local(), b) for a, b in
+                    zip(tree_leaves(cache), tree_leaves(cache1)))
+    kept = [(t.placements, t.to_local().data_ptr())
+            for t in tree_leaves(cache)]
+    run = meshed_serve_step(serve, mesh)
+    tok1 = tok = first
+    rows, same_steps = [], True
+    reset_launches()
+    for i in range(steps):
+        (t1, cache1, l1), s1 = _synced_wall(
+            lambda: serve(params, cache1, tok1, i, logits=True))
+        (t2, cache, l2), s2 = _synced_wall(
+            lambda: run(meshed, cache, tok, i, logits=True))
+        same_steps = same_steps and torch.equal(t1, t2) and torch.equal(
+            l1, l2.full_tensor())
+        rows.append((s2, s1))
+        tok1, tok = t1, t2
+    decode_launches = sum(LAUNCHES[k] for k in KERNEL_TOTALS)
+    same_cache = all(torch.equal(a.to_local(), b) for a, b in
+                     zip(tree_leaves(cache), tree_leaves(cache1)))
+    placed = kept == [(t.placements, t.to_local().data_ptr())
+                      for t in tree_leaves(cache)]
+    finite = bool(torch.isfinite(one).all()) and bool(
+        torch.isfinite(l1).all())
+    want = (n_pre, n_pre, n_pre, n_pre)
+    have = (pre["flash_attention_sharded"], pre["flash_attention_fwd_wgmma"],
+            sum(pre[k] for k in LM_ROUTES),
+            sum(pre[k] for k in KERNEL_TOTALS))
+    print(f"[lm mesh serve] {label}: {cfg.name} at full width, depth cut "
+          f"({_shape_note(cfg)}), {cfg.dtype}, use_pallas, one-rank NCCL "
+          f"(1, 1) mesh: prefill B {B} x S {S} {secs_mesh:.3f} s meshed, "
+          f"{secs_one:.3f} s one device, logits bitwise equal: {same}, "
+          f"local-shard entry {have[0]} of {n_pre} forwards; cache "
+          f"{slots} slots x {clen} built sharded, bitwise equal: "
+          f"{same_init}; {steps} decode steps (s a step, meshed / one "
+          f"device): " + ", ".join(f"{a:.4f}/{b:.4f}" for a, b in rows)
+          + f"; tokens and logits bitwise equal: {same_steps}, cache "
+          f"after the steps bitwise equal: {same_cache}, placements and "
+          f"storage kept: {placed}; decode launches {decode_launches} "
+          f"kernels; {time.perf_counter() - t0:.1f} s")
+    if not (same and same_init and same_steps and same_cache and placed
+            and finite):
+        raise AssertionError(f"[lm mesh serve] {label}: the meshed prefill "
+                             "or decode differs from one device")
+    if have != want or decode_launches:
+        raise AssertionError(
+            f"[lm mesh serve] {label}: prefill launches {have} (local-shard "
+            f"entry, wgmma, all attention routes, all kernels): expected "
+            f"{want}; decode launched {decode_launches}")
+    del params, meshed, cache, cache1, one, got, batch, extras
+    _free_card()
+    return {k: pre[k] + one_launches[k] for k in LM_ROUTES}
 
 
 def _lm_reference(tag, cfg, n_fwd, n_bwd):
@@ -4403,7 +4575,8 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
             # mesh]'s train steps), B 4 ([lm fl train], [lm mesh]'s FL
             # steps) and B 1 ([lm fl bucketed]'s buckets)
             "lm phi3-mini train": _summed(train_launches["phi3-mini"],
-                                          train_launches["mesh"]),
+                                          train_launches["mesh"],
+                                          train_launches["serve phi3-mini"]),
             "lm phi3-mini fl train": _summed(train_launches["fl"],
                                              train_launches["mesh fl"]),
             # a timing shape only: on one card's (1, 1) mesh all 32
@@ -4411,12 +4584,14 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
             # kernel 8 heads ([lm mesh] prints the local-shard entry's
             # launches, which the two rows above count)
             "lm phi3-mini train local heads": {},
+            "lm phi3-mini prefill local heads": {},
             "lm phi3-mini fl bucketed": train_launches["fl bucketed"],
             "lm phi3-mini SWA 1024": prefill_launches["phi3-mini SWA 1024"],
             "lm zamba2 prefill": prefill_launches["zamba2"],
             # [lm zamba2 train] and [lm mesh]'s zamba2 steps, B 2 x S 1024
             "lm zamba2 train": _summed(train_launches["zamba2"],
-                                       train_launches["mesh zamba2"]),
+                                       train_launches["mesh zamba2"],
+                                       train_launches["serve zamba2"]),
             # timing shapes, as phi3-mini's local heads
             "lm zamba2 train local heads": {},
             "lm vlm train local heads": {},
@@ -4426,10 +4601,12 @@ def _lm_kernel_launches(records, prefill_launches, train_launches):
                                           train_launches["whisper"],
                                           train_launches["mesh whisper"]),
             "lm vlm train": _summed(train_launches["vlm"],
-                                    train_launches["mesh vlm"]),
+                                    train_launches["mesh vlm"],
+                                    train_launches["serve vlm"]),
             "lm mixtral prefill": prefill_launches["mixtral"],
             "lm qwen3-moe prefill": prefill_launches["qwen3-moe"],
-            "lm mixtral train": train_launches["mixtral"],
+            "lm mixtral train": _summed(train_launches["mixtral"],
+                                        train_launches["serve mixtral"]),
             "lm qwen3-moe train": train_launches["qwen3-moe"]}
     for r in records:
         counts = runs[r["path"]]
@@ -4588,6 +4765,9 @@ def main() -> int:
     train_launches["mesh fl"] = mesh_launches["fl"]
     for label, *_ in LM_MESH_FAMILIES:
         train_launches[f"mesh {label}"] = mesh_launches[label]
+    for label, *_ in LM_MESH_SERVE:
+        # [lm mesh serve]'s prefills, B 2 x S 1024: the train rows' shapes
+        train_launches[f"serve {label}"] = mesh_launches[f"serve {label}"]
     print(f"[lm fl] the FL steps took {secs:.1f} s, the mesh {s_mesh:.1f} "
           f"s: {time.perf_counter() - t0:.1f} s")
     for family, arch in LM_SUBQ.items():

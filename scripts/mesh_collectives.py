@@ -11,6 +11,18 @@ touches beside the smallest matrix of a model-sharded param (a whole
 gather of one would reach it).  The second of two steps is recorded.
 
     PYTHONPATH=src python scripts/mesh_collectives.py
+    PYTHONPATH=src python scripts/mesh_collectives.py --decode
+
+``--decode`` records one meshed decode step instead
+(``launch/train.py::meshed_serve_step`` on a cache from
+``sharded_decode_cache``), for each case of
+``tests/torch_mesh_ranks.py::DECODE`` (each layout of the reference's
+cache specs: KV heads, cache rows, head dim, the MoE gather on expert
+and FFN-width shards and through the capacity region, xLSTM's heads and
+key dim, the Mamba2 state, whisper, the VLM) at its B 4 and cache
+length, the third of three steps from two slots before the cache's end;
+beside the largest tensor over the model axis it prints the smallest
+model-sharded KV-cache shard.
 
 ``torch.distributed`` calls (the loss and norm all-reduces, the
 vocab-parallel logsumexp's max and sum, the load-balance loss's token
@@ -35,10 +47,73 @@ sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
 
 
 
-def _rank(rank, path):
+def _table(rec, axis):
+    """(count and bytes by (kind, axis), the largest tensor over the model
+    axis) of a ``Collectives`` record."""
+    rows = collections.defaultdict(lambda: [0, 0])
+    biggest = 0
+    for op, group, n, nbytes in rec.seen:
+        where = axis.get(group, group)
+        rows[(op, where)][0] += 1
+        rows[(op, where)][1] += nbytes
+        if where in ("model", "c10d"):
+            biggest = max(biggest, n)
+    return ", ".join(f"{op} over {where} {c} ({b} bytes)"
+                     for (op, where), (c, b) in sorted(rows.items())), biggest
+
+
+def _decode(rank, mesh, axis):
+    from torch_mesh_ranks import (DECODE, DECODE_SHAPE, DEFAULTS, POLICIES,
+                                  Collectives, _batches)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.sharding.rules import map_with_path, set_sharding_policy
+    B = DECODE_SHAPE[0]
+    mi = mesh.mesh_dim_names.index("model")
+    for label, arch, over, clen, _, pols in DECODE:
+        cfg = reduced(get_config(arch), **over)
+        for name in pols:
+            set_sharding_policy(**DEFAULTS)
+            set_sharding_policy(**POLICIES[name])
+            model, serve = build_serve_step(cfg)
+            params = T.sharded_train_state(model, torch.device("cpu"),
+                                           mesh)["params"]
+            extras = {k: v for k, v in _batches(cfg, 1, B=B)[0].items()
+                      if k not in ("tokens", "labels")}
+            cache = T.sharded_decode_cache(model, params, B, clen, mesh,
+                                           extras=extras)
+            run = T.meshed_serve_step(serve, mesh)
+            tok = torch.zeros((B, 1), dtype=torch.int32)
+            for i in range(3):
+                with Collectives() as rec:
+                    tok, cache = run(params, cache, tok, clen - 2 + i)
+            kv = []
+            map_with_path(lambda p, t: kv.append(t.to_local().numel())
+                          if p.split("/")[-1] in ("k", "v")
+                          and t.placements[mi].is_shard() else None, cache)
+            table, biggest = _table(rec, axis)
+            if rank == 0:
+                print(f"decode {label} ({arch}-smoke) {name}: "
+                      f"{len(rec.seen)} collectives, "
+                      f"{sum(b for *_, b in rec.seen)} bytes: {table}; the "
+                      f"largest tensor over the model axis {biggest} "
+                      f"elements, the smallest model-sharded KV-cache "
+                      f"shard {min(kv) if kv else None}", flush=True)
+    set_sharding_policy(**DEFAULTS)
+
+
+def _rank(rank, path, decode):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
                             world_size=4)
+    if decode:
+        from repro_torch.launch.mesh import make_debug_mesh
+        mesh = make_debug_mesh()
+        _decode(rank, mesh, {mesh.get_group(a).group_name: a
+                             for a in mesh.mesh_dim_names})
+        dist.destroy_process_group()
+        return
     from torch_mesh_ranks import (DEFAULTS, FAMILIES, OVER, POLICIES,
                                   XLSTM_ARCH, Collectives, _batches)
     from repro_torch.configs import TrainConfig, get_config, reduced
@@ -71,18 +146,8 @@ def _rank(rank, path):
                         for t in tree_leaves(state["params"])
                         if isinstance(t, DTensor)
                         and t.placements[mi].is_shard())
-            rows = collections.defaultdict(lambda: [0, 0])
-            biggest = 0
-            for op, group, n, nbytes in rec.seen:
-                where = axis.get(group, group)
-                rows[(op, where)][0] += 1
-                rows[(op, where)][1] += nbytes
-                if where in ("model", "c10d"):
-                    biggest = max(biggest, n)
+            table, biggest = _table(rec, axis)
             if rank == 0:
-                table = ", ".join(
-                    f"{op} over {where} {c} ({b} bytes)"
-                    for (op, where), (c, b) in sorted(rows.items()))
                 print(f"{arch}-smoke {name}: {len(rec.seen)} collectives, "
                       f"{sum(b for *_, b in rec.seen)} bytes: {table}; the "
                       f"largest tensor over the model axis {biggest} "
@@ -94,8 +159,9 @@ def _rank(rank, path):
 
 def main():
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_rank, args=(f"{tmp}/pg",), nprocs=4,
-                           start_method="spawn")
+        mp.start_processes(_rank, args=(f"{tmp}/pg",
+                                        "--decode" in sys.argv[1:]),
+                           nprocs=4, start_method="spawn")
 
 
 if __name__ == "__main__":

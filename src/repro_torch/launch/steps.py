@@ -27,6 +27,9 @@ compute over the model axis (``sharding/tp.py``), and the
 cross-entropy is vocab-parallel (each rank's logits only for its vocab
 shard of the unembedding, a logsumexp across the shards, no gather of
 the logits); the FL steps' per-layer gates and rescale stay replicated.
+The prefill and serve steps run there too (``launch/train.py``'s
+``meshed_prefill_step`` and ``meshed_serve_step``): the serve step's
+argmax is vocab-parallel (:func:`greedy`).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.layerwise import exit_points
@@ -69,6 +72,54 @@ class _LogSumExp(torch.autograd.Function):
     def backward(ctx, g):
         x, lse = ctx.saved_tensors
         return g.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp(), None
+
+
+def argmax_merge(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The shards' (local max, global index of its first occurrence),
+    [m, ...] each, in vocab order, merged into ``torch.argmax``'s answer
+    over the whole vocabulary: the largest value, NaN above all (as
+    ``torch.argmax`` takes it), on a tie the smallest index."""
+    nan = torch.isnan(vals)
+    key = torch.where(nan, torch.full_like(vals, float("inf")), vals)
+    best = key.amax(dim=0, keepdim=True)
+    pick = (key == best) & (nan | ~nan.any(dim=0, keepdim=True))
+    big = torch.iinfo(idx.dtype).max
+    return torch.where(pick, idx, torch.full_like(idx, big)).amin(dim=0)
+
+
+def vocab_argmax(x: torch.Tensor, lo: int, group) -> torch.Tensor:
+    """``torch.argmax`` over the last dim of vocab shards, one on each of
+    ``group``'s ranks (``x`` this rank's, starting at vocab index
+    ``lo``): each rank's local max and its index, gathered over ``group``
+    as (value, global index) pairs and merged by :func:`argmax_merge`;
+    int64 indices, as ``torch.argmax`` gives.  ``group`` None: the local
+    ``torch.argmax``."""
+    if group is None:
+        return torch.argmax(x, dim=-1)
+    i = torch.argmax(x, dim=-1)
+    v = torch.gather(x, -1, i[..., None])[..., 0]
+    pair = torch.stack([v.double(), (i + lo).double()])
+    parts = [torch.empty_like(pair) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, pair.contiguous(), group=group)
+    both = torch.stack(parts, dim=1)                         # [2, m, ...]
+    return argmax_merge(both[0], both[1].long())
+
+
+def greedy(logits) -> torch.Tensor:
+    """The next tokens [B] (int32) of a decode step's logits [B, S, V]:
+    the argmax at the last position.  On the mesh (a ``DTensor`` whose
+    vocab ``model`` shards, ``models.layers.logits_apply``) the
+    vocab-parallel argmax (:func:`vocab_argmax`) of each rank's shard:
+    this rank's rows of the compute layout, a plain tensor; no logits
+    are gathered."""
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    vocab = tp.model_shard_dim(logits) == logits.ndim - 1
+    lo, _ = tp.model_range(logits, logits.ndim - 1)
+    local = tp.local(logits, Shard(logits.ndim - 1)) if vocab else \
+        tp.local(logits)
+    return vocab_argmax(local[:, -1, :], lo,
+                        tp.model_group() if vocab else None).to(torch.int32)
 
 
 def chunked_cross_entropy(hidden, w_unembed, labels, chunk: int):
@@ -353,17 +404,19 @@ def build_prefill_step(cfg: ModelConfig, tcfg: Optional[TrainConfig] = None):
 
 def build_serve_step(cfg: ModelConfig, window_override: Optional[int] = None):
     """One-token greedy decode with a persistent cache, updated in place
-    (the reference donates it)."""
+    (the reference donates it).  ``serve_step(params, cache, tokens,
+    pos)`` -> (next tokens [B, 1], cache); with ``logits=True`` the
+    step's logits [B, 1, V] come third."""
     model = build(cfg)
 
     @torch.no_grad()
-    def serve_step(params, cache, tokens, pos):
+    def serve_step(params, cache, tokens, pos, logits=False):
         kw = {}
         if window_override is not None:
             kw["window"] = window_override
-        logits, cache = model.decode_step(params, cache, tokens, pos, **kw)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return next_tok[:, None], cache
+        out, cache = model.decode_step(params, cache, tokens, pos, **kw)
+        next_tok = greedy(out)[:, None]
+        return (next_tok, cache, out) if logits else (next_tok, cache)
 
     return model, serve_step
 

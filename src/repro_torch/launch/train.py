@@ -37,6 +37,15 @@ holds its shards, one layer's weights gathered over the FSDP axis, and
 its activations.  Under a mesh ``--ckpt-dir`` gathers the state, rank 0
 writes the reference's files, and every rank loads them whole and keeps
 its shards.
+
+Prefill and decode run on the mesh too (:func:`meshed_prefill_step`,
+:func:`meshed_serve_step` on the steps of ``launch/steps.py``'s
+``build_prefill_step`` and ``build_serve_step``): the decode cache is
+built as each rank's shards in the reference's placements
+(:func:`sharded_decode_cache`) and written in place, decode runs with
+the mesh installed as the reference's dry-run lowers it
+(``model_axis_ok=False``), and no param, cache or state leaf is
+gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -56,11 +65,13 @@ from repro_torch.configs import (INPUT_SHAPES, TrainConfig, get_config,
 from repro_torch.data.synthetic import lm_batches, synthetic_lm_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.specs import _MetaGenerator, state_shardings
+from repro_torch.launch.specs import (_MetaGenerator, decode_cache_shardings,
+                                      state_shardings)
 from repro_torch.launch.steps import (TrainStep, adapt_for_shape,
                                       build_train_step, make_train_state)
 from repro_torch.models import layers as L
 from repro_torch.models.api import extra_inputs
+from repro_torch.sharding import tp
 from repro_torch.sharding.rules import (activation_mesh, batch_axes,
                                         map_with_path, mesh_size,
                                         model_axis_ok, placements,
@@ -290,15 +301,130 @@ def meshed_step(step: TrainStep, mesh):
 
 
 @contextlib.contextmanager
-def _installed(mesh):
-    """``mesh`` as the activation mesh while a step takes its gradient
-    (``model_axis_ok`` kept where the caller installed this mesh)."""
+def _installed(mesh, axis_ok=None):
+    """``mesh`` as the activation mesh while a step runs, with
+    ``model_axis_ok`` ``axis_ok`` (by default kept where the caller
+    installed this mesh, else True)."""
     outer, ok = activation_mesh(), model_axis_ok()
-    set_activation_mesh(mesh, ok if outer is mesh else True)
+    if axis_ok is None:
+        axis_ok = ok if outer is mesh else True
+    set_activation_mesh(mesh, axis_ok)
     try:
         yield
     finally:
         set_activation_mesh(outer, ok)
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _by_path(tree, path=""):
+    """{path: leaf} of a spec or placements tree (dicts and lists; its
+    tuples are leaves), paths as ``map_with_path`` joins them."""
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, list) else None)
+    if items is None:
+        return {path: tree}
+    out = {}
+    for k, v in items:
+        out.update(_by_path(v, f"{path}/{k}" if path else str(k)))
+    return out
+
+
+def sharded_decode_cache(model, params, batch: int, seq_len: int, mesh,
+                         extras=None, **kw):
+    """The decode cache of ``model.decode_init(params, batch, seq_len,
+    extras=extras, **kw)`` on the params' ``DTensor``s, each leaf a
+    ``DTensor`` in the placements ``specs.decode_cache_shardings`` names
+    (the reference's ``cache_specs``), made as this rank's shard: the
+    leaves' order and paths from ``decode_init`` on the meta device, then
+    ``decode_init`` itself with each leaf made as its shard as it is
+    made (``models.layers.cache_hook``); the whole cache never exists on
+    one rank.  Whisper's encoder and the VLM's image projection run
+    through their regions (the mesh installed in decode mode,
+    ``model_axis_ok=False``) and their cross K/V are written into the
+    cache's placements.  ``extras``: the stub-frontend inputs, whole on
+    every rank (zeros where absent), of which each rank takes its rows
+    (:func:`batch_shard`)."""
+    cfg = model.cfg
+    shapes = extra_inputs(cfg, batch, seq_len)
+    made = []
+
+    def record(shape, value, dtype, device):
+        made.append(torch.empty(shape, dtype=dtype, device="meta"))
+        return made[-1]
+    with L.cache_hook(record):
+        meta = model.decode_init(
+            model.init(_MetaGenerator()), batch, seq_len,
+            extras={k: torch.empty(s, dtype=d, device="meta")
+                    for k, (s, d) in shapes.items()}, **kw)
+    paths = {}
+    map_with_path(lambda path, t: paths.setdefault(id(t), path), meta)
+    order = [paths.get(id(t)) for t in made]
+    if None in order or sorted(order) != sorted(paths.values()):
+        raise RuntimeError(f"{cfg.name}: its decode_init makes a cache leaf "
+                           "outside models.layers.cache_leaf")
+    where = _by_path(decode_cache_shardings(meta, mesh))
+    queue = iter(order)
+
+    def make(shape, value, dtype, device):
+        pl = where[next(queue)]
+        whole = torch.empty(shape, device="meta")
+        local = local_shard(whole, mesh, pl).shape
+        return DTensor.from_local(
+            torch.full(local, value, dtype=dtype, device=device), mesh, pl,
+            run_check=False, shape=whole.shape, stride=whole.stride())
+    device = tree_leaves(params)[0].device
+    extras = {k: (extras or {}).get(k, torch.zeros(s, dtype=d, device=device))
+              for k, (s, d) in shapes.items()}
+    with _installed(mesh, False), L.cache_hook(make):
+        return model.decode_init(params, batch, seq_len,
+                                 extras=batch_shard(extras, mesh), **kw)
+
+
+def meshed_prefill_step(step, mesh):
+    """``step`` (``launch/steps.py::build_prefill_step``'s) on the params'
+    ``DTensor``s: every rank passes the whole batch and takes its rows
+    (:func:`batch_shard`), the model splits its compute over the model
+    axis as in training (``flash_attention``'s local-shard entry under
+    ``use_pallas``), and the last position's logits [B, 1, V], vocab-
+    parallel on the ranks, come back gathered, whole on every rank."""
+    def run(params, batch):
+        with _installed(mesh):
+            logits = step(params, batch_shard(batch, mesh))
+        return logits.full_tensor() if isinstance(logits, DTensor) \
+            else logits
+    return run
+
+
+def meshed_serve_step(step, mesh):
+    """``step`` (``launch/steps.py::build_serve_step``'s) on the params'
+    ``DTensor``s and a cache from :func:`sharded_decode_cache`, the mesh
+    installed in decode mode (``model_axis_ok=False``, as the
+    reference's dry-run lowers decode): every rank passes the whole
+    tokens [B, 1] and takes its rows; each layer reads and writes its
+    shards of the cache in place (no cache leaf is gathered, and every
+    leaf keeps its placements and storage); the argmax is
+    vocab-parallel.  Returns (the next tokens [B, 1], whole on every
+    rank, the cache), and with ``logits=True`` the step's logits [B, 1,
+    V] third, as the ranks hold them (a ``DTensor``, its vocab over
+    ``model``: ``full_tensor()`` gathers them).  The batch over the
+    model axis (``dp2d``) is refused."""
+    def run(params, cache, tokens, pos, logits=False):
+        if "model" in batch_axes(mesh):
+            raise NotImplementedError("decode on the mesh with the batch "
+                                      "over the model axis (dp2d) is not "
+                                      "ported")
+        with _installed(mesh, False):
+            out = step(params, cache,
+                       batch_shard({"tokens": tokens}, mesh)["tokens"], pos,
+                       logits=logits)
+            tok = tp.from_local(out[0], tp.compute_placements(mesh),
+                                mesh=mesh).full_tensor()
+        return (tok,) + tuple(out[1:])
+    return run
 
 
 def _update_shards(step, state, local_grads, targets, region, mesh, gnorm):

@@ -40,7 +40,10 @@ attention products and the GELU MLP split over the model axis
 over all frames, the decoder's causal self-attention through
 ``flash_attention``'s local-shard entry under ``use_pallas``, the cross
 layer's k and v from the encoder's output), and the embedding is
-vocab-parallel where the vocabulary divides the model axis.
+vocab-parallel where the vocabulary divides the model axis.  Decode runs
+there too (``launch/train.py::meshed_serve_step``): ``decode_init``
+encodes through the same regions and writes the cross K/V into the
+cache's placements, and each step reads and writes the caches' shards.
 """
 from __future__ import annotations
 
@@ -163,7 +166,7 @@ def apply(params, cfg, tokens, audio_frames, *, layer_mask=None, window=None,
 
 
 def logits_fn(params, cfg, hidden):
-    return (hidden @ unembed_matrix(params, cfg)).float()
+    return L.logits_apply(hidden, unembed_matrix(params, cfg))
 
 
 @torch.no_grad()
@@ -177,23 +180,25 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None,
     w = cfg.window if window is None else window
     clen = min(seq_len, w) if w else seq_len
     dtype, dev = T._dt(cfg), params["embed"]["emb"].device
-    Ld, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+    Ld, Hkv, hd, Ta = cfg.num_layers, cfg.num_kv_heads, cfg.hd, \
+        cfg.num_audio_frames
     if audio_frames is None:
-        audio_frames = torch.zeros((batch, cfg.num_audio_frames, cfg.d_model),
-                                   dtype=dtype, device=dev)
+        audio_frames = torch.zeros((batch, Ta, cfg.d_model), dtype=dtype,
+                                   device=dev)
     enc_out = encode(params, cfg, audio_frames, remat="none")
-    ks, vs = [], []
-    for cp in T._unstack(params["decoder"]["cross"], Ld):
-        ks.append(L.dense_apply(cp["wk"], enc_out).reshape(batch, -1, Hkv, hd))
-        vs.append(L.dense_apply(cp["wv"], enc_out).reshape(batch, -1, Hkv, hd))
+    cross = {n: L.cache_leaf((Ld, batch, Ta, Hkv, hd), 0, dtype, dev)
+             for n in ("k", "v")}
+    for i, cp in enumerate(T._unstack(params["decoder"]["cross"], Ld)):
+        for n in ("k", "v"):
+            tp.put(tp.layer(cross[n], i),
+                   L.kv_heads(L.dense_apply(cp["w" + n], enc_out), Hkv, hd))
     shape = (Ld, batch, clen, Hkv, hd)
     return {
-        "self": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev),
-                 "pos": torch.zeros((Ld,), dtype=torch.int32, device=dev)},
-        "cross": {"k": torch.stack(ks), "v": torch.stack(vs),
-                  "pos": torch.zeros((Ld,), dtype=torch.int32, device=dev)},
-        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+        "self": {"k": L.cache_leaf(shape, 0, dtype, dev),
+                 "v": L.cache_leaf(shape, 0, dtype, dev),
+                 "pos": L.cache_leaf((Ld,), 0, torch.int32, dev)},
+        "cross": dict(cross, pos=L.cache_leaf((Ld,), 0, torch.int32, dev)),
+        "pos": L.cache_leaf((), 0, torch.int32, dev),
     }
 
 
@@ -203,15 +208,15 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
     """tokens: [B, 1]; pos: the absolute position (an int or a 0-d
     tensor).  Returns (logits [B, 1, V], cache), the self caches updated
     in place."""
-    x = params["embed"]["emb"][tokens]
-    mask = T._gates(cfg, layer_mask, x.device)
-    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
-                 if isinstance(pos, int) else pos.reshape(1))
+    x, positions = T.decode_embed(params, tokens, pos)
+    mask = T._gates(cfg, layer_mask, tokens.device)
     sc, cc = cache["self"], cache["cross"]
     for i, bp in enumerate(T._unstack(params["decoder"], cfg.num_layers)):
-        x = _dec_block(bp, cfg, x, None, positions, mask[i].to(x.dtype),
-                       self_cache={k: sc[k][i] for k in ("k", "v", "pos")},
-                       cross_cache={k: cc[k][i] for k in ("k", "v")})
-    cache["pos"] += 1
+        x = constrain(_dec_block(bp, cfg, x, None, positions,
+                                 mask[i].to(x.dtype),
+                                 self_cache=T.layer_cache(sc, i),
+                                 cross_cache=T.layer_cache(cc, i,
+                                                           ("k", "v"))))
+    tp.local_of(cache["pos"]).add_(1)
     x = L.layernorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

@@ -14,8 +14,8 @@ Remat (``hybrid.py:77``): only the Mamba block body is recomputed in the
 backward; the shared block is not, so a train step runs one attention
 forward and one backward a site.  Decode keeps one KV cache a site,
 ``[sites, B, clen, Hkv, hd]``, written in place where the reference
-stacks new ones; the Mamba states ``[L, ...]`` likewise.  The
-reference's step counter ``pos`` is not kept (nothing reads it).
+stacks new ones; the Mamba states ``[L, ...]`` likewise, and the
+reference's step counter ``pos``.
 
 DR-FL: the layer mask covers the Mamba blocks; the shared block is part
 of every submodel.
@@ -24,7 +24,9 @@ On the production mesh (``launch/train.py::meshed_step``) the params are
 ``DTensor``s: the embedding is vocab-parallel, each Mamba2 block is
 ``models/ssm.py``'s region, and the shared block is the dense family's
 (its attention on local heads, through ``flash_attention``'s local-shard
-entry under ``use_pallas``).
+entry under ``use_pallas``).  Decode runs there too, on the Mamba
+states' and the sites' KV caches' shards
+(``launch/train.py::meshed_serve_step``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.ssm import (mamba_apply, mamba_decode, mamba_init,
                                     mamba_state_init)
+from repro_torch.sharding import tp
 from repro_torch.sharding.rules import constrain
 
 
@@ -104,7 +107,7 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
 
 
 def logits_fn(params, cfg, hidden):
-    return (hidden @ unembed_matrix(params, cfg)).float()
+    return L.logits_apply(hidden, unembed_matrix(params, cfg))
 
 
 def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
@@ -119,11 +122,10 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
     shape = (n_sites, batch, clen, cfg.num_kv_heads, cfg.hd)
     return {
         "mamba": mamba_state_init(cfg, batch, dev, lead=(cfg.num_layers,)),
-        "attn": {"k": torch.zeros(shape, dtype=T._dt(cfg), device=dev),
-                 "v": torch.zeros(shape, dtype=T._dt(cfg), device=dev),
-                 "pos": torch.zeros((n_sites,), dtype=torch.int32,
-                                    device=dev)},
-        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+        "attn": {"k": L.cache_leaf(shape, 0, T._dt(cfg), dev),
+                 "v": L.cache_leaf(shape, 0, T._dt(cfg), dev),
+                 "pos": L.cache_leaf((n_sites,), 0, torch.int32, dev)},
+        "pos": L.cache_leaf((), 0, torch.int32, dev),
     }
 
 
@@ -132,28 +134,27 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
                 window=None):
     """tokens: [B, 1]; pos: the absolute position (an int or a 0-d
     tensor).  Returns (logits [B, 1, V], cache), the cache updated in
-    place."""
-    x = params["embed"]["emb"][tokens]
-    mask = T._gates(cfg, layer_mask, x.device)
-    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
-                 if isinstance(pos, int) else pos.reshape(1))
-    one = torch.ones((), dtype=x.dtype, device=x.device)
+    place (on the mesh each Mamba2 block's state by its region, each
+    site's KV cache by the attention's)."""
+    x, positions = T.decode_embed(params, tokens, pos)
+    mask = T._gates(cfg, layer_mask, tokens.device)
+    one = torch.ones((), dtype=x.dtype, device=tokens.device)
     blocks = T._unstack(params["mamba"], cfg.num_layers)
     states, attn = cache["mamba"], cache["attn"]
     lo, site = 0, 0
     for size in _segments(cfg):
         for i in range(lo, lo + size):
-            d, st = mamba_decode(blocks[i], cfg, x,
-                                 {k: v[i] for k, v in states.items()})
-            for k, v in st.items():
-                states[k][i].copy_(v)
-            x = x + mask[i].to(x.dtype) * d
+            st = T.layer_cache(states, i, ("ssm", "conv"))
+            d, new = mamba_decode(blocks[i], cfg, x, st)
+            for k, v in new.items():
+                tp.put(st[k], v)
+            x = constrain(T._residual(x, d, mask[i].to(x.dtype)))
         lo += size
         if _site_after(cfg, size):
-            c = {k: attn[k][site] for k in ("k", "v", "pos")}
             x, _, _ = T.block_apply(params["shared_attn"], cfg, x, positions,
-                                    one, window=window, cache=c)
+                                    one, window=window,
+                                    cache=T.layer_cache(attn, site))
             site += 1
-    cache["pos"] += 1
+    tp.local_of(cache["pos"]).add_(1)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

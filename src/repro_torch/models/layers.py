@@ -36,7 +36,12 @@ products column-parallel, the output, down and GELU output products
 row-parallel, attention on each rank's local heads, the activation
 hooks at the reference's call sites.  Initialisers hand each leaf they
 make to :func:`leaf_hook`'s function where one is installed (the
-sharded state build, ``launch/train.py``).
+sharded state build, ``launch/train.py``), and every family's
+``decode_init`` makes its cache leaves through :func:`cache_leaf` (the
+sharded cache build).  With a decode cache on the mesh,
+:func:`attention_apply` reads and writes the cache's shards in each of
+the reference's layouts (:func:`_attention_cached_sharded`), and
+:func:`logits_apply` gives each rank its vocab shard's logits.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -72,6 +78,32 @@ def leaf_hook(fn):
 
 def _leaf(t: torch.Tensor):
     return t if _LEAF_HOOK is None else _LEAF_HOOK(t)
+
+
+#: what :func:`cache_hook` installs: it makes each decode-cache leaf
+_CACHE_HOOK = None
+
+
+@contextlib.contextmanager
+def cache_hook(fn):
+    """Within ``with``: every decode-cache leaf that :func:`cache_leaf`
+    makes is ``fn(shape, value, dtype, device)`` instead
+    (``launch/train.py::sharded_decode_cache`` makes each as this rank's
+    shard)."""
+    global _CACHE_HOOK
+    outer, _CACHE_HOOK = _CACHE_HOOK, fn
+    try:
+        yield
+    finally:
+        _CACHE_HOOK = outer
+
+
+def cache_leaf(shape, value, dtype, device):
+    """A decode-cache or recurrent-state leaf of ``shape`` filled with
+    ``value`` (every family's ``decode_init`` makes its leaves here)."""
+    if _CACHE_HOOK is not None:
+        return _CACHE_HOOK(tuple(shape), value, dtype, device)
+    return torch.full(tuple(shape), value, dtype=dtype, device=device)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, lead=()):
@@ -459,13 +491,16 @@ def _attend_grouped(q, k, v, *, causal, window=0, q_offset=0, kv_len=None):
 def _gqa_attend_sharded(q, k, v, *, causal, window, q_offset, kv_len):
     """:func:`gqa_attend` on the mesh: each rank's local shards
     (``tp.attend_local``: heads, batch rows, or, under ``attn_seq``, its
-    query rows at their offset).  The ``repeat_kv`` branch repeats each
+    query rows at their offset), with one ``q_offset`` and ``kv_len`` for
+    every row (a decode cache's).  The ``repeat_kv`` branch repeats each
     rank's local KV heads, then calls ``attn_head_shard`` on q and the
     repeated KV, as the reference's branch does (``layers.py:199-205``)."""
-    if not (isinstance(q_offset, int) and q_offset == 0) or \
-            kv_len is not None:
-        raise NotImplementedError("attention on the mesh takes no cache "
-                                  "(decode runs on one device)")
+    for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
+        if isinstance(t, torch.Tensor) and t.dim():
+            raise NotImplementedError(f"attention on the mesh takes one "
+                                      f"{name} for every row, not {name} "
+                                      f"{tuple(t.shape)}")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     G = q.shape[2] // k.shape[2]
     if get_sharding_policy()["repeat_kv"] and G > 1:
         tp.attention_layout(q, k, v, seq_ok=True)
@@ -475,9 +510,8 @@ def _gqa_attend_sharded(q, k, v, *, causal, window, q_offset, kv_len):
             mesh=t.device_mesh) for t in (k, v))
         q, kr, vr = attn_head_shard(q, kr, vr)
         return tp.attend_local(_attend_repeated, q, kr, vr, seq_ok=True,
-                               causal=causal, window=window)
-    return tp.attend_local(_attend_grouped, q, k, v, seq_ok=True,
-                           causal=causal, window=window)
+                               **kw)
+    return tp.attend_local(_attend_grouped, q, k, v, seq_ok=True, **kw)
 
 
 def gqa_attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -539,11 +573,15 @@ def attention_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     ``min(pos + S, clen)`` valid entries.  A cross-attention cache is
     read as it is.  With ``use_pallas``, causal self-attention without a
     cache launches the hand-written ``flash_attention`` kernel (on CPU
-    tensors its plain version)."""
+    tensors its plain version).  On the mesh the cache's leaves are
+    ``DTensor``s in the reference's placements
+    (``launch/specs.py::decode_cache_shardings``), written and read on
+    each rank's shard (:func:`_attention_cached_sharded`)."""
     if isinstance(p["wq"]["w"], DTensor):
         if cache is not None:
-            raise NotImplementedError("attention on the mesh takes no "
-                                      "cache (decode runs on one device)")
+            return _attention_cached_sharded(
+                p, cfg, x, positions, cache, cross=kv_src is not None,
+                norm_eps=norm_eps), cache
         return _attention_sharded(
             p, cfg, x, positions, causal=causal, window=window,
             use_pallas=use_pallas, attn_chunk=attn_chunk,
@@ -591,20 +629,22 @@ def attention_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 
 def _heads(flat, norms, cfg, positions, nq: int, nkv: int, norm_eps,
            rope: bool = True):
-    """attention_apply's q, k, v from the products' outputs: the heads
-    split, ``qk_norm``, RoPE (self-attention only), in the one-device
-    order."""
+    """attention_apply's q, k, v from the products' outputs (k and v None
+    where their products are): the heads split, ``qk_norm``, RoPE
+    (self-attention only), in the one-device order."""
     hd = cfg.hd
     q = _split_heads(flat[0], nq, hd)
-    k = _split_heads(flat[1], nkv, hd)
-    v = _split_heads(flat[2], nkv, hd)
+    k, v = (None if f is None else _split_heads(f, nkv, hd)
+            for f in flat[1:])
     if norms:
         q = rmsnorm_apply(norms["q_norm"], q, norm_eps)
-        k = rmsnorm_apply(norms["k_norm"], k, norm_eps)
+        if k is not None:
+            k = rmsnorm_apply(norms["k_norm"], k, norm_eps)
     if not rope:
         return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+            None if k is None else apply_rope(k, positions, cfg.rope_theta),
+            v)
 
 
 def _merge_heads(o):
@@ -649,35 +689,8 @@ def _attention_sharded(p, cfg, x, positions, *, causal, window,
     local query rows, a cross-attention's on all the keys, non-causal and
     without RoPE, as the reference), and ``wo`` row-parallel: the output
     a partial sum over ``model``."""
-    nh, nkv = cfg.num_heads, cfg.num_kv_heads
-    m = tp.model_size()
-    names = ("wq", "wk", "wv")
-    cols = [tp.model_shard_dim(p[n]["w"]) == p[n]["w"].ndim - 1
-            for n in names]
-    if kv_src is None:
-        srcs = [_sources(x, cols)] * 3
-    else:
-        srcs = [_sources(x, cols[:1])] + [_sources(kv_src, cols[1:])] * 2
-    flat = [dense_apply(_column_params(p[n]), xs) if c else
-            dense_apply({k: tp.weight(t) for k, t in p[n].items()}, xr)
-            for n, c, (xs, xr) in zip(names, cols, srcs)]
-    norm_names = [n for n in ("q_norm", "k_norm") if n in p]
-    if all(cols) and nh % m == 0 and nkv % m == 0:
-        # each rank's heads: the q/k norms' scales act on every rank's
-        # heads, so their gradients are partial over model
-        norms = {n: {"scale": tp.weight(p[n]["scale"], Partial())}
-                 for n in norm_names}
-        q, k, v = (tp.wrap(t, Shard(2)) for t in _heads(
-            flat, norms, cfg, positions, nh // m, nkv // m, norm_eps,
-            rope=kv_src is None))
-    else:
-        whole = [tp.local(tp.wrap(f, Shard(2) if c else Replicate()))
-                 for f, c in zip(flat, cols)]
-        norms = {n: {"scale": tp.weight(p[n]["scale"])} for n in norm_names}
-        q, k, v = (tp.wrap(t) for t in _heads(whole, norms, cfg, positions,
-                                                nh, nkv, norm_eps,
-                                                rope=kv_src is None))
-    q, k, v = attn_seq_shard(q, k, v)
+    q, k, v = attn_seq_shard(*_qkv_sharded(p, cfg, x, positions, kv_src,
+                                           norm_eps))
     kernel = use_pallas and causal and kv_src is None
     chunked = attn_chunk and kv_src is None
     if kernel or chunked:
@@ -697,12 +710,222 @@ def _attention_sharded(p, cfg, x, positions, *, causal, window,
     return dense_apply(p["wo"], _merge_heads(o))
 
 
+def kv_heads(flat: torch.Tensor, nkv: int, hd: int) -> torch.Tensor:
+    """A k or v product [B, T, nkv * hd] as heads [B, T, nkv, hd]; on the
+    mesh (a ``DTensor`` whose columns ``model`` may shard) gathered to
+    whole heads in the compute layout (an activation: the cross K/V that
+    a ``decode_init`` writes into its cache's placements)."""
+    if not isinstance(flat, DTensor):
+        return flat.reshape(flat.shape[0], flat.shape[1], nkv, hd)
+    t = tp.local(flat)
+    return tp.wrap(t.reshape(t.shape[0], t.shape[1], nkv, hd))
+
+
+def _qkv_sharded(p, cfg, x, positions, kv_src, norm_eps, kv=True):
+    """:func:`_attention_sharded`'s q, k and v (``DTensor``s [B, S, H,
+    hd]; k and v None without ``kv``): the q/k/v products column-parallel
+    as the rules place wq, wk, wv, q from x, k and v from ``kv_src``
+    where it is given; where Hq and Hkv both divide the model axis each
+    rank keeps its local heads (``Shard(2)``), else the products' columns
+    are gathered to whole heads (``Replicate``)."""
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    m = tp.model_size()
+    names = ("wq", "wk", "wv")
+    cols = [tp.model_shard_dim(p[n]["w"]) == p[n]["w"].ndim - 1
+            for n in names]
+    if kv_src is None:
+        srcs = [_sources(x, cols)] * 3
+    else:
+        srcs = [_sources(x, cols[:1])] + [_sources(kv_src, cols[1:])] * 2
+    used = names if kv else names[:1]
+    flat = [dense_apply(_column_params(p[n]), xs) if c else
+            dense_apply({k: tp.weight(t) for k, t in p[n].items()}, xr)
+            for n, c, (xs, xr) in zip(used, cols, srcs)]
+    flat += [None] * (3 - len(flat))
+    norm_names = [n for n in ("q_norm", "k_norm") if n in p and
+                  (kv or n == "q_norm")]
+    if all(cols) and nh % m == 0 and nkv % m == 0:
+        # each rank's heads: the q/k norms' scales act on every rank's
+        # heads, so their gradients are partial over model
+        norms = {n: {"scale": tp.weight(p[n]["scale"], Partial())}
+                 for n in norm_names}
+        out = _heads(flat, norms, cfg, positions, nh // m, nkv // m,
+                     norm_eps, rope=kv_src is None)
+        return tuple(None if t is None else tp.wrap(t, Shard(2))
+                     for t in out)
+    whole = [None if f is None else
+             tp.local(tp.wrap(f, Shard(2) if c else Replicate()))
+             for f, c in zip(flat, cols)]
+    norms = {n: {"scale": tp.weight(p[n]["scale"])} for n in norm_names}
+    return tuple(None if t is None else tp.wrap(t) for t in _heads(
+        whole, norms, cfg, positions, nh, nkv, norm_eps,
+        rope=kv_src is None))
+
+
+def _attention_cached_sharded(p, cfg, x, positions, cache, *, cross,
+                              norm_eps):
+    """``attention_apply`` with a decode cache on the mesh: x in the
+    compute layout, the cache's ``k`` and ``v`` [B, clen, Hkv, hd]
+    ``DTensor``s in the reference's placements (``rules.cache_specs``:
+    the batch over the batch axes, and on ``model`` the KV heads where
+    they divide it, else the cache rows, else the head dim), its ``pos``
+    replicated.  q (and, for self-attention, the step's k and v) come
+    from the column-parallel products (:func:`_qkv_sharded`), on local
+    heads where the cache shards its heads, else whole; the self-
+    attention's k and v go into the ring slot ``pos % clen`` on the rank
+    whose shard holds it, written into the cache's local tensor; ``pos``
+    advances on every rank alike.  Then, by the cache's layout:
+
+    * **heads** (or none): each rank attends its heads to its local
+      cache, :func:`gqa_attend` on local shards, no collective;
+    * **rows**: the softmax over the cache rows of every rank, in
+      float32: the max and the sum of the exponentials merged over
+      ``model``, the probabilities rounded to v's dtype as one device
+      rounds them, each rank's ``p @ v`` over its rows summed;
+    * **head dim**: float32 partial scores over each rank's columns of
+      the head dim, summed over ``model``, the softmax on every rank
+      alike, and ``p @ v`` on the local columns, which are gathered for
+      ``wo``.
+
+    ``wo`` is row-parallel: the output a partial sum over ``model``."""
+    q, k, v = _qkv_sharded(p, cfg, x, positions, x if cross else None,
+                           norm_eps, kv=not cross)
+    K, V = cache["k"], cache["v"]
+    dim = tp.model_shard_dim(K)
+    if dim == 0:
+        raise NotImplementedError("decode on the mesh with the batch over "
+                                  "the model axis (dp2d) is not ported")
+    if cross:
+        q_offset, kv_len = 0, None
+    else:
+        pos = tp.local_of(cache["pos"])
+        S, clen = q.shape[1], K.shape[1]
+        start = torch.clamp(torch.remainder(pos, clen), max=clen - S)
+        rows = (start + torch.arange(S, device=pos.device)).long()
+        q_offset, kv_len = pos, torch.clamp(pos + S, max=clen)
+        _write_cache(K, k, rows, dim)
+        _write_cache(V, v, rows, dim)
+    if dim in (None, 2):
+        for t in (K, V):
+            if tuple(t.placements) != tuple(q.placements):
+                raise ValueError(f"a decode cache in {tuple(t.placements)} "
+                                 f"beside q in {tuple(q.placements)}")
+        o = gqa_attend(q, K, V, causal=False, q_offset=q_offset,
+                       kv_len=kv_len)
+    else:
+        ql = tp.to_local(q, q.placements)
+        o = (_attend_cache_rows if dim == 1 else _attend_cache_cols)(
+            ql, K, V, kv_len)
+    if not cross:
+        pos.add_(S)
+    return dense_apply(p["wo"], _merge_heads(o))
+
+
+def _write_cache(C, t, rows, dim):
+    """The step's keys or values ``t`` ([B, S, Hkv, hd], a ``DTensor`` in
+    the compute layout, local heads or whole) into cache rows ``rows`` of
+    ``C``'s local tensor, as ``C``'s layout holds them: its heads, its
+    head-dim columns, or, over the cache rows, the rows its range holds
+    (a row outside it writes back what is there)."""
+    Cl, tl = C.to_local(), tp.to_local(t, t.placements).to(C.dtype)
+    if dim == 3:
+        lo, hi = tp.model_range(C, 3)
+        tl = tl[..., lo:hi]
+    if dim != 1:
+        Cl.index_copy_(1, rows, tl)
+        return
+    lo, hi = tp.model_range(C, 1)
+    for j in range(rows.shape[0]):
+        r = rows[j:j + 1] - lo
+        inside = (r >= 0) & (r < hi - lo)
+        r = r.clamp(0, hi - lo - 1)
+        Cl.index_copy_(1, r, torch.where(inside, tl[:, j:j + 1],
+                                         Cl.index_select(1, r)))
+
+
+def _cache_scores(q, k, lo):
+    """q [B, Sq, Hq, D], k [B, n, Hkv, D] (a cache's local rows from
+    ``lo``) -> float32 products [B, Hkv, G, Sq, n], and the rows'
+    positions [n]."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    return s, lo + torch.arange(k.shape[1], device=q.device)
+
+
+def _attend_cache_rows(q, K, V, kv_len):
+    """The rows layout: q whole [B, Sq, Hq, D] (local tensor); ``K`` and
+    ``V`` ``DTensor``s sharding the cache rows over ``model``.  The
+    softmax's max and sum over each rank's rows, each merged over
+    ``model`` (a max, then a sum), the probabilities rounded to v's dtype
+    as the one-device attention rounds them, and each rank's partial
+    ``p @ v`` over its rows summed over ``model``; returns o [B, Sq, Hq,
+    D] whole on every rank (a ``DTensor`` in q's layout)."""
+    B, Sq, Hq, D = q.shape
+    lo, _ = tp.model_range(K, 1)
+    s, kp = _cache_scores(q, K.to_local(), lo)
+    s = s * (1.0 / math.sqrt(D))
+    if kv_len is not None:
+        s = torch.where(kp < kv_len, s, s.new_tensor(MASKED))
+    group = tp.model_group()
+    mx = s.amax(dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s - mx)
+    total = e.sum(dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    Vl = V.to_local()
+    o = torch.einsum("bhgqk,bkhd->bhgqd", (e / total).to(Vl.dtype).float(),
+                     Vl.float())
+    if group is not None:
+        dist.all_reduce(o, group=group)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    return tp.wrap(o)
+
+
+def _attend_cache_cols(q, K, V, kv_len):
+    """The head-dim layout: q whole [B, Sq, Hq, D] (local tensor); ``K``
+    and ``V`` ``DTensor``s sharding the head dim over ``model``.  The
+    scores' partial sums over each rank's columns summed over ``model``,
+    the softmax alike on every rank, ``p @ v`` on the local columns:
+    returns o [B, Sq, Hq, D] sharding its head dim as ``V`` does."""
+    B, Sq, Hq, D = q.shape
+    lo, hi = tp.model_range(K, 3)
+    s, kp = _cache_scores(q[..., lo:hi], K.to_local(), 0)
+    group = tp.model_group()
+    if group is not None:
+        dist.all_reduce(s, group=group)
+    s = s * (1.0 / math.sqrt(D))
+    if kv_len is not None:
+        s = torch.where(kp < kv_len, s, s.new_tensor(MASKED))
+    pr = torch.softmax(s, dim=-1)
+    Vl = V.to_local()
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr.to(Vl.dtype).float(),
+                     Vl.float())
+    return tp.wrap(tp.whole(o.reshape(B, Sq, Hq, hi - lo).to(q.dtype), 3))
+
+
 def make_kv_cache(cfg, batch: int, length: int, dtype, device="cpu"):
-    return {"k": torch.zeros((batch, length, cfg.num_kv_heads, cfg.hd),
-                             dtype=dtype, device=device),
-            "v": torch.zeros((batch, length, cfg.num_kv_heads, cfg.hd),
-                             dtype=dtype, device=device),
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    shape = (batch, length, cfg.num_kv_heads, cfg.hd)
+    return {"k": cache_leaf(shape, 0, dtype, device),
+            "v": cache_leaf(shape, 0, dtype, device),
+            "pos": cache_leaf((), 0, torch.int32, device)}
+
+
+def logits_apply(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``(hidden @ w).float()``, the unembedding's float32 logits.  On the
+    mesh (``w`` a ``DTensor``, hidden in the compute layout) each rank's
+    logits for its vocab shard where ``model`` shards ``w``'s vocab (the
+    ``("embed", "vocab")`` spec): a ``DTensor`` sharding its last dim
+    over ``model``; no logits are gathered."""
+    if not isinstance(w, DTensor):
+        return (hidden @ w).float()
+    y = (tp.local(hidden) @ tp.weight(w)).float()
+    if tp.model_shard_dim(w) == w.ndim - 1:
+        return tp.wrap(y, Shard(y.ndim - 1))
+    return tp.wrap(y)
 
 
 def swiglu_init(gen: torch.Generator, d: int, f: int, dtype,

@@ -35,7 +35,12 @@ the rules place the experts (:func:`_moe_sharded`): each rank's experts
 of the FFN width) run on the dispatch buffer's slice for them, and the
 combine is a partial sum over ``model``; no expert weight is gathered.
 The router stays replicated, and the load-balance loss is taken on each
-rank's own rows with the batch's token means (:func:`batch_mean`).
+rank's own rows with the batch's token means (:func:`batch_mean`).  At
+S == 1 (decode) the gather path runs in the same region: each rank's
+choices of the experts its shard holds (or, where ``E`` does not divide
+the model axis, every choice at its shard of the FFN width), the
+combine a partial sum over ``model``; ``moe_decode_impl="dispatch"``
+puts the whole batch through the capacity region as one sequence.
 """
 from __future__ import annotations
 
@@ -223,8 +228,8 @@ def _moe_sharded(p, cfg, x, capacity_factor):
     expert at its shard of the FFN width (``"mlp"``); either way the
     combine is a partial sum over ``model``."""
     B, S, d = x.shape
-    if S == 1:
-        raise NotImplementedError("the MoE decode path runs on one device")
+    if S == 1 and cfg.moe_decode_impl == "dispatch":
+        return _moe_dispatch_decode(p, cfg, x, capacity_factor or 2.0)
     capacity_factor = capacity_factor or cfg.moe_capacity_factor
     gates, topw, topi = _gates({"router": tp.weight(p["router"])}, cfg,
                                tp.local(x))
@@ -235,20 +240,58 @@ def _moe_sharded(p, cfg, x, capacity_factor):
     sharded = tp.model_shard_dim(p["w_gate"]) is not None
     lo, hi = tp.model_range(p["w_gate"], p["w_gate"].ndim - 3)
     grad = Partial() if sharded else Replicate()
-    y = _dispatch({n: tp.weight(p[n]) for n in names}, cfg,
-                  tp.local(x, grad=grad), tp.local(topw, grad=grad), topi,
-                  capacity_factor, lo, hi)
+    local = {n: tp.weight(p[n]) for n in names}
+    xl, wl = tp.local(x, grad=grad), tp.local(topw, grad=grad)
+    if S == 1:
+        y = _gather_experts(local, cfg, xl, wl, topi, lo, hi)
+    else:
+        y = _dispatch(local, cfg, xl, wl, topi, capacity_factor, lo, hi)
     assert hi - lo == E or tp.model_shard_dim(p["w_gate"]) == 0, (lo, hi)
     return tp.wrap(y, grad), aux
+
+
+def _moe_dispatch_decode(p, cfg, x, capacity_factor):
+    """``moe_decode_impl="dispatch"`` on the mesh: the batch as one
+    sequence through the capacity region's experts, whose slots couple
+    the rows, so every rank takes the whole batch (its rows gathered over
+    the batch axes) and keeps its own rows of the output."""
+    m = tp.mesh()
+    whole = (Replicate(),) * m.ndim
+    xs = tp.to_local(x.redistribute(m, whole), whole).transpose(0, 1)
+    gates, topw, topi = _gates({"router": tp.weight(p["router"])}, cfg, xs)
+    lo, hi = tp.model_range(p["w_gate"], p["w_gate"].ndim - 3)
+    y = _dispatch({n: tp.weight(p[n]) for n in ("w_gate", "w_up", "w_down")},
+                  cfg, xs, topw, topi, capacity_factor, lo, hi)
+    part = Partial() if tp.model_shard_dim(p["w_gate"]) is not None \
+        else Replicate()
+    y = tp.from_local(y.transpose(0, 1).contiguous(),
+                      tuple(part if i == tp.model_dim(m) else Replicate()
+                            for i in range(m.ndim)), mesh=m)
+    return (y.redistribute(m, tp.compute_placements(m, part)),
+            _aux(cfg, gates, topi))
 
 
 def _moe_gather(p, cfg, x):
     """Decode path: gather each token's experts' weights.  x: [B, 1, d]."""
     topw, topi, aux = _route(p, cfg, x)                        # [B,1,K]
+    return _gather_experts(p, cfg, x, topw, topi, 0, cfg.num_experts), aux
+
+
+def _gather_experts(p, cfg, x, topw, topi, lo, hi):
+    """The gather path's experts and combine: x [B, 1, d], the top-k
+    ``topw`` and ``topi`` [B, 1, K] -> y [B, 1, d], each token's sum over
+    its choices of the experts ``lo``..``hi - 1`` (``p``'s expert leaves
+    hold those, at the FFN width they hold): every choice's weights
+    gathered from ``p`` (a choice of another expert reads the nearest
+    held one, and its product is zeroed)."""
     ti = topi[:, 0]                                            # [B, K]
     xt = x[:, 0]                                               # [B, d]
+    mine = (ti >= lo) & (ti < hi)
+    ti = (ti - lo).clamp(0, hi - lo - 1)
     h = F.silu(torch.einsum("bd,bkdf->bkf", xt, p["w_gate"][ti]))
     h = h * torch.einsum("bd,bkdf->bkf", xt, p["w_up"][ti])
     y = torch.einsum("bkf,bkfd->bkd", h, p["w_down"][ti])
+    if hi - lo < cfg.num_experts:
+        y = y * mine[..., None].to(y.dtype)
     y = (y * topw[:, 0, :, None].to(x.dtype)).sum(dim=1)
-    return y[:, None, :], aux
+    return y[:, None, :]

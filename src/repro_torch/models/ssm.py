@@ -19,7 +19,8 @@ float32's spacing at 20.
 
 On the production mesh (``launch/train.py::meshed_step``) the block's
 params are ``DTensor``s and it runs as one tensor-parallel region
-(:func:`_mamba_sharded`).
+(:func:`_mamba_sharded`); its decode step too, on the state's shards
+(:func:`_mamba_decode_sharded`, ``launch/train.py::meshed_serve_step``).
 """
 from __future__ import annotations
 
@@ -83,15 +84,6 @@ def _mamba_in(p, cfg, x):
     the norm's region and a column-parallel product)."""
     h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
     return L.dense_apply({"w": p["w_in"]}, h)
-
-
-def _split_in(p, cfg, x):
-    inner, H, P, N = mamba_dims(cfg)
-    zxbcdt = _mamba_in(p, cfg, x)
-    z = zxbcdt[..., :inner]
-    xbc = zxbcdt[..., inner:inner + inner + 2 * N]
-    dt_raw = zxbcdt[..., -H:].float()
-    return z, xbc, dt_raw, (inner, H, P, N)
 
 
 def _gates(p, dt_raw):
@@ -167,12 +159,14 @@ def _mamba_out(p, cfg, y, z, rows=slice(None)):
 def mamba_apply(p, cfg, x, state=None):
     """x: [B, S, d] -> (delta [B, S, d], the final SSM state).  On the
     mesh (``p`` and ``x`` ``DTensor``s) :func:`_mamba_sharded`'s region,
-    from a zero state; the final state is not returned (None)."""
+    from a zero state; the final state is not returned (None).  Decode
+    carries its state through :func:`mamba_decode`, on the mesh too."""
     if isinstance(p["w_in"], DTensor):
         if state is not None:
-            raise NotImplementedError("the Mamba2 block on the mesh starts "
-                                      "from a zero state (decode runs on "
-                                      "one device)")
+            raise NotImplementedError("the Mamba2 block's chunked scan on "
+                                      "the mesh starts from a zero state; "
+                                      "a carried state steps through "
+                                      "mamba_decode")
         return _mamba_sharded(p, cfg, x), None
     inner, H, _, _ = mamba_dims(cfg)
     zxbcdt = _mamba_in(p, cfg, x)
@@ -220,32 +214,102 @@ def mamba_state_init(cfg, batch: int, device, *, lead=()):
     inner, H, P, N = mamba_dims(cfg)
     lead = tuple(lead)
     return {
-        "ssm": torch.zeros(lead + (batch, H, N, P), dtype=torch.float32,
-                           device=device),
-        "conv": torch.zeros(lead + (batch, CONV_K - 1, inner + 2 * N),
-                            dtype=torch.float32, device=device),
+        "ssm": L.cache_leaf(lead + (batch, H, N, P), 0, torch.float32,
+                            device),
+        "conv": L.cache_leaf(lead + (batch, CONV_K - 1, inner + 2 * N), 0,
+                             torch.float32, device),
     }
+
+
+def _conv_step(p, hist, xbc, c0, c1):
+    """The depthwise conv's step on channels [c0, c1): ``hist`` [B, K-1,
+    c1-c0] float32 the carried history of those channels, ``xbc`` [B, 1,
+    C] the step's whole xBC.  Returns (the conv's output [B, c1-c0]
+    float32, the new history)."""
+    hist = torch.cat([hist, xbc[..., c0:c1].float()], dim=1)  # [B,K,c]
+    out = sum(hist[:, i, :] * p["conv_w"][c0:c1, i].float()
+              for i in range(CONV_K))
+    return F.silu(out + p["conv_b"][c0:c1].float()), hist[:, 1:]
+
+
+def _ssm_step(p, cfg, conv, dt_raw, S, h0, h1):
+    """The SSM's step on heads [h0, h1) from the conv's whole output
+    ``conv`` [B, C] and ``dt_raw`` [B, H] float32, ``S`` [B, h1-h0, N, P]
+    those heads' state.  Returns (y [B, 1, (h1-h0) P] float32, the new
+    state)."""
+    inner, H, P, N = mamba_dims(cfg)
+    B = conv.shape[0]
+    xh = conv[:, :inner].reshape(B, H, P)[:, h0:h1]
+    Bm, Cm = conv[:, inner:inner + N], conv[:, inner + N:]
+    dt, log_a = _gates({k: p[k][h0:h1] for k in ("dt_bias", "A_log")},
+                       dt_raw[:, h0:h1])
+    a = torch.exp(log_a)
+    # the reference's "bh,bn,bhp->bhnp" as two products
+    S = a[..., None, None] * S + \
+        Bm[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
+    y = torch.einsum("bn,bhnp->bhp", Cm, S) + p["D"][h0:h1][None, :, None] * xh
+    return y.reshape(B, 1, -1), S
 
 
 def mamba_decode(p, cfg, x, state):
     """x: [B, 1, d]; one recurrent step.  Returns (delta, the new
-    state); ``state`` is not written."""
-    B = x.shape[0]
-    z, xbc, dt_raw, (inner, H, P, N) = _split_in(p, cfg, x)
-    # the conv over the carried history
-    hist = torch.cat([state["conv"], xbc.float()], dim=1)     # [B,K,C]
-    conv = sum(hist[:, i, :] * p["conv_w"][:, i].float()
-               for i in range(CONV_K))
-    conv = F.silu(conv + p["conv_b"].float())                 # [B,C]
-    xh = conv[:, :inner].reshape(B, H, P)
-    Bm = conv[:, inner:inner + N]
-    Cm = conv[:, inner + N:]
-    dt, log_a = _gates(p, dt_raw[:, 0])                       # [B,H]
-    a = torch.exp(log_a)
-    # the reference's "bh,bn,bhp->bhnp" as two products
-    Sst = a[..., None, None] * state["ssm"] + \
-        Bm[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
-    y = torch.einsum("bn,bhnp->bhp", Cm, Sst) + p["D"][None, :, None] * xh
-    y = y.reshape(B, 1, inner).to(x.dtype)
-    y = L.rmsnorm_apply(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
-    return y @ p["w_out"], {"ssm": Sst, "conv": hist[:, 1:]}
+    state); ``state`` is not written.  On the mesh
+    (:func:`_mamba_decode_sharded`) the state's ``DTensor``s are written
+    in place and returned."""
+    if isinstance(p["w_in"], DTensor):
+        return _mamba_decode_sharded(p, cfg, x, state), state
+    inner, H, _, N = mamba_dims(cfg)
+    zxbcdt = _mamba_in(p, cfg, x)
+    conv, hist = _conv_step(p, state["conv"],
+                            zxbcdt[..., inner:inner + inner + 2 * N], 0,
+                            inner + 2 * N)
+    y, Sst = _ssm_step(p, cfg, conv, zxbcdt[:, 0, -H:].float(),
+                       state["ssm"], 0, H)
+    return _mamba_out(p, cfg, y.to(x.dtype), zxbcdt[..., :inner]), \
+        {"ssm": Sst, "conv": hist}
+
+
+def _mamba_decode_sharded(p, cfg, x, state):
+    """:func:`mamba_decode` on the mesh, x in the residual's placements
+    and the state's leaves ``DTensor``s in the reference's placements
+    (``rules.cache_specs``: ``conv`` [B, K-1, C] on its channels, ``ssm``
+    [B, H, N, P] on its heads, each in even blocks where they divide the
+    model axis).  ``w_in``'s column-parallel product z | xBC | dt is
+    gathered over ``model`` once (an activation); each rank steps the
+    depthwise conv on its block of the channels (which need not line up
+    with the xBC split), writes its block of the history back, and the
+    conv's output is gathered for the split; the SSM steps this rank's
+    heads of the state, written back, and its output is gathered for
+    ``out_norm`` (an RMS over the whole inner width); ``w_out`` is
+    row-parallel: the delta a partial sum over ``model``.  No state
+    leaf is gathered.  Returns the delta."""
+    inner, H, _, N = mamba_dims(cfg)
+    zxbcdt = tp.local(_mamba_in(p, cfg, x))
+    z, xbc = zxbcdt[..., :inner], zxbcdt[..., inner:inner + inner + 2 * N]
+    conv, ssm = state["conv"], state["ssm"]
+    for t, ok in ((conv, (None, 2)), (ssm, (None, 1))):
+        if tp.model_shard_dim(t) not in ok and tp.model_size() > 1:
+            raise NotImplementedError(
+                f"a Mamba2 decode state of shape {tuple(t.shape)} in "
+                f"{tuple(t.placements)}: the mesh steps the conv on its "
+                f"channels and the SSM on its heads")
+    c0, c1 = tp.model_range(conv, conv.ndim - 1)
+    w = {k: tp.weight(p[k]) for k in ("conv_w", "conv_b", "A_log",
+                                       "dt_bias", "D")}
+    out, hist = _conv_step(w, tp.local_of(conv), xbc, c0, c1)
+    tp.put(conv, hist)
+    if c1 - c0 < conv.shape[-1]:
+        out = tp.whole(out, 1)
+    h0, h1 = tp.model_range(ssm, 1)
+    y, Sst = _ssm_step(w, cfg, out, zxbcdt[:, 0, -H:].float(),
+                       tp.local_of(ssm), h0, h1)
+    tp.put(ssm, Sst)
+    y = y.to(zxbcdt.dtype)
+    if h1 - h0 < H:
+        y = tp.whole(y, 2)
+    o = {"out_norm": {"scale": tp.weight(p["out_norm"]["scale"])},
+         "w_out": tp.weight(p["w_out"])}
+    rows = tp.model_shard_dim(p["w_out"]) == p["w_out"].ndim - 2
+    lo, hi = tp.model_range(p["w_out"], p["w_out"].ndim - 2)
+    return tp.wrap(_mamba_out(o, cfg, y, z, slice(lo, hi)),
+                   Partial() if rows else Replicate())

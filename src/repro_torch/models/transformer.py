@@ -29,7 +29,11 @@ each block, ``gather_block_input`` at block entry, ``transformer.py:42,
 (:func:`~repro_torch.models.layers.embed_apply`), the blocks' branches
 split over the model axis (``models/layers.py``, ``models/moe.py``) and
 each residual add reduces its branch's partial sums to the residual's
-placements.  Without a mesh the hooks are the identity.
+placements.  Without a mesh the hooks are the identity.  Decode runs
+there too (``launch/train.py::meshed_serve_step``, the mesh installed
+with ``model_axis_ok=False``): the cache's leaves are ``DTensor``s in
+the reference's placements, each layer's a view of this rank's shard
+(:func:`layer_cache`), written in place by the attention's region.
 """
 from __future__ import annotations
 
@@ -202,7 +206,7 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
 
 
 def logits_fn(params, cfg, hidden):
-    return (hidden @ unembed_matrix(params, cfg)).float()
+    return L.logits_apply(hidden, unembed_matrix(params, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +227,26 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
     clen = min(seq_len, w) if w else seq_len
     dev = params["embed"]["emb"].device
     shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=_dt(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dt(cfg), device=dev),
-            "pos": torch.zeros((cfg.num_layers,), dtype=torch.int32,
-                               device=dev)}
+    return {"k": L.cache_leaf(shape, 0, _dt(cfg), dev),
+            "v": L.cache_leaf(shape, 0, _dt(cfg), dev),
+            "pos": L.cache_leaf((cfg.num_layers,), 0, torch.int32, dev)}
+
+
+def layer_cache(cache, i, keys=("k", "v", "pos")):
+    """Layer ``i``'s entries of a stacked cache (views: ``tp.layer``)."""
+    return {k: tp.layer(cache[k], i) for k in keys}
+
+
+def decode_embed(params, tokens, pos):
+    """A decode step's input: the embedding of ``tokens`` [B, 1]
+    (vocab-parallel on the mesh, :func:`~repro_torch.models.layers.
+    embed_apply`) under the residual's constraint, and the step's
+    positions [1] from ``pos`` (an int or a 0-d tensor)."""
+    x = constrain(L.embed_apply(params["embed"], tokens))
+    positions = (torch.full((1,), pos, dtype=torch.int32,
+                            device=tokens.device)
+                 if isinstance(pos, int) else pos.reshape(1))
+    return x, positions
 
 
 @torch.no_grad()
@@ -235,13 +255,11 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
     """tokens: [B, 1]; pos: the absolute position (an int or a 0-d
     tensor).  Returns (logits [B, 1, V], cache), the cache updated in
     place."""
-    x = params["embed"]["emb"][tokens]
-    mask = _gates(cfg, layer_mask, x.device)
-    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
-                 if isinstance(pos, int) else pos.reshape(1))
+    x, positions = decode_embed(params, tokens, pos)
+    mask = _gates(cfg, layer_mask, tokens.device)
     for i, bp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
-        c = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"][i]}
         x, _, _ = block_apply(bp, cfg, x, positions, mask[i].to(x.dtype),
-                              window=window, cache=c)
+                              window=window, cache=layer_cache(cache, i))
+        x = constrain(x)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

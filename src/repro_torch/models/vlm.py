@@ -37,7 +37,10 @@ dense family's regions, the cross layer's q column-parallel from the
 text and k and v from the image tokens (``image_embeds``, this rank's
 rows, as a ``DTensor`` in the own-rows layout), attention on local heads,
 ``wo`` and the SwiGLU's down product row-parallel; the gates' gradients
-are partial sums reduced once.
+are partial sums reduced once.  Decode runs there too
+(``launch/train.py::meshed_serve_step``): ``decode_init`` projects the
+image tokens through the same regions and writes the cross K/V into the
+cache's placements, and each step reads and writes the caches' shards.
 """
 from __future__ import annotations
 
@@ -157,7 +160,7 @@ def apply(params, cfg, tokens, image_embeds, *, layer_mask=None, window=None,
 
 
 def logits_fn(params, cfg, hidden):
-    return (hidden @ unembed_matrix(params, cfg)).float()
+    return L.logits_apply(hidden, unembed_matrix(params, cfg))
 
 
 @torch.no_grad()
@@ -172,28 +175,31 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None,
     clen = min(seq_len, w) if w else seq_len
     dtype, dev = T._dt(cfg), params["embed"]["emb"].device
     n_groups, n_self = group_shape(cfg)
-    Hkv, hd = cfg.num_kv_heads, cfg.hd
+    Hkv, hd, Ti = cfg.num_kv_heads, cfg.hd, cfg.num_image_tokens
     if image_embeds is None:
-        image_embeds = torch.zeros((batch, cfg.num_image_tokens, cfg.d_model),
-                                   dtype=dtype, device=dev)
+        image_embeds = torch.zeros((batch, Ti, cfg.d_model), dtype=dtype,
+                                   device=dev)
     img = image_embeds.to(dtype)
-    ks, vs = [], []
-    for cp in T._unstack(params["cross_blocks"], n_groups):
-        k = L.dense_apply(cp["attn"]["wk"], img).reshape(batch, -1, Hkv, hd)
+    if isinstance(params["embed"]["emb"], DTensor):
+        img = tp.batch_input(img)
+    cross = {n: L.cache_leaf((n_groups, batch, Ti, Hkv, hd), 0, dtype, dev)
+             for n in ("k", "v")}
+    for g, cp in enumerate(T._unstack(params["cross_blocks"], n_groups)):
+        k = L.kv_heads(L.dense_apply(cp["attn"]["wk"], img), Hkv, hd)
         if "k_norm" in cp["attn"]:
             k = L.rmsnorm_apply(cp["attn"]["k_norm"], k, cfg.norm_eps)
-        ks.append(k)
-        vs.append(L.dense_apply(cp["attn"]["wv"], img).reshape(
-            batch, -1, Hkv, hd))
+        tp.put(tp.layer(cross["k"], g), k)
+        tp.put(tp.layer(cross["v"], g),
+               L.kv_heads(L.dense_apply(cp["attn"]["wv"], img), Hkv, hd))
     shape = (n_groups, n_self, batch, clen, Hkv, hd)
     return {
-        "self": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev),
-                 "pos": torch.zeros((n_groups, n_self), dtype=torch.int32,
-                                    device=dev)},
-        "cross": {"k": torch.stack(ks), "v": torch.stack(vs),
-                  "pos": torch.zeros((n_groups,), dtype=torch.int32, device=dev)},
-        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+        "self": {"k": L.cache_leaf(shape, 0, dtype, dev),
+                 "v": L.cache_leaf(shape, 0, dtype, dev),
+                 "pos": L.cache_leaf((n_groups, n_self), 0, torch.int32,
+                                     dev)},
+        "cross": dict(cross, pos=L.cache_leaf((n_groups,), 0, torch.int32,
+                                              dev)),
+        "pos": L.cache_leaf((), 0, torch.int32, dev),
     }
 
 
@@ -203,21 +209,21 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
     """tokens: [B, 1]; pos: the absolute position (an int or a 0-d
     tensor).  Returns (logits [B, 1, V], cache), the self caches updated
     in place."""
-    x = params["embed"]["emb"][tokens]
+    x, positions = T.decode_embed(params, tokens, pos)
     n_groups, n_self = group_shape(cfg)
-    mask = _group_gates(cfg, layer_mask, x.device)
-    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
-                 if isinstance(pos, int) else pos.reshape(1))
+    mask = _group_gates(cfg, layer_mask, tokens.device)
     sc, cc = cache["self"], cache["cross"]
     for g, (sp, cp) in enumerate(zip(
             T._unstack(params["self_blocks"], n_groups),
             T._unstack(params["cross_blocks"], n_groups))):
+        group = T.layer_cache(sc, g)
         for j, bp in enumerate(T._unstack(sp, n_self)):
             x, _, _ = T.block_apply(
                 bp, cfg, x, positions, mask[g, j].to(x.dtype), window=window,
-                cache={k: sc[k][g, j] for k in ("k", "v", "pos")})
-        x = cross_block_apply(cp, cfg, x, x, mask[g, n_self].to(x.dtype),
-                              cache={k: cc[k][g] for k in ("k", "v")})
-    cache["pos"] += 1
+                cache=T.layer_cache(group, j))
+        x = constrain(cross_block_apply(
+            cp, cfg, x, x, mask[g, n_self].to(x.dtype),
+            cache=T.layer_cache(cc, g, ("k", "v"))))
+    tp.local_of(cache["pos"]).add_(1)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

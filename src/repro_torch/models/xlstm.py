@@ -23,27 +23,30 @@ stacks with a leading ``[L/2]`` axis.  The DR-FL ``layer_mask`` has
 length ``num_layers`` and is consumed pairwise; ``remat != "none"``
 recomputes each (mLSTM, sLSTM) pair in the backward (the reference's
 ``jax.checkpoint`` of the pair, no policy, so ``"dots"`` is ``"full"``).
-The decode state is written in place; the reference's step counter
-``pos`` is not kept (nothing reads it).
+The decode state is written in place, with the reference's step counter
+``pos``.
 
 On the production mesh (``launch/train.py::meshed_step``) the params are
 ``DTensor``s: the embedding is vocab-parallel and each block is a
 tensor-parallel region (:func:`_mlstm_sharded`, :func:`_slstm_sharded`;
 the sLSTM's time loop runs whole on every rank, with no collective in
-it).
+it).  Decode runs there too, on the state's shards (:func:`_mlstm_decode_sharded`,
+:func:`_slstm_decode_sharded`; ``launch/train.py::meshed_serve_step``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import _normal
 from repro_torch.models.transformer import (_dt, _gates, _remat_wrap,
-                                            _residual, _unstack)
+                                            _residual, _unstack,
+                                            decode_embed)
 from repro_torch.sharding import tp
 from repro_torch.sharding.rules import constrain
 
@@ -133,21 +136,31 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, chunk, state=None):
     return torch.cat(ys, dim=2), (C, n, m)
 
 
-def mlstm_step(q, k, v, log_i, log_f, state):
+def mlstm_step(q, k, v, log_i, log_f, state, block=None, group=None):
     """One recurrent step (``xlstm.py:116-130``).  q, k, v: [B, H, P];
-    gates [B, H].  Returns y [B, H, P] and the new (C, n, m)."""
+    gates [B, H].  Returns y [B, H, P] and the new (C, n, m).  On the
+    mesh C and n may hold only the rows ``block`` = (k0, k1) of their key
+    dim (q, k, v, the gates and m whole): they are updated on those rows,
+    and ``C q`` and ``n q``, partial sums, are summed over ``group``
+    before the normaliser."""
     C, n, m = state
     P = q.shape[-1]
+    k0, k1 = block or (0, P)
     q, k, v = q.float(), k.float(), v.float()
     m_new = torch.maximum(log_f + m, log_i)
     i_p = torch.exp(log_i - m_new)
     f_p = torch.exp(log_f + m - m_new)
+    k = k[..., k0:k1]
     C = f_p[..., None, None] * C + \
         i_p[..., None, None] * (k[..., :, None] * v[..., None, :])
     n = f_p[..., None] * n + i_p[..., None] * k
-    qs = q * (1.0 / math.sqrt(P))
+    qs = (q * (1.0 / math.sqrt(P)))[..., k0:k1]
     num = (qs[..., None, :] @ C)[..., 0, :]
     den = (qs * n).sum(dim=-1)
+    if group is not None:
+        nd = torch.cat([num, den[..., None]], dim=-1)
+        dist.all_reduce(nd, group=group)
+        num, den = nd[..., :P], nd[..., P]
     y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
     return y, (C, n, m_new)
 
@@ -197,9 +210,9 @@ def _mlstm_out(p, cfg, y, z, x, rows=slice(None)):
 def mlstm_apply(p, cfg, x, state=None):
     if isinstance(p["w_up"], DTensor):
         if state is not None:
-            raise NotImplementedError("the mLSTM on the mesh starts from a "
-                                      "zero state (decode runs on one "
-                                      "device)")
+            raise NotImplementedError("the mLSTM's chunk scan on the mesh "
+                                      "starts from a zero state; a carried "
+                                      "state steps through mlstm_decode")
         return _mlstm_sharded(p, cfg, x), None
     q, k, v, log_i, log_f, z, (B, S, inner) = _mlstm_pre(p, cfg, x)
     y, new_state = _mlstm_chunk_scan(q, k, v, log_i, log_f, cfg.ssm_chunk,
@@ -257,20 +270,79 @@ def _mlstm_sharded(p, cfg, x):
 
 
 def mlstm_decode(p, cfg, x, state):
-    """x: [B, 1, d]."""
+    """x: [B, 1, d] -> (delta, the new (C, n, m)); ``state`` is not
+    written.  On the mesh (:func:`_mlstm_decode_sharded`) the state's
+    ``DTensor``s are written in place and returned."""
+    if isinstance(p["w_up"], DTensor):
+        return _mlstm_decode_sharded(p, cfg, x, state), state
     q, k, v, log_i, log_f, z, (B, S, inner) = _mlstm_pre(p, cfg, x)
     y, new_state = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                               log_i[:, :, 0], log_f[:, :, 0], state)
     return _mlstm_out(p, cfg, y.reshape(B, 1, inner), z, x), new_state
 
 
+def _mlstm_decode_sharded(p, cfg, x, state):
+    """:func:`mlstm_decode` on the mesh, x in the residual's placements,
+    the state (C [B, H, P, P], n [B, H, P], m [B, H]) ``DTensor``s in the
+    reference's placements (``rules.cache_specs``: on ``model`` the heads
+    where H divides it, else C and n on their key dim (dk, a contraction
+    dim of ``C q`` and ``n q``) with m replicated).  ``w_up``'s product
+    is gathered over ``model`` once, as in training, and ``wq``, ``wk``,
+    ``wv`` (row-parallel) give partial sums: reduced to this rank's heads
+    where the state shards its heads (the step on local heads, its output
+    gathered), else whole.  On dk each rank updates its rows of C and n
+    (C <- f C + i k v^T on its k rows), and ``C q`` and ``n q``, partial
+    over ``model``, are summed before the normaliser ``max(|n q|,
+    exp(-m))``; m is updated alike on every rank.  ``out_norm`` over the
+    whole inner width, ``w_down`` row-parallel: the delta a partial sum
+    over ``model``.  The state is written in place; no state leaf is
+    gathered.  Returns the delta."""
+    inner, H, P = _mlstm_dims(cfg)
+    C, n, m = state
+    cdim = tp.model_shard_dim(C)
+    if cdim not in (None, 1, 2) or (cdim == 2) != (tp.model_shard_dim(n)
+                                                   == 2) or \
+            (cdim == 2 and tp.model_shard_dim(m) is not None):
+        raise NotImplementedError(
+            f"an mLSTM decode state in {tuple(C.placements)}, "
+            f"{tuple(n.placements)}, {tuple(m.placements)}")
+    rows = tp.model_shard_dim(p["w_down"]) == 0
+    h0, h1 = tp.model_range(C, 1)
+    h, up = _mlstm_up(p, cfg, x)
+    u, z = torch.chunk(tp.local(up), 2, dim=-1)
+
+    def reduce(t):
+        if rows:
+            return tp.reduced(t, 2 if cdim == 1 else None)
+        return t[..., h0 * P:h1 * P] if cdim == 1 else t
+    w = {k: tp.weight(p[k]) for k in ("wq", "wk", "wv", "w_if", "b_if")}
+    lo, hi = tp.model_range(p["wq"], 0)
+    q, k, v, log_i, log_f = (t[:, :, 0] for t in _mlstm_heads(
+        w, u[..., lo:hi], tp.local(h), 1, P, h0, h1, reduce))
+    local = [tp.local_of(t) for t in state]
+    if cdim == 2:
+        y, new = mlstm_step(q, k, v, log_i, log_f, local,
+                            tp.model_range(C, 2), tp.model_group())
+    else:
+        y, new = mlstm_step(q, k, v, log_i, log_f, local)
+    for dst, t in zip(state, new):
+        tp.put(dst, t)
+    y = y.reshape(y.shape[0], 1, -1)
+    if h1 - h0 < H:
+        y = tp.whole(y, 2)
+    out = {"out_norm": {"scale": tp.weight(p["out_norm"]["scale"])},
+           "w_down": tp.weight(p["w_down"])}
+    return tp.wrap(_mlstm_out(out, cfg, y, z, x,
+                              slice(*tp.model_range(p["w_down"], 0))),
+                   Partial() if rows else Replicate())
+
+
 def mlstm_state_init(cfg, batch: int, device, *, lead=()):
     _, H, P = _mlstm_dims(cfg)
     lead = tuple(lead)
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.zeros(lead + (batch, H, P, P), **f32),
-            torch.zeros(lead + (batch, H, P), **f32),
-            torch.full(lead + (batch, H), M_INIT, **f32))
+    return (L.cache_leaf(lead + (batch, H, P, P), 0, torch.float32, device),
+            L.cache_leaf(lead + (batch, H, P), 0, torch.float32, device),
+            L.cache_leaf(lead + (batch, H), M_INIT, torch.float32, device))
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +382,13 @@ def _slstm_cell(gates_x, r, h, c, n, m, H, P):
     B = gates_x.shape[0]
     pre = torch.baddbmm(gates_x.view(B, H, 4 * P).transpose(0, 1),
                         h.view(B, H, P).transpose(0, 1), r)   # [H, B, 4P]
-    z_r, i_r, f_r, o_r = pre.transpose(0, 1).reshape(B, 4, -1).unbind(1)
+    return _slstm_update(*pre.transpose(0, 1).reshape(B, 4, -1).unbind(1),
+                         c, n, m)
+
+
+def _slstm_update(z_r, i_r, f_r, o_r, c, n, m):
+    """The sLSTM cell's elementwise update from its four gates'
+    pre-activations: (h, c, n, m)."""
     lfm = F.logsigmoid(f_r) + m
     m_new = torch.maximum(lfm, i_r)
     i_p = torch.exp(i_r - m_new)
@@ -347,9 +425,9 @@ def slstm_apply(p, cfg, x, state=None):
     H = cfg.num_heads
     if isinstance(p["w_in"], DTensor):
         if state is not None:
-            raise NotImplementedError("the sLSTM on the mesh starts from a "
-                                      "zero state (decode runs on one "
-                                      "device)")
+            raise NotImplementedError("the sLSTM's time loop on the mesh "
+                                      "starts from a zero state; a carried "
+                                      "state steps through slstm_decode")
         return _slstm_sharded(p, cfg, x), None
     gx = _slstm_gates(p, cfg, x)
     y, state = _slstm_loop(gx, p["r"], slstm_state_init(cfg, B, x.device)
@@ -368,6 +446,17 @@ def _slstm_sharded(p, cfg, x):
     reduced over the batch axes once, at the region's boundary).  The
     output norm and the SwiGLU FFN are their own regions."""
     d, H = x.shape[-1], cfg.num_heads
+    gx = _slstm_gx_sharded(p, cfg, x)
+    y, _ = _slstm_loop(gx, tp.weight(p["r"]),
+                       slstm_state_init(cfg, gx.shape[0], gx.device), H,
+                       d // H)
+    return _slstm_out(p, cfg, tp.wrap(y.to(x.dtype)), x)
+
+
+def _slstm_gx_sharded(p, cfg, x):
+    """The sLSTM's input pre-activations on the mesh: ``w_in``'s
+    column-parallel product gathered over ``model`` once, plus ``b``:
+    [B, S, 4d], whole on every rank (local)."""
     h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
     w_in = p["w_in"]
     if tp.model_shard_dim(w_in) == w_in.ndim - 1:
@@ -375,14 +464,51 @@ def _slstm_sharded(p, cfg, x):
                      tp.weight(w_in).float(), Shard(2))
     else:
         gx = tp.wrap(tp.local(h).float() @ tp.weight(w_in).float())
-    gx = tp.local(gx) + tp.weight(p["b"])
-    y, _ = _slstm_loop(gx, tp.weight(p["r"]),
-                       slstm_state_init(cfg, gx.shape[0], gx.device), H,
-                       d // H)
-    return _slstm_out(p, cfg, tp.wrap(y.to(x.dtype)), x)
+    return tp.local(gx) + tp.weight(p["b"])
+
+
+def _slstm_decode_sharded(p, cfg, x, state):
+    """:func:`slstm_decode` on the mesh, x in the residual's placements,
+    the state (h, c, n, m [B, d] each) ``DTensor``s sharding d over
+    ``model`` in even blocks (``rules.cache_specs``), which need not line
+    up with the heads.  gx is gathered over ``model`` once, as in
+    training; ``r`` stays replicated.  The recurrent product is
+    block-diagonal over the heads, so each rank takes its h block's part
+    of every head's product (a partial sum, summed over ``model``: the
+    pre-activations whole on every rank), the cell's update runs on this
+    rank's d block of (c, n, m) and is written back in place, and the
+    new h is gathered for the output norm and the FFN's regions.  No
+    state leaf is gathered.  Returns the delta."""
+    d, H = x.shape[-1], cfg.num_heads
+    P = d // H
+    gx = _slstm_gx_sharded(p, cfg, x)[:, 0]                     # [B, 4d]
+    r = tp.weight(p["r"])
+    local = [tp.local_of(t) for t in state]
+    d0, d1 = tp.model_range(state[0], 1)
+    if d1 - d0 == d:
+        new = _slstm_cell(gx, r, *local, H, P)
+        h = new[0]
+    else:
+        B = gx.shape[0]
+        hm = local[0].new_zeros((B, d))
+        hm[:, d0:d1] = local[0]
+        pre = torch.bmm(hm.view(B, H, P).transpose(0, 1), r)  # [H, B, 4P]
+        dist.all_reduce(pre, group=tp.model_group())
+        pre = gx.view(B, H, 4 * P).transpose(0, 1) + pre
+        gates = pre.transpose(0, 1).reshape(B, 4, -1)[..., d0:d1].unbind(1)
+        new = _slstm_update(*gates, *local[1:])
+        h = tp.whole(new[0], 1)
+    for dst, t in zip(state, new):
+        tp.put(dst, t)
+    return _slstm_out(p, cfg, tp.wrap(h[:, None, :].to(x.dtype)), x)
 
 
 def slstm_decode(p, cfg, x, state):
+    """x: [B, 1, d] -> (delta, the new (h, c, n, m)); ``state`` is not
+    written.  On the mesh (:func:`_slstm_decode_sharded`) the state's
+    ``DTensor``s are written in place and returned."""
+    if isinstance(p["w_in"], DTensor):
+        return _slstm_decode_sharded(p, cfg, x, state), state
     d = x.shape[-1]
     gx = _slstm_gates(p, cfg, x)
     h, c, n, m = _slstm_cell(gx[:, 0], p["r"], *state, cfg.num_heads,
@@ -392,9 +518,8 @@ def slstm_decode(p, cfg, x, state):
 
 def slstm_state_init(cfg, batch: int, device, *, lead=()):
     shape = tuple(lead) + (batch, cfg.d_model)
-    z = dict(dtype=torch.float32, device=device)
-    return (torch.zeros(shape, **z), torch.zeros(shape, **z),
-            torch.zeros(shape, **z), torch.full(shape, M_INIT, **z))
+    return tuple(L.cache_leaf(shape, v, torch.float32, device)
+                 for v in (0, 0, 0, M_INIT))
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +572,7 @@ def apply(params, cfg, tokens, *, layer_mask=None, window=None,
 
 
 def logits_fn(params, cfg, hidden):
-    return (hidden @ unembed_matrix(params, cfg)).float()
+    return L.logits_apply(hidden, unembed_matrix(params, cfg))
 
 
 def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
@@ -458,12 +583,18 @@ def decode_init(params, cfg, batch: int, seq_len: int, *, window=None):
     lead = (cfg.num_layers // 2,)
     return {"mlstm": mlstm_state_init(cfg, batch, dev, lead=lead),
             "slstm": slstm_state_init(cfg, batch, dev, lead=lead),
-            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+            "pos": L.cache_leaf((), 0, torch.int32, dev)}
 
 
-def _write(stack, i, new):
-    for buf, t in zip(stack, new):
-        buf[i].copy_(t)
+def _step(fn, p, cfg, x, stack, i, gate):
+    """One block's decode step on layer ``i`` of the state ``stack``
+    (views, ``tp.layer``), its new state written back in place, and the
+    gated residual add."""
+    state = [tp.layer(t, i) for t in stack]
+    delta, new = fn(p, cfg, x, state)
+    for dst, t in zip(state, new):
+        tp.put(dst, t)
+    return constrain(_residual(x, delta, gate.to(x.dtype)))
 
 
 @torch.no_grad()
@@ -471,17 +602,13 @@ def decode_step(params, cfg, cache, tokens, pos, *, layer_mask=None,
                 window=None):
     """tokens: [B, 1].  Returns (logits [B, 1, V], cache), the cache
     updated in place."""
-    x = params["embed"]["emb"][tokens]
+    x, _ = decode_embed(params, tokens, pos)
     npairs = cfg.num_layers // 2
-    mask = _pair_gates(cfg, layer_mask, x.device)
+    mask = _pair_gates(cfg, layer_mask, tokens.device)
     for i, (mp, sp) in enumerate(zip(_unstack(params["mlstm"], npairs),
                                      _unstack(params["slstm"], npairs))):
-        dm, ms = mlstm_decode(mp, cfg, x, [t[i] for t in cache["mlstm"]])
-        _write(cache["mlstm"], i, ms)
-        x = x + mask[i, 0].to(x.dtype) * dm
-        ds, ss = slstm_decode(sp, cfg, x, [t[i] for t in cache["slstm"]])
-        _write(cache["slstm"], i, ss)
-        x = x + mask[i, 1].to(x.dtype) * ds
-    cache["pos"] += 1
+        x = _step(mlstm_decode, mp, cfg, x, cache["mlstm"], i, mask[i, 0])
+        x = _step(slstm_decode, sp, cfg, x, cache["slstm"], i, mask[i, 1])
+    tp.local_of(cache["pos"]).add_(1)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), cache

@@ -38,6 +38,11 @@ The layouts (``rows`` below are the leading, batch dim):
   (FSDP's gather, once a use: inside the remat wrapper, again in the
   recompute), kept in their model shard (heads, MLP width, vocab,
   experts).  No region gathers a param over the model axis.
+* **decode caches and recurrent states**: ``DTensor``s in the
+  reference's cache placements (``rules.cache_specs``), each layer a
+  view of this rank's shard (:func:`layer`), its block on a sharded dim
+  read by :func:`model_range` and written in place (:func:`put`).  No
+  region gathers a cache or state leaf over the model axis.
 """
 from __future__ import annotations
 
@@ -340,6 +345,63 @@ def sum_over_model(t: torch.Tensor) -> torch.Tensor:
     return t if group is None else _SumOverModel.apply(t, group)
 
 
+def whole(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A local activation sharded in even blocks on ``dim`` over
+    ``model`` (the compute layout's rows), gathered whole: every rank's
+    blocks in rank order."""
+    return local(wrap(t, Shard(dim)))
+
+
+def reduced(t: torch.Tensor, dim=None) -> torch.Tensor:
+    """A local partial sum over ``model`` (the compute layout's rows),
+    reduced: whole, or this rank's even block of ``dim``."""
+    t = wrap(t, Partial())
+    return local(t) if dim is None else local(t, Shard(dim))
+
+
+# ---------------------------------------------------------------------------
+# decode caches and recurrent states
+# ---------------------------------------------------------------------------
+
+
+def layer(t, i: int):
+    """Layer ``i`` of a stacked decode-cache leaf: ``t[i]``, and for a
+    ``DTensor`` the layer's ``DTensor`` over a view of this rank's shard
+    (the rules never shard a stack dim), so that a write into its local
+    tensor lands in the leaf's own storage."""
+    if not isinstance(t, DTensor):
+        return t[i]
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in t.placements)
+    assert all(not isinstance(p, Shard) or p.dim >= 0 for p in pl), pl
+    shape = t.shape[1:]
+    return DTensor.from_local(t.to_local()[i], t.device_mesh, pl,
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def local_of(t):
+    """A cache leaf's local tensor (``t`` itself where it is plain)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def put(dst, src) -> None:
+    """Write ``src`` into the cache leaf ``dst`` in place.  ``dst`` a
+    ``DTensor``: ``src`` (a ``DTensor`` of its shape) redistributed to
+    its placements and copied into its local tensor, or, a local tensor,
+    copied where it is that tensor's shape (``dst``'s own shard); the
+    storage ``dst`` holds stays its own."""
+    if src is dst:
+        return
+    if isinstance(dst, DTensor):
+        if isinstance(src, DTensor):
+            if tuple(src.placements) != tuple(dst.placements):
+                src = src.redistribute(dst.device_mesh, dst.placements)
+            src = src.to_local()
+        dst = dst.to_local()
+    dst.copy_(src)
+
+
 # ---------------------------------------------------------------------------
 # attention on local shards
 # ---------------------------------------------------------------------------
@@ -391,11 +453,11 @@ def attend_local(fn, q: DTensor, k: DTensor, v: DTensor, *, seq_ok: bool,
                  **kw) -> DTensor:
     """``fn(q, k, v, **kw)`` on each rank's local shards of attention's
     inputs (:func:`attention_layout`), the output in q's placements; with
-    ``seq_ok``, ``fn`` also takes ``q_offset``, the position of this
-    rank's first query row."""
+    ``seq_ok``, ``fn``'s ``q_offset`` (the position of q's first row, 0
+    unless given) is that of this rank's first query row."""
     grad, offset = attention_layout(q, k, v, seq_ok=seq_ok)
     if seq_ok:
-        kw["q_offset"] = offset
+        kw["q_offset"] = kw.get("q_offset", 0) + offset
     o = fn(to_local(q, q.placements), to_local(k, grad), to_local(v, grad),
            **kw)
     return from_local(o, q.placements, q.shape, mesh=q.device_mesh)

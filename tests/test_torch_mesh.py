@@ -17,7 +17,10 @@ back the spec); each rank's state bytes on the production mesh against
 the reference's shard shapes; the mesh builders' refusals; and the
 meshed step on a one-rank ``(1, 1)`` mesh, bit for bit the one-device
 step; the vocab-parallel logsumexp on a one-rank group, bit for bit
-``torch.logsumexp``.
+``torch.logsumexp``; every LM family's meshed prefill and decode on a
+one-rank mesh, bit for bit the one-device steps; the vocab-parallel
+argmax against ``torch.argmax`` on planted ties; and the 4-rank decode
+cases' cache layouts against the reference's ``cache_specs``.
 
 Then, on 4 gloo ranks (one spawn, ``tests/torch_mesh_ranks.py``, through
 ``torch_shard_ranks.launch``): the tensor-parallel train and masked FL
@@ -28,9 +31,13 @@ param whole), xLSTM's train step under the same policies and with heads
 that do not divide the model axis, the Mamba2 hybrid's, whisper's and
 the VLM's under four, the collectives of an xLSTM step equal at two
 lengths (none in the sLSTM loop), the bucketed FL step, the
-leaf-by-leaf state build and its peak, the meshed steps from the JAX
-package's params against the JAX package's live steps (six families),
-and a ``--ckpt-dir`` run on the mesh that one process resumes.
+leaf-by-leaf state build and its peak, every LM family's meshed prefill
+and decode in each of the reference's cache layouts against the
+one-process steps (``torch_mesh_ranks.DECODE``), the meshed steps from
+the JAX package's params against the JAX package's live steps (six
+families) and the meshed decode against the JAX package's decode
+(phi3-mini, xLSTM), and a ``--ckpt-dir`` run on the mesh that one
+process resumes.
 """
 import json
 import types
@@ -573,6 +580,170 @@ def test_vocab_parallel_logsumexp_is_torch_logsumexp(shape, tmp_path):
     torch.testing.assert_close(ga, gb, rtol=0, atol=0, equal_nan=True)
 
 
+#: the one-rank decode cases: each LM family's smoke config (phi3-mini's
+#: and the VLM's with two KV heads, mixtral's with :data:`mesh_ranks.
+#: OVER`)
+SERVE_ONE_RANK = (mesh_ranks.ARCH, mesh_ranks.MOE_ARCH,
+                  mesh_ranks.XLSTM_ARCH, "zamba2-1.2b", "whisper-medium",
+                  "llama-3.2-vision-11b")
+
+
+@pytest.mark.parametrize("arch", SERVE_ONE_RANK)
+def test_meshed_serve_on_one_rank_is_the_one_device_serve(arch, tmp_path):
+    """On a ``(1, 1)`` mesh of a one-rank group (``[lm mesh serve]``'s
+    layout on the card), the meshed prefill (B 4 x S 8) and 4 meshed
+    decode steps (from the prefill's greedy token, over a cache of 6
+    that the steps' positions 4-7 wrap) equal the one-device
+    ``build_prefill_step`` / ``build_serve_step`` bit for bit: the
+    prefill's logits, every step's tokens and logits, and the cache, built
+    sharded (``launch/train.py::sharded_decode_cache``) equal to
+    ``decode_init``'s, every leaf in its own storage and placements
+    after the steps."""
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    over = {} if arch in (mesh_ranks.XLSTM_ARCH, "zamba2-1.2b",
+                          "whisper-medium") else mesh_ranks.OVER
+    cfg = reduced(get_config(arch), **over)
+    model, prefill = build_prefill_step(cfg)
+    _, serve = build_serve_step(cfg)
+    B, S, clen = 4, 8, 6
+    batch = mesh_ranks._batches(cfg, 1, B=B, S=S, seed=9)[0]
+    batch.pop("labels")
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    params = model.init(torch.Generator().manual_seed(0))
+    one = prefill(params, batch)
+    cache1 = model.decode_init(params, B, clen, extras=extras)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        mp = train.sharded_train_state(model, torch.device("cpu"),
+                                       mesh)["params"]
+        assert torch.equal(train.meshed_prefill_step(prefill, mesh)(
+            mp, batch), one)
+        cache = train.sharded_decode_cache(model, mp, B, clen, mesh,
+                                           extras=extras)
+        for a, b in zip(tree_leaves(cache), tree_leaves(cache1)):
+            assert torch.equal(a.to_local(), b)
+        kept = [(t.placements, t.to_local().data_ptr())
+                for t in tree_leaves(cache)]
+        run = train.meshed_serve_step(serve, mesh)
+        tok = torch.argmax(one[:, -1], dim=-1).to(torch.int32)[:, None]
+        for pos in range(4, 8):
+            t1, cache1, l1 = serve(params, cache1, tok, pos, logits=True)
+            t2, cache, l2 = run(mp, cache, tok, pos, logits=True)
+            assert torch.equal(t2, t1) and torch.equal(l2.full_tensor(), l1)
+            tok = t1
+    finally:
+        dist.destroy_process_group()
+    assert kept == [(t.placements, t.to_local().data_ptr())
+                    for t in tree_leaves(cache)]
+    for a, b in zip(tree_leaves(cache), tree_leaves(cache1)):
+        assert torch.equal(a.to_local(), b)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 5])
+def test_vocab_parallel_argmax_is_torch_argmax(shards, tmp_path):
+    """``launch/steps.py``'s vocab-parallel argmax: the vocab cut into
+    ``shards`` even shards, each shard's (local max, global index)
+    merged by ``argmax_merge``, equals ``torch.argmax`` over the whole
+    vocab, with ties planted within a shard and across shards (the
+    smallest index wins), rows of -inf, of +inf and with NaN (which
+    wins, its first index); and ``vocab_argmax`` on a one-rank group is
+    ``torch.argmax`` itself."""
+    from repro_torch.launch.steps import argmax_merge, vocab_argmax
+    rng = np.random.default_rng(shards)
+    V = 60
+    x = torch.from_numpy(rng.standard_normal((7, 3, V)).astype(np.float32))
+    x[0, 0, [5, 41, 59]] = 9.0           # a tie across shards
+    x[0, 1, [12, 13]] = 9.0              # a tie within one shard
+    x[0, 2, [30, 2]] = 9.0               # the later shard's first
+    x[1, 0] = -float("inf")
+    x[1, 1, [7, 50]] = float("inf")
+    x[1, 2, 44] = float("nan")
+    x[1, 2, 9] = float("inf")
+    x[2, :, ::7] = 3.0                   # every shard holds the max
+    x[2, :, 1::7] = 4.0
+    n = V // shards
+    vals, idx = [], []
+    for r in range(shards):
+        part = x[..., r * n:(r + 1) * n]
+        i = torch.argmax(part, dim=-1)
+        vals.append(torch.gather(part, -1, i[..., None])[..., 0])
+        idx.append(i + r * n)
+    got = argmax_merge(torch.stack(vals), torch.stack(idx))
+    assert torch.equal(got, torch.argmax(x, dim=-1))
+    assert got.dtype == torch.argmax(x, dim=-1).dtype
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        one = vocab_argmax(x, 0, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(one, torch.argmax(x, dim=-1))
+    assert torch.equal(vocab_argmax(x, 0, None), torch.argmax(x, dim=-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_cache_attention_is_the_one_device_attention(dtype, tmp_path):
+    """Attention over a decode cache whose rows ``model`` shards
+    (``layers._attend_cache_rows``), on a one-rank group's ``(1, 1)``
+    mesh where the rank holds every row, equals the one-device
+    ``gqa_attend``: in bf16 bit for bit, as the one-device softmax's
+    probabilities are rounded to v's dtype before ``p @ v`` (an
+    unrounded ``p`` differs in about 40% of the outputs), in float32
+    within its rounding.  The 4-rank rows case holds the merge over
+    several ranks."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.layers import _attend_cache_rows
+    rng = np.random.default_rng(3)
+    B, Hq, Hkv, D, clen, pos = 4, 8, 2, 64, 56, 39
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(getattr(torch, dtype))
+               for s in ((B, 1, Hq, D), (B, clen, Hkv, D), (B, clen, Hkv, D)))
+    kv_len = torch.tensor(pos + 1)
+    one = gqa_attend(q, k, v, causal=False, q_offset=torch.tensor(pos),
+                     kv_len=kv_len)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules.set_activation_mesh(mesh, model_axis_ok=False)
+        K, V = (DTensor.from_local(t, mesh, [Replicate(), Shard(1)])
+                for t in (k, v))
+        got = _attend_cache_rows(q, K, V, kv_len).to_local()
+    finally:
+        rules.set_activation_mesh(None)
+        dist.destroy_process_group()
+    assert got.dtype == one.dtype
+    if dtype == "bfloat16":
+        assert torch.equal(got, one)
+    else:   # e / sum(e) against torch.softmax: float32 rounding apart
+        torch.testing.assert_close(got, one, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in mesh_ranks.DECODE])
+def test_decode_cases_take_the_reference_layouts(case):
+    """Each 4-rank decode case's cache (``torch_mesh_ranks.DECODE``: the
+    smoke config with its overrides at B 4 and its cache length) has the
+    reference's ``cache_specs`` on the ``(2, 2)`` debug mesh, and they
+    shard the dims the case names over ``model`` (the layout it holds)."""
+    label, arch, over, clen, layout, _ = next(
+        c for c in mesh_ranks.DECODE if c[0] == case)
+    jcfg, cfg = torch_lm.configs(arch, **over)
+    B = mesh_ranks.DECODE_SHAPE[0]
+    cache = specs.decode_inputs(build(cfg), cfg, _small_shape(B, clen))[0]
+    jcache = jspecs.decode_inputs(jax_build(jcfg), jcfg,
+                                  _small_shape(B, clen, jax_side=True))[0]
+    mesh = stand_in("debug")
+    ref = _jax_by_path(jrules.cache_specs(jcache, mesh), jcache)
+    assert _port_by_path(rules.cache_specs(cache, mesh)) == ref
+    for path, dim in layout.items():
+        where = [d for d, e in enumerate(ref[path]) if e == "model"]
+        assert where == ([] if dim is None else [dim]), (path, ref[path])
+
+
 def test_meshed_state_is_freed_after_its_steps(tmp_path):
     """A tensor-parallel meshed state lives no longer than its last
     reference: after 2 steps and ``del``, no param or moment storage is
@@ -606,18 +777,37 @@ def test_meshed_state_is_freed_after_its_steps(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def _decode_inputs(jax_dir, arch, over):
+    """``torch_lm.decode_runs``' JAX decode of ``arch`` (B 2 x S 12, with
+    ``over``): its inputs (the converted params, the tokens, the stub
+    inputs) written for the ranks; returns the JAX logits [B, S, V]."""
+    _, jgot = torch_lm.decode_runs(arch, **over)[:2]
+    jcfg, _ = torch_lm.configs(arch, **over)
+    toks = torch_lm.tokens(jcfg, 2, jgot.shape[1], seed=4)
+    part = jax_dir / f"{arch}-decode.part"
+    torch.save({"params": torch_lm.both_params(jcfg, seed=3)[1],
+                "tokens": torch.from_numpy(toks),
+                "extras": torch_lm.as_torch(torch_lm.extras_np(jcfg, 2))},
+               part)
+    part.rename(jax_dir / f"{arch}-decode.pt")
+    return jgot
+
+
 def test_meshed_steps_under_four_ranks(tmp_path):
     """The rank program's checks (``torch_mesh_ranks.mesh_steps``); its
     meshed steps from the JAX package's params (``torch_lm.train_runs``'
     inputs, under the default policy and ``dp2d``) against the JAX
-    package's live steps; then its ``--ckpt-dir`` run, saved on the mesh
+    package's live steps, and its meshed decode of phi3-mini's and
+    xLSTM's smoke configs (``torch_lm.decode_runs``' inputs) against the
+    JAX package's decode (logits at 1e-5, tokens equal); then its
+    ``--ckpt-dir`` run, saved on the mesh
     after 2 steps and resumed to step 3 by the train main in this
     process, against the same run saved by one process and resumed so
     (the data stream restarts on a resume, as in the reference): the
     resumed step's loss and params at the step tolerances."""
     ck, jax_dir = tmp_path / "ck", tmp_path / "jax"
     jax_dir.mkdir()
-    jax_losses = {}
+    jax_losses, jax_decoded = {}, {}
     # the ranks run their step checks while this process runs the JAX
     # package's steps; they read each arch's inputs once its file is in
     ctx = ranks.start(mesh_ranks.mesh_steps, tmp_path, str(ck), str(jax_dir))
@@ -632,6 +822,8 @@ def test_meshed_steps_under_four_ranks(tmp_path):
                                     for b in runs["batches"]]}, part)
             part.rename(jax_dir / f"{arch}.pt")
             jax_losses[arch] = runs["jax"]
+        for arch, over in mesh_ranks.JAX_DECODE:
+            jax_decoded[arch] = _decode_inputs(jax_dir, arch, over)
     except BaseException:
         ranks.kill(ctx)
         raise
@@ -642,6 +834,14 @@ def test_meshed_steps_under_four_ranks(tmp_path):
         # losses and grad norms at the LM tests' rtol
         np.testing.assert_allclose(rows, jax_losses[key.split()[0]],
                                    rtol=1e-5, atol=0, err_msg=key)
+    decoded = torch.load(jax_dir / "meshed-decode.pt")
+    assert set(decoded) == set(jax_decoded)
+    for arch, (logits, nxt) in decoded.items():
+        ref = jax_decoded[arch]
+        np.testing.assert_allclose(logits.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5, err_msg=arch)
+        np.testing.assert_array_equal(nxt.numpy(), ref.argmax(-1),
+                                      err_msg=arch)
     one = tmp_path / "one"
     train.train(reduced(get_config(mesh_ranks.ARCH)), mesh_ranks.CKPT_TCFG,
                 batch=4, seq=16, steps=2, device=torch.device("cpu"),

@@ -8,8 +8,10 @@ writes (:func:`jax_steps`) to the JAX package's steps.
 
 Every family's meshed step is tensor-parallel: each rank computes on
 its shards.  :class:`Collectives` (a ``CommDebugMode``) records every
-collective a step makes, with the largest tensor it touches, so the
-checks can see that no step gathers a model-sharded param whole."""
+collective a step makes, with the largest tensor it touches and the
+storage of every tensor it touches, so the checks can see that no step
+gathers a model-sharded param whole and that no decode step hands a
+cache or state leaf to a collective."""
 import json
 import os
 import re
@@ -32,12 +34,14 @@ from repro_torch.core.layerwise import layer_mask
 from repro_torch.launch import train as T
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.launch.steps import (build_fl_bucketed_train_step,
-                                      build_fl_train_step, build_train_step,
+                                      build_fl_train_step, build_prefill_step,
+                                      build_serve_step, build_train_step,
                                       make_train_state)
 from repro_torch.models.api import build as build_model
 from repro_torch.models.api import extra_inputs
 from repro_torch.optim.optimizers import adamw_init
-from repro_torch.sharding.rules import (get_sharding_policy, map_with_path,
+from repro_torch.sharding.rules import (cache_specs, get_sharding_policy,
+                                        map_with_path, placements,
                                         set_sharding_policy)
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -188,6 +192,16 @@ def _data_sharded(tree):
     return sum(isinstance(t.placements[0], Shard) for t in tree_leaves(tree))
 
 
+def _storage(t):
+    """The address of ``t``'s storage (a ``DTensor``'s local tensor's)."""
+    if isinstance(t, DTensor):
+        t = t._local_tensor
+    try:
+        return t.untyped_storage().data_ptr()
+    except RuntimeError:              # a wrapper without storage
+        return 0
+
+
 class Collectives(CommDebugMode):
     """``CommDebugMode``'s dispatch of collectives (``DTensor`` ops
     desugared first, the functional and ``torch.distributed`` collectives
@@ -201,6 +215,8 @@ class Collectives(CommDebugMode):
     def __init__(self):
         super().__init__()
         self.seen = []
+        #: the storages of every tensor a collective touched
+        self.storages = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if isinstance(func, torch._ops.HigherOrderOperator):
@@ -219,6 +235,7 @@ class Collectives(CommDebugMode):
                               0 if big is None else big.numel(),
                               0 if big is None else
                               big.numel() * big.element_size()))
+            self.storages.update(_storage(t) for t in tensors)
         return out
 
 
@@ -460,8 +477,181 @@ def _loop_collectives(mesh):
         state = T.sharded_train_state(model, torch.device("cpu"), mesh)
         with Collectives() as rec:
             T.meshed_step(step, mesh)(state, _batches(cfg, 1, S=S)[0])
-        counts.append(sorted((op, group) for op, group, _, _ in rec.seen))
+        counts.append(sorted((s[0], s[1]) for s in rec.seen))
     assert counts[0] and counts[0] == counts[1], counts
+
+
+#: the meshed prefill and decode cases: (label, arch, the smoke config's
+#: overrides, the cache length, {cache leaf: the dim that ``model``
+#: shards, None where it is whole on the model axis}, the sharding
+#: policies), each layout of ``rules.cache_specs`` on the (2, 2) mesh
+#: (``tests/test_torch_mesh.py`` holds these layouts to the reference's
+#: ``cache_specs``): KV heads (phi3-mini with :data:`OVER`, also under
+#: ``repeat_kv+attn_heads``); the cache rows and the head dim (yi-34b's
+#: :data:`UNEVEN` config, one KV head, at an even and an odd cache
+#: length); the MoE gather on expert shards and on FFN-width shards
+#: (mixtral with 4 and 3 experts, and the batch through the capacity
+#: region); xLSTM on heads and on the mLSTM's key dim
+#: (:data:`XLSTM_UNEVEN`); the Mamba2 state's conv channels and heads
+#: with the shared site's KV heads (zamba2); whisper's self and cross
+#: caches on heads; the VLM's self cache on its rows and its cross cache
+#: on the head dim (one KV head, 15 image tokens)
+KV = ("k", "v")
+DECODE = (
+    ("heads", ARCH, OVER, 16, dict.fromkeys(KV, 3),
+     ("default", "repeat_kv+attn_heads")),
+    ("rows", UNEVEN[0][0], UNEVEN[0][1], 16, dict.fromkeys(KV, 2),
+     ("default",)),
+    ("head_dim", UNEVEN[0][0], UNEVEN[0][1], 15, dict.fromkeys(KV, 4),
+     ("default",)),
+    ("experts", MOE_ARCH, OVER, 16, dict.fromkeys(KV, 3), ("default",)),
+    ("ffn width", UNEVEN[1][0], UNEVEN[1][1], 16, dict.fromkeys(KV, 3),
+     ("default",)),
+    ("dispatch", UNEVEN[1][0], dict(UNEVEN[1][1], moe_decode_impl="dispatch"),
+     16, dict.fromkeys(KV, 3), ("default",)),
+    ("xlstm heads", XLSTM_ARCH, {}, 16,
+     {"mlstm/0": 2, "mlstm/1": 2, "mlstm/2": 2, "slstm/0": 2, "slstm/3": 2},
+     ("default",)),
+    ("xlstm dk", XLSTM_ARCH, XLSTM_UNEVEN, 16,
+     {"mlstm/0": 3, "mlstm/1": 3, "mlstm/2": None, "slstm/0": 2,
+      "slstm/3": 2}, ("default",)),
+    ("zamba2", "zamba2-1.2b", {}, 16,
+     {"mamba/ssm": 2, "mamba/conv": 3, "attn/k": 3, "attn/v": 3},
+     ("default",)),
+    ("whisper", "whisper-medium", {}, 16,
+     {"self/k": 3, "self/v": 3, "cross/k": 3, "cross/v": 3}, ("default",)),
+    ("vlm", "llama-3.2-vision-11b",
+     {"num_kv_heads": 1, "num_image_tokens": 15}, 16,
+     {"self/k": 3, "self/v": 3, "cross/k": 4, "cross/v": 4}, ("default",)))
+#: the meshed decode's logits and cache against the one-process
+#: decode's: STEP's rtol, and an atol above float32's rounding of the
+#: row-parallel sums' order on values near zero (1.4e-6 seen at d 256)
+DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
+#: the decode cases' batch, prefill length and decode steps; the steps
+#: start two slots before the cache's end, so that they wrap its ring
+DECODE_SHAPE = (4, 8, 4)
+#: the decode runs held to the JAX package's (``tests/torch_lm.py::
+#: decode_runs``' settings, its B 2 x S 12): arch, overrides
+JAX_DECODE = ((ARCH, OVER), (XLSTM_ARCH, XLSTM_UNEVEN))
+
+
+def _model_dim(t, mesh):
+    p = t.placements[mesh.mesh_dim_names.index("model")]
+    return p.dim if p.is_shard() else None
+
+
+def _decode_case(mesh, label, arch, over, clen, layout, pol):
+    """A meshed prefill and :data:`DECODE_SHAPE`'s decode steps of one
+    :data:`DECODE` case under ``pol`` against the one-process steps
+    (logits at :data:`STEP`, tokens equal): the cache built sharded in
+    ``rules.cache_specs``' placements with ``layout`` on the model axis;
+    after the steps every leaf keeps its placements and its storage and
+    holds the one-process cache's values; no collective of a decode step
+    touches a cache leaf's storage (none is gathered), and none over the
+    model axis is as large as the smallest model-sharded param or KV
+    cache shard."""
+    what = f"decode {label} {pol}"
+    B, S, steps = DECODE_SHAPE
+    cfg = reduced(get_config(arch), **over)
+    set_sharding_policy(**DEFAULTS)
+    set_sharding_policy(**POLICIES[pol])
+    try:
+        model, prefill = build_prefill_step(cfg)
+        _, serve = build_serve_step(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        batch = _batches(cfg, 1, B=B, S=S, seed=9)[0]
+        batch.pop("labels")
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        one = prefill(params, batch)
+        mp = T.sharded_train_state(model, torch.device("cpu"), mesh)["params"]
+        got = T.meshed_prefill_step(prefill, mesh)(mp, batch)
+        _close(got, one, what + " prefill", **DECODE_TOL)
+        cache1 = model.decode_init(params, B, clen, extras=extras)
+        cache = T.sharded_decode_cache(model, mp, B, clen, mesh,
+                                       extras=extras)
+        specs = T._by_path(cache_specs(cache1, mesh))
+        leaves = {}
+        map_with_path(lambda path, t: leaves.setdefault(path, t), cache)
+        assert set(leaves) == set(specs), what
+        for path, t in leaves.items():
+            assert t.placements == placements(specs[path], mesh), \
+                (what, path)
+        for path, dim in layout.items():
+            assert _model_dim(leaves[path], mesh) == dim, (what, path)
+        if cfg.num_experts:
+            w = mp["blocks"]["moe"]["w_gate"]
+            assert _model_dim(w, mesh) == (1 if label == "experts" else 3)
+        kept = {p: (t.placements, t.to_local().data_ptr())
+                for p, t in leaves.items()}
+        stores = {_storage(t) for t in leaves.values()}
+        model_sharded = _model_sharded(mp, mesh) + [
+            t for p, t in leaves.items()
+            if p.split("/")[-1] in KV and _model_dim(t, mesh) is not None]
+        least = min(t.to_local().numel() for t in model_sharded)
+        name = mesh.get_group("model").group_name
+        run = T.meshed_serve_step(serve, mesh)
+        tok = torch.argmax(one[:, -1], dim=-1).to(torch.int32)[:, None]
+        for i in range(steps):
+            pos = clen - 2 + i
+            t1, cache1, l1 = serve(params, cache1, tok, pos, logits=True)
+            with Collectives() as rec:
+                t2, cache, l2 = run(mp, cache, tok, pos, logits=True)
+            _close(l2.full_tensor(), l1, f"{what} step {i}", **DECODE_TOL)
+            assert torch.equal(t2, t1), (what, i)
+            big = [c for c in rec.seen if c[1] in (name, "c10d")
+                   and c[2] >= least]
+            assert rec.seen and not big, (what, least, big)
+            assert not rec.storages & stores, what
+            tok = t1
+        for path, t in leaves.items():
+            assert (t.placements, t.to_local().data_ptr()) == kept[path], \
+                (what, path)
+        _close(T.gather_state(cache), cache1, what + " cache", **DECODE_TOL)
+    finally:
+        set_sharding_policy(**DEFAULTS)
+
+
+def decode_checks(mesh):
+    """Every :data:`DECODE` case under its policies."""
+    for label, arch, over, clen, layout, pols in DECODE:
+        for pol in pols:
+            _decode_case(mesh, label, arch, over, clen, layout, pol)
+
+
+def jax_decode(mesh, jax_dir):
+    """The meshed decode of :data:`JAX_DECODE`'s configs from the params,
+    tokens and stub inputs the spawning test writes (``tests/torch_lm.py::
+    decode_runs``' inputs, converted from the JAX package's), teacher
+    forced from position 0 over a cache of the tokens' length: their
+    logits and next tokens, written by rank 0 for the test to hold to the
+    JAX package's decode."""
+    out = {}
+    for arch, over in JAX_DECODE:
+        path = f"{jax_dir}/{arch}-decode.pt"
+        deadline = time.monotonic() + JAX_WAIT
+        while not os.path.exists(path):
+            assert time.monotonic() < deadline, f"no {path}"
+            time.sleep(0.1)
+        saved = torch.load(path)
+        cfg = reduced(get_config(arch), **over)
+        model, serve = build_serve_step(cfg)
+        toks = saved["tokens"]
+        B, S = toks.shape
+        params = T.place_state({"params": saved["params"],
+                                "opt": adamw_init(saved["params"])},
+                               mesh)["params"]
+        cache = T.sharded_decode_cache(model, params, B, S, mesh,
+                                       extras=saved["extras"])
+        run = T.meshed_serve_step(serve, mesh)
+        logits, nxt = [], []
+        for t in range(S):
+            tok, cache, lg = run(params, cache, toks[:, t:t + 1], t,
+                                 logits=True)
+            logits.append(lg.full_tensor()[:, 0])
+            nxt.append(tok[:, 0])
+        out[arch] = (torch.stack(logits, 1), torch.stack(nxt, 1))
+    if dist.get_rank() == 0:
+        torch.save(out, f"{jax_dir}/meshed-decode.pt")
 
 
 def mesh_steps(rank, ckpt_dir, jax_dir):
@@ -473,8 +663,10 @@ def mesh_steps(rank, ckpt_dir, jax_dir):
     under :data:`FAMILY_POLICIES` and their own, against the one-process
     steps (:func:`_step_checks`); no collective in the sLSTM loop
     (:func:`_loop_collectives`); the leaf-by-leaf state build
-    (:func:`_sharded_build_checks`); the meshed steps from the JAX
-    package's params (:func:`jax_steps`); the checkpoint run."""
+    (:func:`_sharded_build_checks`); the meshed prefill and decode of
+    :data:`DECODE` (:func:`decode_checks`); the meshed steps and decode
+    from the JAX package's params (:func:`jax_steps`,
+    :func:`jax_decode`); the checkpoint run."""
     for build, need in ((lambda: make_production_mesh(), 256),
                         (lambda: make_production_mesh(multi_pod=True), 512),
                         (lambda: make_debug_mesh(multi_pod=True), 8)):
@@ -513,7 +705,9 @@ def mesh_steps(rank, ckpt_dir, jax_dir):
     np.testing.assert_allclose(m2, m1, rtol=1e-5, err_msg="bucketed")
     _same_state(meshed, one, [m[2] for m in m1], "bucketed")
     _sharded_build_checks(cfg, mesh)
+    decode_checks(mesh)
     jax_steps(mesh, jax_dir)
+    jax_decode(mesh, jax_dir)
 
     cfg = get_smoke_config(ARCH)
     out = T.train(cfg, CKPT_TCFG, batch=4, seq=16, steps=2,
